@@ -1,0 +1,15 @@
+"""puzzlelib_tpu_torch - the PyTorch / CUDA port of puzzlelib_tpu for NVIDIA Hopper.
+
+The same imperative Modules/Containers/Handlers API as the JAX package
+``puzzlelib_tpu``, which stays beside it as the reference.  Modules are
+``torch.nn.Module``s holding plain tensors; the kernels that the JAX package
+wrote in Pallas for the TPU are hand-written CUDA C++ for sm_90a under
+``ops/hopper`` (sources in ``csrc``), built with ``nvcc`` at first use.
+
+Ported so far: the serving path of VGG-16 (``models.nets.loadVGG`` ->
+``calcMode`` -> ``handlers.Calculator.calcFromHost``), forward only.
+"""
+
+from puzzlelib_tpu_torch import config as Config
+
+__version__ = "0.1.0"

@@ -1,0 +1,66 @@
+"""Global configuration flags of the PyTorch port.
+
+Counterpart of ``puzzlelib_tpu/config.py``: a plain module of globals that the
+backend reads at each call, so setting one takes effect at the next op.
+
+- ``device``: where modules put their parameters and handlers their batches.
+  None means the first CUDA card when there is one, else the CPU
+  (``backend.device.getDevice``).
+- ``matmulPrecision``: "highest" keeps f32 products and convs in full f32,
+  as the reference's default does on the TPU: while it holds, the backend
+  turns off TF32 in cuBLAS and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
+  and ``torch.backends.cudnn.allow_tf32``) and cuBLAS's reduced-precision
+  reductions of bf16 and f16 products.  Any other value allows them.
+- ``gemmAlgo`` / ``convAlgo``: "hopper" (the default) sends the products and
+  convs that a hand-written Hopper kernel takes to that kernel, on CUDA
+  tensors; "torch" sends everything to the library call.  There is no
+  measured "auto" choice yet.
+- ``globalEvalMode``: modules start in eval mode and variables get no
+  gradient buffers.
+"""
+
+import sys
+import logging
+
+
+class ConfigError(Exception):
+    pass
+
+
+libname = "puzzlelib_tpu_torch"
+logger = None
+
+device = None
+matmulPrecision = "highest"
+
+ALGOS = ("hopper", "torch")
+gemmAlgo = "hopper"
+convAlgo = "hopper"
+
+globalEvalMode = False
+disableDtypeShapeChecks = False
+showWarnings = True
+
+
+def useHopper(algo):
+    """True when ``algo`` ("hopper" or "torch") selects the hand kernel."""
+    if algo not in ALGOS:
+        raise ConfigError("Unknown algo %r (expected one of %s)" % (algo, ", ".join(ALGOS)))
+
+    return algo == "hopper"
+
+
+def getLogger():
+    global logger
+
+    if logger is not None:
+        return logger
+
+    logger = logging.getLogger(libname)
+    logger.setLevel(logging.INFO)
+
+    handler = logging.StreamHandler(stream=sys.stdout)
+    handler.setFormatter(logging.Formatter("[%(name)s] %(message)s"))
+
+    logger.addHandler(handler)
+    return logger

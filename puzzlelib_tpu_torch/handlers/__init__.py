@@ -1,0 +1,4 @@
+"""Handler exports."""
+
+from puzzlelib_tpu_torch.handlers.calculator import Calculator
+from puzzlelib_tpu_torch.handlers.handler import Handler

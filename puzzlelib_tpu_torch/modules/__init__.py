@@ -1,0 +1,13 @@
+"""Module exports: the layers of the serving slice."""
+
+from puzzlelib_tpu_torch.modules.activation import (
+    Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
+)
+from puzzlelib_tpu_torch.modules.conv2d import Conv2D
+from puzzlelib_tpu_torch.modules.convnd import ConvND
+from puzzlelib_tpu_torch.modules.flatten import Flatten
+from puzzlelib_tpu_torch.modules.linear import Linear
+from puzzlelib_tpu_torch.modules.maxpool2d import MaxPool2D
+from puzzlelib_tpu_torch.modules.module import InitScheme, Module, ModuleError
+from puzzlelib_tpu_torch.modules.pool2d import Pool2D
+from puzzlelib_tpu_torch.modules.softmax import SoftMax

@@ -1,0 +1,48 @@
+"""N-d convolution module, forward (counterpart of
+``puzzlelib_tpu/modules/convnd.py``).  The reference's cuDNN-style algo slots
+are not carried: ``Config.convAlgo`` chooses between the hand kernel and the
+library."""
+
+from puzzlelib_tpu_torch.backend.dnn import convNd
+from puzzlelib_tpu_torch.variable import Variable
+from puzzlelib_tpu_torch.modules.module import ModuleError, Module
+
+
+class ConvND(Module):
+    def __init__(self, nd, inmaps, outmaps, size, stride=1, pad=0, dilation=1, wscale=1.0, useBias=True,
+                 name=None, initscheme=None, empty=False, groups=1):
+        super().__init__(name)
+
+        self.stride, self.pad = self.repeat(stride, nd), self.repeat(pad, nd)
+        self.dilation = self.repeat(dilation, nd)
+        self.useBias, self.groups = useBias, groups
+
+        if inmaps % groups or outmaps % groups:
+            raise ModuleError(
+                "Number of input and output maps must be divisible by number of groups "
+                "(%d inmaps, %d outmaps, %d groups)" % (inmaps, outmaps, groups)
+            )
+
+        self.W, self.b = None, None
+
+        if not empty:
+            self._initParams(outmaps, inmaps // groups, self.repeat(size, nd), initscheme, wscale, nd)
+
+    def _initParams(self, outmaps, inmapsPerGroup, window, initscheme, wscale, nd):
+        Wshape = (outmaps, inmapsPerGroup) + window
+        W = self.createTensorWithScheme(initscheme, Wshape, wscale)
+
+        self.setVar("W", Variable(self.paramTensor(W, Wshape)))
+
+        if self.useBias:
+            self.setVar("b", Variable(self.paramTensor(None, (1, outmaps) + (1, ) * nd).zero_()))
+
+    def updateData(self, data):
+        self.data = convNd(data, self.W, self.b, stride=self.stride, pad=self.pad,
+                           dilation=self.dilation, groups=self.groups)
+
+    def dataShapeFrom(self, shape):
+        raise NotImplementedError()
+
+    def calcMode(self, T):
+        self.castVarsTo(self.requireSupportedDtype(T))

@@ -1,0 +1,51 @@
+"""Fully-connected layer, forward (counterpart of
+``puzzlelib_tpu/modules/linear.py``).  The untransposed forward product is
+the one that ``Blas.mulMatrixOnMatrix`` sends to the GEMM kernel K1."""
+
+from puzzlelib_tpu_torch.backend import blas as Blas
+from puzzlelib_tpu_torch.backend.kernels import matvec as MatVec
+from puzzlelib_tpu_torch.variable import Variable
+from puzzlelib_tpu_torch.modules.module import ModuleError, Module
+
+
+class Linear(Module):
+    def __init__(self, insize, outsize, wscale=1.0, useBias=True, initscheme=None, name=None,
+                 empty=False, transpose=False):
+        super().__init__(name)
+
+        self.transpose = transpose
+        self.useBias = useBias
+
+        self.W = None
+        self.b = None
+
+        if empty:
+            return
+
+        Wshape, bshape = ((outsize, insize), (insize, )) if transpose else ((insize, outsize), (outsize, ))
+        W = self.createTensorWithScheme(initscheme, Wshape, wscale, factorShape=Wshape)
+
+        self.setVar("W", Variable(self.paramTensor(W, Wshape)))
+
+        if useBias:
+            self.setVar("b", Variable(self.paramTensor(None, bshape).zero_()))
+
+    def updateData(self, data):
+        self.data = Blas.mulMatrixOnMatrix(data, self.W, transpB=self.transpose)
+
+        if self.useBias:
+            MatVec.addVecToMat(self.b, self.data, axis=1, out=self.data)
+
+    def dataShapeFrom(self, shape):
+        return (shape[0], self.W.shape[1]) if not self.transpose else (shape[0], self.W.shape[0])
+
+    def checkDataShape(self, shape):
+        if len(shape) != 2:
+            raise ModuleError("Data must be 2d matrix")
+
+        size = self.W.shape[0] if not self.transpose else self.W.shape[1]
+        if shape[1] != size:
+            raise ModuleError("Expected %d data dimensions, %d were given" % (size, shape[1]))
+
+    def calcMode(self, T):
+        self.castVarsTo(self.requireSupportedDtype(T))

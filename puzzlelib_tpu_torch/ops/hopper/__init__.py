@@ -1,0 +1,12 @@
+"""Hand-written Hopper (sm_90a) kernels, the port of ``puzzlelib_tpu/ops/pallas``.
+
+Each kernel module holds the wrapper that launches the CUDA C++ kernel from
+``puzzlelib_tpu_torch/csrc``, the same function in plain PyTorch (``plain``),
+which CPU tensors take, and a launch counter (``launches``):
+
+- ``matmul``   K1, the tiled GEMM (``ops/pallas/matmul.py``);
+- ``winograd`` K2, the fused Winograd F(2x2, 3x3) forward conv
+  (``ops/pallas/winograd.py``).
+
+``build`` compiles the sources with ``nvcc`` at the first CUDA call.
+"""

@@ -26,7 +26,8 @@ setup(
     description="TPU-native deep learning framework with the PuzzleLib API",
     long_description=readme(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["puzzlelib_tpu", "puzzlelib_tpu.*"]),
+    packages=find_packages(include=["puzzlelib_tpu", "puzzlelib_tpu.*",
+                                    "puzzlelib_tpu_torch", "puzzlelib_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -35,6 +36,7 @@ setup(
         "Pillow",
         "graphviz",
         "ml_dtypes",
+        "torch",
     ],
     extras_require={
         "test": ["pytest"],

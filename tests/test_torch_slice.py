@@ -1,0 +1,205 @@
+"""The serving slice as a whole: a VGG-shaped net through both packages'
+``Calculator.calcFromHost``, VGG-16's structure in both, and the port's
+independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from puzzlelib_tpu_torch import config as TConfig
+from puzzlelib_tpu_torch import containers as TC
+from puzzlelib_tpu_torch import modules as T
+from puzzlelib_tpu_torch.convert import paramsFromNumpy
+from puzzlelib_tpu_torch.handlers import Calculator as TCalculator
+from puzzlelib_tpu_torch.models.nets import loadVGG as tLoadVGG
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax():
+    """The JAX package's modules, containers and handlers, for the twin tests.
+    They skip where the JAX package does not import, as on the card's
+    machine, where only the CUDA case runs."""
+    pytest.importorskip("puzzlelib_tpu.modules", reason="the twins need the JAX package")
+    from puzzlelib_tpu import containers, handlers, modules
+
+    return modules, containers, handlers
+
+
+def _narrowVGG(M, C, initscheme, widths=(8, 16)):
+    """Conv 3x3 pad 1 -> relu -> max-pool stages, then Flatten -> Linear ->
+    SoftMax, at VGG's layout and names but narrow."""
+    net = C.Sequential(name="narrow")
+
+    inmaps = 3
+    for stage, maps in enumerate(widths, start=1):
+        for i in (1, 2):
+            net.append(M.Conv2D(inmaps, maps, 3, pad=1, initscheme=initscheme, name="conv%d_%d" % (stage, i)))
+            net.append(M.Activation(M.relu, name="relu%d_%d" % (stage, i)))
+            inmaps = maps
+
+        net.append(M.MaxPool2D(2, 2, name="pool%d" % stage))
+
+    net.append(M.Flatten())
+    net.append(M.Linear(widths[-1] * 4 * 4, 10, initscheme=initscheme, name="fc"))
+    net.append(M.SoftMax())
+    return net
+
+
+@pytest.fixture
+def onCpu(monkeypatch):
+    """Pin the port to the CPU, also on a machine with a card."""
+    monkeypatch.setattr(TConfig, "device", "cpu")
+
+
+def testNarrowVGGThroughCalculatorTwin(onCpu):
+    """6 images at batch size 4 (the last batch partial), weights carried from
+    the JAX net by ``paramsFromNumpy``, f32 within 1e-4 of max|ref| (the
+    BASELINE whole-net tolerance of tests/torchoracle.py)."""
+    J, JC, JH = _jax()
+    np.random.seed(0)
+    jnet = _narrowVGG(J, JC, "he")
+
+    rng = np.random.RandomState(1)
+    table = {}
+    for var, names in jnet.getVarTable().items():
+        ary = var.data.get()
+        if names[0].endswith(".b"):
+            ary = (rng.randn(*ary.shape) * 0.1).astype(np.float32)
+            var.data.set(ary)
+        table.update({name: ary for name in names})
+
+    tnet = _narrowVGG(T, TC, "none")
+    paramsFromNumpy(tnet, table)
+
+    x = rng.randn(6, 3, 16, 16).astype(np.float32)
+    want = JH.Calculator(jnet, batchsize=4).calcFromHost(x)
+    got = TCalculator(tnet, batchsize=4).calcFromHost(x)
+
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == want.shape == (6, 10)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert tnet.data is None and not tnet.training   # the handler reset the net after each batch
+
+
+def testCalculatorBf16ReturnsFloat32(onCpu):
+    """A bf16 net takes float32 host data and returns float32 host arrays."""
+    np.random.seed(2)
+    net = _narrowVGG(T, TC, "he")
+    x = np.random.RandomState(3).randn(5, 3, 16, 16).astype(np.float32)
+
+    want = TCalculator(net, batchsize=2).calcFromHost(x)
+    net.calcMode(torch.bfloat16)
+    got = TCalculator(net, batchsize=2).calcFromHost(x)
+
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+    dev = TCalculator(net, batchsize=2).calc(torch.from_numpy(x).to(torch.bfloat16))
+    assert dev.dtype == torch.bfloat16 and tuple(dev.shape) == (5, 10)
+
+
+def testVGG16StructureTwin(monkeypatch, onCpu):
+    """Same layer names, variable names and shapes, and the same
+    ``dataShapeFrom`` chain from (1, 3, 224, 224) in both packages."""
+    _jax()
+    from puzzlelib_tpu import config as JConfig
+    from puzzlelib_tpu.models.nets.vgg import loadVGG as jLoadVGG
+
+    monkeypatch.setattr(JConfig, "globalEvalMode", True)
+    monkeypatch.setattr(TConfig, "globalEvalMode", True)
+
+    jnet = jLoadVGG(None, "16", initscheme="none")
+    tnet = tLoadVGG(None, "16", initscheme="none")
+
+    assert [m.name for m in tnet.graph] == [m.name for m in jnet.graph]
+    assert [type(m).__name__ for m in tnet.graph] == [type(m).__name__ for m in jnet.graph]
+
+    jvars = {name: tuple(var.data.shape) for var, names in jnet.getVarTable().items() for name in names}
+    tvars = {name: tuple(var.data.shape) for var, names in tnet.getVarTable().items() for name in names}
+    assert tvars == jvars and len(tvars) == 32
+
+    shape = (1, 3, 224, 224)
+    for jmod, tmod in zip(jnet.graph, tnet.graph):
+        assert tuple(tmod.dataShapeFrom(shape)) == tuple(jmod.dataShapeFrom(shape))
+        shape = jmod.dataShapeFrom(shape)
+
+    assert shape == (1, 1000) and tnet.numOfParams() == jnet.numOfParams() == 138357544
+
+
+_NO_JAX = """
+import sys
+import numpy as np
+import torch
+from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.containers import Sequential
+from puzzlelib_tpu_torch.handlers import Calculator
+from puzzlelib_tpu_torch.models.nets import loadVGG
+from puzzlelib_tpu_torch import modules as T
+
+Config.device = "cpu"
+np.random.seed(0)
+net = Sequential()
+net.append(T.Conv2D(3, 8, 3, pad=1, initscheme="he", name="conv1_1"))
+net.append(T.Activation(T.relu, name="relu1_1"))
+net.append(T.MaxPool2D(name="pool1"))
+net.append(T.Flatten())
+net.append(T.Linear(8 * 4 * 4, 10, initscheme="he", name="fc"))
+net.append(T.SoftMax())
+net.calcMode(torch.bfloat16)
+out = Calculator(net, batchsize=2).calcFromHost(np.random.randn(3, 3, 8, 8).astype(np.float32))
+assert out.shape == (3, 10)
+loadVGG(None, "11", withLinear=False)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
+print("LEAKED", leaked)
+"""
+
+
+def testPortRunsWithoutJax():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout
+
+
+@pytest.mark.cuda
+def testSliceOnCardThroughKernels(monkeypatch):
+    """A narrow net whose 3x3 convs the Winograd kernel takes (C = CO = 128),
+    in bf16 on the card: the kernels run, and the output agrees with the f32
+    run on the CPU at the bf16 tier."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ built with nvcc")
+
+    from puzzlelib_tpu_torch.backend import gpuarray
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    monkeypatch.setattr(TConfig, "device", "cpu")
+    np.random.seed(4)
+    net = TC.Sequential()
+    net.append(T.Conv2D(3, 128, 3, pad=1, initscheme="he", name="c1"))
+    net.append(T.Activation(T.relu, name="r1"))
+    net.append(T.Conv2D(128, 128, 3, pad=1, initscheme="he", name="c2"))
+    net.append(T.Activation(T.relu, name="r2"))
+    net.append(T.MaxPool2D(name="p"))
+    net.append(T.Flatten())
+    net.append(T.Linear(128 * 4 * 4, 16, initscheme="he", name="fc"))
+    net.append(T.SoftMax())
+
+    x = np.random.RandomState(5).randn(6, 3, 8, 8).astype(np.float32)
+    want = TCalculator(net, batchsize=4).calcFromHost(x)
+
+    net.to("cuda")
+    net.calcMode(torch.bfloat16)
+    before = (winograd.launches, matmul.launches)
+
+    monkeypatch.setattr(TConfig, "device", "cuda")
+    got = TCalculator(net, batchsize=4).calcFromHost(x)
+
+    assert (winograd.launches - before[0], matmul.launches - before[1]) == (2, 2)
+    assert gpuarray.get(net["fc"].W).dtype == np.float32
+    assert np.abs(got - want).max() <= 5e-2
