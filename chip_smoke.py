@@ -14,15 +14,25 @@ it fails:
    the compiler's register / spill report;
 3. K1 (GEMM) against its plain PyTorch version at the VGG-16 fc shapes
    (M = 32) in bf16 and f32, and a ragged 100 x 200 x 60;
-4. K2 (Winograd conv) against its plain version and against an f32
-   ``F.conv2d`` with TF32 off, at each distinct Winograd-eligible VGG-16 conv
-   at batch 32;
-5. the slice: VGG-16 at full width in bf16, random He weights from
+4. K2 (Winograd conv), K2-bwd (K2 as the stride-1 bwd-data,
+   ``winograd.dataGrad``) and K3 (Winograd bwd-filter) against their plain
+   versions and against an f32 library reference with TF32 off
+   (``F.conv2d``, ``torch.nn.grad.conv2d_input``, ``conv2d_weight``), at
+   each distinct Winograd-eligible VGG-16 conv at batch 32;
+5. the serving slice: VGG-16 at full width in bf16, random He weights from
    ``np.random.seed(0)``, 128 seeded images through
-   ``Calculator(net, batchsize=32).calcFromHost``.  The launch counters of
-   both kernels are reset just before and read just after that run; the
-   output is checked for shape, finiteness and softmax rows, and fc8 of the
-   first batch against the same f32 weights run on the library route.
+   ``Calculator(net, batchsize=32).calcFromHost``.  The launch counters are
+   reset just before and read just after that run; the output is checked
+   for shape, finiteness and softmax rows, and fc8 of the first batch
+   against the same f32 weights run on the library route;
+6. the training slice: the same net without its SoftMax, in bf16, trained by
+   ``Trainer(batchsize=32).trainFromHost`` with ``CrossEntropy`` and
+   ``MomentumSGD`` in global state on 128 seeded images and labels (4
+   steps).  The counters are reset just before and read just after the
+   counted run; every step's loss must be finite, every variable must have
+   changed through the optimizer's flat buffer, the first step's gradients of
+   six layers must agree with the same step on the bf16 library route, and
+   the 4 losses with the library route's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -80,6 +90,23 @@ WINOGRAD_BOUND_F32 = 2e-2
 # relative L2 error of fc8 against the f32 run: the bf16 tier of the
 # reference's dtype table (puzzlelib_tpu/tensor.py dtypesSupported)
 SLICE_BOUND = 5e-2
+
+# K3: kernel and plain share every rounding point (V and Mbar in bf16) and
+# differ only in the order of the f32 sums over tiles, ~sqrt(tiles) f32 ulps
+# (1e-5 at 100,352 tiles); against the f32 library bwd-filter, the bf16
+# transforms cost what K2's cost, hence K2's bound.
+FG_BOUND_PLAIN = 1e-3
+FG_BOUND_F32 = 2e-2
+
+# training: 4 steps of 32
+STEPS = 4
+LEARN_RATE = 1e-4
+
+# first-step gradients (the backward of one forward pass on both routes) and
+# step losses against the bf16 library route: relative L2 and relative
+# difference, the bf16 tier as for the serving slice
+TRAIN_BOUND = 5e-2
+GRAD_LAYERS = ("conv2_2", "conv3_1", "conv4_2", "conv5_3", "fc6", "fc8")
 
 
 def fail(message):
@@ -160,43 +187,43 @@ def phaseGemm(torch, matmul):
     return main
 
 
-def phaseWinograd(torch, winograd):
-    import torch.nn.functional as F
-
+def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds):
+    """One conv kernel against its plain version and against an f32 library
+    reference (TF32 off) at each distinct Winograd-eligible VGG-16 conv at
+    batch 32.  ``operands(gen, xshape, co)`` makes the bf16 operands of the
+    conv of x (N, C, H, W) at pad 1 to ``co`` channels; ``kernel``,
+    ``plain``, ``library`` (the library's bf16 call) and ``f32`` take them.
+    Returns the JSON entry's numbers for one batch of the 10 convs."""
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on although Config.matmulPrecision is 'highest'")
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    boundPlain, boundF32 = bounds
 
     for name, xshape, co, count in WINOGRAD_SHAPES:
-        c = xshape[1]
-        x = torch.randn(xshape, generator=gen, device="cuda").to(torch.bfloat16)
-        w = (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * c)) ** 0.5).to(torch.bfloat16)
+        args = operands(gen, xshape, co)
 
-        out = winograd.conv2d(x, w, (1, 1))
-        plain = winograd.plain(x, w, (1, 1))
-        direct = F.conv2d(x.float(), w.float(), padding=1)
+        out, ref, direct = kernel(*args), plain(*args), f32(*args)
         torch.cuda.synchronize()
 
-        errPlain, errF32 = relErr(torch, out, plain), relErr(torch, out, direct)
-        absPlain = (out.float() - plain.float()).abs().max().item()
-        del plain, direct
+        errPlain, errF32 = relErr(torch, out, ref), relErr(torch, out, direct)
+        absPlain = (out.float() - ref.float()).abs().max().item()
+        del out, ref, direct
 
-        ms = cudaMs(torch, lambda: winograd.conv2d(x, w, (1, 1)), 10)
-        plainMs = cudaMs(torch, lambda: winograd.plain(x, w, (1, 1)), 3)
-        libMs = cudaMs(torch, lambda: F.conv2d(x, w, padding=1), 10)
+        ms = cudaMs(torch, lambda: kernel(*args), 10)
+        plainMs = cudaMs(torch, lambda: plain(*args), 2)
+        libMs = cudaMs(torch, lambda: library(*args), 10)
 
-        print("[K2] %-7s x=%s co=%d: rel err %.3e vs plain (bound %.0e), %.3e vs f32 conv (bound %.0e); "
-              "kernel %.4f ms, plain %.4f ms, library bf16 conv %.4f ms" %
-              (name, xshape, co, errPlain, WINOGRAD_BOUND_PLAIN, errF32, WINOGRAD_BOUND_F32,
-               ms, plainMs, libMs))
+        print("[%s] %-7s x=%s co=%d: rel err %.3e vs plain (bound %.0e), %.3e vs f32 library (bound %.0e); "
+              "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms" %
+              (tag, name, xshape, co, errPlain, boundPlain, errF32, boundF32, ms, plainMs, libMs))
 
-        if not errPlain <= WINOGRAD_BOUND_PLAIN:
-            fail("K2 %s disagrees with its plain version: %.3e" % (name, errPlain))
+        if not errPlain <= boundPlain:
+            fail("%s %s disagrees with its plain version: %.3e" % (tag, name, errPlain))
 
-        if not errF32 <= WINOGRAD_BOUND_F32:
-            fail("K2 %s disagrees with the f32 conv: %.3e" % (name, errF32))
+        if not errF32 <= boundF32:
+            fail("%s %s disagrees with the f32 library reference: %.3e" % (tag, name, errF32))
 
         main["max_abs_err"] = max(main["max_abs_err"], absPlain)
         main["ms"] += ms * count
@@ -204,6 +231,64 @@ def phaseWinograd(torch, winograd):
 
     torch.cuda.empty_cache()
     return main
+
+
+def phaseWinograd(torch, winograd):
+    """K2 forward; K2 as bwd-data (the forward on the rotated, io-swapped
+    filter); K3, whose dW is compared before the cast to the weight's type."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    bf16 = torch.bfloat16
+
+    def weights(gen, c, co):
+        return (torch.randn((co, c, 3, 3), generator=gen, device="cuda") * (2.0 / (9 * c)) ** 0.5).to(bf16)
+
+    def forwardOperands(gen, xshape, co):
+        x = torch.randn(xshape, generator=gen, device="cuda").to(bf16)
+        return x, weights(gen, xshape[1], co)
+
+    def dataGradOperands(gen, xshape, co):
+        n, c, h, w = xshape
+        dy = (torch.randn((n, co, h, w), generator=gen, device="cuda") * 0.1).to(bf16)
+        return dy, weights(gen, c, co)
+
+    def filterGradOperands(gen, xshape, co):
+        n, c, h, w = xshape
+        x = torch.randn(xshape, generator=gen, device="cuda").to(bf16)
+        return x, (torch.randn((n, co, h, w), generator=gen, device="cuda") * 0.1).to(bf16)
+
+    def xshapeOf(dy, w):
+        return (dy.shape[0], w.shape[1]) + tuple(dy.shape[2:])
+
+    def wshapeOf(x, dy):
+        return (dy.shape[1], x.shape[1], 3, 3)
+
+    forward = phaseConv(
+        torch, "K2", 2, forwardOperands,
+        kernel=lambda x, w: winograd.conv2d(x, w, (1, 1)),
+        plain=lambda x, w: winograd.plain(x, w, (1, 1)),
+        library=lambda x, w: F.conv2d(x, w, padding=1),
+        f32=lambda x, w: F.conv2d(x.float(), w.float(), padding=1),
+        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32))
+
+    dataGrad = phaseConv(
+        torch, "K2-bwd", 3, dataGradOperands,
+        kernel=lambda dy, w: winograd.dataGrad(dy, w, (1, 1)),
+        plain=lambda dy, w: winograd.plain(dy, w.flip((2, 3)).transpose(0, 1), (1, 1)),
+        library=lambda dy, w: conv2d_input(xshapeOf(dy, w), w, dy, padding=1),
+        f32=lambda dy, w: conv2d_input(xshapeOf(dy, w), w.float(), dy.float(), padding=1),
+        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32))
+
+    filterGrad = phaseConv(
+        torch, "K3", 4, filterGradOperands,
+        kernel=lambda x, dy: winograd.filterGrad(x, dy, (1, 1)),
+        plain=lambda x, dy: winograd.filterGradPlain(x, dy, (1, 1)),
+        library=lambda x, dy: conv2d_weight(x, wshapeOf(x, dy), dy, padding=1),
+        f32=lambda x, dy: conv2d_weight(x.float(), wshapeOf(x, dy), dy.float(), padding=1),
+        bounds=(FG_BOUND_PLAIN, FG_BOUND_F32))
+
+    return forward, dataGrad, filterGrad
 
 
 def phaseSlice(torch, card):
@@ -289,6 +374,194 @@ def phaseSlice(torch, card):
     return launches
 
 
+def _layerGrads(net):
+    return {name: net[name].vars["W"].grad.float().clone() for name in GRAD_LAYERS}
+
+
+def _stepGrads(trainer, net, images, labels):
+    """The gradients of GRAD_LAYERS' weights after one training step on the
+    first batch, in f32."""
+    np.random.seed(3)
+    trainer.trainFromHost(images[:BATCH], labels[:BATCH], macroBatchSize=BATCH)
+    return _layerGrads(net)
+
+
+def _backwardGrads(torch, Config, trainer, net, images, labels):
+    """One forward pass of the first batch on the hand kernels, then the
+    backward of that same forward on each route, as ``Trainer.handleBatch``
+    runs it: {route: GRAD_LAYERS' weight gradients in f32}."""
+    from puzzlelib_tpu_torch.backend import gpuarray
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    net.trainMode()
+    grad = trainer.cost(net(gpuarray.to_gpu(images[:BATCH], dtype=torch.bfloat16)),
+                        gpuarray.to_gpu(labels[:BATCH]), queryError=False)
+
+    grads = {}
+    for algo in ("hopper", "torch"):
+        Config.gemmAlgo = Config.convAlgo = algo
+        trainer.optimizer.zeroGradParams()
+        net.backward(grad, updGrad=False)
+        grads[algo] = _layerGrads(net)
+
+    net.reset()
+    return grads
+
+
+def _relL2(got, ref):
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def phaseTrain(torch, card):
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.convert import paramsFromNumpy, paramsToNumpy
+    from puzzlelib_tpu_torch.cost import CrossEntropy
+    from puzzlelib_tpu_torch.handlers import Trainer
+    from puzzlelib_tpu_torch.models.nets import loadVGG
+    from puzzlelib_tpu_torch.optimizers import MomentumSGD
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False   # the serving phase set it: training needs gradient buffers
+
+    def setup(dtype):
+        net = loadVGG(None, "16", initscheme="none")
+        net.pop()                   # CrossEntropy takes the raw scores
+        net.calcMode(dtype)
+        opt = MomentumSGD(LEARN_RATE, momRate=0.9)
+        opt.setupOn(net, useGlobalState=True)
+        return net, opt, Trainer(net, CrossEntropy(), opt, batchsize=BATCH)
+
+    np.random.seed(0)
+    heNet = loadVGG(None, "16", initscheme="he")
+    table = paramsToNumpy(heNet)
+    del heNet
+
+    net, opt, trainer = setup(torch.bfloat16)
+    paramsFromNumpy(net, table)
+    flat, mom = opt.shParams[torch.bfloat16].ary, opt.states[torch.bfloat16]["mom"]
+    start = flat.clone()
+
+    def restore():
+        flat.copy_(start)
+        mom.zero_()
+        opt.t = 0
+
+    images = np.random.RandomState(1).randn(BATCH * STEPS, 3, 224, 224).astype(np.float32)
+    labels = np.random.RandomState(2).randint(0, 1000, size=BATCH * STEPS).astype(np.int32)
+
+    def train(algo, losses=None):
+        """One timed ``trainFromHost`` of all the images from the start
+        weights, shuffled by one seed: seconds."""
+        Config.gemmAlgo = Config.convAlgo = algo
+        restore()
+        trainer.onBatchFinish = None if losses is None else (lambda h: losses.append(h.cost.getError()))
+
+        np.random.seed(4)
+        synchronize()
+        t0 = time.perf_counter()
+        trainer.trainFromHost(images, labels, macroBatchSize=BATCH * STEPS)
+        synchronize()
+        return time.perf_counter() - t0
+
+    # warm-up of both routes: library conv plans, allocator blocks of these sizes
+    for algo in ("torch", "hopper"):
+        train(algo)
+
+    # the first step's gradients: the backward kernels against the library's
+    # on one and the same forward pass (the gate), and whole steps on both
+    # bf16 routes and on the f32 library route from the same bf16-rounded
+    # weights (printed: a whole bf16 step differs from another by the relu
+    # masks and max-pool argmaxes that its rounded forward flips)
+    restore()
+    backward = _backwardGrads(torch, Config, trainer, net, images, labels)
+
+    grads = {}
+    for algo in ("hopper", "torch"):
+        Config.gemmAlgo = Config.convAlgo = algo
+        restore()
+        grads[algo] = _stepGrads(trainer, net, images, labels)
+
+    restore()
+    net32, _, trainer32 = setup(torch.float32)
+    paramsFromNumpy(net32, paramsToNumpy(net))
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    grads["f32"] = _stepGrads(trainer32, net32, images, labels)
+    del net32, trainer32
+    torch.cuda.empty_cache()
+
+    for name in GRAD_LAYERS:
+        rel = _relL2(backward["hopper"][name], backward["torch"][name])
+        print("[train] first-step dW of %-7s: backward on the hand kernels vs the library's, same forward: relative "
+              "L2 %.3e (bound %.0e); whole bf16 steps, hand kernels vs library %.3e; vs the f32 library step: hand "
+              "kernels %.3e, bf16 library %.3e" %
+              (name, rel, TRAIN_BOUND, _relL2(grads["hopper"][name], grads["torch"][name]),
+               _relL2(grads["hopper"][name], grads["f32"][name]), _relL2(grads["torch"][name], grads["f32"][name])))
+
+        if not rel <= TRAIN_BOUND:
+            fail("first-step gradient of %s on the hand kernels differs from the library's by %.3e" % (name, rel))
+
+    # the counted run
+    variables = list(net.getVarTable())
+    snapshot = [var.data.clone() for var in variables]
+
+    losses = []
+    matmul.launches = winograd.launches = winograd.dataGradLaunches = winograd.filterGradLaunches = 0
+    secs = train("hopper", losses)
+    launches = {"matmul": matmul.launches, "winograd": winograd.launches,
+                "winogradDataGrad": winograd.dataGradLaunches, "winogradFG": winograd.filterGradLaunches}
+
+    print("[train] VGG-16 bf16, %d images in %d steps of %d: %.4f s, %.1f images/s on %s" %
+          (len(images), STEPS, BATCH, secs, len(images) / secs, card))
+    print("[train] launches in that run: winograd %d (forward %d, bwd-data %d), winogradFG %d, matmul %d" %
+          (launches["winograd"], launches["winograd"] - launches["winogradDataGrad"], launches["winogradDataGrad"],
+           launches["winogradFG"], launches["matmul"]))
+
+    expected = {"matmul": 3 * STEPS, "winograd": 20 * STEPS, "winogradDataGrad": 10 * STEPS, "winogradFG": 10 * STEPS}
+    if launches != expected:
+        fail("expected launches %s, got %s" % (expected, launches))
+
+    print("[train] step losses: %s" % " ".join("%.6f" % loss for loss in losses))
+    if len(losses) != STEPS or not np.isfinite(losses).all():
+        fail("step losses %s" % losses)
+
+    flatPtr = flat.untyped_storage().data_ptr()
+    gradPtr = opt.shGrads[torch.bfloat16].ary.untyped_storage().data_ptr()
+    for var, old in zip(variables, snapshot):
+        if var.data.untyped_storage().data_ptr() != flatPtr or var.grad.untyped_storage().data_ptr() != gradPtr:
+            fail("variable %s is no view of the optimizer's flat buffers" % var.name)
+
+        if torch.equal(var.data, old):
+            fail("variable %s did not change in training" % var.name)
+
+    print("[train] all %d variables are views of the flat buffers and changed" % len(variables))
+    del snapshot
+
+    # the same run on the bf16 library route
+    libLosses = []
+    train("torch", libLosses)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, libLosses))
+    print("[train] library route step losses: %s; largest relative difference %.3e (bound %.0e)" %
+          (" ".join("%.6f" % loss for loss in libLosses), rel, TRAIN_BOUND))
+
+    if not rel <= TRAIN_BOUND:
+        fail("step losses differ from the library route's by %.3e" % rel)
+
+    # steady state of both routes, in turns
+    runs = {"hopper": [], "torch": []}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo].append(train(algo))
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    for algo, label in (("hopper", "hand kernels"), ("torch", "library route (cuBLAS / cuDNN)")):
+        print("[train] %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+              (label, " ".join("%.4f" % t for t in runs[algo]), len(images) / float(np.median(runs[algo])), card))
+
+    return launches
+
+
 def main():
     import torch
 
@@ -305,18 +578,30 @@ def main():
     card = phaseDevice(torch)
     phaseBuild(build)
     gemm = phaseGemm(torch, matmul)
-    wino = phaseWinograd(torch, winograd)
-    launches = phaseSlice(torch, card)
+    wino, dataGrad, filterGrad = phaseWinograd(torch, winograd)
+    serving = phaseSlice(torch, card)
+    torch.cuda.empty_cache()
+    training = phaseTrain(torch, card)
 
+    source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
-        dict(name="K1 tiled GEMM", route="cuda", source="puzzlelib_tpu_torch/csrc/matmul.cu",
-             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=launches["matmul"], **gemm),
-        dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source="puzzlelib_tpu_torch/csrc/winograd.cu",
-             replaces="puzzlelib_tpu/ops/pallas/winograd.py:79", launches=launches["winograd"], **wino),
+        dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
+             serving_launches=serving["matmul"], **gemm),
+        dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
+             replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
+             **wino),
+        dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=training["winogradDataGrad"], **dataGrad),
+        dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
+             replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"], **filterGrad),
     ]
-    print("[kernels] ms and plain_ms: the time one batch of 32 spends in the kernel (K1: fc6+fc7+fc8 in bf16; "
-          "K2: the 10 Winograd convs, wrapper included) and in its plain version; max_abs_err: largest "
-          "|kernel - plain| at those shapes")
+    print("[kernels] launches: the training run's (4 steps of 32), serving_launches the serving run's (4 requests "
+          "of 32); ms and plain_ms: the time one batch of 32 spends in the kernel (K1: fc6+fc7+fc8 forward in "
+          "bf16; K2 and K3: the 10 Winograd convs, wrapper included) and in its plain version; max_abs_err: "
+          "largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,8 +6,11 @@ The same imperative Modules/Containers/Handlers API as the JAX package
 wrote in Pallas for the TPU are hand-written CUDA C++ for sm_90a under
 ``ops/hopper`` (sources in ``csrc``), built with ``nvcc`` at first use.
 
-Ported so far: the serving path of VGG-16 (``models.nets.loadVGG`` ->
-``calcMode`` -> ``handlers.Calculator.calcFromHost``), forward only.
+Ported so far: VGG-16's serving path (``models.nets.loadVGG`` -> ``calcMode``
+-> ``handlers.Calculator.calcFromHost``) and its training path (``net.pop()``
+-> ``calcMode`` -> ``optimizers.MomentumSGD.setupOn(net,
+useGlobalState=True)`` -> ``handlers.Trainer(net, cost.CrossEntropy(), opt)
+.trainFromHost``).
 """
 
 from puzzlelib_tpu_torch import config as Config

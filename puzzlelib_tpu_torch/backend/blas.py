@@ -4,11 +4,15 @@
 reference's static conditions for its Pallas GEMM: both operands 2-D, no
 transposes, alpha 1 and no beta accumulation, while ``Config.gemmAlgo`` is
 "hopper".  Every other product goes to ``ops.blas.gemm`` (``torch.matmul``),
-the counterpart of the reference's XLA dot.
+the counterpart of the reference's XLA dot: so do the transposed products
+and the ``beta`` accumulation of ``Linear``'s backward, as in the reference.
+A result with ``out`` is written into it in place, so it reaches gradient
+buffers that are views of an optimizer's flat buffer.
 """
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.ops import blas as _ops
+from puzzlelib_tpu_torch.ops import elementwise as _ew
 from puzzlelib_tpu_torch.ops.hopper import matmul as _hopper
 
 
@@ -43,3 +47,8 @@ def sumOnMatrix(A, out=None, cols=True, alpha=1.0, beta=0.0):
     result = _ops.matsum(A, 0 if cols else 1, out if hasOut else None, alpha, beta)
 
     return _write(result, out)
+
+
+def toVectorAddVector(y, x, alpha=1.0):
+    """y += alpha * x, in place."""
+    return _ew.toVectorAddVector_(y, x, alpha)

@@ -1,4 +1,5 @@
-"""Host <-> device transfers and the supported dtypes.
+"""Host <-> device transfers, the supported dtypes, and the optimizers'
+shared flat buffers (``SharedArray``).
 
 The reference wraps every array in ``GPUArray`` (``puzzlelib_tpu/tensor.py``);
 the port uses plain ``torch.Tensor``s, so what remains here is moving numpy
@@ -43,6 +44,54 @@ def to_gpu(ary, dtype=None, device=None):
 
     tensor = torch.from_numpy(host).to(device)
     return tensor if dtype is None else tensor.to(dtype)
+
+
+class SharedArray:
+    """One flat tensor per dtype with named views (counterpart of the
+    reference's ``SharedArray``, ``puzzlelib_tpu/tensor.py``).
+
+    An optimizer in global state registers every parameter (or gradient) of a
+    dtype, ``build`` allocates one zeroed flat tensor, and ``sh[name]`` is a
+    view of its block (``flat[off:off + n].view(shape)``).  A write to a view
+    is a write to the flat tensor, so one update over the flat tensor updates
+    every parameter.  Blocks start on 16-byte boundaries, as in the
+    reference."""
+
+    GROUP_SIZE = 16
+
+    def __init__(self, dtype=torch.float32, device=None):
+        self.dtype = toTorchDtype(dtype)
+        self.device = getDevice() if device is None else torch.device(device)
+
+        self.blocks = {}
+        self.ary = None
+        self._offsets = {}
+
+    def register(self, shape, dtype, name):
+        if toTorchDtype(dtype) != self.dtype:
+            raise ValueError("SharedArray dtype mismatch: %s vs %s" % (dtype, self.dtype))
+
+        if name in self.blocks:
+            raise ValueError("Block %r is already registered" % name)
+
+        self.blocks[name] = (shape, ) if isinstance(shape, int) else tuple(shape)
+
+    def align(self, nelems):
+        grain = max(1, self.GROUP_SIZE // self.dtype.itemsize)
+        return -(-nelems // grain) * grain
+
+    def build(self):
+        offset = 0
+        for name, shape in self.blocks.items():
+            size = int(np.prod(shape, dtype=np.int64))
+            self._offsets[name] = (offset, size, shape)
+            offset += self.align(size)
+
+        self.ary = torch.zeros(offset, dtype=self.dtype, device=self.device)
+
+    def __getitem__(self, name):
+        offset, size, shape = self._offsets[name]
+        return self.ary[offset:offset + size].view(shape)
 
 
 def get(tensor):

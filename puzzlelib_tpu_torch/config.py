@@ -17,6 +17,10 @@ backend reads at each call, so setting one takes effect at the next op.
   measured "auto" choice yet.
 - ``globalEvalMode``: modules start in eval mode and variables get no
   gradient buffers.
+- ``verifyData``: costs check that the labels lie in range (one readback
+  per batch).
+- ``disableModuleCompatChecks``: ``Sequential`` skips its inplace
+  compatibility check.
 """
 
 import sys
@@ -39,6 +43,8 @@ convAlgo = "hopper"
 
 globalEvalMode = False
 disableDtypeShapeChecks = False
+disableModuleCompatChecks = False
+verifyData = False
 showWarnings = True
 
 

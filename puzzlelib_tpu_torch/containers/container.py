@@ -32,6 +32,10 @@ class Container(Module):
         self.add_module(mod.name, mod)
         return self
 
+    def removeModule(self, mod):
+        del self._modules[mod.name]
+        return mod
+
     def __getitem__(self, item):
         if not isinstance(item, str):
             raise NotImplementedError(type(item).__name__)
@@ -69,6 +73,14 @@ class Container(Module):
         return vartable
 
     # -- aggregate module protocol ------------------------------------------------------
+
+    def zeroGradParams(self):
+        for child in self._modules.values():
+            child.zeroGradParams()
+
+    def updateParams(self, learnRate):
+        for child in self._modules.values():
+            child.updateParams(learnRate)
 
     def genericCheckDataType(self, dtype):
         pass

@@ -1,9 +1,18 @@
-"""Parameter tables: moving weights between a net and numpy arrays.
+"""Parameter and optimizer-state tables: moving weights and optimizer
+state between the port and numpy arrays.
 
-A table maps variable names, as ``getVarTable`` names them (``"conv1_1.W"``
-in a named net, ``"c1.W"`` in a ``Sequential`` of a module named ``c1``), to
-arrays.  The names are those of the JAX package's nets, so a table filled
-from a JAX net (``var.data.get()``) loads into the same net built here.
+A parameter table maps variable names, as ``getVarTable`` names them
+(``"conv1_1.W"`` in a named net, ``"c1.W"`` in a ``Sequential`` of a module
+named ``c1``), to arrays.  The names are those of the JAX package's nets, so
+a table filled from a JAX net (``var.data.get()``) loads into the same net
+built here.
+
+An optimizer-state table maps ``"<state>.<entity>"`` to arrays, as the
+reference's ``Optimizer.save`` names its datasets: ``<state>`` is a
+variable's first name under local state (``"conv1_1.W.mom"``) and the numpy
+type of a flat buffer under global state (``"<class 'numpy.float32'>.mom"``).
+Every write goes in place, so variables and states that are views of an
+optimizer's flat buffers stay views.
 """
 
 import numpy as np
@@ -36,11 +45,56 @@ def paramsFromNumpy(net, table):
         if tuple(host.shape) != tuple(var.data.shape):
             raise ValueError("%s: table shape %s, net shape %s" % (name, host.shape, tuple(var.data.shape)))
 
-        # a private copy: tables from JAX arrays are read-only
-        host = host.astype(np.float32 if host.dtype.kind not in "biuf" else host.dtype)
+        with torch.no_grad():
+            var.data.copy_(_fromHost(ary))
+
+
+def _fromHost(ary):
+    """A private CPU tensor of a host array (tables from JAX arrays are
+    read-only); types numpy cannot hand to torch (bfloat16 from
+    ``ml_dtypes``) go through float32."""
+    host = np.asarray(ary)
+    return torch.from_numpy(host.astype(np.float32 if host.dtype.kind not in "biuf" else host.dtype))
+
+
+def _stateName(key):
+    """The reference's name of an optimizer state: a variable's name, or for
+    a global state the numpy scalar type of its flat buffer."""
+    if not isinstance(key, torch.dtype):
+        return key
+
+    if key == torch.bfloat16:
+        return "<class 'ml_dtypes.bfloat16'>"
+
+    return str(np.dtype(gpuarray.toNumpyDtype(key)).type)
+
+
+def optimizerStateToNumpy(optimizer):
+    """``optimizer``'s state as a table of host arrays (bf16 comes back as
+    float32)."""
+    return {"%s.%s" % (_stateName(key), entity): gpuarray.get(tensor)
+            for key, state in optimizer.states.items() for entity, tensor in state.items()}
+
+
+def optimizerStateFromNumpy(optimizer, table):
+    """Copy ``table``'s arrays into ``optimizer``'s state tensors in place,
+    cast to each tensor's type.  The table must hold every state tensor of the
+    optimizer and nothing else, with the same sizes."""
+    tensors = {"%s.%s" % (_stateName(key), entity): tensor
+               for key, state in optimizer.states.items() for entity, tensor in state.items()}
+
+    missing, unknown = set(tensors) - set(table), set(table) - set(tensors)
+    if missing or unknown:
+        raise KeyError("optimizer state table does not match the optimizer: missing %s, unknown %s" %
+                       (sorted(missing), sorted(unknown)))
+
+    for name, ary in table.items():
+        tensor = tensors[name]
+        if np.size(ary) != tensor.numel():
+            raise ValueError("%s: table size %d, state size %d" % (name, np.size(ary), tensor.numel()))
 
         with torch.no_grad():
-            var.data.copy_(torch.from_numpy(host))
+            tensor.copy_(_fromHost(ary).reshape(tensor.shape))
 
 
 def paramsToNumpy(net):

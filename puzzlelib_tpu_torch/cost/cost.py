@@ -1,0 +1,95 @@
+"""Cost base class with the error kept on the device (counterpart of
+``puzzlelib_tpu/cost/cost.py``).
+
+``devErr`` (the last batch's error sum) and ``accumErr`` (the running sum)
+are 0-d f32 tensors on the device, so a training step reads nothing back
+unless an error is asked for (``getError``, ``getMeanError``)."""
+
+import torch
+
+from puzzlelib_tpu_torch.backend.device import getDevice
+
+
+class CostError(Exception):
+    pass
+
+
+def requireLabelRange(tag, labels, low, high):
+    """Raise CostError unless every label lies in [low, high]; one readback
+    for both bounds."""
+    lo, hi = torch.stack([labels.min(), labels.max()]).tolist()
+
+    if lo < low:
+        raise CostError("%s labels verification failed, found index %s (< %s)" % (tag, lo, low))
+
+    if hi > high:
+        raise CostError("%s labels verification failed, found index %s (> %s)" % (tag, hi, high))
+
+
+class Cost:
+    def __init__(self):
+        self.devErr = torch.zeros((), dtype=torch.float32, device=getDevice())
+        self.accumErr = torch.zeros((), dtype=torch.float32, device=getDevice())
+
+        self.batchsize = 0
+        self.numOfSamples = 0
+
+        self.error = None
+        self.grad = None
+        self.dirty = True
+
+    # -- accumulator lifecycle -------------------------------------------------
+
+    def resetAccumulator(self):
+        self.accumErr.zero_()
+        self.batchsize = self.numOfSamples = 0
+
+    def updateState(self, samples):
+        self.batchsize = samples
+        self.numOfSamples += samples
+
+    def reset(self):
+        self.error = self.grad = None
+
+    # -- error queries: the only readbacks ----------------------------------------
+
+    def getError(self):
+        if self.dirty:
+            self.error, self.dirty = self.devErr.item() / self.batchsize, False
+
+        return self.error
+
+    def getMeanError(self):
+        return self.accumErr.item() / self.numOfSamples
+
+    # -- evaluation protocol ----------------------------------------------------
+
+    def __call__(self, pred, target, queryError=True):
+        if pred.shape[0] != target.shape[0]:
+            raise CostError("prediction/target batch mismatch: %d vs %d" % (pred.shape[0], target.shape[0]))
+
+        self.checkDataShape(pred, target)
+        self.reset()
+
+        self.grad = grad = self.calcGrad(pred, target)
+        self.calcError(pred, target)
+        self.dirty = True
+        self.updateState(pred.shape[0])
+
+        if not queryError:
+            return grad
+
+        self.error = self.getError()
+        return self.error, grad
+
+    # -- subclass surface --------------------------------------------------------
+
+    def calcGrad(self, pred, target):
+        raise NotImplementedError()
+
+    def calcError(self, pred, target):
+        # calcGrad left the batch's error in devErr: fold it into the sum
+        self.accumErr.add_(self.devErr)
+
+    def checkDataShape(self, pred, target):
+        pass

@@ -2,3 +2,4 @@
 
 from puzzlelib_tpu_torch.handlers.calculator import Calculator
 from puzzlelib_tpu_torch.handlers.handler import Handler
+from puzzlelib_tpu_torch.handlers.trainer import Trainer

@@ -16,7 +16,7 @@ class Calculator(Handler):
         state = {"hostSize": self.getDataSize(data)}
 
         self.module.evalMode()
-        self.handleFromHost(data, state, macroBatchSize, onMacroBatchFinish)
+        self.handleFromHost(data, state, macroBatchSize, onMacroBatchFinish, random=False)
 
         return state["hostData"]
 
@@ -26,7 +26,7 @@ class Calculator(Handler):
         state = {"devSize": self.getDataSize(data)}
 
         self.module.evalMode()
-        self.handle(data, state)
+        self.handle(data, state, random=False)
 
         return state["devData"]
 

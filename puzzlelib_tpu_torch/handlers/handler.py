@@ -2,10 +2,13 @@
 
 ``handleFromHost`` slices host arrays into macro-batches and uploads each to
 the configured device in one transfer, then ``handle`` walks the
-mini-batches of the resident macro-batch, both in order (the shuffled order
-of training comes with the Trainer).  numpy has no bfloat16, so for a
-module in bf16 (``calcMode(torch.bfloat16)``) float32 host data is uploaded
-as float32 and cast to bf16 on the device.
+mini-batches of the resident macro-batch.  With ``random`` (the Trainer's
+default) both walks go in a shuffled order drawn from
+``np.random.permutation``, as in the reference, so one numpy seed gives both
+packages the same order; without it (the Calculator) they go in order.
+numpy has no bfloat16, so for a module in bf16 (``calcMode(torch.bfloat16)``)
+float32 host data is uploaded as float32 and cast to bf16 on the device;
+data of other types (the int32 labels) is uploaded as it is.
 """
 
 import numpy as np
@@ -29,6 +32,10 @@ class Handler:
     @staticmethod
     def _tileCount(datasize, tilesize):
         return -(-datasize // tilesize)
+
+    @staticmethod
+    def _tileOrder(count, shuffled):
+        return np.random.permutation(count) if shuffled else np.arange(count)
 
     @staticmethod
     def getDataSize(data):
@@ -61,26 +68,26 @@ class Handler:
 
     # -- staging loops --------------------------------------------------------------
 
-    def handleFromHost(self, data, state=None, macroBatchSize=10000, onMacroBatchFinish=None):
+    def handleFromHost(self, data, state=None, macroBatchSize=10000, onMacroBatchFinish=None, random=True):
         self.totalMacroBatches = self._tileCount(self.getDataSize(data), macroBatchSize)
 
-        for n in range(self.totalMacroBatches):
+        for ordinal, n in enumerate(self._tileOrder(self.totalMacroBatches, random), start=1):
             staged = self.sliceData(data, n, macroBatchSize, postSlice=self.upload)
-            self.currMacroBatch = n + 1
+            self.currMacroBatch = ordinal
 
             self.onMacroBatchStart(n, macroBatchSize, state)
-            self.handle(staged, state)
+            self.handle(staged, state, random=random)
             self.onMacroBatchFinish(n, macroBatchSize, state)
 
             if onMacroBatchFinish is not None:
                 onMacroBatchFinish(self)
 
-    def handle(self, data, state=None):
+    def handle(self, data, state=None, random=True):
         self.totalBatches = self._tileCount(self.getDataSize(data), self.batchsize)
 
-        for n in range(self.totalBatches):
+        for ordinal, n in enumerate(self._tileOrder(self.totalBatches, random), start=1):
             batch = self.sliceData(data, n, self.batchsize, postSlice=lambda view: view)
-            self.currBatch = n + 1
+            self.currBatch = ordinal
 
             self.handleBatch(batch, n, state)
             self.module.reset()

@@ -1,4 +1,4 @@
-"""Module exports: the layers of the serving slice."""
+"""Module exports: the layers of the VGG slices."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip

@@ -1,7 +1,9 @@
-"""Elementwise activation module, forward (counterpart of
+"""Elementwise activation module (counterpart of
 ``puzzlelib_tpu/modules/activation.py``).  All seven activation names are
-kept; relu, which the serving slice runs, is the one ported yet, and the
-others raise at construction.  The ``slc`` slice option comes with them."""
+kept; relu, which the VGG slices run, is the one ported yet, and the others
+raise at construction.  The ``slc`` slice option comes with them.  The
+derivative is taken from the output (``gradUsesOutData``); an inplace module
+writes its gradient over the incoming one."""
 
 from enum import Enum
 
@@ -29,9 +31,9 @@ softPlus = ActivationType.softPlus
 clip = ActivationType.clip
 
 
-# activation -> (forward, forward in place)
+# activation -> (forward, forward in place, derivative from the output)
 _FUNCS = {
-    ActivationType.relu: (ew.relu, ew.relu_),
+    ActivationType.relu: (ew.relu, ew.relu_, ew.reluDer),
 }
 
 
@@ -50,10 +52,17 @@ class Activation(Module):
             raise ModuleError("Activation %s is not ported yet" % activation)
 
     def updateData(self, data):
-        fwd, fwdInplace = _FUNCS[self.activation]
+        fwd, fwdInplace, _ = _FUNCS[self.activation]
         self.data = fwdInplace(data) if self.inplace else fwd(data)
 
+    def updateGrad(self, grad):
+        der = _FUNCS[self.activation][2](grad, self.data)
+        self.grad = grad.copy_(der) if self.inplace else der
+
     def dataShapeFrom(self, shape):
+        return shape
+
+    def gradShapeFrom(self, shape):
         return shape
 
     def calcMode(self, T):

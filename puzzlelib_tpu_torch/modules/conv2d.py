@@ -33,6 +33,13 @@ class Conv2D(ConvND):
         if extw < extfw:
             raise ModuleError("Data maps width is too small (got %d, expected at least %d)" % (extw, extfw))
 
+    def checkGradShape(self, shape):
+        if len(shape) != 4:
+            raise ModuleError("Grad must be 4d tensor")
+
+        if shape[1] != self.W.shape[0]:
+            raise ModuleError("Grad has %d maps (expected: %d)" % (shape[1], self.W.shape[0]))
+
     def dataShapeFrom(self, shape):
         batchsize, inmaps, inh, inw = shape
         outmaps, _, fh, fw = self.W.shape
@@ -45,3 +52,17 @@ class Conv2D(ConvND):
         outw = (inw + 2 * wpad - wdilation * (fw - 1) - 1) // wstride + 1
 
         return batchsize, outmaps, outh, outw
+
+    def gradShapeFrom(self, shape):
+        batchsize, outmaps, outh, outw = shape
+        _, inmaps, fh, fw = self.W.shape
+
+        hpad, wpad = self.pad
+        hdilation, wdilation = self.dilation
+        hstride, wstride = self.stride
+
+        inmaps *= self.groups
+        inh = (outh - 1) * hstride + hdilation * (fh - 1) - 2 * hpad + 1
+        inw = (outw - 1) * wstride + wdilation * (fw - 1) - 2 * wpad + 1
+
+        return batchsize, inmaps, inh, inw

@@ -1,9 +1,9 @@
-"""N-d convolution module, forward (counterpart of
+"""N-d convolution module (counterpart of
 ``puzzlelib_tpu/modules/convnd.py``).  The reference's cuDNN-style algo slots
 are not carried: ``Config.convAlgo`` chooses between the hand kernel and the
 library."""
 
-from puzzlelib_tpu_torch.backend.dnn import convNd
+from puzzlelib_tpu_torch.backend.dnn import convKernelLayout, convNd, convNdBackwardData, convNdBackwardParams
 from puzzlelib_tpu_torch.variable import Variable
 from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 
@@ -38,10 +38,26 @@ class ConvND(Module):
             self.setVar("b", Variable(self.paramTensor(None, (1, outmaps) + (1, ) * nd).zero_()))
 
     def updateData(self, data):
+        # kept as inData in the kernels' layout: the backward reads it again
+        self.inData = data = convKernelLayout(data, self.W, stride=self.stride, pad=self.pad,
+                                              dilation=self.dilation, groups=self.groups)
         self.data = convNd(data, self.W, self.b, stride=self.stride, pad=self.pad,
                            dilation=self.dilation, groups=self.groups)
 
+    def updateGrad(self, grad):
+        self.grad = convNdBackwardData(grad, self.W, data=self.inData, stride=self.stride, pad=self.pad,
+                                       dilation=self.dilation, groups=self.groups)
+
+    def accGradParams(self, grad, scale=1.0, momentum=0.0):
+        bgrad = self.vars["b"].grad if self.b is not None else None
+        convNdBackwardParams(self.inData, grad, self.W, self.b, stride=self.stride, pad=self.pad,
+                             dilation=self.dilation, groups=self.groups, wgrad=self.vars["W"].grad,
+                             bgrad=bgrad, scale=scale, momentum=momentum)
+
     def dataShapeFrom(self, shape):
+        raise NotImplementedError()
+
+    def gradShapeFrom(self, shape):
         raise NotImplementedError()
 
     def calcMode(self, T):

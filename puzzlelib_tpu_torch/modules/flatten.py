@@ -19,8 +19,14 @@ class Flatten(Module):
         self.inshape = tuple(data.shape)
         self.data = data.reshape(data.shape[0], int(np.prod(data.shape[1:])))
 
+    def updateGrad(self, grad):
+        self.grad = grad.reshape(self.inshape)
+
     def dataShapeFrom(self, shape):
         return shape[0], int(np.prod(shape[1:]))
+
+    def gradShapeFrom(self, shape):
+        return (shape[0], ) + self.inshape[1:]
 
     def calcMode(self, T):
         self.calctype = self.requireSupportedDtype(T)

@@ -1,6 +1,8 @@
-"""Fully-connected layer, forward (counterpart of
-``puzzlelib_tpu/modules/linear.py``).  The untransposed forward product is
-the one that ``Blas.mulMatrixOnMatrix`` sends to the GEMM kernel K1."""
+"""Fully-connected layer (counterpart of ``puzzlelib_tpu/modules/linear.py``).
+The untransposed forward product is the one that ``Blas.mulMatrixOnMatrix``
+sends to the GEMM kernel K1; the backward's products are transposed, and the
+parameter gradients accumulate through ``beta``, so they go to the library
+product, as in the reference."""
 
 from puzzlelib_tpu_torch.backend import blas as Blas
 from puzzlelib_tpu_torch.backend.kernels import matvec as MatVec
@@ -36,8 +38,33 @@ class Linear(Module):
         if self.useBias:
             MatVec.addVecToMat(self.b, self.data, axis=1, out=self.data)
 
+    def updateGrad(self, grad):
+        self.grad = Blas.mulMatrixOnMatrix(grad, self.W, transpB=not self.transpose)
+
+    def accGradParams(self, grad, scale=1.0, momentum=0.0):
+        if not self.transpose:
+            Blas.mulMatrixOnMatrix(self.inData, grad, out=self.vars["W"].grad, transpA=True,
+                                   alpha=scale, beta=momentum)
+        else:
+            Blas.mulMatrixOnMatrix(grad, self.inData, out=self.vars["W"].grad, transpA=True,
+                                   alpha=scale, beta=momentum)
+
+        if self.useBias:
+            Blas.sumOnMatrix(grad, out=self.vars["b"].grad, alpha=scale, beta=momentum)
+
     def dataShapeFrom(self, shape):
         return (shape[0], self.W.shape[1]) if not self.transpose else (shape[0], self.W.shape[0])
+
+    def gradShapeFrom(self, shape):
+        return (shape[0], self.W.shape[0]) if not self.transpose else (shape[0], self.W.shape[1])
+
+    def checkGradShape(self, shape):
+        if len(shape) != 2:
+            raise ModuleError("Grad must be 2d matrix")
+
+        size = self.W.shape[1] if not self.transpose else self.W.shape[0]
+        if shape[1] != size:
+            raise ModuleError("Expected %d grad dimensions, %d were given" % (size, shape[1]))
 
     def checkDataShape(self, shape):
         if len(shape) != 2:

@@ -1,7 +1,7 @@
 """2-D max pooling (counterpart of ``puzzlelib_tpu/modules/maxpool2d.py``).
 The masked variant (``useMask``, for MaxUnpool2D) comes with that module."""
 
-from puzzlelib_tpu_torch.backend.dnn import PoolMode, poolNd
+from puzzlelib_tpu_torch.backend.dnn import PoolMode, poolNd, poolNdBackward
 from puzzlelib_tpu_torch.modules.pool2d import Pool2D
 
 
@@ -14,3 +14,7 @@ class MaxPool2D(Pool2D):
         self.data, self.workspace = poolNd(
             data, size=self.size, stride=self.stride, pad=self.pad, mode=self.mode, test=not self.training
         )
+
+    def updateGrad(self, grad):
+        self.grad = poolNdBackward(self.inData, self.data, grad, self.workspace,
+                                   size=self.size, stride=self.stride, pad=self.pad, mode=self.mode)

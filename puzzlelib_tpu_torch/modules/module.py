@@ -17,8 +17,15 @@ Where the two protocols clash:
   and ``forward`` calls it.
 
 Weight init keeps the reference's numpy sampler (``createTensorWithScheme``),
-so one ``np.random.seed`` gives both packages the same weights.  The backward
-protocol, checkpoints and blueprints come with later parts of the port.
+so one ``np.random.seed`` gives both packages the same weights.
+
+The backward protocol is the reference's: ``backward(grad)`` checks the
+gradient, then ``updateGrad`` sets ``self.grad`` (the input gradient) and
+``accGradParams`` folds the parameter gradients into the variables' ``grad``
+buffers as ``grad * scale + buffer * momentum``.  Those writes, and every
+other write to a variable (``zeroGradParams``, ``updateParams``), go in
+place, so they reach variables that are views of an optimizer's flat
+buffers.  Checkpoints and blueprints come with later parts of the port.
 """
 
 import math
@@ -28,7 +35,9 @@ import numpy as np
 import torch
 
 from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.backend import blas as Blas
 from puzzlelib_tpu_torch.backend import gpuarray
+from puzzlelib_tpu_torch.ops import elementwise as ew
 from puzzlelib_tpu_torch.backend.device import getDevice
 from puzzlelib_tpu_torch.variable import Variable
 
@@ -117,6 +126,40 @@ class Module(torch.nn.Module):
     def updateData(self, data):
         raise NotImplementedError()
 
+    def backward(self, grad, updParamGrads=True, updGrad=True, scale=1.0, momentum=0.0):
+        if not Config.disableDtypeShapeChecks:
+            self.checkGradShape(self.acquireShapesFrom(grad))
+            self.checkGradType(self.acquireDtypesFrom(grad))
+
+        self.grad = None
+
+        if updGrad:
+            self.updateGrad(grad)
+
+        if updParamGrads and self.training:
+            self.accGradParams(grad, scale=scale, momentum=momentum)
+
+    def updateGrad(self, grad):
+        raise NotImplementedError()
+
+    def accGradParams(self, grad, scale=1.0, momentum=0.0):
+        pass
+
+    def foldParamGrad(self, name, newGrad, scale=1.0, momentum=0.0):
+        """vars[name].grad = scale * newGrad + momentum * vars[name].grad, in
+        place."""
+        acc = self.vars[name].grad
+        ew.add_(acc, newGrad.reshape(acc.shape), scale, acc, momentum)
+
+    def zeroGradParams(self):
+        for var in self.vars.values():
+            if not var.hasUpdater:
+                var.grad.zero_()
+
+    def updateParams(self, learnRate):
+        for var in self.vars.values():
+            Blas.toVectorAddVector(var.data.view(-1), var.grad.view(-1), alpha=learnRate)
+
     # -- modes -------------------------------------------------------------------------
 
     def trainMode(self):
@@ -141,10 +184,19 @@ class Module(torch.nn.Module):
     def checkDataShape(self, shape):
         pass
 
+    def checkGradShape(self, shape):
+        pass
+
     def dataShapeFrom(self, shape):
         raise NotImplementedError()
 
+    def gradShapeFrom(self, shape):
+        raise NotImplementedError()
+
     def checkDataType(self, dtype):
+        self.genericCheckDataType(dtype)
+
+    def checkGradType(self, dtype):
         self.genericCheckDataType(dtype)
 
     def genericCheckDataType(self, dtype):

@@ -7,6 +7,10 @@ def _outExtent(inExtent, size, pad, stride):
     return (inExtent + 2 * pad - size) // stride + 1
 
 
+def _inExtent(outExtent, size, pad, stride):
+    return (outExtent - 1) * stride + size - 2 * pad
+
+
 class Pool2D(Module):
     def __init__(self, size=2, stride=2, pad=0, name=None):
         super().__init__(name)
@@ -29,6 +33,12 @@ class Pool2D(Module):
 
         return batchsize, maps, _outExtent(shape[2], *hgeom), _outExtent(shape[3], *wgeom)
 
+    def gradShapeFrom(self, shape):
+        batchsize, maps = shape[:2]
+        hgeom, wgeom = self._window()
+
+        return batchsize, maps, _inExtent(shape[2], *hgeom), _inExtent(shape[3], *wgeom)
+
     def checkDataShape(self, shape):
         if len(shape) != 4:
             raise ModuleError("Data must be 4d tensor")
@@ -38,6 +48,10 @@ class Pool2D(Module):
             if padded < size:
                 raise ModuleError("Data maps %s is too small (got %d, expected at least %d)" %
                                   (axis, padded, size))
+
+    def checkGradShape(self, shape):
+        if len(shape) != 4:
+            raise ModuleError("Grad must be 4d tensor")
 
     def reset(self):
         super().reset()

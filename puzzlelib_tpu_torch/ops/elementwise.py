@@ -1,6 +1,12 @@
-"""Elementwise activations, forward (counterpart of
-``puzzlelib_tpu/ops/elementwise.py``).  Only relu, which the serving slice
-runs, is ported yet."""
+"""Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
+relu and its derivative, the vector updates, and the momentum-SGD step.
+
+The reference's ops return new arrays; the update ops here write in place,
+so that they reach parameters and gradients that are views of an optimizer's
+flat buffers.  Scalars are rounded to the tensor's type first, as the
+reference's ``jnp.asarray(rate, dtype)`` rounds them, and every op runs in the
+tensor's type (no f32 master copy of bf16 parameters).
+"""
 
 import torch
 
@@ -12,3 +18,31 @@ def relu(x):
 def relu_(x):
     """relu in place, for ``Activation(inplace=True)``."""
     return torch.relu_(x)
+
+
+def reluDer(grad, out):
+    """The input gradient of relu from its output: grad where out > 0."""
+    return grad * (out > 0).to(grad.dtype)
+
+
+def _scalar(value, dtype):
+    """A Python scalar rounded to ``dtype``."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def toVectorAddVector_(y, x, alpha):
+    """y += alpha * x, in place."""
+    return y.add_(x * _scalar(alpha, x.dtype))
+
+
+def add_(out, a, alpha, b, beta):
+    """out = alpha * a + beta * b, written into ``out`` (which may be b)."""
+    return out.copy_(a * _scalar(alpha, a.dtype) + b * _scalar(beta, b.dtype))
+
+
+def classicMomSGD_(param, grad, mom, learnRate, momRate):
+    """mom = momRate * mom + learnRate * grad; param += mom: both in place,
+    in the parameter's type.  The update is added: costs give the descent
+    direction."""
+    mom.mul_(_scalar(momRate, mom.dtype)).add_(grad * _scalar(learnRate, grad.dtype))
+    param.add_(mom)

@@ -5,8 +5,10 @@ Each kernel module holds the wrapper that launches the CUDA C++ kernel from
 which CPU tensors take, and a launch counter (``launches``):
 
 - ``matmul``   K1, the tiled GEMM (``ops/pallas/matmul.py``);
-- ``winograd`` K2, the fused Winograd F(2x2, 3x3) forward conv
-  (``ops/pallas/winograd.py``).
+- ``winograd`` K2, the fused Winograd F(2x2, 3x3) forward conv, which also
+  runs the stride-1 bwd-data (``dataGrad``), and K3, the transform-domain
+  bwd-filter (``filterGrad``, plain version ``filterGradPlain``, counter
+  ``filterGradLaunches``) (``ops/pallas/winograd.py``).
 
 ``build`` compiles the sources with ``nvcc`` at the first CUDA call.
 """

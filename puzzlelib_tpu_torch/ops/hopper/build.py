@@ -5,7 +5,7 @@ library with a plain C interface and loaded with ``ctypes``.  The library's
 file name carries a hash of its source and flags, so a build is reused until
 the source changes.  Builds go to ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``) and happen at the first CUDA call of a
-kernel, or up front through ``buildAll``.
+kernel, or up front, all in parallel, through ``buildAll``.
 
 Nothing here falls back: a missing ``nvcc``, a failed build or a missing entry
 point raises.
@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 
@@ -27,7 +28,7 @@ BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("matmul", "winograd")
+KERNELS = ("matmul", "winograd", "winograd_fg")
 
 _loaded = {}
 
@@ -85,7 +86,9 @@ def build(name):
 
 
 def buildAll():
-    return {name: build(name) for name in KERNELS}
+    """Build every kernel, one ``nvcc`` per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
 
 
 def load(name):

@@ -1,0 +1,5 @@
+"""Optimizer exports."""
+
+from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
+from puzzlelib_tpu_torch.optimizers.sgd import SGD
+from puzzlelib_tpu_torch.optimizers.momentumsgd import MomentumSGD

@@ -1,0 +1,150 @@
+"""Optimizer base (counterpart of ``puzzlelib_tpu/optimizers/optimizer.py``).
+
+Local state keeps one state per variable.  Global state
+(``setupOn(net, useGlobalState=True)``) packs every parameter, and every
+gradient, of a dtype into one flat tensor (``gpuarray.SharedArray``) and
+rebinds the net's variables as views of it, so one update per dtype covers
+every parameter.  The views are the variables from then on: every write to
+them goes in place, and ``calcMode``, which rebuilds the variables, must come
+before ``setupOn``, as in the reference.
+
+Hooks run on each (variable, state) before its update.  The reference's
+multi-node state and HDF5 ``save``/``load`` are not ported; the state moves
+to and from numpy through ``convert.optimizerStateToNumpy`` /
+``optimizerStateFromNumpy``.
+"""
+
+from collections import OrderedDict
+
+from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.backend import gpuarray
+from puzzlelib_tpu_torch.variable import Variable
+
+
+class Optimizer:
+    def __init__(self):
+        self.t = 0
+        self.learnRate = 0.0
+
+        self.attrs = {"t", "learnRate"}
+
+        self.module = None
+        self.states = {}
+        self.hooks = []
+
+        self.shParams, self.shGrads = {}, {}
+
+        self.globalState = False
+        self.globalVar = OrderedDict()
+
+        self.customVars = []
+
+    def setAttr(self, name, attr):
+        setattr(self, name, attr)
+        self.attrs.add(name)
+
+    def addHook(self, hook):
+        if self.globalState and Config.showWarnings:
+            Config.getLogger().info("Warning: adding hook to optimizer in global state mode")
+
+        self.hooks.append(hook)
+
+    # -- setup -------------------------------------------------------------------
+
+    def setupOn(self, mod, useGlobalState=False):
+        self.module = mod
+        vartable = self.module.getVarTable()
+
+        self.globalState = useGlobalState
+        if useGlobalState:
+            self.setupGlobalState(vartable)
+        else:
+            self.setupLocalStates(vartable)
+
+    def _partitionVars(self, vartable):
+        """(first name, names, variable) of the variables the optimizer
+        updates, ordered by first name; the names of those with their own
+        updater go to ``customVars``."""
+        managed = []
+
+        for var, names in sorted(vartable.items(), key=lambda item: item[1][0]):
+            if var.hasUpdater:
+                self.customVars.append(names[0])
+            else:
+                managed.append((names[0], names, var))
+
+        return managed
+
+    def setupGlobalState(self, vartable):
+        managed = self._partitionVars(vartable)
+
+        # one flat (param, grad) pair per dtype
+        for lead, _, var in managed:
+            dtype = var.data.dtype
+
+            self.shParams.setdefault(dtype, gpuarray.SharedArray(dtype, var.data.device)).register(
+                var.data.shape, dtype, lead)
+            self.shGrads.setdefault(dtype, gpuarray.SharedArray(dtype, var.data.device)).register(
+                var.grad.shape, dtype, lead)
+
+        for dtype in self.shParams:
+            self.shParams[dtype].build()
+            self.shGrads[dtype].build()
+
+            self.globalVar[dtype] = Variable(self.shParams[dtype].ary, grad=self.shGrads[dtype].ary)
+
+        # copy the values in and rebind the module's variables as views
+        for lead, names, var in managed:
+            dtype = var.data.dtype
+            view, gradView = self.shParams[dtype][lead], self.shGrads[dtype][lead]
+
+            view.copy_(var.data)
+            gradView.copy_(var.grad)
+
+            for name in names:
+                self.module.setVar(name, Variable(view, grad=gradView))
+
+        for dtype, globalVar in self.globalVar.items():
+            self.states[dtype] = self.setupState(globalVar)
+
+    def setupLocalStates(self, vartable):
+        for lead, _, var in self._partitionVars(vartable):
+            self.states[lead] = self.setupState(var)
+
+    def setupState(self, var):
+        return {}
+
+    # -- gradient clearing ------------------------------------------------------------
+
+    def zeroGradParams(self):
+        if self.globalState:
+            for globalVar in self.globalVar.values():
+                globalVar.grad.zero_()
+        else:
+            for name in self.states:
+                self.module.getVar(name).grad.zero_()
+
+    # -- update step --------------------------------------------------------------------
+
+    def update(self):
+        self.t += 1
+
+        if self.globalState:
+            for dtype, globalVar in self.globalVar.items():
+                self._updateOne(globalVar, self.states[dtype])
+        else:
+            for name, state in self.states.items():
+                self._updateOne(self.module.getVar(name), state)
+
+        for name in self.customVars:
+            self.module.getVar(name).update(self.learnRate)
+
+    def _updateOne(self, var, state):
+        for hook in self.hooks:
+            hook(var, state)
+
+        if var.learnRate > 0.0:
+            self.updateVar(var, state)
+
+    def updateVar(self, var, state):
+        raise NotImplementedError()
