@@ -13,7 +13,8 @@ it fails:
    with ``nvcc`` into ``build/kernels`` and prints the seconds it took and
    the compiler's register / spill report;
 3. K1 (GEMM) against its plain PyTorch version at the VGG-16 fc shapes
-   (M = 32) in bf16 and f32, and a ragged 100 x 200 x 60;
+   (M = 32) in bf16 and f32, a ragged 100 x 200 x 60, and the transformer
+   slice's three products in bf16 (``tools/transformerslice.py`` GEMMS);
 4. K2 (Winograd conv), K2-bwd (K2 as the stride-1 bwd-data,
    ``winograd.dataGrad``) and K3 (Winograd bwd-filter) against their plain
    versions and against an f32 library reference with TF32 off
@@ -32,7 +33,28 @@ it fails:
    counted run; every step's loss must be finite, every variable must have
    changed through the optimizer's flat buffer, the first step's gradients of
    six layers must agree with the same step on the bf16 library route, and
-   the 4 losses with the library route's.
+   the 4 losses with the library route's;
+7. K4 (flash-attention forward) against its plain version in bf16, ``out``
+   and ``lse``, at the transformer slice's shape, at the long sequences of
+   ``puzzlelib_tpu/benchmarks/attnspeed.py`` and at seqQ != seqK (causal,
+   the bottom-right offset), beside ``scaled_dot_product_attention``;
+8. the transformer serving slice of ``tools/transformerslice.py``: the IMDB
+   transformer classifier of ``testlib/transformertrain.py`` at full width
+   (vocab 20000, seq 80, emb 128, 4 heads, 2 layers, 2 classes) in bf16 with
+   ``attnAlgo="flash"``, random weights from ``np.random.seed(0)``, 256
+   seeded token rows through ``Calculator(net, batchsize=64).calcFromHost``.
+   The counters are reset just before and read just after that run; the
+   logits are checked for shape and finiteness, and the first request's
+   against the same f32 weights on the library route.
+
+Kernel times are the device's, by CUDA events behind a device sleep that
+keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
+Each kernel's JSON entry carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s and
+its operations over 989 TFLOP/s (the H100 SXM's bf16 dense peak; 67 TFLOP/s
+for K1's f32 lines and for the Winograd transforms' f32 adds), computed from
+the shapes of this run.  A Winograd conv's operations are its 16 products
+per 2x2 output tile, not the direct conv's 36.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -47,6 +69,13 @@ import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, bound, deviceMs
+)
 
 
 BATCH = 32
@@ -91,12 +120,43 @@ WINOGRAD_BOUND_F32 = 2e-2
 # reference's dtype table (puzzlelib_tpu/tensor.py dtypesSupported)
 SLICE_BOUND = 5e-2
 
+# The operations of F(2x2, 3x3) for the bound, besides the 16 products per
+# 2x2 output tile per (c, co) (the direct conv's 36, less 2.25x): the f32
+# adds of the transforms outside the tensor cores, per tile and channel.
+# V = B^T d B of a 4x4 patch, 16 two-term sums per stage: 32 per input
+# channel; the forward's A^T M A, 8 then 4 three-term sums: 24 per output
+# channel; bwd-filter's Mbar = A dY A^T of a 2x2 tile, the (1 + 2 + 2 + 1)^2
+# terms of its 16 entries less 16: 20 per output channel; the filter
+# transform U = G g G^T, or dW = G^T dU G, one (16, 9) product per (c, co)
+V_ADDS, OUT_ADDS, MBAR_ADDS, FILTER_OPS = 32, 24, 20, 2 * 16 * 9
+
 # K3: kernel and plain share every rounding point (V and Mbar in bf16) and
 # differ only in the order of the f32 sums over tiles, ~sqrt(tiles) f32 ulps
 # (1e-5 at 100,352 tiles); against the f32 library bwd-filter, the bf16
 # transforms cost what K2's cost, hence K2's bound.
 FG_BOUND_PLAIN = 1e-3
 FG_BOUND_F32 = 2e-2
+
+# K4: (name, (batch, heads, seqQ, d), seqK, causal).  The slice's shape, the
+# long sequences of puzzlelib_tpu/benchmarks/attnspeed.py, and seqQ != seqK
+FLASH_SHAPES = [
+    ("slice", (64, 4, 80, 32), 80, False),
+    ("slice", (64, 4, 80, 32), 80, True),
+    ("long", (4, 8, 2048, 64), 2048, False),
+    ("long", (4, 8, 2048, 64), 2048, True),
+    ("long", (4, 8, 4096, 64), 4096, False),
+    ("long", (4, 8, 4096, 64), 4096, True),
+    ("offset", (64, 4, 80, 32), 200, True),
+]
+
+# K4 vs its plain version, relative to max |plain|.  out: both round P to bf16
+# for the product with v and sum in f32; they differ in where P is rounded
+# (against the running max in the kernel, the row's max in the plain version),
+# in the order of the sums, and by one final bf16 rounding of out (2^-8 of the
+# value at most), so about one bf16 ulp: 1e-2.  lse: f32 in both, the same
+# scores up to f32 summation order and exp2 against exp, some 1e-6: 1e-4.
+FLASH_BOUND_OUT = 1e-2
+FLASH_BOUND_LSE = 1e-4
 
 # training: 4 steps of 32
 STEPS = 4
@@ -111,21 +171,6 @@ GRAD_LAYERS = ("conv2_2", "conv3_1", "conv4_2", "conv5_3", "fc6", "fc8")
 
 def fail(message):
     raise SystemExit("chip_smoke FAILED: %s" % message)
-
-
-def cudaMs(torch, fn, iters):
-    """Mean milliseconds of ``fn`` on the card, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-
-    return start.elapsed_time(end) / iters
 
 
 def relErr(torch, got, ref):
@@ -157,48 +202,81 @@ def phaseBuild(build):
             print("[build] %s: %s" % (name, line))
 
 
+def _gemmCase(torch, matmul, gen, label, dtName, m, k, n):
+    """K1 against its plain version at one shape: (max |kernel - plain|, ms,
+    plain ms, library ms, bound ms, bound_by)."""
+    dtype = torch.bfloat16 if dtName == "bf16" else torch.float32
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
+
+    out, ref = matmul.matmul(a, b), matmul.plain(a, b)
+    torch.cuda.synchronize()
+
+    err = relErr(torch, out, ref)
+    ms = deviceMs(lambda: matmul.matmul(a, b), 10)
+    plainMs = deviceMs(lambda: matmul.plain(a, b), 10)
+    libMs = deviceMs(lambda: torch.matmul(a, b), 10)
+    boundMs, boundBy = bound((m * k + k * n + m * n) * a.element_size(), 2 * m * k * n,
+                             F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
+
+    print("[K1] %-8s %s M=%d K=%d N=%d: rel err %.3e (bound %.0e), kernel %.4f ms, plain %.4f ms, "
+          "library (cuBLAS) %.4f ms, bound %.4f ms (%s)" %
+          (label, dtName, m, k, n, err, GEMM_BOUND[dtName], ms, plainMs, libMs, boundMs, boundBy))
+
+    if not err <= GEMM_BOUND[dtName]:
+        fail("K1 %s %s disagrees with its plain version: %.3e" % (label, dtName, err))
+
+    return (out.float() - ref.float()).abs().max().item(), ms, plainMs, libMs, boundMs, boundBy
+
+
+def _addCase(main, binding, case, count=1):
+    absErr, ms, plainMs, libMs, boundMs, boundBy = case
+    main["max_abs_err"] = max(main["max_abs_err"], absErr)
+    for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs), ("bound_ms", boundMs)):
+        main[key] += value * count
+    binding.add(boundBy)
+
+
 def phaseGemm(torch, matmul):
+    """K1 at VGG's fc shapes and the ragged one in bf16 and f32, and at the
+    transformer slice's shapes in bf16.  Returns the JSON entries' numbers:
+    fc6 + fc7 + fc8 in bf16, and one request of the transformer slice."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    vgg, transformer = ({"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+                        for _ in range(2))
+    vggBinding, transformerBinding = set(), set()
 
-    for dtName, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for dtName in ("bf16", "f32"):
         for name, m, k, n in GEMM_SHAPES:
-            a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-            b = (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
-
-            out, ref = matmul.matmul(a, b), matmul.plain(a, b)
-            torch.cuda.synchronize()
-
-            err = relErr(torch, out, ref)
-            ms = cudaMs(torch, lambda: matmul.matmul(a, b), 10)
-            plainMs = cudaMs(torch, lambda: matmul.plain(a, b), 10)
-
-            print("[K1] %-6s %s M=%d K=%d N=%d: rel err %.3e (bound %.0e), kernel %.4f ms, plain %.4f ms" %
-                  (name, dtName, m, k, n, err, GEMM_BOUND[dtName], ms, plainMs))
-
-            if not err <= GEMM_BOUND[dtName]:
-                fail("K1 %s %s disagrees with its plain version: %.3e" % (name, dtName, err))
-
+            case = _gemmCase(torch, matmul, gen, name, dtName, m, k, n)
             if dtName == "bf16" and name != "ragged":
-                main["max_abs_err"] = max(main["max_abs_err"], (out.float() - ref.float()).abs().max().item())
-                main["ms"] += ms
-                main["plain_ms"] += plainMs
+                _addCase(vgg, vggBinding, case)
 
-    return main
+    for name, m, k, n, count in Slice.GEMMS:
+        _addCase(transformer, transformerBinding, _gemmCase(torch, matmul, gen, name, "bf16", m, k, n), count)
+
+    vgg["bound_by"] = "/".join(sorted(vggBinding))
+    transformer["bound_by"] = "/".join(sorted(transformerBinding))
+    return vgg, transformer
 
 
-def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds):
+def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, transformOps, weightBytes=2):
     """One conv kernel against its plain version and against an f32 library
     reference (TF32 off) at each distinct Winograd-eligible VGG-16 conv at
     batch 32.  ``operands(gen, xshape, co)`` makes the bf16 operands of the
     conv of x (N, C, H, W) at pad 1 to ``co`` channels; ``kernel``,
     ``plain``, ``library`` (the library's bf16 call) and ``f32`` take them.
-    Returns the JSON entry's numbers for one batch of the 10 convs."""
+    Each conv reads or writes x and y (N, CO, H, W) in bf16 and the 3x3
+    filter in ``weightBytes`` per value, and does the Winograd products,
+    2 * 16 per 2x2 output tile per (c, co) on the tensor cores, and
+    ``transformOps(tiles, c, co)`` f32 operations outside them.  Returns the
+    JSON entry's numbers for one batch of the 10 convs."""
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on although Config.matmulPrecision is 'highest'")
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
     boundPlain, boundF32 = bounds
 
     for name, xshape, co, count in WINOGRAD_SHAPES:
@@ -211,13 +289,18 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds):
         absPlain = (out.float() - ref.float()).abs().max().item()
         del out, ref, direct
 
-        ms = cudaMs(torch, lambda: kernel(*args), 10)
-        plainMs = cudaMs(torch, lambda: plain(*args), 2)
-        libMs = cudaMs(torch, lambda: library(*args), 10)
+        ms = deviceMs(lambda: kernel(*args), 10)
+        plainMs = deviceMs(lambda: plain(*args), 2)
+        libMs = deviceMs(lambda: library(*args), 10)
+
+        n, c, h, w = xshape
+        tiles = n * -(-h // 2) * -(-w // 2)
+        boundMs, boundBy = bound((n * c * h * w + n * co * h * w) * 2 + co * c * 9 * weightBytes,
+                                 2 * 16 * tiles * c * co, f32Flops=transformOps(tiles, c, co))
 
         print("[%s] %-7s x=%s co=%d: rel err %.3e vs plain (bound %.0e), %.3e vs f32 library (bound %.0e); "
-              "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms" %
-              (tag, name, xshape, co, errPlain, boundPlain, errF32, boundF32, ms, plainMs, libMs))
+              "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms, bound %.4f ms (%s)" %
+              (tag, name, xshape, co, errPlain, boundPlain, errF32, boundF32, ms, plainMs, libMs, boundMs, boundBy))
 
         if not errPlain <= boundPlain:
             fail("%s %s disagrees with its plain version: %.3e" % (tag, name, errPlain))
@@ -228,7 +311,11 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds):
         main["max_abs_err"] = max(main["max_abs_err"], absPlain)
         main["ms"] += ms * count
         main["plain_ms"] += plainMs * count
+        main["library_ms"] += libMs * count
+        main["bound_ms"] += boundMs * count
+        binding.add(boundBy)
 
+    main["bound_by"] = "/".join(sorted(binding))
     torch.cuda.empty_cache()
     return main
 
@@ -270,7 +357,8 @@ def phaseWinograd(torch, winograd):
         plain=lambda x, w: winograd.plain(x, w, (1, 1)),
         library=lambda x, w: F.conv2d(x, w, padding=1),
         f32=lambda x, w: F.conv2d(x.float(), w.float(), padding=1),
-        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32))
+        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
+        transformOps=lambda tiles, c, co: (V_ADDS * c + OUT_ADDS * co) * tiles + FILTER_OPS * c * co)
 
     dataGrad = phaseConv(
         torch, "K2-bwd", 3, dataGradOperands,
@@ -278,7 +366,8 @@ def phaseWinograd(torch, winograd):
         plain=lambda dy, w: winograd.plain(dy, w.flip((2, 3)).transpose(0, 1), (1, 1)),
         library=lambda dy, w: conv2d_input(xshapeOf(dy, w), w, dy, padding=1),
         f32=lambda dy, w: conv2d_input(xshapeOf(dy, w), w.float(), dy.float(), padding=1),
-        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32))
+        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
+        transformOps=lambda tiles, c, co: (V_ADDS * co + OUT_ADDS * c) * tiles + FILTER_OPS * c * co)
 
     filterGrad = phaseConv(
         torch, "K3", 4, filterGradOperands,
@@ -286,7 +375,8 @@ def phaseWinograd(torch, winograd):
         plain=lambda x, dy: winograd.filterGradPlain(x, dy, (1, 1)),
         library=lambda x, dy: conv2d_weight(x, wshapeOf(x, dy), dy, padding=1),
         f32=lambda x, dy: conv2d_weight(x.float(), wshapeOf(x, dy), dy.float(), padding=1),
-        bounds=(FG_BOUND_PLAIN, FG_BOUND_F32))
+        bounds=(FG_BOUND_PLAIN, FG_BOUND_F32), weightBytes=4,
+        transformOps=lambda tiles, c, co: (V_ADDS * c + MBAR_ADDS * co) * tiles + FILTER_OPS * c * co)
 
     return forward, dataGrad, filterGrad
 
@@ -562,32 +652,167 @@ def phaseTrain(torch, card):
     return launches
 
 
+def _visiblePairs(seqQ, seqK, causal):
+    """The (query, key) pairs whose scores the softmax weighs: all of them, or
+    with the bottom-right causal mask, keys up to i + seqK - seqQ for query i
+    (every key for a row that sees none)."""
+    if not causal:
+        return seqQ * seqK
+
+    return sum(min(seqK, i + seqK - seqQ + 1) if i + seqK - seqQ >= 0 else seqK for i in range(seqQ))
+
+
+def phaseFlash(torch, flash):
+    """K4 against its plain version at FLASH_SHAPES in bf16, beside
+    ``scaled_dot_product_attention`` (timed as a yardstick, never on the
+    path).  Returns the JSON entry's numbers at the slice's shape, not causal,
+    the one the transformer slice runs."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main = None
+
+    for name, (b, h, seqQ, d), seqK, causal in FLASH_SHAPES:
+        q, k, v = [torch.randn((b, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for seq in (seqQ, seqK, seqK)]
+
+        (out, lse), (ref, refLse) = flash.flash(q, k, v, causal), flash.plain(q, k, v, causal)
+        torch.cuda.synchronize()
+
+        errOut, errLse = relErr(torch, out, ref), relErr(torch, lse, refLse)
+        absOut = (out.float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+        del out, lse, ref, refLse
+
+        # the library's causal flag aligns top-left; bottom-right is a mask
+        mask = None
+        if causal and seqQ != seqK:
+            mask = torch.ones((seqQ, seqK), dtype=torch.bool, device="cuda").tril(diagonal=seqK - seqQ)
+
+        ms = deviceMs(lambda: flash.flash(q, k, v, causal), 10)
+        plainMs = deviceMs(lambda: flash.plain(q, k, v, causal), 2)
+        libMs = deviceMs(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None), 10)
+
+        nbytes = (2 * b * h * seqQ * d + 2 * b * h * seqK * d) * 2 + b * h * seqQ * 4
+        boundMs, boundBy = bound(nbytes, 4 * b * h * d * _visiblePairs(seqQ, seqK, causal))
+
+        print("[K4] %-6s (b, h, seqQ, d) = %s, seqK %d, causal %-5s: out rel err %.3e (bound %.0e), lse rel err "
+              "%.3e (bound %.0e); kernel %.4f ms, plain %.4f ms, scaled_dot_product_attention %.4f ms, bound %.4f ms "
+              "(%s)" % (name, (b, h, seqQ, d), seqK, causal, errOut, FLASH_BOUND_OUT, errLse, FLASH_BOUND_LSE, ms,
+                        plainMs, libMs, boundMs, boundBy))
+
+        if not finite:
+            fail("K4 %s gave values that are not finite" % ((b, h, seqQ, seqK, d, causal), ))
+
+        if not (errOut <= FLASH_BOUND_OUT and errLse <= FLASH_BOUND_LSE):
+            fail("K4 %s disagrees with its plain version: out %.3e, lse %.3e" %
+                 ((b, h, seqQ, seqK, d, causal), errOut, errLse))
+
+        if main is None:
+            main = {"max_abs_err": absOut, "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs,
+                    "bound_by": boundBy, "library_ms": libMs}
+
+    torch.cuda.empty_cache()
+    return main
+
+
+def phaseTransformer(torch, card):
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
+
+    config = Slice.CONFIG
+    routes, tokens = Slice.build()
+
+    # the f32 reference: the same weights on the library route (TF32 off)
+    Config.gemmAlgo = "torch"
+    lib = routes["torch"]
+    lib.evalMode()
+    refLogits = lib(torch.from_numpy(tokens[:Slice.BATCH]).cuda()).float().clone()
+    lib.reset()
+
+    for net in routes.values():
+        net.calcMode(torch.bfloat16)
+
+    for algo in ("torch", "hopper"):
+        Slice.serve(routes, algo, tokens)
+
+    flash.launches = matmul.launches = winograd.launches = 0
+    out, secs = Slice.serve(routes, "hopper", tokens)
+    launches = {"flash": flash.launches, "matmul": matmul.launches, "winograd": winograd.launches}
+
+    print("[transformer] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), %d rows in %d "
+          "requests of %d: %.4f s, %.1f rows/s on %s" %
+          (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
+           len(tokens), Slice.REQUESTS, Slice.BATCH, secs, len(tokens) / secs, card))
+    print("[transformer] launches in that run: flash %d, matmul %d, winograd %d" %
+          (launches["flash"], launches["matmul"], launches["winograd"]))
+
+    # per request: one K4 launch per attention layer, one K1 launch per
+    # Linear (two MLP layers per block and the head's classifier)
+    expected = {"flash": config["nlayers"] * Slice.REQUESTS,
+                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.REQUESTS, "winograd": 0}
+    if launches != expected:
+        fail("expected launches %s, got %s" % (expected, launches))
+
+    if out.shape != (len(tokens), config["nclasses"]) or not np.isfinite(out).all():
+        fail("output of shape %s, finite: %s" % (out.shape, np.isfinite(out).all()))
+
+    libOut, _ = Slice.serve(routes, "torch", tokens)
+
+    runs = {"hopper": [], "torch": []}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo].append(Slice.serve(routes, algo, tokens)[1])
+    Config.gemmAlgo = "hopper"
+
+    for algo, label in (("hopper", "hand kernels (K4 flash, K1 GEMM)"),
+                        ("torch", "library route (composed attention, cuBLAS)")):
+        print("[transformer] %s, 5 runs in turns: %s s, median %.1f rows/s on %s" %
+              (label, " ".join("%.4f" % t for t in runs[algo]), len(tokens) / float(np.median(runs[algo])), card))
+
+    first = torch.from_numpy(out[:Slice.BATCH])
+    rel = _relL2(first, refLogits.cpu())
+    relLib = _relL2(first, torch.from_numpy(libOut[:Slice.BATCH]))
+
+    print("[transformer] logits of the first request vs the f32 library run: relative L2 %.3e (bound %.0e); vs the "
+          "bf16 library route %.3e; logits in [%.4f, %.4f]" % (rel, SLICE_BOUND, relLib, out.min(), out.max()))
+
+    if not rel <= SLICE_BOUND:
+        fail("logits relative L2 error %.3e against the f32 run" % rel)
+
+    return launches
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke test needs an NVIDIA GPU")
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
     from puzzlelib_tpu_torch.backend.device import ensureInit
-    from puzzlelib_tpu_torch.ops.hopper import build, matmul, winograd
+    from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, winograd
 
     ensureInit()
 
     card = phaseDevice(torch)
     phaseBuild(build)
-    gemm = phaseGemm(torch, matmul)
+    gemm, gemmTransformer = phaseGemm(torch, matmul)
     wino, dataGrad, filterGrad = phaseWinograd(torch, winograd)
+    attention = phaseFlash(torch, flash)
     serving = phaseSlice(torch, card)
     torch.cuda.empty_cache()
     training = phaseTrain(torch, card)
+    torch.cuda.empty_cache()
+    transformer = phaseTransformer(torch, card)
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
         dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
              serving_launches=serving["matmul"], **gemm),
+        dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"], **gemmTransformer),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -597,11 +822,16 @@ def main():
              launches=training["winogradDataGrad"], **dataGrad),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"], **filterGrad),
+        dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
+             replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"], **attention),
     ]
-    print("[kernels] launches: the training run's (4 steps of 32), serving_launches the serving run's (4 requests "
-          "of 32); ms and plain_ms: the time one batch of 32 spends in the kernel (K1: fc6+fc7+fc8 forward in "
-          "bf16; K2 and K3: the 10 Winograd convs, wrapper included) and in its plain version; max_abs_err: "
-          "largest |kernel - plain| at those shapes")
+    print("[kernels] launches: K1-K3 the VGG training run's (4 steps of 32), serving_launches the VGG serving run's "
+          "(4 requests of 32), K1 at the transformer's shapes and K4 the transformer serving run's (4 requests of "
+          "64); ms, plain_ms, library_ms and bound_ms: the time one batch spends in the kernel, in its plain "
+          "version, in the library call and at the card's bound (K1: fc6+fc7+fc8 forward in bf16; K1 at the "
+          "transformer's shapes: the 5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a "
+          "batch of 32, wrapper included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not "
+          "causal); max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

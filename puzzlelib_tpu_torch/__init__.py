@@ -10,7 +10,12 @@ Ported so far: VGG-16's serving path (``models.nets.loadVGG`` -> ``calcMode``
 -> ``handlers.Calculator.calcFromHost``) and its training path (``net.pop()``
 -> ``calcMode`` -> ``optimizers.MomentumSGD.setupOn(net,
 useGlobalState=True)`` -> ``handlers.Trainer(net, cost.CrossEntropy(), opt)
-.trainFromHost``).
+.trainFromHost``), and the transformer classifier's serving path
+(``models.nets.buildTransformerClassifier(..., attnAlgo="flash")`` ->
+``calcMode`` -> ``handlers.Calculator.calcFromHost``).
+
+The port runs on the CUDA card; a run on the CPU asks for it with
+``Config.device = "cpu"``.
 """
 
 from puzzlelib_tpu_torch import config as Config

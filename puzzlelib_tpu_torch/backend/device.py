@@ -2,6 +2,9 @@
 
 PyTorch runs eagerly on whatever device a tensor lives on, so the backend
 needs no bootstrap beyond choosing that device and pinning f32 precision.
+The port runs on the CUDA card unless the caller asks for the CPU with
+``Config.device = "cpu"``: with no card and no such request, ``getDevice``
+raises instead of running on the CPU unnoticed.
 """
 
 import torch
@@ -21,15 +24,23 @@ def ensureInit():
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = relaxed
 
 
+class DeviceError(RuntimeError):
+    pass
+
+
 def getDevice():
-    """``Config.device``, or the first CUDA card when it is None and a card
-    is present, else the CPU."""
+    """``Config.device``, or the first CUDA card when it is None; raises
+    ``DeviceError`` when it is None and there is no card."""
     ensureInit()
 
     if Config.device is not None:
         return torch.device(Config.device)
 
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise DeviceError("no CUDA device: the port runs on an NVIDIA GPU; set Config.device = \"cpu\" "
+                          "(puzzlelib_tpu_torch.config) to run on the CPU")
+
+    return torch.device("cuda")
 
 
 def getDeviceName(device=None):

@@ -4,8 +4,8 @@ Counterpart of ``puzzlelib_tpu/config.py``: a plain module of globals that the
 backend reads at each call, so setting one takes effect at the next op.
 
 - ``device``: where modules put their parameters and handlers their batches.
-  None means the first CUDA card when there is one, else the CPU
-  (``backend.device.getDevice``).
+  None means the first CUDA card, and raises when there is none
+  (``backend.device.getDevice``): a run on the CPU sets "cpu" explicitly.
 - ``matmulPrecision``: "highest" keeps f32 products and convs in full f32,
   as the reference's default does on the TPU: while it holds, the backend
   turns off TF32 in cuBLAS and cuDNN (``torch.backends.cuda.matmul.allow_tf32``
@@ -15,6 +15,14 @@ backend reads at each call, so setting one takes effect at the next op.
   convs that a hand-written Hopper kernel takes to that kernel, on CUDA
   tensors; "torch" sends everything to the library call.  There is no
   measured "auto" choice yet.
+- ``attentionAlgo``: the attention core of ``MultiHeadAttention`` modules
+  built without an ``attnAlgo`` (the reference's names, which scripts pass
+  as ``attnAlgo=``).  "flash" is the hand-written flash kernel K4 on CUDA
+  tensors and its plain PyTorch version on CPU tensors; "xla" names the
+  library route here: the composed attention in PyTorch, the counterpart of
+  the reference's XLA route; "auto" takes "flash" for bf16 on the card at
+  seq >= 1024, else "xla" (the reference's structural prior; there is no
+  measured table yet).
 - ``globalEvalMode``: modules start in eval mode and variables get no
   gradient buffers.
 - ``verifyData``: costs check that the labels lie in range (one readback
@@ -40,6 +48,9 @@ matmulPrecision = "highest"
 ALGOS = ("hopper", "torch")
 gemmAlgo = "hopper"
 convAlgo = "hopper"
+
+ATTENTION_ALGOS = ("auto", "xla", "flash")
+attentionAlgo = "auto"
 
 globalEvalMode = False
 disableDtypeShapeChecks = False

@@ -5,8 +5,8 @@ order of ``append``; ``backward`` walks it in reverse.
 The reference's inplace-compatibility check is kept: an inplace module may
 not consume the output of a producer whose backward re-reads its own output
 (``gradUsesOutData``), looking through modules that only move data.
-Slicing, ``extend``, ``insert`` and the lookups by type come with the slices
-that need them."""
+Slicing, ``insert`` and the lookups by type come with the slices that need
+them."""
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.modules.module import ModuleError
@@ -57,6 +57,15 @@ class Sequential(Container):
             self.checkModulesCompatibility(self.graph[-1], mod)
 
         return super().append(mod, acquire)
+
+    def extend(self, container, acquire=True):
+        """Append every module of ``container`` (a Sequential or a list), in
+        order; a name already taken is replaced by the module's index, as
+        ``append`` does."""
+        mods = container.graph if isinstance(container, Sequential) else container
+
+        for mod in mods:
+            self.append(mod, acquire)
 
     def pop(self):
         return self.removeModule(self.graph[-1])

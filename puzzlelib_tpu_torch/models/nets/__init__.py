@@ -1,3 +1,4 @@
 """Model zoo builders ported so far."""
 
+from puzzlelib_tpu_torch.models.nets.transformer import buildTransformerClassifier
 from puzzlelib_tpu_torch.models.nets.vgg import loadVGG

@@ -1,0 +1,92 @@
+"""Word embedding (counterpart of ``puzzlelib_tpu/modules/embedder.py``).
+
+Gathers rows of W by int32 token index; a negative index is padding and
+gives a zero row.  The vocabulary is kept as a host array of words
+(``vocab``), as the reference keeps it.  The backward (a scatter-add into W's
+gradient) comes with the training slice, the HDF5 loading hooks with the
+checkpoints.
+"""
+
+import numpy as np
+import torch
+
+from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.variable import Variable
+from puzzlelib_tpu_torch.modules.module import ModuleError, Module, backwardNotPorted
+from puzzlelib_tpu_torch.ops.embed import embed
+
+
+def _vocabArray(vocabulary):
+    """Normalize the ctor vocabulary argument to (size, array of words)."""
+    if isinstance(vocabulary, int):
+        return vocabulary, np.empty((0, ), dtype=object)
+
+    if isinstance(vocabulary, dict):
+        words = np.empty((len(vocabulary), ), dtype=object)
+        for word, idx in vocabulary.items():
+            words[int(idx)] = word
+
+        return len(vocabulary), words
+
+    raise ModuleError("Unrecognized vocabulary parameter type")
+
+
+class Embedder(Module):
+    def __init__(self, vocabulary, sentlength, embsize, onVocabulary=None, initscheme="uniform", wscale=1.0,
+                 learnable=True, name=None):
+        super().__init__(name)
+
+        self.embsize, self.sentlength = embsize, sentlength
+        self.learnable = learnable
+
+        vocabsize, self.vocab = _vocabArray(vocabulary)
+
+        W = self.createTensorWithScheme(initscheme, (vocabsize, embsize), wscale, (embsize, vocabsize))
+        if onVocabulary is not None:
+            W = np.empty((vocabsize, embsize), dtype=np.float32) if W is None else W
+            onVocabulary(W)
+
+        self.W = None
+        self.setVar("W", Variable(self.paramTensor(W, (vocabsize, embsize))))
+
+    def getVocabulary(self):
+        return {word: index for index, word in enumerate(self.vocab)}
+
+    def verifyData(self, data):
+        lo = int(data.min())
+        if lo < -1:
+            raise ModuleError("Embedder data verification failed, found index %s (< -1)" % lo)
+
+        hi = int(data.max())
+        if hi >= self.W.shape[0]:
+            raise ModuleError("Embedder data verification failed, found index %s (vocabulary size is %s)" %
+                              (hi, self.W.shape[0]))
+
+    def updateData(self, data):
+        if Config.verifyData:
+            self.verifyData(data)
+
+        self.data = embed(data, self.W)
+
+    def updateGrad(self, grad):
+        raise backwardNotPorted(self)
+
+    def accGradParams(self, grad, scale=1.0, momentum=0.0):
+        raise backwardNotPorted(self)
+
+    def dataShapeFrom(self, shape):
+        return shape[0], shape[1], self.embsize
+
+    def checkDataShape(self, shape):
+        if len(shape) != 2:
+            raise ModuleError("Data must be 2d matrix")
+
+        if shape[1] != self.sentlength:
+            raise ModuleError("Expected %d data sentence length, %d was given" % (self.sentlength, shape[1]))
+
+    def checkDataType(self, dtype):
+        if dtype != torch.int32:
+            raise ModuleError("Expected int32-tensor (got dtype %s)" % dtype)
+
+    def calcMode(self, T):
+        self.castVarsTo(self.requireSupportedDtype(T))

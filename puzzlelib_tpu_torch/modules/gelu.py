@@ -1,0 +1,29 @@
+"""Gelu, the tanh approximation (counterpart of
+``puzzlelib_tpu/modules/gelu.py``).  The backward comes with the training
+slice."""
+
+from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.ops import elementwise as ew
+from puzzlelib_tpu_torch.modules.module import Module, backwardNotPorted
+
+
+class Gelu(Module):
+    def __init__(self, inplace=False, name=None):
+        super().__init__(name)
+        self.inplace = inplace
+
+        if inplace and Config.showWarnings:
+            Config.getLogger().info("Warning: %s is using inplace flag", self)
+
+    def updateData(self, data):
+        out = ew.gelu(data)
+        self.data = data.copy_(out) if self.inplace else out
+
+    def updateGrad(self, grad):
+        raise backwardNotPorted(self)
+
+    def dataShapeFrom(self, shape):
+        return shape
+
+    def calcMode(self, T):
+        self.supportedDtypesCalcMode(T)

@@ -62,6 +62,13 @@ class FactorType(str, Enum):
     avg = "avg"
 
 
+def backwardNotPorted(module):
+    """The error a module raises from a backward that comes with the
+    transformer training slice of the port."""
+    return NotImplementedError("%s: the backward is not ported yet; it comes with the transformer training slice"
+                               % module)
+
+
 def _mapNested(fn, data):
     """Apply ``fn`` to every leaf of a (possibly nested) list/tuple of tensors."""
     if isinstance(data, (tuple, list)):
@@ -107,6 +114,12 @@ class Module(torch.nn.Module):
             vartable.setdefault(var, []).append("%s%s" % (name, paramName))
 
         return vartable
+
+    def node(self, *nodes):
+        """A ``containers.Node`` of this module, wired after ``nodes``, for a
+        ``Graph``."""
+        from puzzlelib_tpu_torch.containers.node import Node
+        return Node(self, parents=list(nodes) if nodes else None)
 
     # -- forward protocol ----------------------------------------------------------
 

@@ -1,5 +1,6 @@
 """Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
-relu and its derivative, the vector updates, and the momentum-SGD step.
+relu and its derivative, gelu, the affine ``linear``, the vector updates, and
+the momentum-SGD step.
 
 The reference's ops return new arrays; the update ops here write in place,
 so that they reach parameters and gradients that are views of an optimizer's
@@ -23,6 +24,20 @@ def relu_(x):
 def reluDer(grad, out):
     """The input gradient of relu from its output: grad where out > 0."""
     return grad * (out > 0).to(grad.dtype)
+
+
+def gelu(x):
+    """The tanh approximation with the reference's constants, computed in f32
+    and rounded once to x's type."""
+    f, c = 0.7978845608028654, 0.044715   # sqrt(2 / pi)
+    x32 = x.float()
+    return (0.5 * x32 * (1.0 + torch.tanh(f * (x32 + c * x32 * x32 * x32)))).to(x.dtype)
+
+
+def linear(x, a, b):
+    """a * x + b, with a and b rounded to x's type first, as the reference
+    rounds them."""
+    return x * _scalar(a, x.dtype) + _scalar(b, x.dtype)
 
 
 def _scalar(value, dtype):

@@ -8,7 +8,9 @@ which CPU tensors take, and a launch counter (``launches``):
 - ``winograd`` K2, the fused Winograd F(2x2, 3x3) forward conv, which also
   runs the stride-1 bwd-data (``dataGrad``), and K3, the transform-domain
   bwd-filter (``filterGrad``, plain version ``filterGradPlain``, counter
-  ``filterGradLaunches``) (``ops/pallas/winograd.py``).
+  ``filterGradLaunches``) (``ops/pallas/winograd.py``);
+- ``flash``    K4, the flash-attention forward, which returns each row's
+  logsumexp beside the output (``ops/pallas/flash.py``).
 
 ``build`` compiles the sources with ``nvcc`` at the first CUDA call.
 """

@@ -31,6 +31,15 @@ def _cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _onCpu(monkeypatch):
+    """The port runs on the card unless asked for the CPU: these tests ask
+    (the card-only cases make their tensors on "cuda" themselves)."""
+    from puzzlelib_tpu_torch import config as Config
+
+    monkeypatch.setattr(Config, "device", "cpu")
+
+
 _DTYPES = {"float32": (torch.float32, 1e-5), "bfloat16": (torch.bfloat16, 1e-2)}
 
 

@@ -51,9 +51,10 @@ def _narrowVGG(M, C, initscheme, widths=(8, 16)):
     return net
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def onCpu(monkeypatch):
-    """Pin the port to the CPU, also on a machine with a card."""
+    """Pin the port to the CPU, also on a machine with a card, for every test
+    of this file (the card-only ones set "cuda" themselves)."""
     monkeypatch.setattr(TConfig, "device", "cpu")
 
 
@@ -138,7 +139,7 @@ import torch
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.containers import Sequential
 from puzzlelib_tpu_torch.handlers import Calculator
-from puzzlelib_tpu_torch.models.nets import loadVGG
+from puzzlelib_tpu_torch.models.nets import buildTransformerClassifier, loadVGG
 from puzzlelib_tpu_torch import modules as T
 
 Config.device = "cpu"
@@ -154,12 +155,19 @@ net.calcMode(torch.bfloat16)
 out = Calculator(net, batchsize=2).calcFromHost(np.random.randn(3, 3, 8, 8).astype(np.float32))
 assert out.shape == (3, 10)
 loadVGG(None, "11", withLinear=False)
+tnet = buildTransformerClassifier(50, 16, 32, nheads=2, nlayers=1, nclasses=3, attnAlgo="flash")
+tnet.calcMode(torch.bfloat16)
+logits = Calculator(tnet, batchsize=4).calcFromHost(np.random.randint(-1, 50, size=(6, 16)).astype(np.int32))
+assert logits.shape == (6, 3) and np.isfinite(logits).all()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
 
 
 def testPortRunsWithoutJax():
+    """A process that imports the port, serves a narrow VGG-shaped net and a
+    narrow transformer (attnAlgo="flash") on the CPU imports no JAX and
+    nothing of the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 

@@ -27,9 +27,10 @@ def _jax():
     return modules, containers, handlers, cost, optimizers
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def onCpu(monkeypatch):
-    """Pin the port to the CPU, also on a machine with a card."""
+    """Pin the port to the CPU, also on a machine with a card, for every test
+    of this file (the card-only ones set "cuda" themselves)."""
     monkeypatch.setattr(TConfig, "device", "cpu")
 
 

@@ -27,6 +27,15 @@ def _cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _onCpu(monkeypatch):
+    """The port runs on the card unless asked for the CPU: these tests ask
+    (the card-only cases make their tensors on "cuda" themselves)."""
+    from puzzlelib_tpu_torch import config as Config
+
+    monkeypatch.setattr(Config, "device", "cpu")
+
+
 def _inputs(seed, n, c, h, w, co, p):
     """x (N, C, H, W) and the gradient dy of its pad-p 3x3 conv."""
     rng = np.random.RandomState(seed)
