@@ -45,7 +45,20 @@ it fails:
    seeded token rows through ``Calculator(net, batchsize=64).calcFromHost``.
    The counters are reset just before and read just after that run; the
    logits are checked for shape and finiteness, and the first request's
-   against the same f32 weights on the library route.
+   against the same f32 weights on the library route;
+9. K5a and K5b (the flash-attention backward: dq; dk and dv) against their
+   plain version ``backwardPlain`` in bf16 at K4's shapes and at seqQ 80 >
+   seqK 48 causal (rows that see no key), beside the backward of
+   ``scaled_dot_product_attention``;
+10. the transformer training slice of ``tools/transformerslice.py``: the
+   same classifier in bf16 trained by ``Trainer(batchsize=64)`` with
+   ``Adam(alpha=1e-3)`` in global state and ``CrossEntropy(maxlabels=2)``
+   over 256 seeded token rows and labels (4 steps).  The counters are reset
+   just before and read just after the counted run; every step's loss must
+   be finite, every variable must have changed through the optimizer's flat
+   buffers, the first step's gradients of five variables must agree with
+   the library route's backward (composed attention, cuBLAS) on the same
+   forward, and the 4 losses with the library route's.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -157,6 +170,21 @@ FLASH_SHAPES = [
 # scores up to f32 summation order and exp2 against exp, some 1e-6: 1e-4.
 FLASH_BOUND_OUT = 1e-2
 FLASH_BOUND_LSE = 1e-4
+
+# K5 (the backward) at K4's shapes, and seqQ > seqK causal, whose first 32
+# rows see no key (p = 1 for every key, as in the TPU kernels)
+FLASH_BWD_SHAPES = FLASH_SHAPES + [("blind", (64, 4, 80, 32), 48, True)]
+
+# K5a / K5b vs backwardPlain, relative to max |plain| of each of dq, dk, dv:
+# both round P and dS to bf16 for the products that take them and sum in
+# f32; they differ in the order of the sums, in exp2 against exp where a
+# rounding of P or dS flips, and by one final bf16 rounding, about one bf16
+# ulp: 1e-2
+FLASH_BWD_BOUND = 1e-2
+
+# the transformer training slice's first-step gradients compared with the
+# library route's backward on one forward (relative L2, the bf16 tier)
+TRANSFORMER_GRADS = ("embed.W", "attn0.1.Wq", "attn0.1.Wo", "attn0.0.scale", "head.3.W")
 
 # training: 4 steps of 32
 STEPS = 4
@@ -717,6 +745,201 @@ def phaseFlash(torch, flash):
     return main
 
 
+def phaseFlashBackward(torch, flash):
+    """K5a and K5b against ``backwardPlain`` at FLASH_BWD_SHAPES in bf16,
+    beside the backward of ``scaled_dot_product_attention`` (the autograd
+    backward of its output, forward excluded; timed as a yardstick, never on
+    the path).  Returns the JSON entries' numbers (K5a, K5b) at the slice's
+    shape, not causal, the one the transformer slice runs."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    entries = None
+
+    for name, (b, h, seqQ, d), seqK, causal in FLASH_BWD_SHAPES:
+        q, k, v, do = [torch.randn((b, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
+                       for seq in (seqQ, seqK, seqK, seqQ)]
+        out, lse = flash.flash(q, k, v, causal)
+
+        got = flash.backward(q, k, v, out, lse, do, causal)
+        want = flash.backwardPlain(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+
+        errs = [relErr(torch, g, w) for g, w in zip(got, want)]
+        absErrs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del got, want
+
+        delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+        msDq = deviceMs(lambda: flash.dq(q, k, v, do, lse, delta, causal), 10)
+        msDkv = deviceMs(lambda: flash.dkv(q, k, v, do, lse, delta, causal), 10)
+        msAll = deviceMs(lambda: flash.backward(q, k, v, out, lse, do, causal), 10)
+        plainMs = deviceMs(lambda: flash.backwardPlain(q, k, v, out, lse, do, causal), 2)
+
+        # the library's causal flag aligns top-left; bottom-right is a mask
+        mask = None
+        if causal and seqQ != seqK:
+            mask = torch.ones((seqQ, seqK), dtype=torch.bool, device="cuda").tril(diagonal=seqK - seqQ)
+
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        libOut = F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=causal and mask is None)
+        libMs = deviceMs(lambda: torch.autograd.grad(libOut, leaves, do, retain_graph=True), 10)
+        del libOut, leaves
+
+        # bytes: q, dO, k and v read in bf16, lse and delta in f32, and the
+        # kernel's outputs written; operations: 3 products in K5a, 4 in K5b,
+        # 2 * d per visible (query, key) pair each; 10 for a fused backward
+        pairs = b * h * d * _visiblePairs(seqQ, seqK, causal)
+        inputs = (2 * b * h * seqQ * d + 2 * b * h * seqK * d) * 2 + 2 * b * h * seqQ * 4
+        boundDq, byDq = bound(inputs + b * h * seqQ * d * 2, 6 * pairs)
+        boundDkv, byDkv = bound(inputs + 2 * b * h * seqK * d * 2, 8 * pairs)
+        boundFused, _ = bound(inputs + (b * h * seqQ * d + 2 * b * h * seqK * d) * 2, 10 * pairs)
+
+        print("[K5] %-6s (b, h, seqQ, d) = %s, seqK %d, causal %-5s: rel err dq %.3e, dk %.3e, dv %.3e (bound %.0e); "
+              "K5a %.4f ms (bound %.4f, %s), K5b %.4f ms (bound %.4f, %s), backward with delta %.4f ms; plain %.4f "
+              "ms; scaled_dot_product_attention backward %.4f ms; a fused backward's bound %.4f ms" %
+              (name, (b, h, seqQ, d), seqK, causal, *errs, FLASH_BWD_BOUND, msDq, boundDq, byDq, msDkv, boundDkv,
+               byDkv, msAll, plainMs, libMs, boundFused))
+
+        if not finite:
+            fail("K5 %s gave values that are not finite" % ((b, h, seqQ, seqK, d, causal), ))
+
+        if not all(err <= FLASH_BWD_BOUND for err in errs):
+            fail("K5 %s disagrees with its plain version: dq %.3e, dk %.3e, dv %.3e" %
+                 (((b, h, seqQ, seqK, d, causal), ) + tuple(errs)))
+
+        if entries is None:
+            entries = ({"max_abs_err": absErrs[0], "ms": msDq, "plain_ms": plainMs, "bound_ms": boundDq,
+                        "bound_by": byDq, "library_ms": libMs},
+                       {"max_abs_err": max(absErrs[1:]), "ms": msDkv, "plain_ms": plainMs, "bound_ms": boundDkv,
+                        "bound_by": byDkv, "library_ms": libMs})
+
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _setAttention(net, algo):
+    from puzzlelib_tpu_torch.modules import MultiHeadAttention
+
+    for module in net.modules():
+        if isinstance(module, MultiHeadAttention):
+            module.attnAlgo = algo
+
+
+def _namedGrads(net, names):
+    variables = {name: var for var, aliases in net.getVarTable().items() for name in aliases}
+    return {name: variables[name].grad.float().clone() for name in names}
+
+
+def phaseTransformerTrain(torch, card):
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend import gpuarray
+    from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
+
+    config = Slice.CONFIG
+    routes, tokens, labels = Slice.buildTraining()
+    hand = routes["hopper"]
+
+    # warm-up of both routes: allocator blocks of these sizes, cuBLAS handles
+    for algo in ("torch", "hopper"):
+        Slice.train(routes, algo, tokens, labels)
+
+    # the first step's gradients: one forward of the first batch on the hand
+    # kernels, then its backward on the hand kernels (K5a / K5b) and on the
+    # library route (the composed attention's VJP, cuBLAS)
+    hand.restore()
+    Config.gemmAlgo = "hopper"
+    net = hand.net
+    net.trainMode()
+    grad = hand.trainer.cost(net(gpuarray.to_gpu(tokens[:Slice.BATCH])), gpuarray.to_gpu(labels[:Slice.BATCH]),
+                             queryError=False)
+
+    grads = {}
+    for algo, attention in (("hopper", "flash"), ("torch", "xla")):
+        Config.gemmAlgo = algo
+        _setAttention(net, attention)
+        hand.optimizer.zeroGradParams()
+        net.backward(grad, updGrad=False)
+        grads[algo] = _namedGrads(net, TRANSFORMER_GRADS)
+
+    _setAttention(net, "flash")
+    Config.gemmAlgo = "hopper"
+    net.reset()
+
+    for name in TRANSFORMER_GRADS:
+        rel = _relL2(grads["hopper"][name], grads["torch"][name])
+        print("[transformer-train] first-step gradient of %-13s: hand kernels vs library route's backward, same "
+              "forward: relative L2 %.3e (bound %.0e)" % (name, rel, TRAIN_BOUND))
+
+        if not rel <= TRAIN_BOUND:
+            fail("first-step gradient of %s on the hand kernels differs from the library's by %.3e" % (name, rel))
+
+    # the counted run
+    variables = list(net.getVarTable())
+    snapshot = [var.data.clone() for var in variables]
+
+    losses = []
+    flash.launches = flash.launchesDq = flash.launchesDkv = matmul.launches = winograd.launches = 0
+    secs = Slice.train(routes, "hopper", tokens, labels, losses)
+    launches = {"flash": flash.launches, "flashDq": flash.launchesDq, "flashDkv": flash.launchesDkv,
+                "matmul": matmul.launches, "winograd": winograd.launches}
+
+    print("[transformer-train] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), Adam, %d rows "
+          "in %d steps of %d: %.4f s, %.1f rows/s on %s" %
+          (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
+           len(tokens), Slice.STEPS, Slice.BATCH, secs, len(tokens) / secs, card))
+    print("[transformer-train] launches in that run: flash forward %d, flash dq %d, flash dk/dv %d, matmul %d, "
+          "winograd %d" % (launches["flash"], launches["flashDq"], launches["flashDkv"], launches["matmul"],
+                           launches["winograd"]))
+
+    # per step: one K4, one K5a and one K5b launch per attention layer (the
+    # backward reuses the forward's lse), one K1 launch per Linear forward
+    perLayer = config["nlayers"] * Slice.STEPS
+    expected = {"flash": perLayer, "flashDq": perLayer, "flashDkv": perLayer,
+                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.STEPS, "winograd": 0}
+    if launches != expected:
+        fail("expected launches %s, got %s" % (expected, launches))
+
+    print("[transformer-train] step losses: %s" % " ".join("%.6f" % loss for loss in losses))
+    if len(losses) != Slice.STEPS or not np.isfinite(losses).all():
+        fail("step losses %s" % losses)
+
+    packs = {dtype: (pack.ary.untyped_storage().data_ptr(), hand.optimizer.shGrads[dtype].ary.untyped_storage()
+                     .data_ptr()) for dtype, pack in hand.optimizer.shParams.items()}
+    for var, old in zip(variables, snapshot):
+        if (var.data.untyped_storage().data_ptr(), var.grad.untyped_storage().data_ptr()) != packs[var.data.dtype]:
+            fail("variable %s is no view of the optimizer's flat buffers" % var.name)
+
+        if torch.equal(var.data, old):
+            fail("variable %s did not change in training" % var.name)
+
+    print("[transformer-train] all %d variables are views of the flat buffers (%s) and changed" %
+          (len(variables), ", ".join(str(dtype) for dtype in packs)))
+    del snapshot
+
+    libLosses = []
+    Slice.train(routes, "torch", tokens, labels, libLosses)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, libLosses))
+    print("[transformer-train] library route step losses: %s; largest relative difference %.3e (bound %.0e)" %
+          (" ".join("%.6f" % loss for loss in libLosses), rel, TRAIN_BOUND))
+
+    if not rel <= TRAIN_BOUND:
+        fail("step losses differ from the library route's by %.3e" % rel)
+
+    runs = {"hopper": [], "torch": []}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo].append(Slice.train(routes, algo, tokens, labels))
+    Config.gemmAlgo = "hopper"
+
+    for algo, label in (("hopper", "hand kernels (K4, K5a, K5b flash, K1 GEMM)"),
+                        ("torch", "library route (composed attention, cuBLAS)")):
+        print("[transformer-train] %s, 5 runs in turns: %s s, median %.1f rows/s on %s" %
+              (label, " ".join("%.4f" % t for t in runs[algo]), len(tokens) / float(np.median(runs[algo])), card))
+
+    return launches
+
+
 def phaseTransformer(torch, card):
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
@@ -805,6 +1028,9 @@ def main():
     training = phaseTrain(torch, card)
     torch.cuda.empty_cache()
     transformer = phaseTransformer(torch, card)
+    attentionDq, attentionDkv = phaseFlashBackward(torch, flash)
+    torch.cuda.empty_cache()
+    transformerTrain = phaseTransformerTrain(torch, card)
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -823,7 +1049,13 @@ def main():
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"], **filterGrad),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
-             replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"], **attention),
+             replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
+             training_launches=transformerTrain["flash"], **attention),
+        dict(name="K5a flash-attention dQ", route="cuda", source=source % "flash_bwd",
+             replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"], **attentionDq),
+        dict(name="K5b flash-attention dK/dV", route="cuda", source=source % "flash_bwd",
+             replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
+             **attentionDkv),
     ]
     print("[kernels] launches: K1-K3 the VGG training run's (4 steps of 32), serving_launches the VGG serving run's "
           "(4 requests of 32), K1 at the transformer's shapes and K4 the transformer serving run's (4 requests of "
@@ -831,7 +1063,10 @@ def main():
           "version, in the library call and at the card's bound (K1: fc6+fc7+fc8 forward in bf16; K1 at the "
           "transformer's shapes: the 5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a "
           "batch of 32, wrapper included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not "
-          "causal); max_abs_err: largest |kernel - plain| at those shapes")
+          "causal; K5a and K5b: the backward of that layer, each kernel alone, plain_ms and library_ms the whole "
+          "backward (dq, dk, dv) of backwardPlain and of scaled_dot_product_attention); K4's training_launches and "
+          "K5's launches the transformer training run's (4 steps of 64); max_abs_err: largest |kernel - plain| at "
+          "those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

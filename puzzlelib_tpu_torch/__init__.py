@@ -12,7 +12,11 @@ Ported so far: VGG-16's serving path (``models.nets.loadVGG`` -> ``calcMode``
 useGlobalState=True)`` -> ``handlers.Trainer(net, cost.CrossEntropy(), opt)
 .trainFromHost``), and the transformer classifier's serving path
 (``models.nets.buildTransformerClassifier(..., attnAlgo="flash")`` ->
-``calcMode`` -> ``handlers.Calculator.calcFromHost``).
+``calcMode`` -> ``handlers.Calculator.calcFromHost``) and its training path
+(``calcMode`` -> ``optimizers.Adam(alpha=1e-3).setupOn(net,
+useGlobalState=True)`` -> ``handlers.Trainer(net,
+cost.CrossEntropy(maxlabels=2), opt, batchsize=64).trainFromHost``, through
+the flash-attention backward).
 
 The port runs on the CUDA card; a run on the CPU asks for it with
 ``Config.device = "cpu"``.

@@ -17,10 +17,11 @@ backend reads at each call, so setting one takes effect at the next op.
   measured "auto" choice yet.
 - ``attentionAlgo``: the attention core of ``MultiHeadAttention`` modules
   built without an ``attnAlgo`` (the reference's names, which scripts pass
-  as ``attnAlgo=``).  "flash" is the hand-written flash kernel K4 on CUDA
-  tensors and its plain PyTorch version on CPU tensors; "xla" names the
-  library route here: the composed attention in PyTorch, the counterpart of
-  the reference's XLA route; "auto" takes "flash" for bf16 on the card at
+  as ``attnAlgo=``).  "flash" is the hand-written flash kernels, K4 forward
+  and K5a / K5b backward, on CUDA tensors and their plain PyTorch versions
+  on CPU tensors; "xla" names the library route here: the composed
+  attention in PyTorch and its VJP, the counterpart of the reference's XLA
+  route; "auto" takes "flash" for bf16 on the card at
   seq >= 1024, else "xla" (the reference's structural prior; there is no
   measured table yet).
 - ``globalEvalMode``: modules start in eval mode and variables get no

@@ -5,14 +5,22 @@ The variables are the reference's: ``Wq Wk Wv Wo`` (emb, emb), drawn in that
 order by the numpy sampler, and zero biases ``bq bk bv bo`` with
 ``useBias``.  ``attnAlgo`` (default ``Config.attentionAlgo``) picks the core:
 "flash" is kernel K4 on CUDA tensors, "xla" the composed attention in
-PyTorch, "auto" is resolved per input (``ops.attention.resolveAlgo``).  The
-backward comes with the training slice.
+PyTorch, "auto" is resolved per input (``ops.attention.resolveAlgo``).
+
+In training the forward keeps what the backward needs (``mhaForward``'s
+saved state: the projected heads, the core's output and lse), and
+``updateGrad`` and ``accGradParams`` share one backward per (forward,
+gradient, core) triple, as the reference's ``_vjp`` cache shares one per
+(forward, gradient): under "flash" that is one launch each of K5a and K5b
+and no second launch of K4.  The core of the backward is resolved when it
+runs, so a net whose ``attnAlgo`` is changed between the forward and the
+backward runs the new core's backward on the same saved forward.
 """
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.ops import attention as attnops
 from puzzlelib_tpu_torch.variable import Variable
-from puzzlelib_tpu_torch.modules.module import ModuleError, Module, backwardNotPorted
+from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 
 
 class MultiHeadAttention(Module):
@@ -28,6 +36,7 @@ class MultiHeadAttention(Module):
         self.causal = causal
         self.useBias = useBias
         self.attnAlgo = attnAlgo if attnAlgo is not None else Config.attentionAlgo
+        self._saved, self._bwd = None, None
 
         shape = (embsize, embsize)
         for wname in ("Wq", "Wk", "Wv", "Wo"):
@@ -41,18 +50,45 @@ class MultiHeadAttention(Module):
     def _algo(self, data):
         return attnops.resolveAlgo(self.attnAlgo, data.shape[1], data.dtype, data.device)
 
-    def updateData(self, data):
+    def _weights(self):
         ws = [self.vars[n].data for n in ("Wq", "Wk", "Wv", "Wo")]
         bs = [self.vars[n].data for n in ("bq", "bk", "bv", "bo")] if self.useBias else [None] * 4
+        return ws, bs
 
-        self.data = attnops.mhaForward(data, *ws, *bs, nheads=self.nheads, causal=self.causal,
-                                       algo=self._algo(data))
+    def updateData(self, data):
+        ws, bs = self._weights()
+        self.data, self._saved = attnops.mhaForward(data, *ws, *bs, nheads=self.nheads, causal=self.causal,
+                                                    algo=self._algo(data), save=True)
+        if not self.training:
+            self._saved = None   # a serving net keeps nothing for a backward
+
+        # any cached backward belongs to the previous forward
+        self._bwd = None
+
+    def _backward(self, grad):
+        """The cached ``mhaBackward`` of the last forward for ``grad`` (held
+        strongly, so its identity cannot be recycled) under the current
+        core; a new gradient or core recomputes."""
+        algo = self._algo(self.inData)
+        if self._bwd is None or self._bwd[0] is not grad or self._bwd[1] != algo:
+            ws, bs = self._weights()
+            grads = attnops.mhaBackward(self.inData, *ws, *bs, grad, nheads=self.nheads, causal=self.causal,
+                                        algo=algo, saved=self._saved)
+            self._bwd = (grad, algo, grads)
+
+        return self._bwd[2]
 
     def updateGrad(self, grad):
-        raise backwardNotPorted(self)
+        self.grad = self._backward(grad)[0]
 
     def accGradParams(self, grad, scale=1.0, momentum=0.0):
-        raise backwardNotPorted(self)
+        names = ("Wq", "Wk", "Wv", "Wo") + (("bq", "bk", "bv", "bo") if self.useBias else ())
+        for name, g in zip(names, self._backward(grad)[1:]):
+            self.foldParamGrad(name, g, scale, momentum)
+
+    def reset(self):
+        super().reset()
+        self._saved, self._bwd = None, None
 
     def checkDataShape(self, shape):
         if len(shape) != 3:
@@ -60,7 +96,13 @@ class MultiHeadAttention(Module):
         if shape[2] != self.embsize:
             raise ModuleError("Expected embedding size %d, got %d" % (self.embsize, shape[2]))
 
+    def checkGradShape(self, shape):
+        self.checkDataShape(shape)
+
     def dataShapeFrom(self, shape):
+        return shape
+
+    def gradShapeFrom(self, shape):
         return shape
 
     def calcMode(self, T):

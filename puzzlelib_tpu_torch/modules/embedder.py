@@ -2,9 +2,9 @@
 
 Gathers rows of W by int32 token index; a negative index is padding and
 gives a zero row.  The vocabulary is kept as a host array of words
-(``vocab``), as the reference keeps it.  The backward (a scatter-add into W's
-gradient) comes with the training slice, the HDF5 loading hooks with the
-checkpoints.
+(``vocab``), as the reference keeps it.  The backward is a scatter-add into
+W's gradient (``ops.embed.embedBackwardParams``); tokens have no gradient, so
+``updateGrad`` sets none.  The HDF5 loading hooks come with the checkpoints.
 """
 
 import numpy as np
@@ -12,8 +12,8 @@ import torch
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.variable import Variable
-from puzzlelib_tpu_torch.modules.module import ModuleError, Module, backwardNotPorted
-from puzzlelib_tpu_torch.ops.embed import embed
+from puzzlelib_tpu_torch.modules.module import ModuleError, Module
+from puzzlelib_tpu_torch.ops.embed import embed, embedBackwardParams
 
 
 def _vocabArray(vocabulary):
@@ -38,6 +38,7 @@ class Embedder(Module):
 
         self.embsize, self.sentlength = embsize, sentlength
         self.learnable = learnable
+        self.outgrad = None
 
         vocabsize, self.vocab = _vocabArray(vocabulary)
 
@@ -69,13 +70,25 @@ class Embedder(Module):
         self.data = embed(data, self.W)
 
     def updateGrad(self, grad):
-        raise backwardNotPorted(self)
+        self.grad = None   # tokens are not differentiable
 
     def accGradParams(self, grad, scale=1.0, momentum=0.0):
-        raise backwardNotPorted(self)
+        # the reference zeroes W's gradient whatever momentum says
+        self.outgrad = grad
+        self.vars["W"].grad.zero_()
+
+        if self.learnable:
+            embedBackwardParams(self.inData, grad, self.vars["W"].grad, scale)
+
+    def updateParams(self, learnRate):
+        if self.learnable:
+            embedBackwardParams(self.inData, self.outgrad, self.vars["W"].data, learnRate)
 
     def dataShapeFrom(self, shape):
         return shape[0], shape[1], self.embsize
+
+    def gradShapeFrom(self, shape):
+        raise ModuleError("Gradient propagation is undefined")
 
     def checkDataShape(self, shape):
         if len(shape) != 2:
@@ -84,9 +97,26 @@ class Embedder(Module):
         if shape[1] != self.sentlength:
             raise ModuleError("Expected %d data sentence length, %d was given" % (self.sentlength, shape[1]))
 
+    def checkGradShape(self, shape):
+        if len(shape) != 3:
+            raise ModuleError("Grad must be 3d tensor")
+
+        expectations = (
+            (shape[1], self.sentlength, "Expected %d grad sentence length, %d was given"),
+            (shape[2], self.embsize, "Expected %d grad embedding size, %d was given"),
+            (shape[0], self.inData.shape[0], "Expected %d grad batch size, %d was given"),
+        )
+        for given, expected, message in expectations:
+            if given != expected:
+                raise ModuleError(message % (expected, given))
+
     def checkDataType(self, dtype):
         if dtype != torch.int32:
             raise ModuleError("Expected int32-tensor (got dtype %s)" % dtype)
+
+    def reset(self):
+        super().reset()
+        self.outgrad = None
 
     def calcMode(self, T):
         self.castVarsTo(self.requireSupportedDtype(T))

@@ -1,10 +1,12 @@
 """Gelu, the tanh approximation (counterpart of
-``puzzlelib_tpu/modules/gelu.py``).  The backward comes with the training
-slice."""
+``puzzlelib_tpu/modules/gelu.py``).  The backward derives from the module's
+input, as the reference's does; with ``inplace`` the output overwrites the
+input and the input gradient the output gradient, also as in the reference
+(so an inplace backward derives from the overwritten input)."""
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.ops import elementwise as ew
-from puzzlelib_tpu_torch.modules.module import Module, backwardNotPorted
+from puzzlelib_tpu_torch.modules.module import Module
 
 
 class Gelu(Module):
@@ -20,9 +22,13 @@ class Gelu(Module):
         self.data = data.copy_(out) if self.inplace else out
 
     def updateGrad(self, grad):
-        raise backwardNotPorted(self)
+        inGrad = ew.geluDer(grad, self.inData)
+        self.grad = grad.copy_(inGrad) if self.inplace else inGrad
 
     def dataShapeFrom(self, shape):
+        return shape
+
+    def gradShapeFrom(self, shape):
         return shape
 
     def calcMode(self, T):

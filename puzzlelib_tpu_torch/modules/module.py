@@ -62,13 +62,6 @@ class FactorType(str, Enum):
     avg = "avg"
 
 
-def backwardNotPorted(module):
-    """The error a module raises from a backward that comes with the
-    transformer training slice of the port."""
-    return NotImplementedError("%s: the backward is not ported yet; it comes with the transformer training slice"
-                               % module)
-
-
 def _mapNested(fn, data):
     """Apply ``fn`` to every leaf of a (possibly nested) list/tuple of tensors."""
     if isinstance(data, (tuple, list)):

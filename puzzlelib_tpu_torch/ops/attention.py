@@ -4,12 +4,14 @@
 ``attention`` is the composed attention in PyTorch, the counterpart of the
 reference's XLA route and what ``attentionAlgo = "xla"`` names here: f32
 scores, an f32 softmax, the probabilities cast to the input's type before the
-product with v.  ``mhaForward`` is the whole multi-head block; its core is
-``attention`` or, under "flash", kernel K4 (``ops.hopper.flash``).  Its four
-projections are ``torch.matmul`` with f32 accumulation, as the reference
-computes them with ``einsum`` outside any Pallas kernel.  The backward, and
-the measured "auto" choice (``measureAttnChoice``), come with the training
-slice.
+product with v; ``attentionBackward`` is its VJP.  ``mhaForward`` is the
+whole multi-head block and ``mhaBackward`` its VJP with respect to the input
+and every weight and bias; their core is ``attention`` or, under "flash",
+kernels K4 (forward) and K5a / K5b (backward) of ``ops.hopper.flash``.  The
+four projections and their backward are ``torch.matmul`` with f32
+accumulation, as the reference leaves them to ``einsum`` outside any Pallas
+kernel.  The measured "auto" choice (``measureAttnChoice``) waits with the
+race of the kernels against the library.
 """
 
 import math
@@ -34,6 +36,31 @@ def attention(q, k, v, causal=False):
     return torch.matmul(probs.to(q.dtype), v)
 
 
+def attentionBackward(q, k, v, grad, causal=False):
+    """The VJP of ``attention`` with respect to (q, k, v): the f32
+    probabilities recomputed, the softmax backward in f32, the products in
+    f32 from the operands' values, and the gradients in the inputs' type."""
+    seqQ, seqK, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), grad.float()
+
+    scores = torch.matmul(q32, k32.transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones((seqQ, seqK), dtype=torch.bool, device=q.device).tril(diagonal=seqK - seqQ)
+        scores = scores.masked_fill(~mask, float("-inf"))
+
+    probs = torch.softmax(scores, dim=-1)
+
+    dv = torch.matmul(probs.to(q.dtype).float().transpose(-1, -2), g32)
+    dprobs = torch.matmul(g32, v32.transpose(-1, -2))
+    dscores = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True)) * scale
+
+    dq = torch.matmul(dscores, k32)
+    dk = torch.matmul(dscores.transpose(-1, -2), q32)
+
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def resolveAlgo(algo, seq, dtype, device):
     """The attention core, "xla" or "flash", for ``algo`` (a value of
     ``Config.attentionAlgo``): "xla" and "flash" force it; "auto" keeps the
@@ -49,9 +76,15 @@ def resolveAlgo(algo, seq, dtype, device):
     return "flash" if torch.device(device).type == "cuda" and dtype == torch.bfloat16 and seq >= 1024 else "xla"
 
 
-def mhaForward(x, wq, wk, wv, wo, bq, bk, bv, bo, nheads, causal=False, algo="xla"):
+def mhaForward(x, wq, wk, wv, wo, bq, bk, bv, bo, nheads, causal=False, algo="xla", save=False):
     """The multi-head attention block: (batch, seq, emb) -> (batch, seq, emb).
-    Weights are (emb, emb), biases (emb, ) or None; heads split the embedding."""
+    Weights are (emb, emb), biases (emb, ) or None; heads split the embedding.
+
+    With ``save``, returns (y, saved): what ``mhaBackward`` needs of this
+    forward, so that the backward launches no forward kernel again: the
+    projected q, k, v (batch, heads, seq, d) as the core read them (under
+    "flash" the contiguous copies that K4 read), the core's output and its
+    lse (None under "xla"), and the merged heads that went into Wo."""
     if algo not in ("xla", "flash"):
         raise Config.ConfigError("mhaForward takes algo 'xla' or 'flash', got %r" % algo)
 
@@ -62,14 +95,71 @@ def mhaForward(x, wq, wk, wv, wo, bq, bk, bv, bo, nheads, causal=False, algo="xl
         y = torch.matmul(x, w)
         if b is not None:
             y = y + b
-        return y.reshape(batch, seq, nheads, hdim).transpose(1, 2)
+        y = y.reshape(batch, seq, nheads, hdim).transpose(1, 2)
+        # the flash kernels read contiguous (batch * heads, seq, d) rows:
+        # this copy is the one they read, forward and backward
+        return y.contiguous() if algo == "flash" else y
 
     q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
 
+    lse = None
     if algo == "flash":
-        out, _ = _flash.flash(q, k, v, causal)
+        out, lse = _flash.flash(q, k, v, causal)
     else:
         out = attention(q, k, v, causal)
 
-    y = torch.matmul(out.transpose(1, 2).reshape(batch, seq, emb), wo)
-    return y if bo is None else y + bo
+    merged = out.transpose(1, 2).reshape(batch, seq, emb)
+    y = torch.matmul(merged, wo)
+    y = y if bo is None else y + bo
+
+    if not save:
+        return y
+
+    return y, {"q": q, "k": k, "v": v, "out": out, "lse": lse, "merged": merged}
+
+
+def mhaBackward(x, wq, wk, wv, wo, bq, bk, bv, bo, grad, nheads, causal=False, algo="xla", saved=None):
+    """The VJP of ``mhaForward`` with respect to the input and every weight
+    and bias: (dx, dWq, dWk, dWv, dWo) and, with biases, (dbq, dbk, dbv,
+    dbo) after them.  ``saved`` is what ``mhaForward(..., save=True)``
+    returned; without it the forward is run again here.  Under "flash" the
+    core's backward is kernels K5a and K5b (``flash.backward``), under "xla"
+    ``attentionBackward``.  Weight gradients come in the weights' type, dx in
+    x's."""
+    if algo not in ("xla", "flash"):
+        raise Config.ConfigError("mhaBackward takes algo 'xla' or 'flash', got %r" % algo)
+
+    if saved is None or (algo == "flash" and saved["lse"] is None):
+        _, saved = mhaForward(x, wq, wk, wv, wo, bq, bk, bv, bo, nheads, causal, algo, save=True)
+
+    batch, seq, emb = x.shape
+    hdim = emb // nheads
+    rows = batch * seq
+
+    g2 = grad.reshape(rows, emb)
+    x2 = x.reshape(rows, emb)
+
+    dWo = torch.matmul(saved["merged"].reshape(rows, emb).t(), g2)
+    dOut = torch.matmul(g2, wo.t()).reshape(batch, seq, nheads, hdim).transpose(1, 2)
+
+    q, k, v = saved["q"], saved["k"], saved["v"]
+    if algo == "flash":
+        dq, dk, dv = _flash.backward(q, k, v, saved["out"], saved["lse"], dOut, causal)
+    else:
+        dq, dk, dv = attentionBackward(q, k, v, dOut, causal)
+
+    # the three projections' backward as one product each way: the heads'
+    # gradients side by side, (rows, 3 emb) as [dq | dk | dv], against the
+    # weights side by side, so dx sums the three in f32 inside one product
+    heads = torch.stack((dq, dk, dv), dim=2).permute(0, 3, 2, 1, 4).reshape(rows, 3 * emb)
+
+    dx = torch.matmul(heads, torch.cat((wq, wk, wv), dim=1).t())
+    dW = torch.matmul(x2.t(), heads).split(emb, dim=1)
+
+    grads = (dx.reshape(x.shape), *dW, dWo)
+
+    if bq is not None:
+        db = heads.float().sum(dim=0).split(emb)
+        grads += tuple(g.to(b.dtype) for g, b in zip(db, (bq, bk, bv))) + (g2.float().sum(dim=0).to(bo.dtype), )
+
+    return grads

@@ -1,6 +1,6 @@
 """Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
-relu and its derivative, gelu, the affine ``linear``, the vector updates, and
-the momentum-SGD step.
+relu and its derivative, gelu and its derivative, the affine ``linear``, the
+vector updates, the momentum-SGD step and the Adam step.
 
 The reference's ops return new arrays; the update ops here write in place,
 so that they reach parameters and gradients that are views of an optimizer's
@@ -34,6 +34,17 @@ def gelu(x):
     return (0.5 * x32 * (1.0 + torch.tanh(f * (x32 + c * x32 * x32 * x32)))).to(x.dtype)
 
 
+def geluDer(grad, x):
+    """The input gradient of ``gelu`` from its *input* x, as the reference
+    derives it, with its constants: computed in f32 and rounded once to the
+    gradient's type."""
+    f, c = 0.7978845608028654, 0.044715   # sqrt(2 / pi)
+    x32 = x.float()
+    t = torch.tanh(f * (x32 + c * x32 * x32 * x32))
+    dt = (1.0 - t * t) * f * (1.0 + 3 * c * x32 * x32)
+    return (grad.float() * (0.5 * (1.0 + t) + 0.5 * x32 * dt)).to(grad.dtype)
+
+
 def linear(x, a, b):
     """a * x + b, with a and b rounded to x's type first, as the reference
     rounds them."""
@@ -61,3 +72,20 @@ def classicMomSGD_(param, grad, mom, learnRate, momRate):
     direction."""
     mom.mul_(_scalar(momRate, mom.dtype)).add_(grad * _scalar(learnRate, grad.dtype))
     param.add_(mom)
+
+
+def adam_(param, grad, mg, ms, learnRate, fix1, fix2, epsilon):
+    """One Adam step in place, statement by statement as the reference's:
+    mg += fix1 * (grad - mg); ms += fix2 * (grad * grad - ms); param +=
+    learnRate * mg / (sqrt(ms) + epsilon).  mg and ms are f32; the four
+    scalars are rounded to the gradient's type first, as the reference's
+    ``jnp.asarray(..., grad.dtype)`` rounds them (in bf16, 1 - 0.999 is
+    0.00099945 and 1 - 0.9 is 0.10009766); grad * grad is taken in f32, as
+    XLA takes the reference's bf16 product; the update is summed in f32 and
+    rounded once to the parameter's type, which stays as it is."""
+    lr, f1, f2, eps = (_scalar(value, grad.dtype) for value in (learnRate, fix1, fix2, epsilon))
+    g = grad.float()
+
+    mg.add_(f1 * (g - mg))
+    ms.add_(f2 * (g * g - ms))
+    param.copy_(param.float() + lr * mg / (ms.sqrt() + eps))

@@ -10,7 +10,9 @@ which CPU tensors take, and a launch counter (``launches``):
   bwd-filter (``filterGrad``, plain version ``filterGradPlain``, counter
   ``filterGradLaunches``) (``ops/pallas/winograd.py``);
 - ``flash``    K4, the flash-attention forward, which returns each row's
-  logsumexp beside the output (``ops/pallas/flash.py``).
+  logsumexp beside the output, and K5a / K5b, its backward (``backward``,
+  plain version ``backwardPlain``, counters ``launchesDq`` and
+  ``launchesDkv``; ``FlashAttention`` under autograd) (``ops/pallas/flash.py``).
 
 ``build`` compiles the sources with ``nvcc`` at the first CUDA call.
 """

@@ -1,16 +1,17 @@
-"""Where the device time of the transformer serving slice goes, on one
-NVIDIA GPU.
+"""Where the device time of the transformer slices goes, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
     python3 -m puzzlelib_tpu_torch.tools.profiletransformer
 
 Serves the slice of ``tools/transformerslice.py`` in bf16 on both routes,
-once to warm up and once under ``torch.profiler``, and prints for each
-route the wall time of the profiled run, the device's busy time (the union
-of the kernel and copy intervals), the idle share, and the device time by
-kernel name.  ``chip_smoke.py`` [transformer] gives the routes' throughput
-outside the profiler, [K1] and [K4] the kernels' times at these shapes.
+then trains it (4 steps of 64 with Adam) on both routes, each once to warm
+up and once under ``torch.profiler``, and prints for each run the wall time
+of the profiled run, the device's busy time (the union of the kernel and
+copy intervals), the idle share, and the device time by kernel name.
+``chip_smoke.py`` [transformer] and [transformer-train] give the routes'
+throughput outside the profiler, [K1], [K4] and [K5] the kernels' times at
+these shapes.
 """
 
 import subprocess
@@ -70,8 +71,18 @@ def main():
     for algo in routes:
         Slice.serve(routes, algo, tokens)
 
-    for algo, label in (("hopper", "hand kernels"), ("torch", "library route")):
+    for algo, label in (("hopper", "serving, hand kernels"), ("torch", "serving, library route")):
         _profile(lambda: Slice.serve(routes, algo, tokens)[1], label)
+
+    del routes
+    torch.cuda.empty_cache()
+
+    routes, tokens, labels = Slice.buildTraining()
+    for algo in routes:
+        Slice.train(routes, algo, tokens, labels)
+
+    for algo, label in (("hopper", "training, hand kernels"), ("torch", "training, library route")):
+        _profile(lambda: Slice.train(routes, algo, tokens, labels), label)
 
 
 if __name__ == "__main__":

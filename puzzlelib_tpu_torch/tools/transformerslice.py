@@ -1,13 +1,19 @@
-"""The transformer serving slice, as ``chip_smoke.py`` and
-``tools/profiletransformer.py`` both run it.
+"""The transformer slices, serving and training, as ``chip_smoke.py`` and
+``tools/profiletransformer.py`` run them.
 
 The IMDB transformer classifier of ``testlib/transformertrain.py`` at full
 width (vocab 20000, seq 80, emb 128, 4 heads of 32, 2 layers, MLP ratio 4, 2
-classes), weights from ``np.random.seed(0)``, 4 requests of 64 seeded int32
-token rows through ``Calculator(net, batchsize=64).calcFromHost``, on two
-routes that share the weights: the hand kernels (``attnAlgo="flash"``,
-``Config.gemmAlgo = "hopper"``) and the library route (``attnAlgo="xla"``,
-``"torch"``).
+classes), weights from ``np.random.seed(0)``, on two routes that share the
+weights: the hand kernels (``attnAlgo="flash"``, ``Config.gemmAlgo =
+"hopper"``) and the library route (``attnAlgo="xla"``, ``"torch"``).
+
+- Serving: 4 requests of 64 seeded int32 token rows through
+  ``Calculator(net, batchsize=64).calcFromHost`` (``build``, ``serve``).
+- Training: both nets in bf16 with ``Adam(alpha=1e-3)`` in global state and
+  ``CrossEntropy(maxlabels=2)``, 4 steps of 64 over 256 seeded token rows
+  and labels through ``Trainer(batchsize=64).trainFromHost``
+  (``buildTraining``, ``train``); every run starts from the same weights
+  and a fresh optimizer state.
 """
 
 import time
@@ -17,6 +23,7 @@ import numpy as np
 
 CONFIG = dict(vocabsize=20000, seqlen=80, embsize=128, nheads=4, nlayers=2, nclasses=2)
 BATCH, REQUESTS = 64, 4
+STEPS, ALPHA = 4, 1e-3
 
 # K1's products per request, (name, M, K, N, launches): each block's two MLP
 # layers on the batch's rows, and the head's classifier
@@ -60,3 +67,79 @@ def serve(routes, algo, tokens):
     result = Calculator(routes[algo], batchsize=BATCH).calcFromHost(tokens)
     synchronize()
     return result, time.perf_counter() - start
+
+
+class Route:
+    """One training route: its net, optimizer and trainer, and the start
+    values of the optimizer's flat parameter buffers."""
+
+    def __init__(self, net, optimizer, trainer):
+        self.net, self.optimizer, self.trainer = net, optimizer, trainer
+        self.start = {dtype: pack.ary.clone() for dtype, pack in optimizer.shParams.items()}
+
+    def restore(self):
+        """The start weights, zero Adam moments and step count."""
+        for dtype, pack in self.optimizer.shParams.items():
+            pack.ary.copy_(self.start[dtype])
+
+        for state in self.optimizer.states.values():
+            for tensor in state.values():
+                tensor.zero_()
+
+        self.optimizer.t = 0
+
+
+def buildTraining():
+    """({"hopper": Route, "torch": Route} in bf16 with the same start
+    weights, token rows, labels).  Sets ``Config.device = "cuda"`` and
+    clears ``globalEvalMode``: a training net needs gradient buffers."""
+    import torch
+
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.convert import paramsFromNumpy, paramsToNumpy
+    from puzzlelib_tpu_torch.cost import CrossEntropy
+    from puzzlelib_tpu_torch.handlers import Trainer
+    from puzzlelib_tpu_torch.models.nets import buildTransformerClassifier
+    from puzzlelib_tpu_torch.optimizers import Adam
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+
+    np.random.seed(0)
+    hand = buildTransformerClassifier(**CONFIG, attnAlgo="flash", name="imdb-transformer")
+    lib = buildTransformerClassifier(**CONFIG, attnAlgo="xla", name="imdb-transformer")
+    paramsFromNumpy(lib, paramsToNumpy(hand))
+
+    routes = {}
+    for algo, net in (("hopper", hand), ("torch", lib)):
+        net.calcMode(torch.bfloat16)
+        optimizer = Adam(alpha=ALPHA)
+        optimizer.setupOn(net, useGlobalState=True)
+        trainer = Trainer(net, CrossEntropy(maxlabels=CONFIG["nclasses"]), optimizer, batchsize=BATCH)
+        routes[algo] = Route(net, optimizer, trainer)
+
+    rows = BATCH * STEPS
+    tokens = np.random.RandomState(1).randint(0, CONFIG["vocabsize"], size=(rows, CONFIG["seqlen"]))
+    labels = np.random.RandomState(2).randint(0, CONFIG["nclasses"], size=rows)
+    return routes, tokens.astype(np.int32), labels.astype(np.int32)
+
+
+def train(routes, algo, tokens, labels, losses=None):
+    """One timed ``trainFromHost`` of all the rows on a route from the start
+    weights, shuffled by one numpy seed: seconds, host clock around work
+    that ends in a device synchronize.  Each step's loss is appended to
+    ``losses`` when it is given."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+
+    route = routes[algo]
+    route.restore()
+    route.trainer.onBatchFinish = None if losses is None else (lambda h: losses.append(h.cost.getError()))
+    Config.gemmAlgo = algo
+
+    np.random.seed(4)
+    synchronize()
+    start = time.perf_counter()
+    route.trainer.trainFromHost(tokens, labels, macroBatchSize=len(tokens))
+    synchronize()
+    return time.perf_counter() - start

@@ -171,3 +171,122 @@ def testKernelMatchesPlainOnCard(shape, seqK, causal, dtype):
 
     with pytest.raises(TypeError):
         flash.flash(q.float(), k.float(), v.float(), causal)
+
+
+# -- the backward: K5a (dq) and K5b (dk, dv) -------------------------------------------------
+
+def _backwardInputs(seed, b, h, seqQ, seqK, d):
+    """q, k, v and the output gradient as host f32 arrays."""
+    q, k, v = _qkv(seed, b, h, seqQ, seqK, d)
+    do = np.random.RandomState(seed + 100).randn(b, h, seqQ, d).astype(np.float32)
+    return q, k, v, do
+
+
+# self-attention with and without the mask, seqQ < seqK (the bottom-right
+# offset) and seqQ > seqK, whose first 32 causal rows see no key: there the
+# port follows the Pallas kernel (p = 1 for every key) and not XLA's NaN.
+# f32 as the forward's twins; bf16 at one bf16 rounding of P and of dS, which
+# both versions round, and of the outputs
+_BACKWARD_CASES = [((2, 2, 80, 32), 80, False), ((2, 2, 80, 32), 80, True), ((2, 2, 48, 32), 80, True),
+                   ((2, 2, 80, 32), 48, True)]
+
+
+@pytest.mark.parametrize("dtype", sorted(_BOUNDS))
+@pytest.mark.parametrize("shape, seqK, causal", _BACKWARD_CASES)
+def testBackwardPlainMatchesPallasInterpret(shape, seqK, causal, dtype):
+    """``backwardPlain`` against ``_flashBackward`` in interpret mode, both
+    fed the reference forward's out and lse."""
+    jnp, flashForward, _ = _jax()
+    from puzzlelib_tpu.ops.pallas.flash import _flashBackward
+
+    tdtype, bound = _BOUNDS[dtype]
+    b, h, seqQ, d = shape
+    host = _backwardInputs(20, b, h, seqQ, seqK, d)
+
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in host)
+    jout, jlse = flashForward(jq, jk, jv, causal, 256, 256, True)
+    want = _flashBackward(jq, jk, jv, jout, jlse, jdo, causal, 256, 256, True)
+
+    q, k, v, do = (torch.from_numpy(a).to(tdtype) for a in host)
+    out = torch.from_numpy(np.array(jout.astype(jnp.float32))).to(tdtype)
+    got = flash.backwardPlain(q, k, v, out, torch.from_numpy(np.array(jlse)), do, causal)
+
+    for g, w, t in zip(got, want, (q, k, v)):
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.dtype == tdtype and g.shape == t.shape
+        assert np.isfinite(w).all()
+        assert _relMax(g.float().numpy(), w) <= bound
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def testFlashAttentionAutogradRunsTheBackward(causal):
+    """``FlashAttention`` under ``torch.autograd.grad`` gives what
+    ``backwardPlain`` gives on the forward's out and lse."""
+    q, k, v, do = (torch.from_numpy(a) for a in _backwardInputs(21, 2, 3, 40, 56, 32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    out = flash.flashAttention(*leaves, causal)
+    got = torch.autograd.grad(out, leaves, do)
+
+    ref, lse = flash.plain(q, k, v, causal)
+    want = flash.backwardPlain(q, k, v, ref, lse, do, causal)
+
+    assert torch.equal(out.detach(), ref)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def testBackwardOnCpuTakesThePlainVersionAndChecks():
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in _backwardInputs(22, 1, 2, 16, 24, 32))
+    out, lse = flash.flash(q, k, v, True)
+    before = (flash.launchesDq, flash.launchesDkv)
+
+    got = flash.backward(q, k, v, out, lse, do, True)
+    want = flash.backwardPlain(q, k, v, out, lse, do, True)
+
+    assert (flash.launchesDq, flash.launchesDkv) == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    with pytest.raises(ValueError):
+        flash.backward(q, k, v, out, lse.reshape(2, 16), do, True)
+
+    with pytest.raises(ValueError):
+        flash.backward(q, k, v, out, lse, do[:, :, :8], True)
+
+    with pytest.raises(ValueError):
+        flash.backward(q, k, v, out.float(), lse, do, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape, seqK, causal", [((64, 4, 80, 32), 80, False), ((64, 4, 80, 32), 80, True),
+                                                 ((2, 3, 80, 32), 200, True), ((2, 3, 200, 64), 80, True),
+                                                 ((1, 2, 130, 128), 77, False), ((1, 2, 333, 64), 333, True),
+                                                 ((2, 2, 80, 128), 48, True), ((1, 3, 257, 128), 300, True)])
+def testBackwardKernelsMatchPlainOnCard(shape, seqK, causal, dtype):
+    """K5a and K5b against ``backwardPlain`` on the kernel forward's out and
+    lse: dq, dk and dv within 1e-2 of max |plain| (both round P and dS to the
+    input's type for the products; they differ by the order of the f32 sums,
+    by exp2 against exp where a rounding of P or dS flips, and by one final
+    rounding), one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ built with nvcc")
+
+    b, h, seqQ, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = [torch.randn((b, h, seq, d), generator=gen, device="cuda").to(dtype)
+                   for seq in (seqQ, seqK, seqK, seqQ)]
+    out, lse = flash.flash(q, k, v, causal)
+
+    before = (flash.launchesDq, flash.launchesDkv)
+    got = flash.backward(q, k, v, out, lse, do, causal)
+    want = flash.backwardPlain(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+
+    assert (flash.launchesDq - before[0], flash.launchesDkv - before[1]) == (1, 1)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert bool(torch.isfinite(g).all())
+        assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 1e-2
+
+    with pytest.raises(TypeError):
+        flash.backward(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)

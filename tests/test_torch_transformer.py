@@ -257,15 +257,24 @@ def testMultiHeadAttentionBf16Twin(algo):
 
 
 def testBackwardsOfTheTrainingSliceRaise():
+    """What raised before the training slice was ported runs now: the
+    attention's backward and the weighted Sum (their twins are in
+    tests/test_torch_transformer_train.py); a wrong gradient shape still
+    raises."""
     np.random.seed(0)
     mha = T.MultiHeadAttention(8, 2)
     mha(torch.zeros((1, 3, 8)))
 
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mha.backward(torch.zeros((1, 3, 8)))
+    mha.backward(torch.ones((1, 3, 8)))
+    assert tuple(mha.grad.shape) == (1, 3, 8) and bool(torch.isfinite(mha.grad).all())
 
-    with pytest.raises(NotImplementedError, match="training slice"):
-        T.Sum(axis=1)
+    with pytest.raises(T.ModuleError):
+        mha.backward(torch.zeros((1, 3, 4)))
+
+    weighted = T.Sum(axis=1)
+    assert weighted.useWeights
+    out = weighted([torch.ones((2, 3, 4)), torch.full((2, 3), 0.5)])
+    assert torch.equal(out, torch.full((2, 4), 1.5))
 
 
 # -- containers -----------------------------------------------------------------------------
