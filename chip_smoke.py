@@ -12,9 +12,18 @@ it fails:
 2. build: compiles the hand-written kernels from ``puzzlelib_tpu_torch/csrc``
    with ``nvcc`` into ``build/kernels`` and prints the seconds it took and
    the compiler's register / spill report;
+   checkinstall: ``puzzlelib_tpu_torch.checkinstall.main()`` on the card,
+   with the counters reset just before and read just after: K0 (the
+   install probe) launched once and exact, the K1 f32 GEMM probe within
+   its bound;
 3. K1 (GEMM) against its plain PyTorch version at the VGG-16 fc shapes
    (M = 32) in bf16 and f32, a ragged 100 x 200 x 60, and the transformer
    slice's three products in bf16 (``tools/transformerslice.py`` GEMMS);
+   K1-int8 against its plain version (an f64 product, exact) with exact
+   int32 equality at each distinct int8 product of the VGG-16 int8 engine
+   at batch 32 (INT8_SHAPES: the 13 convs as im2col products, conv1_1's K =
+   27 on the byte-load path, and fc6, fc7, fc8 at M = 32) and a ragged 100
+   x 200 x 60, beside ``torch._int_mm``;
 4. K2 (Winograd conv), K2-bwd (K2 as the stride-1 bwd-data,
    ``winograd.dataGrad``) and K3 (Winograd bwd-filter) against their plain
    versions and against an f32 library reference with TF32 off
@@ -58,16 +67,31 @@ it fails:
    be finite, every variable must have changed through the optimizer's flat
    buffers, the first step's gradients of five variables must agree with
    the library route's backward (composed attention, cuBLAS) on the same
-   forward, and the 4 losses with the library route's.
+   forward, and the 4 losses with the library route's;
+11. the int8 engine slice of ``tools/engineslice.py`` ([engine-int8]):
+   VGG-16 at full width without its SoftMax, f32 He weights from
+   ``np.random.seed(0)``, calibrated by ``DataCalibrator(batchsize=16,
+   algo="minmax")`` on 64 seeded images, built by ``buildEngine(...,
+   dtype="int8")`` on the card into a temporary directory under ``build/``,
+   loaded back by ``Engine`` and served 4 requests of 32 through
+   ``Calculator(engine, batchsize=32).calcFromHost``.  The counters are
+   reset just before and read just after that run (64 K1-int8, no float K1,
+   no K2); the engine file must hold at most 1.1 x its int8 weights, scales
+   and biases; the first request's logits must be finite and within cosine
+   0.99 of the same f32 weights on the library route;
+12. the bf16 engine of the same net ([engine-bf16]): built, loaded and
+   served the same way, with 40 K2 and 12 K1 launches, and its logits within
+   1e-3 relative L2 of the eager bf16 ``Calculator`` on a clone of the net.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
 Each kernel's JSON entry carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s and
-its operations over 989 TFLOP/s (the H100 SXM's bf16 dense peak; 67 TFLOP/s
-for K1's f32 lines and for the Winograd transforms' f32 adds), computed from
-the shapes of this run.  A Winograd conv's operations are its 16 products
-per 2x2 output tile, not the direct conv's 36.
+its operations over 989 TFLOP/s (the H100 SXM's bf16 dense peak; 1979
+TOP/s for K1-int8; 67 TFLOP/s for K0, K1's f32 lines and the Winograd
+transforms' f32 adds), computed from the shapes of this run.  A Winograd
+conv's operations are its 16 products per 2x2 output tile, not the direct
+conv's 36.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -79,15 +103,17 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
-    BF16_FLOP_PER_S, F32_FLOP_PER_S, bound, deviceMs
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, deviceMs
 )
 
 
@@ -113,6 +139,23 @@ GEMM_SHAPES = [
     ("fc7", BATCH, 4096, 4096),
     ("fc8", BATCH, 4096, 1000),
     ("ragged", 100, 200, 60),
+]
+
+# (name, M, K, N, launches per request): the int8 engine's products at batch
+# 32, each conv an im2col product (M = 32 OH OW, K = 9 C, N = O)
+INT8_SHAPES = [
+    ("conv1_1", BATCH * 224 * 224, 27, 64, 1),
+    ("conv1_2", BATCH * 224 * 224, 576, 64, 1),
+    ("conv2_1", BATCH * 112 * 112, 576, 128, 1),
+    ("conv2_2", BATCH * 112 * 112, 1152, 128, 1),
+    ("conv3_1", BATCH * 56 * 56, 1152, 256, 1),
+    ("conv3_2", BATCH * 56 * 56, 2304, 256, 2),
+    ("conv4_1", BATCH * 28 * 28, 2304, 512, 1),
+    ("conv4_2", BATCH * 28 * 28, 4608, 512, 2),
+    ("conv5_1", BATCH * 14 * 14, 4608, 512, 3),
+    ("fc6", BATCH, 25088, 4096, 1),
+    ("fc7", BATCH, 4096, 4096, 1),
+    ("fc8", BATCH, 4096, 1000, 1),
 ]
 
 # max |kernel - plain| / max |plain|.  bf16: both round one f32 sum to bf16
@@ -680,6 +723,243 @@ def phaseTrain(torch, card):
     return launches
 
 
+def phaseCheckinstall(torch, matmul, probe):
+    """``checkinstall.main()`` on the card, with the counters reset just
+    before and read just after: K0 once and exact, K1 (f32) once within its
+    bound.  Returns K0's JSON entry's numbers and the launches."""
+    from puzzlelib_tpu_torch import checkinstall, config as Config
+
+    Config.device = "cuda"
+    matmul.launches = probe.launches = 0
+    result = checkinstall.main()
+    launches = {"probe": probe.launches, "matmul": matmul.launches}
+
+    print("[checkinstall] launches in that run: K0 %d, K1 (f32) %d; GEMM probe relative error %.3e (bound %.0e); "
+          "K0 max |kernel - plain| %.1e" % (launches["probe"], launches["matmul"], result["gemm_rel_err"],
+                                            GEMM_BOUND["f32"], result["probe_abs_err"]))
+
+    if launches != {"probe": 1, "matmul": 1}:
+        fail("expected one K0 and one K1 launch in checkinstall, got %s" % launches)
+
+    if not result["gemm_rel_err"] <= GEMM_BOUND["f32"]:
+        fail("the GEMM probe disagrees with numpy: %.3e" % result["gemm_rel_err"])
+
+    if result["probe_abs_err"] != 0.0:
+        fail("K0 differs from x * 2 by %.3e" % result["probe_abs_err"])
+
+    x = torch.randn((8, 128), device="cuda")
+    ms = deviceMs(lambda: probe.double(x), 10)
+    plainMs = deviceMs(lambda: probe.plain(x), 10)
+    libMs = deviceMs(lambda: torch.mul(x, 2.0), 10)
+    boundMs, boundBy = bound(2 * x.numel() * 4, x.numel(), F32_FLOP_PER_S)
+
+    print("[checkinstall] K0 on (8, 128) f32: kernel %.4f ms, plain %.4f ms, library (torch.mul) %.4f ms, bound "
+          "%.6f ms (%s)" % (ms, plainMs, libMs, boundMs, boundBy))
+
+    entry = {"max_abs_err": result["probe_abs_err"], "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs,
+             "bound_by": boundBy, "library_ms": libMs}
+    return entry, launches
+
+
+def _libraryInt8(torch, a, b):
+    """``torch._int_mm`` (cuBLASLt's int8 product) on a and b, with K padded
+    with zeros to a multiple of 8 where its shape rules ask for one (the
+    product is the same); None where M <= 16 or N is no multiple of 8."""
+    m, k = a.shape
+    n = b.shape[1]
+    if m <= 16 or n % 8 != 0:
+        return None
+
+    if k % 8 != 0:
+        pad = 8 - k % 8
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+
+    return lambda: torch._int_mm(a, b)
+
+
+def phaseGemmInt8(torch, matmul):
+    """K1-int8 against its plain version, exactly, at each distinct int8
+    product of the VGG-16 engine at batch 32 and a ragged shape, beside
+    ``torch._int_mm``.  Returns the JSON entry's numbers for one request (the
+    engine's 16 products)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    main = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+
+    for name, m, k, n, count in INT8_SHAPES + [("ragged", 100, 200, 60, 0)]:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+
+        out, ref = matmul.matmul(a, b), matmul.plain(a, b)
+        torch.cuda.synchronize()
+
+        exact = out.dtype == torch.int32 and torch.equal(out, ref)
+        absErr = (out.long() - ref.long()).abs().max().item()
+        del out, ref
+
+        ms = deviceMs(lambda: matmul.matmul(a, b), 10)
+        plainMs = deviceMs(lambda: matmul.plain(a, b), 2)
+        library = _libraryInt8(torch, a, b)
+        libMs = None if library is None else deviceMs(library, 10)
+        boundMs, boundBy = bound(m * k + k * n + m * n * 4, 2 * m * k * n, INT8_OP_PER_S)
+
+        print("[K1-int8] %-7s M=%d K=%d N=%d: %s (max |kernel - plain| %d), kernel %.4f ms, plain (f64) %.4f ms, "
+              "library (torch._int_mm) %s ms, bound %.4f ms (%s)" %
+              (name, m, k, n, "exact" if exact else "NOT EXACT", absErr, ms, plainMs,
+               "n/a" if libMs is None else "%.4f" % libMs, boundMs, boundBy))
+
+        if not exact:
+            fail("K1-int8 %s differs from its plain version by up to %d" % (name, absErr))
+
+        if count:
+            main["ms"] += ms * count
+            main["plain_ms"] += plainMs * count
+            main["library_ms"] += libMs * count
+            main["bound_ms"] += boundMs * count
+            binding.add(boundBy)
+
+        del a, b
+        torch.cuda.empty_cache()
+
+    main["bound_by"] = "/".join(sorted(binding))
+    return main
+
+
+def _engineSizes(net, path):
+    """(engine file bytes, bytes of the int8 weights, their f32 scales and
+    the f32 biases)."""
+    weights = sum(var.data.numel() for var, names in net.getVarTable().items() if names[0].endswith(".W"))
+    outputs = sum(var.data.numel() for var, names in net.getVarTable().items() if names[0].endswith(".b"))
+    return os.path.getsize(path), weights + 2 * 4 * outputs
+
+
+def phaseEngineInt8(torch, card, workdir):
+    """The int8 engine slice of ``tools/engineslice.py``: VGG-16 at full width
+    calibrated, built on the card, loaded back and served; the counters are
+    reset just before and read just after the counted run.  Returns the f32
+    net, the served images and the launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.converter.engine import Engine
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    Config.globalEvalMode = True   # no gradient buffers for a serving net
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    net = Engines.buildNet()
+    requests = Engines.images(Engines.BATCH * Engines.REQUESTS)
+    calibration = Engines.images(Engines.CALIBRATION, seed=2)
+
+    # the f32 reference: the same weights on the library route (TF32 off)
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    net.evalMode()
+    ref = net(torch.from_numpy(requests[:Engines.BATCH]).cuda()).float().cpu()
+    net.reset()
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    start = time.perf_counter()
+    path = Engines.buildEngines(net, workdir, calibration, dtypes=("int8", ))["int8"]
+    built = time.perf_counter() - start
+    engine = Engine(path)
+
+    size, payload = _engineSizes(net, path)
+    print("[engine-int8] calibrated (minmax, %d images in batches of %d) and built in %.2f s; %s: %d bytes, %.3f of "
+          "the int8 weights, scales and biases (%d bytes; bound 1.1)" %
+          (Engines.CALIBRATION, Engines.CALIBRATION_BATCH, built, os.path.basename(path), size, size / payload,
+           payload))
+
+    if not size <= 1.1 * payload:
+        fail("the int8 engine file holds %d bytes, above 1.1 x %d" % (size, payload))
+
+    Engines.serve(engine, requests)   # warm-up: allocator blocks of these sizes
+
+    matmul.launches = matmul.launchesInt8 = winograd.launches = 0
+    out, secs = Engines.serve(engine, requests)
+    launches = {"int8": matmul.launchesInt8, "matmul": matmul.launches, "winograd": winograd.launches}
+
+    print("[engine-int8] VGG-16 int8 engine, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
+          (len(requests), Engines.REQUESTS, Engines.BATCH, secs, len(requests) / secs, card))
+    print("[engine-int8] launches in that run: K1-int8 %d, K1 (float) %d, winograd %d" %
+          (launches["int8"], launches["matmul"], launches["winograd"]))
+
+    if launches != {"int8": 16 * Engines.REQUESTS, "matmul": 0, "winograd": 0}:
+        fail("expected 64 K1-int8 launches and no other, got %s" % launches)
+
+    if out.shape != (len(requests), 1000) or not np.isfinite(out).all():
+        fail("logits of shape %s, finite: %s" % (out.shape, np.isfinite(out).all()))
+
+    first = torch.from_numpy(out[:Engines.BATCH])
+    cos = (torch.sum(first * ref) / (first.norm() * ref.norm())).item()
+    rel = _relL2(first, ref)
+    print("[engine-int8] logits of the first request vs the f32 library run: cosine %.6f (bound 0.99), relative L2 "
+          "%.3e; logits in [%.4f, %.4f]" % (cos, rel, out.min(), out.max()))
+
+    if not cos >= 0.99:
+        fail("int8 logits cosine %.6f against the f32 run" % cos)
+
+    runs = [Engines.serve(engine, requests)[1] for _ in range(5)]
+    print("[engine-int8] 5 runs: %s s, median %.1f images/s on %s" %
+          (" ".join("%.4f" % t for t in runs), len(requests) / float(np.median(runs)), card))
+
+    del engine
+    return net, requests, launches
+
+
+def phaseEngineBf16(torch, card, workdir, net, requests):
+    """The bf16 engine of the same net, built on the card, loaded back and
+    served with the counters reset just before and read just after, and
+    held against the eager bf16 ``Calculator`` on a clone of the net."""
+    import copy
+
+    from puzzlelib_tpu_torch.converter.engine import Engine
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    start = time.perf_counter()
+    path = Engines.buildEngines(net, workdir, Engines.images(Engines.CALIBRATION, seed=2),
+                                dtypes=("bfloat16", ))["bfloat16"]
+    built = time.perf_counter() - start
+    engine = Engine(path)
+    print("[engine-bf16] built in %.2f s; %s: %d bytes" % (built, os.path.basename(path), os.path.getsize(path)))
+
+    clone = copy.deepcopy(net)
+    clone.calcMode(torch.bfloat16)
+
+    for module in (engine, clone):
+        Engines.serve(module, requests)   # warm-up
+
+    matmul.launches = matmul.launchesInt8 = winograd.launches = 0
+    out, secs = Engines.serve(engine, requests)
+    launches = {"matmul": matmul.launches, "winograd": winograd.launches, "int8": matmul.launchesInt8}
+
+    print("[engine-bf16] VGG-16 bf16 engine, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
+          (len(requests), Engines.REQUESTS, Engines.BATCH, secs, len(requests) / secs, card))
+    print("[engine-bf16] launches in that run: winograd %d, K1 %d, K1-int8 %d" %
+          (launches["winograd"], launches["matmul"], launches["int8"]))
+
+    if launches != {"matmul": 3 * Engines.REQUESTS, "winograd": 10 * Engines.REQUESTS, "int8": 0}:
+        fail("expected 40 Winograd and 12 GEMM launches, got %s" % launches)
+
+    eager, _ = Engines.serve(clone, requests)
+    rel = _relL2(torch.from_numpy(out), torch.from_numpy(eager))
+    print("[engine-bf16] logits vs the eager bf16 Calculator on the same clone: relative L2 %.3e (bound 1e-3); "
+          "finite %s" % (rel, np.isfinite(out).all()))
+
+    if out.shape != (len(requests), 1000) or not np.isfinite(out).all() or not rel <= 1e-3:
+        fail("bf16 engine logits of shape %s, relative L2 %.3e from the eager run" % (out.shape, rel))
+
+    runs = {"engine": [], "eager": []}
+    for _ in range(5):
+        for label, module in (("engine", engine), ("eager", clone)):
+            runs[label].append(Engines.serve(module, requests)[1])
+
+    for label, text in (("engine", "engine"), ("eager", "eager bf16 Calculator")):
+        print("[engine-bf16] %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+              (text, " ".join("%.4f" % t for t in runs[label]), len(requests) / float(np.median(runs[label])), card))
+
+    return launches
+
+
 def _visiblePairs(seqQ, seqK, causal):
     """The (query, key) pairs whose scores the softmax weighs: all of them, or
     with the bottom-right causal mask, keys up to i + seqK - seqQ for query i
@@ -1014,13 +1294,15 @@ def main():
         fail("no CUDA device: the port's smoke test needs an NVIDIA GPU")
 
     from puzzlelib_tpu_torch.backend.device import ensureInit
-    from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, winograd
+    from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, probe, winograd
 
     ensureInit()
 
     card = phaseDevice(torch)
     phaseBuild(build)
+    installProbe, install = phaseCheckinstall(torch, matmul, probe)
     gemm, gemmTransformer = phaseGemm(torch, matmul)
+    gemmInt8 = phaseGemmInt8(torch, matmul)
     wino, dataGrad, filterGrad = phaseWinograd(torch, winograd)
     attention = phaseFlash(torch, flash)
     serving = phaseSlice(torch, card)
@@ -1031,18 +1313,28 @@ def main():
     attentionDq, attentionDkv = phaseFlashBackward(torch, flash)
     torch.cuda.empty_cache()
     transformerTrain = phaseTransformerTrain(torch, card)
+    torch.cuda.empty_cache()
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
+        net, requests, engineInt8 = phaseEngineInt8(torch, card, workdir)
+        engineBf16 = phaseEngineBf16(torch, card, workdir, net, requests)
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
+        dict(name="K0 install probe", route="cuda", source=source % "probe",
+             replaces="puzzlelib_tpu/checkinstall.py:37", launches=install["probe"], **installProbe),
         dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
-             serving_launches=serving["matmul"], **gemm),
+             serving_launches=serving["matmul"], engine_launches=engineBf16["matmul"], **gemm),
+        dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"], **gemmTransformer),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
-             **wino),
+             engine_launches=engineBf16["winograd"], **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winogradDataGrad"], **dataGrad),
@@ -1057,16 +1349,18 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
              **attentionDkv),
     ]
-    print("[kernels] launches: K1-K3 the VGG training run's (4 steps of 32), serving_launches the VGG serving run's "
-          "(4 requests of 32), K1 at the transformer's shapes and K4 the transformer serving run's (4 requests of "
-          "64); ms, plain_ms, library_ms and bound_ms: the time one batch spends in the kernel, in its plain "
-          "version, in the library call and at the card's bound (K1: fc6+fc7+fc8 forward in bf16; K1 at the "
-          "transformer's shapes: the 5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a "
-          "batch of 32, wrapper included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not "
-          "causal; K5a and K5b: the backward of that layer, each kernel alone, plain_ms and library_ms the whole "
-          "backward (dq, dk, dv) of backwardPlain and of scaled_dot_product_attention); K4's training_launches and "
-          "K5's launches the transformer training run's (4 steps of 64); max_abs_err: largest |kernel - plain| at "
-          "those shapes")
+    print("[kernels] launches: K0 checkinstall's; K1-K3 the VGG training run's (4 steps of 32), serving_launches "
+          "the VGG serving run's (4 requests of 32), engine_launches the VGG bf16 engine's (4 requests of 32); "
+          "K1-int8 the VGG int8 engine's (4 requests of 32); K1 at the transformer's shapes and K4 the transformer "
+          "serving run's (4 requests of 64); ms, plain_ms, library_ms and bound_ms: the time one batch spends in "
+          "the kernel, in its plain version, in the library call and at the card's bound (K0: one (8, 128) f32 "
+          "block; K1: fc6+fc7+fc8 forward in bf16; K1-int8: the 16 int8 products of one request of 32 images, "
+          "plain in f64, library torch._int_mm with conv1_1's K padded to 32; K1 at the transformer's shapes: the "
+          "5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a batch of 32, wrapper "
+          "included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
+          "the backward of that layer, each kernel alone, plain_ms and library_ms the whole backward (dq, dk, dv) "
+          "of backwardPlain and of scaled_dot_product_attention); K4's training_launches and K5's launches the "
+          "transformer training run's (4 steps of 64); max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-// Tiled GEMM C = A @ B for Hopper (sm_90a), row-major, f32 accumulation.
+// Tiled GEMM C = A @ B for Hopper (sm_90a), row-major, f32 accumulation (int32
+// for int8 operands).
 //
 // Replaces the Pallas TPU kernel puzzlelib_tpu/ops/pallas/matmul.py
 // `_matmulKernel` (wrappers `matmul`, `matmulPadded`): an (M/bm, N/bn, K/bk)
@@ -33,11 +34,32 @@
 //               HIGHEST precision, so f32 stays on the CUDA cores:
 //               64x64 block tile, BK = 16, 256 threads of 4x4 outputs, with
 //               the same split-K.
+//   int8      - K1-int8, the reference's int8 operands with an exact int32
+//               accumulator and an int32 output (matmul.py:54-56), the
+//               product of the int8 serving engine.  WMMA 16x16x16 s8
+//               fragments with int32 accumulators; 64x64 block tile,
+//               BK = 64 (64 bytes a row, as bf16's 32); the same cp.async
+//               ring and split-K, but the partial tiles are int32: integer
+//               sums are exact in any order (|acc| <= K * 127^2, 4.05e8 at
+//               K = 25088, below 2^31).  WMMA wants every 8-bit fragment on
+//               a 32-byte boundary, which a 16-byte K step breaks in a
+//               row-major tile, so the shared tiles are kept as 16-column
+//               slabs: A as [k / 16][m][16], B as [n / 16][k][16], each
+//               fragment a contiguous 256-byte block.  Slabs are 1056 bytes
+//               apart (64 rows and two 16-byte chunks of padding), so the
+//               16-byte cp.async stores of one quarter-warp (two rows, four
+//               slabs) fall into eight distinct bank groups.  Rows whose K
+//               and N are multiples of 16 load as 16-byte vectors; other
+//               shapes (conv1_1's K = 27, fc8's N = 1000) byte by byte.
+//               What bounds it on the H100: at the engine's conv shapes
+//               (M = 32 H W rows) the operations, 2 M N K at 1979 TOP/s; at
+//               its fc layers (M = 32) reading the weights.
 //
 // Entries: pl_matmul_splits(...) gives the number of K slices a shape takes
-// (the caller allocates that many f32 partial tiles of M x N when it is more
-// than one); pl_matmul(...) launches and returns the cudaError_t of
-// cudaGetLastError().  The caller allocates C and owns the stream.
+// (the caller allocates that many partial tiles of M x N when it is more
+// than one: f32, or int32 for int8); pl_matmul(...) launches and returns the
+// cudaError_t of cudaGetLastError().  The caller allocates C and owns the
+// stream.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -277,13 +299,149 @@ gemmF32(const float* __restrict__ A, const float* __restrict__ B, float* __restr
     }
 }
 
-// C = sum over the slices of the f32 partial tiles, in slice order, rounded once
-template <typename T>
-__global__ void sumSlices(const float* __restrict__ partial, T* __restrict__ C, long long size, int slices)
+// -- K1-int8 -------------------------------------------------------------------
+
+constexpr int IBM = 64, IBN = 64, IBK = 64;
+constexpr int ISLAB = IBM * 16 + 32;                  // bytes: 64 rows of 16, two chunks of padding
+constexpr int IA_STAGE = (IBK / 16) * ISLAB;          // A: one slab per 16 columns of K
+constexpr int IB_STAGE = (IBN / 16) * ISLAB;          // B: one slab per 16 columns of N (IBK = 64 rows)
+constexpr int I_SMEM_BYTES = STAGES * (IA_STAGE + IB_STAGE);
+constexpr int ILDC = IBN + 4;                         // ints
+static_assert(IBK == IBM, "an A slab and a B slab hold the same 64 rows");
+static_assert(ISLAB % 32 == 0, "every slab starts on a 32-byte boundary");
+static_assert(IBM * ILDC * 4 <= I_SMEM_BYTES, "the epilogue tile reuses the ring");
+
+template <bool VEC>
+__device__ __forceinline__ void loadTilesInt8(int8_t* As, int8_t* Bs, const int8_t* __restrict__ A,
+                                              const int8_t* __restrict__ B, int M, int N, int K, int m0, int n0,
+                                              int k0, int tid)
+{
+    if (VEC) {
+        // with K % 16 == 0 and N % 16 == 0 a vector is wholly inside or outside;
+        // four threads read one 64-byte row segment
+#pragma unroll
+        for (int v = tid; v < IBM * IBK / 16; v += HTHREADS) {
+            const int r = v / (IBK / 16), c = v % (IBK / 16);
+            const int gm = m0 + r, gk = k0 + c * 16;
+            const bool ok = gm < M && gk < K;
+            cpAsync16(As + c * ISLAB + r * 16, ok ? A + (size_t)gm * K + gk : A, ok);
+        }
+#pragma unroll
+        for (int v = tid; v < IBK * IBN / 16; v += HTHREADS) {
+            const int r = v / (IBN / 16), c = v % (IBN / 16);
+            const int gk = k0 + r, gn = n0 + c * 16;
+            const bool ok = gk < K && gn < N;
+            cpAsync16(Bs + c * ISLAB + r * 16, ok ? B + (size_t)gk * N + gn : B, ok);
+        }
+    } else {
+        for (int e = tid; e < IBM * IBK; e += HTHREADS) {
+            const int r = e / IBK, c = e % IBK;
+            const int gm = m0 + r, gk = k0 + c;
+            As[(c / 16) * ISLAB + r * 16 + c % 16] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : int8_t(0);
+        }
+        for (int e = tid; e < IBK * IBN; e += HTHREADS) {
+            const int r = e / IBN, c = e % IBN;
+            const int gk = k0 + r, gn = n0 + c;
+            Bs[(c / 16) * ISLAB + r * 16 + c % 16] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : int8_t(0);
+        }
+    }
+}
+
+// one (64 x 64) int32 output tile over K tiles [z * tilesPerSlice, (z + 1) * tilesPerSlice);
+// with one slice the tile goes to C, else to partial[z]
+template <bool VEC>
+__global__ void __launch_bounds__(HTHREADS)
+gemmInt8(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int* __restrict__ C, int* __restrict__ partial,
+         int M, int N, int K, int tilesPerSlice)
+{
+    __shared__ __align__(128) unsigned char smem[I_SMEM_BYTES];
+    int8_t* As = reinterpret_cast<int8_t*>(smem);
+    int8_t* Bs = As + STAGES * IA_STAGE;
+    int* Cs = reinterpret_cast<int*>(smem);
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int wm = warp >> 1, wn = warp & 1;
+    const int m0 = blockIdx.y * IBM, n0 = blockIdx.x * IBN;
+
+    const int kTiles = (K + IBK - 1) / IBK;
+    const int kt0 = blockIdx.z * tilesPerSlice;
+    const int nt = max(min(kt0 + tilesPerSlice, kTiles) - kt0, 0);
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+            wmma::fill_fragment(acc[i][j], 0);
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nt)
+            loadTilesInt8<VEC>(As + s * IA_STAGE, Bs + s * IB_STAGE, A, B, M, N, K, m0, n0, (kt0 + s) * IBK, tid);
+        cpAsyncCommit();
+    }
+
+    for (int i = 0; i < nt; ++i) {
+        cpAsyncWait<STAGES - 2>();   // tile i has landed
+        __syncthreads();             // ... for every thread, and tile i - 1 is consumed
+
+        const int j = i + STAGES - 1;
+        if (j < nt)
+            loadTilesInt8<VEC>(As + (j % STAGES) * IA_STAGE, Bs + (j % STAGES) * IB_STAGE, A, B, M, N, K,
+                               m0, n0, (kt0 + j) * IBK, tid);
+        cpAsyncCommit();
+
+        const int8_t* as = As + (i % STAGES) * IA_STAGE;
+        const int8_t* bs = Bs + (i % STAGES) * IB_STAGE;
+#pragma unroll
+        for (int kk = 0; kk < IBK / 16; ++kk) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[2];
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major> b[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+                wmma::load_matrix_sync(a[r], reinterpret_cast<const signed char*>(
+                                                 as + kk * ISLAB + (wm * 32 + r * 16) * 16), 16);
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+                wmma::load_matrix_sync(b[c], reinterpret_cast<const signed char*>(
+                                                 bs + (wn * 2 + c) * ISLAB + kk * 16 * 16), 16);
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                    wmma::mma_sync(acc[r][c], a[r], b[c], acc[r][c]);
+        }
+    }
+
+    cpAsyncWait<0>();
+    __syncthreads();   // the ring is idle: its space becomes the epilogue tile
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+            wmma::store_matrix_sync(Cs + (wm * 32 + r * 16) * ILDC + wn * 32 + c * 16,
+                                    acc[r][c], ILDC, wmma::mem_row_major);
+    __syncthreads();
+
+    int* out = gridDim.z == 1 ? C : partial + (size_t)blockIdx.z * M * N;
+    for (int e = tid; e < IBM * IBN; e += HTHREADS) {
+        const int r = e / IBN, c = e % IBN;
+        const int gm = m0 + r, gn = n0 + c;
+        if (gm < M && gn < N)
+            out[(size_t)gm * N + gn] = Cs[r * ILDC + c];
+    }
+}
+
+// C = sum over the slices of the partial tiles, in slice order, rounded once
+// (Acc f32 for the float types, int32 for int8, where the sum is exact)
+template <typename Acc, typename T>
+__global__ void sumSlices(const Acc* __restrict__ partial, T* __restrict__ C, long long size, int slices)
 {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < size;
          i += (long long)gridDim.x * blockDim.x) {
-        float s = 0.0f;
+        Acc s = Acc(0);
         for (int z = 0; z < slices; ++z)
             s += partial[z * size + i];
         C[i] = T(s);
@@ -292,9 +450,11 @@ __global__ void sumSlices(const float* __restrict__ partial, T* __restrict__ C, 
 
 void tileShape(int dtype, int* bm, int* bn, int* bk)
 {
-    *bm = dtype == 0 ? SBM : HBM;
-    *bn = dtype == 0 ? SBN : HBN;
-    *bk = dtype == 0 ? SBK : HBK;
+    switch (dtype) {
+    case 0:  *bm = SBM; *bn = SBN; *bk = SBK; break;
+    case 3:  *bm = IBM; *bn = IBN; *bk = IBK; break;
+    default: *bm = HBM; *bn = HBN; *bk = HBK; break;
+    }
 }
 
 template <typename T>
@@ -312,7 +472,7 @@ void launchTensorCore(const void* a, const void* b, void* c, float* partial, int
         gemmTensorCore<T, false><<<grid, HTHREADS, 0, stream>>>(A, B, C, partial, m, n, k, tilesPerSlice);
 
     if (slices > 1)
-        sumSlices<T><<<512, 256, 0, stream>>>(partial, C, (long long)m * n, slices);
+        sumSlices<float, T><<<512, 256, 0, stream>>>(partial, C, (long long)m * n, slices);
 }
 
 }  // namespace
@@ -339,9 +499,10 @@ extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int sms)
     return (kTiles + perSlice - 1) / perSlice;
 }
 
-// dtype: 0 = f32, 1 = bf16, 2 = f16.  vec: the caller has checked that K and N
-// are multiples of 8 and that A and B start on 16-byte boundaries.  partial:
-// `slices` f32 tiles of m x n, used when slices > 1.
+// dtype: 0 = f32, 1 = bf16, 2 = f16, 3 = int8 (C in int32).  vec: the caller
+// has checked that A and B start on 16-byte boundaries and that K and N are
+// multiples of 8 (16 for int8): one 16-byte vector.  partial: `slices` tiles
+// of m x n, f32 (int32 for int8), used when slices > 1.
 extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, int m, int n, int k,
                          int dtype, int vec, int slices, void* stream)
 {
@@ -362,7 +523,7 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
         gemmF32<<<grid, STHREADS, 0, s>>>(static_cast<const float*>(a), static_cast<const float*>(b),
                                           static_cast<float*>(c), part, m, n, k, tilesPerSlice);
         if (slices > 1)
-            sumSlices<float><<<512, 256, 0, s>>>(part, static_cast<float*>(c), (long long)m * n, slices);
+            sumSlices<float, float><<<512, 256, 0, s>>>(part, static_cast<float*>(c), (long long)m * n, slices);
         break;
     }
     case 1:
@@ -371,6 +532,20 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
     case 2:
         launchTensorCore<__half>(a, b, c, part, m, n, k, vec != 0, slices, tilesPerSlice, s);
         break;
+    case 3: {
+        const dim3 grid((n + IBN - 1) / IBN, (m + IBM - 1) / IBM, slices);
+        const int8_t* A = static_cast<const int8_t*>(a);
+        const int8_t* B = static_cast<const int8_t*>(b);
+        int* C = static_cast<int*>(c);
+        int* ipart = static_cast<int*>(partial);
+        if (vec)
+            gemmInt8<true><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
+        else
+            gemmInt8<false><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
+        if (slices > 1)
+            sumSlices<int, int><<<512, 256, 0, s>>>(ipart, C, (long long)m * n, slices);
+        break;
+    }
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("matmul", "winograd", "winograd_fg", "flash", "flash_bwd")
+KERNELS = ("matmul", "winograd", "winograd_fg", "flash", "flash_bwd", "probe")
 
 _loaded = {}
 

@@ -2,37 +2,70 @@
 
 Replaces ``puzzlelib_tpu/ops/pallas/matmul.py`` ``_matmulKernel`` (wrappers
 ``matmul`` and ``matmulPadded``).  ``matmul(a, b)`` computes (M, K) @ (K, N)
-with f32 accumulation and returns the input's type, for f32, bf16 and f16.
-Ragged M, N and K are masked inside the kernel, so nothing is padded.  bf16
-and f16 run on the tensor cores (WMMA); f32 runs as FFMA, in full f32, since
-Hopper's tensor cores have no f32 mode.  Where the output tiles are too few to
-fill the card (the serving shapes, M = 32), K is split into slices whose f32
-partial tiles a second kernel sums in order; the wrapper allocates them.  What
-bounds it and how it is tiled is in the note at the top of
-``csrc/matmul.cu``.
+with f32 accumulation and returns the input's type, for f32, bf16 and f16;
+for two int8 matrices (K1-int8, the int8 serving engine's product) it
+accumulates exactly in int32 and returns int32, as the reference does
+(``matmul.py:54-56``).  Ragged M, N and K are masked inside the kernel, so
+nothing is padded.  bf16, f16 and int8 run on the tensor cores (WMMA); f32
+runs as FFMA, in full f32, since Hopper's tensor cores have no f32 mode.
+Where the output tiles are too few to fill the card (the serving shapes, M =
+32), K is split into slices whose partial tiles (f32, or int32 for int8) a
+second kernel sums in order; the wrapper allocates them.  The row blocks lie
+on the grid's second axis, which holds 65535 blocks: a product of more than
+64 * 65535 = 4,194,240 rows (an int8 engine's first conv beyond batch 83)
+runs in chunks of that many rows, one launch each.  What bounds it and how
+it is tiled is in the note at the top of ``csrc/matmul.cu``.
 
 ``plain`` is the same function in plain PyTorch.  ``matmul`` takes it for
 tensors on the CPU, where no kernel can run; for CUDA tensors it launches the
-kernel or raises.  ``launches`` counts kernel launches, so a run can show that
-its products went through the kernel.  The int8 -> int32 variant of the TPU
-kernel, which only the int8 serving engine uses, is not ported yet.
+kernel or raises.  ``launches`` counts the float launches and
+``launchesInt8`` the int8 ones, so a run can show that its products went
+through the kernel.
+
+``matmulOp`` is ``matmul`` registered as the custom operator
+``puzzlelib::matmul``, with a shape function.  ``matmul`` hands a fake
+tensor, which is what ``torch.export`` traces with, to it, so that an
+engine's graph records the kernel instead of the ctypes call, which cannot
+run there; on real tensors ``matmul`` launches directly, without the
+operator's dispatch.
 """
 
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from puzzlelib_tpu_torch.ops.hopper import build
 
 
 launches = 0
+launchesInt8 = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
+
+# the bytes of one vector load, in elements of each type, and the kernel's
+# block rows (a grid's second axis holds at most 65535 blocks of them)
+_VECTOR = {torch.float32: 8, torch.bfloat16: 8, torch.float16: 8, torch.int8: 16}
+_BLOCK_ROWS, _MAX_GRID_Y = 64, 65535
+
+
+def _outType(dtype):
+    return torch.int32 if dtype == torch.int8 else dtype
 
 
 def plain(a, b):
-    """(M, K) @ (K, N) in f32, returned in ``a``'s type.  Full f32 needs TF32
-    off, which ``Config.matmulPrecision = "highest"`` (the default) sets."""
+    """(M, K) @ (K, N) in f32, returned in ``a``'s type; int8 operands give
+    their exact int32 product.  Full f32 needs TF32 off, which
+    ``Config.matmulPrecision = "highest"`` (the default) sets.
+
+    The int8 product is taken in f64, where it is exact: every term is at
+    most 127 * 128 and every partial sum an integer below 2^53 as long as K
+    is below 5e11, in any order of summation.  Neither of the direct routes
+    does: ``torch.matmul`` of two int8 tensors gives an int8 result that
+    wraps around on the CPU, and has no integer kernel on the card."""
+    if a.dtype == torch.int8:
+        return torch.matmul(a.double(), b.double()).to(torch.int32)
+
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
@@ -56,12 +89,16 @@ def _check(a, b):
         raise ValueError("matmul takes (M, K) @ (K, N), got %s @ %s" % (tuple(a.shape), tuple(b.shape)))
 
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
-        raise TypeError("matmul takes two f32, bf16 or f16 matrices of one type, got %s and %s" %
+        raise TypeError("matmul takes two f32, bf16, f16 or int8 matrices of one type, got %s and %s" %
                         (a.dtype, b.dtype))
 
 
 def matmul(a, b):
-    """a (M, K) @ b (K, N) -> (M, N) in a's type, through kernel K1."""
+    """a (M, K) @ b (K, N) -> (M, N) in a's type (int32 for int8), through
+    kernel K1."""
+    if is_fake(a):
+        return matmulOp(a, b)
+
     _check(a, b)
 
     if a.device.type == "cpu":
@@ -75,18 +112,32 @@ def matmul(a, b):
 
     m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    out = torch.empty((m, n), dtype=_outType(a.dtype), device=a.device)
 
-    if m == 0 or n == 0:
-        return out
+    # the row blocks sit on the grid's second axis: longer products run in
+    # chunks of rows, one launch each
+    for row in range(0, m, _BLOCK_ROWS * _MAX_GRID_Y):
+        rows = slice(row, row + _BLOCK_ROWS * _MAX_GRID_Y)
+        _launch(a[rows], b, out[rows])
 
-    vec = k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    return out
+
+
+def _launch(a, b, out):
+    m, k = a.shape
+    n = b.shape[1]
+
+    width = _VECTOR[a.dtype]
+    vec = k % width == 0 and n % width == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     splitsOf, launch = _entries()
 
-    # K slices, each an f32 partial tile that a second kernel sums
+    # K slices, each a partial tile (f32; int32 for int8) that a second kernel sums
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     slices = splitsOf(m, n, k, _DTYPES[a.dtype], sms)
-    partial = torch.empty((slices, m, n), dtype=torch.float32, device=a.device) if slices > 1 else None
+    partial = None
+    if slices > 1:
+        partial = torch.empty((slices, m, n), dtype=torch.int32 if a.dtype == torch.int8 else torch.float32,
+                              device=a.device)
 
     with torch.cuda.device(a.device):
         err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), 0 if partial is None else partial.data_ptr(),
@@ -96,6 +147,19 @@ def matmul(a, b):
         raise RuntimeError("matmul kernel launch failed for %s @ %s %s: cudaError %d" %
                            (tuple(a.shape), tuple(b.shape), a.dtype, err))
 
-    global launches
-    launches += 1
-    return out
+    global launches, launchesInt8
+    if a.dtype == torch.int8:
+        launchesInt8 += 1
+    else:
+        launches += 1
+
+
+@torch.library.custom_op("puzzlelib::matmul", mutates_args=())
+def matmulOp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return matmul(a, b)
+
+
+@matmulOp.register_fake
+def _matmulShape(a, b):
+    _check(a, b)
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=_outType(a.dtype))

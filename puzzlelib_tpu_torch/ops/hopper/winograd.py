@@ -49,6 +49,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from puzzlelib_tpu_torch.ops.hopper import build
 
@@ -179,7 +180,12 @@ def _check(x, w, pad):
 
 
 def conv2d(x, w, pad=(0, 0)):
-    """NCHW x (N, C, H, W), w (CO, C, 3, 3) -> (N, CO, OH, OW), stride 1."""
+    """NCHW x (N, C, H, W), w (CO, C, 3, 3) -> (N, CO, OH, OW), stride 1.
+    A fake tensor (a ``torch.export`` trace) goes to the custom operator
+    ``conv2dOp``, which the trace records."""
+    if is_fake(x):
+        return conv2dOp(x, w, list(pad))
+
     pad = tuple(int(p) for p in pad)
     _check(x, w, pad)
 
@@ -192,6 +198,24 @@ def _conv2d(x, w, pad, dataGrad):
 
     xh = x.permute(0, 2, 3, 1).contiguous()
     return conv2dNHWC(xh, filterTransform(w), pad, dataGrad).permute(0, 3, 1, 2)
+
+
+@torch.library.custom_op("puzzlelib::winograd_conv2d", mutates_args=())
+def conv2dOp(x: torch.Tensor, w: torch.Tensor, pad: list[int]) -> torch.Tensor:
+    """``conv2d`` registered as the custom operator
+    ``puzzlelib::winograd_conv2d``, with a shape function, as
+    ``matmul.matmulOp`` is: ``conv2d`` hands it the fake tensors of a
+    ``torch.export`` trace, so that an engine's graph records K2."""
+    return conv2d(x, w, pad)
+
+
+@conv2dOp.register_fake
+def _conv2dShape(x, w, pad):
+    pad = tuple(int(p) for p in pad)
+    _check(x, w, pad)
+
+    # the kernel's NHWC output seen as NCHW: channels-last strides
+    return torch.empty(_outputShape(x, w, pad), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
 
 
 def conv2dNHWC(xh, u, pad, dataGrad=False):

@@ -4,9 +4,10 @@ could take for a piece of work."""
 import torch
 
 
-# the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 on the tensor cores,
-# f32 outside them, and device memory
+# the H100 SXM's peaks (NVIDIA's data sheet): dense bf16 and int8 on the
+# tensor cores, f32 outside them, and device memory
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 F32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 

@@ -134,10 +134,13 @@ def testVGG16StructureTwin(monkeypatch, onCpu):
 
 _NO_JAX = """
 import sys
+import tempfile
 import numpy as np
 import torch
+from puzzlelib_tpu_torch import checkinstall
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.containers import Sequential
+from puzzlelib_tpu_torch.converter.engine import DataCalibrator, buildEngine
 from puzzlelib_tpu_torch.handlers import Calculator
 from puzzlelib_tpu_torch.models.nets import buildTransformerClassifier, loadVGG
 from puzzlelib_tpu_torch import modules as T
@@ -159,6 +162,17 @@ tnet = buildTransformerClassifier(50, 16, 32, nheads=2, nlayers=1, nclasses=3, a
 tnet.calcMode(torch.bfloat16)
 logits = Calculator(tnet, batchsize=4).calcFromHost(np.random.randint(-1, 50, size=(6, 16)).astype(np.int32))
 assert logits.shape == (6, 3) and np.isfinite(logits).all()
+qnet = Sequential(name="q")
+qnet.append(T.Conv2D(3, 8, 3, pad=1, initscheme="he"))
+qnet.append(T.Activation(T.relu))
+qnet.append(T.Flatten())
+qnet.append(T.Linear(8 * 8 * 8, 4, initscheme="he"))
+calib = np.random.randn(8, 3, 8, 8).astype(np.float32)
+with tempfile.TemporaryDirectory() as tmp:
+    engine = buildEngine(qnet, (4, 3, 8, 8), tmp, dtype="int8", calibrator=DataCalibrator(calib, batchsize=4))
+    served = Calculator(engine, batchsize=4).calcFromHost(calib)
+assert served.shape == (8, 4) and np.isfinite(served).all()
+checkinstall.main()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -166,8 +180,9 @@ print("LEAKED", leaked)
 
 def testPortRunsWithoutJax():
     """A process that imports the port, serves a narrow VGG-shaped net and a
-    narrow transformer (attnAlgo="flash") on the CPU imports no JAX and
-    nothing of the JAX package."""
+    narrow transformer (attnAlgo="flash"), builds and serves a narrow int8
+    engine and runs ``checkinstall`` on the CPU imports no JAX and nothing of
+    the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
