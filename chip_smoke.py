@@ -81,7 +81,30 @@ it fails:
    0.99 of the same f32 weights on the library route;
 12. the bf16 engine of the same net ([engine-bf16]): built, loaded and
    served the same way, with 40 K2 and 12 K1 launches, and its logits within
-   1e-3 relative L2 of the eager bf16 ``Calculator`` on a clone of the net.
+   1e-3 relative L2 of the eager bf16 ``Calculator`` on a clone of the net;
+13. the flash engine ([engine-flash]): a float-input attention net
+   (LayerNorm, MultiHeadAttention at emb 256, 4 heads) whose "auto" core is
+   flash in bf16 on the card at seq 1024, built as a bf16 engine (K4 in its
+   graph as ``puzzlelib::flash``), loaded back and served 4 requests of 8
+   with the counters reset just before and read just after (4 K4, nothing
+   else), its output within 1e-3 of the eager bf16 net's;
+14. [transformer-train] (phase 10) runs the hand route a second time from
+   the same start and fails unless the losses and the embedding gradient
+   repeat bit for bit;
+15. P3 ([P3-roofline], the roofline probe's streaming ``x + 1``) bit-equal
+   to its plain version on 64 Mi bf16 values, and in f16, f32 and a ragged
+   length, beside ``torch.add``;
+16. P2 ([P2-phasesplit], the strided-copy probe's phase-slab copy) bit-equal
+   to its plain version at the probe's shape, VGG-16's largest activation at
+   batch 1 and a ragged one;
+17. P1 ([P1-tapdot], the tap-dot probe's direct conv) within 5e-3 relative L2
+   of its plain version and within the probe's 5e-2 of the f32 conv at the
+   probe's three shapes and VGG-16's conv2_2 and conv5_2 at batch 32, and two
+   ragged shapes (one f16), beside cuDNN and K2;
+18. the measurement path ([measure]): the probe scripts and the benchmarks
+   (``gemmspeed`` and its ``--kernel-rate``, ``convspeed`` and its
+   ``--chain`` on VGG-16's conv3_2, ``attnspeed``) run as a user runs them, with every counter reset just
+   before and read just after; each of P1-P3 and K1-K5b must have run.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -101,7 +124,6 @@ result.
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -113,7 +135,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402  (the package beside this script)
 from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
-    BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, deviceMs
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, cardName, deviceMs
 )
 
 
@@ -240,6 +262,38 @@ TRAIN_BOUND = 5e-2
 GRAD_LAYERS = ("conv2_2", "conv3_1", "conv4_2", "conv5_3", "fc6", "fc8")
 
 
+# P3: 64 Mi bf16 values as (131072, 512), the roofline probe's stream
+STREAM_SHAPE = (131072, 512)
+
+# P2: (NHWC image, tile rows): the strided-copy probe's own shape, VGG-16's
+# largest activation at batch 1, and a ragged one (C-value rows of 48 bytes,
+# a batch of 2 of which the copy reads the first, as the TPU kernel does)
+PHASE_SHAPES = [((1, 64, 64, 256), 4), ((1, 224, 224, 64), 4), ((2, 16, 16, 24), 2)]
+
+# P1: (name, x shape NCHW, output channels), 3x3 at pad 1: the tap-dot
+# probe's three shapes (r50-56 and r50-28 are VGG-16's conv3_x and conv4_x
+# at batch 32) and VGG-16's conv2_2 and conv5_2 at batch 32; then two ragged
+# checks, not timed
+TAPDOT_SHAPES = [
+    ("r50-56", (32, 256, 56, 56), 256),
+    ("r50-28", (32, 512, 28, 28), 512),
+    ("vgg-112", (16, 128, 112, 112), 128),
+    ("conv2_2", (BATCH, 128, 112, 112), 128),
+    ("conv5_2", (BATCH, 512, 14, 14), 512),
+]
+TAPDOT_RAGGED = [("ragged", (3, 48, 13, 11), 80, "bf16"), ("ragged-f16", (2, 32, 9, 30), 48, "f16")]
+
+# P1 against its plain version, relative L2: both sum exact bf16 products in
+# f32 and round once, in another order; against the f32 conv, max |error| /
+# max |f32|, the probe's own gate (tools/tapdot_probe.py:244)
+TAPDOT_BOUND_PLAIN = 5e-3
+TAPDOT_BOUND_F32 = 5e-2
+
+# [engine-flash]: a float-input attention net (LayerNorm, MultiHeadAttention)
+# whose "auto" core is flash in bf16 on the card at seq >= 1024; 4 requests
+ATTN_NET = dict(batch=8, seq=1024, emb=256, heads=4)
+
+
 def fail(message):
     raise SystemExit("chip_smoke FAILED: %s" % message)
 
@@ -250,12 +304,7 @@ def relErr(torch, got, ref):
 
 
 def phaseDevice(torch):
-    query = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                           capture_output=True, text=True, timeout=60)
-    if query.returncode != 0 or not query.stdout.strip():
-        fail("nvidia-smi gave no card name and power limit: %s" % query.stderr.strip())
-
-    card = query.stdout.strip().splitlines()[0].strip()
+    card = cardName()
     print(card)
     print("[device] %s | torch %s, CUDA %s, %d card(s)" %
           (torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda, torch.cuda.device_count()))
@@ -1197,6 +1246,17 @@ def phaseTransformerTrain(torch, card):
           (len(variables), ", ".join(str(dtype) for dtype in packs)))
     del snapshot
 
+    # the same run again from the same start must repeat bit for bit
+    embedGrad = _namedGrads(net, ("embed.W", ))["embed.W"]
+    again = []
+    Slice.train(routes, "hopper", tokens, labels, again)
+    repeats = again == losses and torch.equal(_namedGrads(net, ("embed.W", ))["embed.W"], embedGrad)
+    print("[transformer-train] a second run from the same start: losses %s; bit-equal to the first (losses and the "
+          "last step's embed.W gradient): %s" % (" ".join("%.6f" % loss for loss in again), repeats))
+
+    if not repeats:
+        fail("the bf16 training run does not repeat: losses %s, then %s" % (losses, again))
+
     libLosses = []
     Slice.train(routes, "torch", tokens, labels, libLosses)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, libLosses))
@@ -1287,6 +1347,271 @@ def phaseTransformer(torch, card):
     return launches
 
 
+def phaseStreamCopy(torch, streamcopy):
+    """P3 against its plain version, bit for bit, on the roofline probe's 64
+    Mi bf16 values, and in f16, f32 and a ragged length; beside
+    ``torch.add(x, 1)``.  Returns the JSON entry's numbers at the probe's
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    for dtype, shape in ((torch.float16, STREAM_SHAPE), (torch.float32, STREAM_SHAPE), (torch.bfloat16, (1001, ))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if not torch.equal(streamcopy.addOne(x), streamcopy.plain(x)):
+            fail("P3 differs from its plain version in %s at %s" % (dtype, shape))
+
+    x = torch.randn(STREAM_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    y, ref = streamcopy.addOne(x), streamcopy.plain(x)
+    torch.cuda.synchronize()
+    exact = torch.equal(y, ref)
+    absErr = (y.float() - ref.float()).abs().max().item()
+    del y, ref
+
+    ms = deviceMs(lambda: streamcopy.addOne(x), 20)
+    plainMs = deviceMs(lambda: streamcopy.plain(x), 20)
+    libMs = deviceMs(lambda: torch.add(x, 1), 20)
+    nbytes = 2 * x.numel() * x.element_size()
+    boundMs, boundBy = bound(nbytes, x.numel(), F32_FLOP_PER_S)
+
+    print("[P3-roofline] x + 1 on %s bf16: %s (max |kernel - plain| %.1e; f16, f32 and a ragged 1001 exact too); "
+          "kernel %.4f ms, %.1f GB/s (%.1f %% of 3.35 TB/s); plain %.4f ms; library (torch.add) %.4f ms, %.1f GB/s; "
+          "bound %.4f ms (%s)" % (STREAM_SHAPE, "exact" if exact else "NOT EXACT", absErr, ms, nbytes / ms / 1e6,
+                                  nbytes / ms / 1e6 / 33.5, plainMs, libMs, nbytes / libMs / 1e6, boundMs, boundBy))
+
+    if not exact:
+        fail("P3 differs from its plain version by up to %.3e" % absErr)
+
+    return {"max_abs_err": absErr, "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs, "bound_by": boundBy,
+            "library_ms": libMs}
+
+
+def phasePhaseSplit(torch, phasesplit):
+    """P2 against its plain version (the permuted copy, also the library's
+    way), bit for bit, at PHASE_SHAPES.  Returns the JSON entry's numbers at
+    the probe's own shape."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    main = None
+
+    for shape, rows in PHASE_SHAPES:
+        n, h, w, c = shape
+        x6 = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).reshape(n, h // 2, 2, w // 2, 2, c)
+        geometry = dict(rows=rows, tw=w // 2, c=c, nTiles=(h // 2) // rows)
+
+        out, ref = phasesplit.phaseSplit(x6, **geometry), phasesplit.plain(x6, **geometry)
+        torch.cuda.synchronize()
+        exact = torch.equal(out, ref)
+        absErr = (out.float() - ref.float()).abs().max().item()
+
+        ms = deviceMs(lambda: phasesplit.phaseSplit(x6, **geometry), 20)
+        plainMs = deviceMs(lambda: phasesplit.plain(x6, **geometry), 20)
+        nbytes = 2 * out.numel() * out.element_size()
+        boundMs, boundBy = bound(nbytes, 0)
+
+        print("[P2-phasesplit] x %s bf16, %d rows a tile: %s; kernel %.4f ms, %.1f GB/s; plain = library (permuted "
+              ".contiguous()) %.4f ms, %.1f GB/s; bound %.5f ms (%s)" %
+              (shape, rows, "exact" if exact else "NOT EXACT", ms, nbytes / ms / 1e6, plainMs, nbytes / plainMs / 1e6,
+               boundMs, boundBy))
+
+        if not exact:
+            fail("P2 at %s differs from its plain version by up to %.3e" % (shape, absErr))
+
+        if main is None:
+            main = {"max_abs_err": absErr, "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs, "bound_by": boundBy,
+                    "library_ms": plainMs}
+
+    return main
+
+
+def _tapdotCase(torch, tapdot, gen, xshape, co, dtype):
+    """P1 on seeded operands of one 3x3 pad-1 conv: (operands, kernel output,
+    relative L2 against the plain version, max relative error of the conv
+    against the f32 conv, max |kernel - plain|)."""
+    import torch.nn.functional as F
+
+    x = (torch.randn(xshape, generator=gen, device="cuda") * 0.3).to(dtype)
+    w = (torch.randn((co, xshape[1], 3, 3), generator=gen, device="cuda") * 0.1).to(dtype)
+    xp, wk, geometry, (oh, ow) = tapdot.layout(x, w, (1, 1))
+
+    got, ref = tapdot.tapdot(xp, wk, **geometry), tapdot.plain(xp, wk, **geometry)
+    f32 = F.conv2d(x.float(), w.float(), padding=1)
+    torch.cuda.synchronize()
+
+    errPlain = _relL2(got.float(), ref.float())
+    errF32 = relErr(torch, tapdot.crop(got, geometry, oh, ow), f32)
+    absErr = (got.float() - ref.float()).abs().max().item()
+    return (x, w, xp, wk, geometry), errPlain, errF32, absErr
+
+
+def phaseTapdot(torch, tapdot, winograd):
+    """P1 against its plain version and the f32 conv (TF32 off) at
+    TAPDOT_SHAPES and the ragged ones, beside cuDNN (``F.conv2d`` on
+    channels-last bf16) and K2 where it takes the shape.  Returns the JSON
+    entry's numbers for the five timed shapes together."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+
+    for name, xshape, co, dtName in TAPDOT_RAGGED:
+        _, errPlain, errF32, _ = _tapdotCase(torch, tapdot, gen, xshape, co,
+                                             torch.float16 if dtName == "f16" else torch.bfloat16)
+        print("[P1-tapdot] %-10s x=%s co=%d %s: relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e)" %
+              (name, xshape, co, dtName, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32))
+        if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
+            fail("P1 %s disagrees: %.3e vs plain, %.3e vs f32" % (name, errPlain, errF32))
+
+    for name, xshape, co in TAPDOT_SHAPES:
+        (x, w, xp, wk, geometry), errPlain, errF32, absErr = _tapdotCase(torch, tapdot, gen, xshape, co,
+                                                                        torch.bfloat16)
+        xl, wl = x.contiguous(memory_format=torch.channels_last), w.contiguous(memory_format=torch.channels_last)
+
+        ms = deviceMs(lambda: tapdot.tapdot(xp, wk, **geometry), 10)
+        plainMs = deviceMs(lambda: tapdot.plain(xp, wk, **geometry), 2)
+        libMs = deviceMs(lambda: F.conv2d(xl, wl, padding=1), 10)
+        k2 = "n/a"
+        if winograd.applicable(tuple(x.shape), tuple(w.shape), (1, 1), (1, 1), (1, 1), 1):
+            k2 = "%.4f ms" % deviceMs(lambda: winograd.conv2d(x, w, (1, 1)), 10)
+
+        n, c, h, wd = xshape
+        flops = 2.0 * n * co * h * wd * c * 9
+        boundMs, boundBy = bound((n * c * h * wd + n * co * h * wd + co * c * 9) * 2, flops)
+
+        print("[P1-tapdot] %-10s x=%s co=%d: relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e); "
+              "kernel %.4f ms, %.1f TFLOP/s useful; plain %.4f ms; library (cuDNN, NHWC) %.4f ms; K2 %s; bound "
+              "%.4f ms (%s)" % (name, xshape, co, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32, ms,
+                                flops / ms / 1e9, plainMs, libMs, k2, boundMs, boundBy))
+
+        if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
+            fail("P1 %s disagrees: %.3e vs plain, %.3e vs f32" % (name, errPlain, errF32))
+
+        main["max_abs_err"] = max(main["max_abs_err"], absErr)
+        for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs), ("bound_ms", boundMs)):
+            main[key] += value
+        main["bound_by"] = boundBy
+
+        del x, w, xp, wk, xl, wl
+        torch.cuda.empty_cache()
+
+    return main
+
+
+def phaseMeasurementPath(torch, card):
+    """The measurement entry points as a user runs them, with every kernel's
+    counter reset just before and read just after: the three probe scripts
+    (``tools/roofline_probe``, ``strided_dma_probe``, ``tapdot_probe``) and
+    the benchmarks (``gemmspeed`` at its defaults and ``--kernel-rate``,
+    ``convspeed`` on VGG-16's conv3_2 in bf16 and its ``--chain``,
+    ``attnspeed`` at its defaults).
+    Every kernel of the path must have run."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.benchmarks import attnspeed, convspeed, gemmspeed
+    from puzzlelib_tpu_torch.ops.hopper import flash, matmul, phasesplit, streamcopy, tapdot, winograd
+    from puzzlelib_tpu_torch.tools import roofline_probe, strided_dma_probe, tapdot_probe
+
+    Config.device = "cuda"
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    vgg = ["--dtype", "bfloat16", "--data", "%d,256,56,56" % BATCH, "--weights", "256,256,3,3", "--pad", "1"]
+
+    counters = [(streamcopy, "launches"), (phasesplit, "launches"), (tapdot, "launches"), (matmul, "launches"),
+                (matmul, "launchesInt8"), (winograd, "launches"), (winograd, "dataGradLaunches"),
+                (winograd, "filterGradLaunches"), (flash, "launches"), (flash, "launchesDq"), (flash, "launchesDkv")]
+    for module, counter in counters:
+        setattr(module, counter, 0)
+
+    start = time.perf_counter()
+    for label, run in (("tools/roofline_probe", lambda: roofline_probe.main([])),
+                       ("tools/strided_dma_probe", lambda: strided_dma_probe.main([])),
+                       ("tools/tapdot_probe", lambda: tapdot_probe.main([])),
+                       ("benchmarks/gemmspeed", lambda: gemmspeed.main([])),
+                       ("benchmarks/gemmspeed --kernel-rate", lambda: gemmspeed.main(["--kernel-rate"])),
+                       ("benchmarks/convspeed", lambda: convspeed.cli(vgg)),
+                       ("benchmarks/convspeed --chain", lambda: convspeed.cli(vgg + ["--chain"])),
+                       ("benchmarks/attnspeed", lambda: attnspeed.main([]))):
+        print("[measure] --- %s ---" % label)
+        run()
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - start
+
+    launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches, "K1": matmul.launches,
+                "K1-int8": matmul.launchesInt8, "K2": winograd.launches - winograd.dataGradLaunches,
+                "K2-bwd": winograd.dataGradLaunches, "K3": winograd.filterGradLaunches, "K4": flash.launches,
+                "K5a": flash.launchesDq, "K5b": flash.launchesDkv}
+
+    print("[measure] the probes and benchmarks ran in %.2f s on %s; launches in that run: %s" %
+          (secs, card, ", ".join("%s %d" % item for item in launches.items())))
+
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        fail("the measurement path launched no %s" % ", ".join(missing))
+
+    return launches
+
+
+def phaseEngineFlash(torch, card, workdir):
+    """A bf16 engine of a float-input attention net at seq 1024, where the
+    "auto" attention is flash on the card: built, reloaded and served 4
+    requests through ``Calculator``, with the counters reset just before and
+    read just after; K4 recorded as ``puzzlelib::flash`` in the graph and
+    launched once a request; the logits equal to the eager bf16 net's on a
+    clone."""
+    import copy
+
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch import containers, modules
+    from puzzlelib_tpu_torch.converter.engine import Engine, buildEngine
+    from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
+
+    Config.device = "cuda"
+    Config.globalEvalMode = True
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    batch, seq, emb, heads = (ATTN_NET[key] for key in ("batch", "seq", "emb", "heads"))
+
+    np.random.seed(0)
+    net = containers.Sequential(name="attn-net")
+    net.append(modules.LayerNorm(emb, name="norm"))
+    net.append(modules.MultiHeadAttention(emb, heads, name="attn"))
+    requests = np.random.RandomState(1).randn(batch * REQUESTS, seq, emb).astype(np.float32)
+
+    start = time.perf_counter()
+    path = buildEngine(net, (batch, seq, emb), workdir, dtype="bfloat16", returnEngine=False)
+    built = time.perf_counter() - start
+
+    with open(path.replace(".engine", ".graph.txt")) as f:
+        recorded = f.read().count("torch.ops.puzzlelib.flash.default")
+    engine = Engine(path)
+    print("[engine-flash] attention net (LayerNorm, MultiHeadAttention emb %d, %d heads, attnAlgo %r) at (%d, %d, "
+          "%d), bf16 engine built in %.2f s; K4 calls in its graph: %d" %
+          (emb, heads, net["attn"].attnAlgo, batch, seq, emb, built, recorded))
+
+    if recorded != 1:
+        fail("the flash engine's graph records %d puzzlelib::flash calls, expected 1" % recorded)
+
+    clone = copy.deepcopy(net)
+    clone.calcMode(torch.bfloat16)
+    for module in (engine, clone):
+        Engines.serve(module, requests, batch=batch)   # warm-up
+
+    flash.launches = matmul.launches = winograd.launches = 0
+    out, secs = Engines.serve(engine, requests, batch=batch)
+    launches = {"flash": flash.launches, "matmul": matmul.launches, "winograd": winograd.launches}
+
+    print("[engine-flash] %d requests of %d: %.4f s, %.1f rows/s on %s; launches in that run: flash %d, matmul %d, "
+          "winograd %d" % (REQUESTS, batch, secs, len(requests) / secs, card, launches["flash"], launches["matmul"],
+                           launches["winograd"]))
+
+    if launches != {"flash": REQUESTS, "matmul": 0, "winograd": 0}:
+        fail("expected %d K4 launches and no other, got %s" % (REQUESTS, launches))
+
+    eager, _ = Engines.serve(clone, requests, batch=batch)
+    rel = _relL2(torch.from_numpy(out), torch.from_numpy(eager))
+    print("[engine-flash] output vs the eager bf16 Calculator on the same clone: relative L2 %.3e (bound 1e-3); "
+          "finite %s" % (rel, np.isfinite(out).all()))
+
+    if out.shape != requests.shape or not np.isfinite(out).all() or not rel <= 1e-3:
+        fail("flash engine output of shape %s, relative L2 %.3e from the eager run" % (out.shape, rel))
+
+    return launches
+
+
 def main():
     import torch
 
@@ -1294,7 +1619,7 @@ def main():
         fail("no CUDA device: the port's smoke test needs an NVIDIA GPU")
 
     from puzzlelib_tpu_torch.backend.device import ensureInit
-    from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, probe, winograd
+    from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, phasesplit, probe, streamcopy, tapdot, winograd
 
     ensureInit()
 
@@ -1319,6 +1644,15 @@ def main():
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
         net, requests, engineInt8 = phaseEngineInt8(torch, card, workdir)
         engineBf16 = phaseEngineBf16(torch, card, workdir, net, requests)
+        del net, requests
+        torch.cuda.empty_cache()
+        engineFlash = phaseEngineFlash(torch, card, workdir)
+    torch.cuda.empty_cache()
+
+    roofline = phaseStreamCopy(torch, streamcopy)
+    phaseSlabs = phasePhaseSplit(torch, phasesplit)
+    tapdotConv = phaseTapdot(torch, tapdot, winograd)
+    measured = phaseMeasurementPath(torch, card)
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -1326,28 +1660,39 @@ def main():
              replaces="puzzlelib_tpu/checkinstall.py:37", launches=install["probe"], **installProbe),
         dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
-             serving_launches=serving["matmul"], engine_launches=engineBf16["matmul"], **gemm),
+             serving_launches=serving["matmul"], engine_launches=engineBf16["matmul"],
+             measurement_launches=measured["K1"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
-             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"], **gemmInt8),
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
+             measurement_launches=measured["K1-int8"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"], **gemmTransformer),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
-             engine_launches=engineBf16["winograd"], **wino),
+             engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"], **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
-             launches=training["winogradDataGrad"], **dataGrad),
+             launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"], **dataGrad),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
-             replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"], **filterGrad),
+             replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"],
+             measurement_launches=measured["K3"], **filterGrad),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
-             training_launches=transformerTrain["flash"], **attention),
+             training_launches=transformerTrain["flash"], engine_launches=engineFlash["flash"],
+             measurement_launches=measured["K4"], **attention),
         dict(name="K5a flash-attention dQ", route="cuda", source=source % "flash_bwd",
-             replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"], **attentionDq),
+             replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"],
+             measurement_launches=measured["K5a"], **attentionDq),
         dict(name="K5b flash-attention dK/dV", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
-             **attentionDkv),
+             measurement_launches=measured["K5b"], **attentionDkv),
+        dict(name="P1 tap-dot direct conv (probe)", route="cuda", source=source % "tapdot",
+             replaces="tools/tapdot_probe.py:32", launches=measured["P1"], **tapdotConv),
+        dict(name="P2 stride-2 phase-slab copy (probe)", route="cuda", source=source % "phasesplit",
+             replaces="tools/strided_dma_probe.py:25", launches=measured["P2"], **phaseSlabs),
+        dict(name="P3 streaming x + 1 (roofline probe)", route="cuda", source=source % "streamcopy",
+             replaces="tools/roofline_probe.py:73", launches=measured["P3"], **roofline),
     ]
     print("[kernels] launches: K0 checkinstall's; K1-K3 the VGG training run's (4 steps of 32), serving_launches "
           "the VGG serving run's (4 requests of 32), engine_launches the VGG bf16 engine's (4 requests of 32); "
@@ -1360,7 +1705,11 @@ def main():
           "included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
           "the backward of that layer, each kernel alone, plain_ms and library_ms the whole backward (dq, dk, dv) "
           "of backwardPlain and of scaled_dot_product_attention); K4's training_launches and K5's launches the "
-          "transformer training run's (4 steps of 64); max_abs_err: largest |kernel - plain| at those shapes")
+          "transformer training run's (4 steps of 64), K4's engine_launches the flash engine's (4 requests of 8); "
+          "P1-P3's launches and K1-K5's measurement_launches the measurement path's (the probe scripts and "
+          "benchmarks); P1: the 5 convs of [P1-tapdot] together, the kernel on prepared operands, library cuDNN "
+          "on channels-last bf16; P2: (1, 64, 64, 256) at 4 rows a tile, library = plain, the permuted copy; P3: "
+          "x + 1 on 64 Mi bf16 values, library torch.add; max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -16,7 +16,9 @@ useGlobalState=True)`` -> ``handlers.Trainer(net, cost.CrossEntropy(), opt)
 (``calcMode`` -> ``optimizers.Adam(alpha=1e-3).setupOn(net,
 useGlobalState=True)`` -> ``handlers.Trainer(net,
 cost.CrossEntropy(maxlabels=2), opt, batchsize=64).trainFromHost``, through
-the flash-attention backward).
+the flash-attention backward), serving engines (``converter.engine``), and
+the kernel-measurement path (``benchmarks``, the probes under ``tools``,
+``profiler``).
 
 The port runs on the CUDA card; a run on the CPU asks for it with
 ``Config.device = "cpu"``.

@@ -4,8 +4,11 @@ PyTorch runs eagerly on whatever device a tensor lives on, so the backend
 needs no bootstrap beyond choosing that device and pinning f32 precision.
 The port runs on the CUDA card unless the caller asks for the CPU with
 ``Config.device = "cpu"``: with no card and no such request, ``getDevice``
-raises instead of running on the CPU unnoticed.
+raises instead of running on the CPU unnoticed.  ``timeKernel`` is the
+reference's wall-clock kernel timer.
 """
+
+import time
 
 import torch
 
@@ -58,3 +61,39 @@ def synchronize(device=None):
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def timeKernel(func, args=(), kwargs=None, looplength=1000, log=True, logname=None, normalize=False, hotpass=True):
+    """Seconds of ``looplength`` calls of ``func(*args, **kwargs)`` by the
+    host clock, each end fenced by ``torch.cuda.synchronize()`` where there
+    is a card (the reference's event-timed ``timeKernel``): the total, or the
+    mean of one call with ``normalize``.  ``hotpass`` runs one untimed call
+    first; ``log`` writes the time to the library's logger under ``logname``
+    (default: the function's name).  On the CPU the calls finish before they
+    return and there is nothing to fence."""
+    kwargs = {} if kwargs is None else kwargs
+
+    def fence():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    if hotpass:
+        func(*args, **kwargs)
+
+    fence()
+    start = time.perf_counter()
+
+    for _ in range(looplength):
+        func(*args, **kwargs)
+
+    fence()
+    secs = time.perf_counter() - start
+
+    if normalize:
+        secs /= looplength
+
+    if log:
+        logname = func.__name__ if logname is None else logname
+        Config.getLogger().info("%s time: %s secs", logname, secs)
+
+    return secs

@@ -3,7 +3,8 @@ shared flat buffers (``SharedArray``).
 
 The reference wraps every array in ``GPUArray`` (``puzzlelib_tpu/tensor.py``);
 the port uses plain ``torch.Tensor``s, so what remains here is moving numpy
-arrays to the device and back.  numpy has no bfloat16: a bf16 upload goes
+arrays to the device and back, and the allocators ``empty`` and ``zeros``.
+The three report to the allocation tracer (``profiler.startTraceMalloc``).  numpy has no bfloat16: a bf16 upload goes
 through float32 (which holds every bf16 value exactly) and a bf16 download
 comes back as float32.
 """
@@ -32,6 +33,17 @@ def toNumpyDtype(T):
     return np.float32 if T == torch.bfloat16 else torch.empty(0, dtype=T).numpy().dtype
 
 
+def _traceAlloc(tensor):
+    """The allocation tracer's hook (``profiler.startTraceMalloc``): records
+    ``tensor`` while it is on, as the reference's allocators do."""
+    from puzzlelib_tpu_torch import profiler
+
+    if profiler.tracingAllocs:
+        profiler.recordAlloc(tensor)
+
+    return tensor
+
+
 def to_gpu(ary, dtype=None, device=None):
     """numpy -> tensor on ``device`` (default: the configured one), cast to
     ``dtype`` on the device when given.  The tensor never shares memory with
@@ -43,7 +55,20 @@ def to_gpu(ary, dtype=None, device=None):
         host = host.copy()
 
     tensor = torch.from_numpy(host).to(device)
-    return tensor if dtype is None else tensor.to(dtype)
+    return _traceAlloc(tensor if dtype is None else tensor.to(dtype))
+
+
+def empty(shape, dtype=np.float32, device=None):
+    """An uninitialised tensor of ``shape`` on ``device`` (default: the
+    configured one)."""
+    device = getDevice() if device is None else torch.device(device)
+    return _traceAlloc(torch.empty(shape, dtype=toTorchDtype(dtype), device=device))
+
+
+def zeros(shape, dtype=np.float32, device=None):
+    """A zero tensor of ``shape`` on ``device`` (default: the configured one)."""
+    device = getDevice() if device is None else torch.device(device)
+    return _traceAlloc(torch.zeros(shape, dtype=toTorchDtype(dtype), device=device))
 
 
 class SharedArray:

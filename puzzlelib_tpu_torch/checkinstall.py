@@ -16,10 +16,10 @@ as ``python3 -m puzzlelib_tpu_torch.checkinstall`` (on the card, or with
 ``Config.device = "cpu"`` set by a caller, on the CPU).
 """
 
-import subprocess
-
 import numpy as np
 import torch
+
+from puzzlelib_tpu_torch.tools.timing import cardName
 
 
 # the GEMM probe's bound on max |out - numpy| / max |numpy|: K1 in f32 sums
@@ -31,12 +31,7 @@ def _cardLine(device):
     if device.type != "cuda":
         return "none (the CPU)"
 
-    query = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                           capture_output=True, text=True, timeout=60)
-    if query.returncode != 0 or not query.stdout.strip():
-        raise RuntimeError("nvidia-smi gave no card name and power limit: %s" % query.stderr.strip())
-
-    return query.stdout.strip().splitlines()[device.index or 0].strip()
+    return cardName(device.index or 0)
 
 
 def main():

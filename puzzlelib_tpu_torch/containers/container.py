@@ -1,13 +1,20 @@
 """Container base: a Module owning named child modules (counterpart of
 ``puzzlelib_tpu/containers/container.py``).
 
-The reference keeps its children in a ``modules`` dict, which would shadow
-``nn.Module.modules()``.  Here children are registered with ``add_module``
-and live in ``nn.Module``'s own registry, so ``net["conv3_1"]``, the
-variable routing (``net.getVar("conv3_1.W")``) and ``nn.Module``'s
-``modules()``, ``parameters()`` and ``.to()`` all see the same tree.  A
-child's name must not clash with an attribute of the container.
+Children are registered with ``add_module`` and live in ``nn.Module``'s own
+registry, so ``net["conv3_1"]``, the variable routing
+(``net.getVar("conv3_1.W")``) and ``nn.Module``'s ``parameters()`` and
+``.to()`` all see the same tree.  ``net.modules`` is the reference's
+``modules`` dict as a view of that registry (``ModulesView``): the children
+by name, in insertion order, so ``net.modules["conv1_1"]`` and
+``net.modules.items()`` work as in the reference.  Called, the view is
+``nn.Module.modules()``, which PyTorch's own code calls.  A child's name must
+not clash with an attribute of the container.
 """
+
+from collections.abc import Mapping
+
+from torch import nn
 
 from puzzlelib_tpu_torch.modules.module import Module, ModuleError
 
@@ -16,7 +23,34 @@ class ContainerError(ModuleError):
     pass
 
 
+class ModulesView(Mapping):
+    """A container's children by name, read-only, in insertion order (the
+    reference's ``Container.modules`` dict); calling it yields every module
+    of the tree, the container first, as ``nn.Module.modules()`` does."""
+
+    __slots__ = ("_owner", )
+
+    def __init__(self, owner):
+        self._owner = owner
+
+    def __getitem__(self, name):
+        return self._owner._modules[name]
+
+    def __iter__(self):
+        return iter(self._owner._modules)
+
+    def __len__(self):
+        return len(self._owner._modules)
+
+    def __call__(self):
+        return nn.Module.modules(self._owner)
+
+
 class Container(Module):
+    @property
+    def modules(self):
+        return ModulesView(self)
+
     # -- child registry ----------------------------------------------------------
 
     def append(self, mod, acquire=True):

@@ -14,7 +14,8 @@ freezes its weights, and the program is saved with ``torch.export.save``:
   ``.stablehlo.mlir``, whose reader, the PJRT host driver, is not ported.
 
 The hand kernels appear in the graph as their custom operators
-(``puzzlelib::matmul``, ``puzzlelib::winograd_conv2d``), so a loaded engine
+(``puzzlelib::matmul``, ``puzzlelib::winograd_conv2d``,
+``puzzlelib::flash``), so a loaded engine
 launches them as the eager net does.  An exported program records the
 device it was traced on: build an engine on the device where it serves.
 The net's tensors are read through a closure, not registered on the traced

@@ -15,7 +15,7 @@ import torch
 
 from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 # the custom operators an engine's graph calls must exist before it is loaded
-from puzzlelib_tpu_torch.ops.hopper import matmul, winograd  # noqa: F401
+from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd  # noqa: F401
 
 
 class Engine(Module):

@@ -17,12 +17,22 @@ which CPU tensors take, and a launch counter (``launches``):
 - ``probe``    K0, the install probe ``2 x`` (``checkinstall.py``).
 
 The kernels that an engine's forward reaches are also custom operators with
-shape functions, ``matmul.matmulOp`` (``puzzlelib::matmul``, every type)
-and ``winograd.conv2dOp`` (``puzzlelib::winograd_conv2d``): their wrappers
-hand them the fake tensors of a ``torch.export`` trace, so that an engine's
-graph records the kernels, and launch directly on real tensors.  The
-training-only kernels (K2 as bwd-data, K3, K5a, K5b) and K4 are not: no
-engine runs them.
+shape functions, ``matmul.matmulOp`` (``puzzlelib::matmul``, every type),
+``winograd.conv2dOp`` (``puzzlelib::winograd_conv2d``) and ``flash.flashOp``
+(``puzzlelib::flash``): their wrappers hand them the fake tensors of a
+``torch.export`` trace, so that an engine's graph records the kernels, and
+launch directly on real tensors.  The training-only kernels (K2 as
+bwd-data, K3, K5a, K5b) are not: no engine runs them.
+
+The measurement probes, the ports of the repo-root ``tools/*_probe.py``
+kernels, which no model runs:
+
+- ``streamcopy`` P3, the streaming ``x + 1`` (``tools/roofline_probe.py``
+  ``copyKernel``);
+- ``phasesplit`` P2, the stride-2 phase-slab copy
+  (``tools/strided_dma_probe.py`` ``_kernel``);
+- ``tapdot``   P1, the pitch-row tap-dot direct conv
+  (``tools/tapdot_probe.py`` ``_kernel``).
 
 ``build`` compiles the sources with ``nvcc`` at the first CUDA call.
 """

@@ -25,6 +25,11 @@ The kernels take bf16 and f16 at head dims 32, 64 and 128; f32 raises
 ``TypeError``, since Hopper's tensor cores have no f32 mode.  Their designs
 are in the notes at the top of the sources.
 
+``flashOp`` is ``flash`` registered as the custom operator
+``puzzlelib::flash``, returning ``(out, lse)``, with a shape function:
+``flash`` hands it the fake tensors of a ``torch.export`` trace, so that an
+engine's graph records K4, and launches directly on real tensors.
+
 ``plain`` and ``backwardPlain`` are the same functions in plain PyTorch: f32
 scores, the same mask constant, f32 softmax statistics, and P (and dS in the
 backward) rounded to the input's type for the products that take them, where
@@ -38,6 +43,7 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from puzzlelib_tpu_torch.ops.hopper import build
 
@@ -125,7 +131,12 @@ def _cudaOperands(*tensors):
 
 
 def flash(q, k, v, causal=False):
-    """(out, lse) of attention, through kernel K4 on CUDA tensors."""
+    """(out, lse) of attention, through kernel K4 on CUDA tensors.  A fake
+    tensor (a ``torch.export`` trace) goes to the custom operator
+    ``flashOp``, which the trace records."""
+    if is_fake(q):
+        return flashOp(q, k, v, bool(causal))
+
     _check(q, k, v)
 
     if q.device.type == "cpu":
@@ -160,6 +171,18 @@ def flash(q, k, v, causal=False):
     global launches
     launches += 1
     return out, lse
+
+
+@torch.library.custom_op("puzzlelib::flash", mutates_args=())
+def flashOp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash(q, k, v, causal)
+
+
+@flashOp.register_fake
+def _flashShape(q, k, v, causal):
+    _check(q, k, v)
+    batch, heads, seqQ, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((batch * heads, 1, seqQ), dtype=torch.float32)
 
 
 def backwardPlain(q, k, v, out, lse, do, causal=False):

@@ -15,13 +15,13 @@ throughput outside the profiler, [K1-int8] the kernel's times.
 """
 
 import copy
-import subprocess
 import tempfile
 
 import torch
 
 from puzzlelib_tpu_torch.tools import engineslice as Engines
 from puzzlelib_tpu_torch.tools.profiletransformer import _profile
+from puzzlelib_tpu_torch.tools.timing import cardName
 
 
 def main():
@@ -32,8 +32,7 @@ def main():
     from puzzlelib_tpu_torch.converter.engine import Engine
     from puzzlelib_tpu_torch.ops.hopper import build
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0])
+    print(cardName())
 
     Config.device = "cuda"
     Config.globalEvalMode = True

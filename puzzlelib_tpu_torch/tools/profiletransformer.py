@@ -14,11 +14,10 @@ throughput outside the profiler, [K1], [K4] and [K5] the kernels' times at
 these shapes.
 """
 
-import subprocess
-
 import torch
 
 from puzzlelib_tpu_torch.tools import transformerslice as Slice
+from puzzlelib_tpu_torch.tools.timing import cardName
 
 
 def _busyUs(events):
@@ -61,8 +60,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0])
+    print(cardName())
 
     routes, tokens = Slice.build()
     for net in routes.values():

@@ -1,5 +1,9 @@
 """Timing a call on the card by CUDA events, and the least time the card
-could take for a piece of work."""
+could take for a piece of work; the card's name and power limit, which go
+beside every number taken on it."""
+
+import subprocess
+import time
 
 import torch
 
@@ -47,3 +51,30 @@ def bound(nbytes, flops, flopPerS=BF16_FLOP_PER_S, f32Flops=0):
     byteMs = nbytes / HBM_BYTES_PER_S * 1e3
     flopMs = max(flops / flopPerS, f32Flops / F32_FLOP_PER_S) * 1e3
     return (byteMs, "bytes") if byteMs >= flopMs else (flopMs, "operations")
+
+
+def hostMs(fn, iters):
+    """Mean milliseconds of ``fn`` by the host clock after a warm-up: the
+    CPU's time, for runs on the CPU, where a call's work is done when it
+    returns.  Never a device time."""
+    fn()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - start) / iters * 1e3
+
+
+def timeMs(fn, iters, device):
+    """``deviceMs`` on a CUDA device, ``hostMs`` on the CPU."""
+    return deviceMs(fn, iters) if torch.device(device).type == "cuda" else hostMs(fn, iters)
+
+
+def cardName(index=0):
+    """Card ``index``'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    query = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60)
+    if query.returncode != 0 or not query.stdout.strip():
+        raise RuntimeError("nvidia-smi gave no card name and power limit: %s" % query.stderr.strip())
+
+    return query.stdout.strip().splitlines()[index].strip()

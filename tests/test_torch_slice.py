@@ -173,6 +173,18 @@ with tempfile.TemporaryDirectory() as tmp:
     served = Calculator(engine, batchsize=4).calcFromHost(calib)
 assert served.shape == (8, 4) and np.isfinite(served).all()
 checkinstall.main()
+from puzzlelib_tpu_torch import profiler
+from puzzlelib_tpu_torch.backend.dnn import convNdbenchmark
+from puzzlelib_tpu_torch.benchmarks import attnspeed, convspeed, gemmspeed
+from puzzlelib_tpu_torch.ops.hopper import phasesplit, streamcopy, tapdot
+from puzzlelib_tpu_torch.tools import roofline_probe, strided_dma_probe, tapdot_probe
+assert torch.equal(streamcopy.addOne(torch.zeros(4, dtype=torch.bfloat16)), torch.ones(4, dtype=torch.bfloat16))
+x6 = torch.arange(2 * 4 * 2 * 3 * 2 * 16, dtype=torch.float32).reshape(2, 4, 2, 3, 2, 16)
+assert phasesplit.phaseSplit(x6, 2, 3, 16, 2).shape == (2, 4, 2, 3, 16)
+assert tapdot.conv2d(torch.randn(1, 16, 6, 5), torch.randn(16, 16, 3, 3), (1, 1)).shape == (1, 16, 6, 5)
+profiler.startTraceMalloc()
+assert convNdbenchmark((1, 4, 6, 6), (4, 4, 3, 3), (1, 1), (1, 1), (1, 1), 1)[0][0].time > 0
+profiler.stopTraceMalloc()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -181,8 +193,10 @@ print("LEAKED", leaked)
 def testPortRunsWithoutJax():
     """A process that imports the port, serves a narrow VGG-shaped net and a
     narrow transformer (attnAlgo="flash"), builds and serves a narrow int8
-    engine and runs ``checkinstall`` on the CPU imports no JAX and nothing of
-    the JAX package (``ml_dtypes`` neither)."""
+    engine, runs ``checkinstall``, imports the measurement path (the
+    benchmarks, the probe scripts, the profiler), runs the plain versions of
+    the probes P1-P3 and ``convNdbenchmark`` on the CPU imports no JAX and
+    nothing of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
