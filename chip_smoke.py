@@ -28,7 +28,10 @@ it fails:
    ``winograd.dataGrad``) and K3 (Winograd bwd-filter) against their plain
    versions and against an f32 library reference with TF32 off
    (``F.conv2d``, ``torch.nn.grad.conv2d_input``, ``conv2d_weight``), at
-   each distinct Winograd-eligible VGG-16 conv at batch 32;
+   each distinct Winograd-eligible VGG-16 conv at batch 32; each kernel and
+   its library call also timed on channels-last operands, as the training
+   path hands them over, and each kernel's second call and its call on
+   those operands must give the same bits as its first;
 5. the serving slice: VGG-16 at full width in bf16, random He weights from
    ``np.random.seed(0)``, 128 seeded images through
    ``Calculator(net, batchsize=32).calcFromHost``.  The launch counters are
@@ -390,12 +393,20 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
     filter in ``weightBytes`` per value, and does the Winograd products,
     2 * 16 per 2x2 output tile per (c, co) on the tensor cores, and
     ``transformOps(tiles, c, co)`` f32 operations outside them.  Returns the
-    JSON entry's numbers for one batch of the 10 convs."""
+    JSON entry's numbers for one batch of the 10 convs.
+
+    The kernel and the library are also timed on channels-last copies of
+    the operands, as the training path hands them over (``ops/conv.py``
+    ``kernelLayout``; K2's output stays channels-last), with the share of the
+    NCHW-operand time that the wrapper's layout copies take and the rate of
+    the 16 products; the kernel must give the same bits on a second call and
+    on the channels-last operands."""
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on although Config.matmulPrecision is 'highest'")
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "channels_last_ms": 0.0, "channels_last_library_ms": 0.0}
     binding = set()
     boundPlain, boundF32 = bounds
 
@@ -422,6 +433,25 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
               "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms, bound %.4f ms (%s)" %
               (tag, name, xshape, co, errPlain, boundPlain, errF32, boundF32, ms, plainMs, libMs, boundMs, boundBy))
 
+        last = tuple(a.contiguous(memory_format=torch.channels_last) for a in args)
+        first, again, onLast = kernel(*args), kernel(*args), kernel(*last)
+        torch.cuda.synchronize()
+        same = torch.equal(first, again) and torch.equal(first, onLast)
+        del first, again, onLast
+
+        lastMs = deviceMs(lambda: kernel(*last), 10)
+        libLastMs = deviceMs(lambda: library(*last), 10)
+        rate = 2 * 16 * tiles * c * co / 1e9
+        print("[%s] %-7s channels-last operands: kernel %.4f ms (%.1f TF/s of the 16 products; NCHW %.1f), "
+              "the wrapper's layout copies %.1f %% of the NCHW time, library bf16 %.4f ms; two calls and the "
+              "channels-last call bit-equal: %s" %
+              (tag, name, lastMs, rate / lastMs, rate / ms, 100 * (ms - lastMs) / ms, libLastMs, same))
+
+        if not same:
+            fail("%s %s gives other bits on a second call or on channels-last operands" % (tag, name))
+
+        del last
+
         if not errPlain <= boundPlain:
             fail("%s %s disagrees with its plain version: %.3e" % (tag, name, errPlain))
 
@@ -433,6 +463,8 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
         main["plain_ms"] += plainMs * count
         main["library_ms"] += libMs * count
         main["bound_ms"] += boundMs * count
+        main["channels_last_ms"] += lastMs * count
+        main["channels_last_library_ms"] += libLastMs * count
         binding.add(boundBy)
 
     main["bound_by"] = "/".join(sorted(binding))
@@ -1702,7 +1734,8 @@ def main():
           "block; K1: fc6+fc7+fc8 forward in bf16; K1-int8: the 16 int8 products of one request of 32 images, "
           "plain in f64, library torch._int_mm with conv1_1's K padded to 32; K1 at the transformer's shapes: the "
           "5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a batch of 32, wrapper "
-          "included; K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
+          "included, on NCHW operands (channels_last_ms and channels_last_library_ms on channels-last "
+          "operands, as the training path hands them over); K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
           "the backward of that layer, each kernel alone, plain_ms and library_ms the whole backward (dq, dk, dv) "
           "of backwardPlain and of scaled_dot_product_attention); K4's training_launches and K5's launches the "
           "transformer training run's (4 steps of 64), K4's engine_launches the flash engine's (4 requests of 8); "

@@ -275,8 +275,8 @@ def dataGrad(dy, w, pad=(0, 0)):
 
 
 # K3's blocking (csrc/winograd_fg.cu): input channels and output channels per
-# block, tiles per step
-FG_BM, FG_BN, FG_BK = 32, 64, 32
+# block, tiles per step at most, whole tile rows per step at most
+FG_BM, FG_BN, FG_KT, FG_RMAX = 64, 128, 32, 8
 
 _SMS = {}
 
@@ -313,19 +313,12 @@ def _checkFG(x, dy, pad):
                          "got %s and %s" % (pad, tuple(x.shape), tuple(dy.shape)))
 
 
-def filterGradPlain(x, dy, pad=(0, 0)):
-    """K3's algorithm in plain torch: NCHW x (N, C, H, W) and dy
-    (N, CO, OH, OW) -> dW (CO, C, 3, 3) f32, with the kernel's rounding
-    points: V as in the forward; Mbar[xi nu] = sum of the signed dY terms of
-    A^T's columns xi and nu, added one by one in dy's type in the reference's
-    order (``_ACOL[xi]`` outer, ``_ACOL[nu]`` inner); f32 sums over tiles."""
-    n, c = x.shape[:2]
-    co, oh, ow = dy.shape[1:]
-    th, tw = -(-oh // 2), -(-ow // 2)
-
-    v = _inputTransform(x, pad, th, tw)
-
-    # the 2x2 gradient tiles, zero past the odd edges: g[n, o, i, a, j, b]
+def _gradTransform(dy, th, tw):
+    """Mbar = A dY A^T of every 2x2 gradient tile of NCHW dy, zero past the
+    odd edges: (4, 4, n, co, th, tw) in dy's type, Mbar[xi nu] the signed
+    dY terms of A^T's columns xi (rows, outer) and nu (columns, inner),
+    added one by one in dy's type."""
+    n, co, oh, ow = dy.shape
     g = torch.nn.functional.pad(dy, (0, 2 * tw - ow, 0, 2 * th - oh)).reshape(n, co, th, 2, tw, 2)
 
     acol = [[(a, _AT[a][xi]) for a in range(2) if _AT[a][xi] != 0] for xi in range(4)]
@@ -339,7 +332,21 @@ def filterGradPlain(x, dy, pad=(0, 0)):
                     m = term if m is None else m + term
             mbar.append(m)
 
-    m = torch.stack(mbar).float().reshape(4, 4, n, co, th, tw)
+    return torch.stack(mbar).reshape(4, 4, n, co, th, tw)
+
+
+def filterGradPlain(x, dy, pad=(0, 0)):
+    """K3's algorithm in plain torch: NCHW x (N, C, H, W) and dy
+    (N, CO, OH, OW) -> dW (CO, C, 3, 3) f32, with the kernel's rounding
+    points: V as in the forward; Mbar[xi nu] = sum of the signed dY terms of
+    A^T's columns xi and nu, added one by one in dy's type in the reference's
+    order (``_ACOL[xi]`` outer, ``_ACOL[nu]`` inner); f32 sums over tiles."""
+    n, c = x.shape[:2]
+    co, oh, ow = dy.shape[1:]
+    th, tw = -(-oh // 2), -(-ow // 2)
+
+    v = _inputTransform(x, pad, th, tw)
+    m = _gradTransform(dy, th, tw).float()
     du = torch.einsum("nchwxy,xynohw->xyco", v, m).reshape(16, c, co)
     return filterFromTransform(du)
 
@@ -361,31 +368,43 @@ def filterGrad(x, dy, pad=(0, 0)):
 
 def _entryFG():
     fn = build.load("winograd_fg").pl_winograd_fg
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _tileChunk(tiles, c, co, device):
-    """Tiles per split of K3's tile axis: enough splits for two blocks per SM
-    (one block fits an SM), but at least 4 steps of tiles per split."""
+def _stepGeometry(n, th, tw):
+    """How K3 cuts the n * th rows of tw tiles into steps (the rule of
+    ``pl_winograd_fg_steps`` in csrc/winograd_fg.cu): a row longer than
+    ``FG_KT`` tiles in ``segs`` runs of ``length`` tiles (the last may be
+    shorter), else up to ``FG_RMAX`` whole rows a step.  Returns (length,
+    runs, segs, steps)."""
+    segs = -(-tw // FG_KT)
+    length = -(-tw // segs)
+    runs = 1 if segs > 1 else min(FG_KT // tw, FG_RMAX)
+    return length, runs, segs, -(-(n * th) // runs) * segs
+
+
+def _tileChunk(steps, c, co, sms):
+    """Steps per split of K3's tile axis: as many splits as fill about two
+    waves of blocks (one block fits an SM, ``4 * (c / 64) * (co / 128)``
+    blocks a split), at least 4 steps a split."""
+    blocks = 4 * (c // FG_BM) * (co // FG_BN)
+    splits = max(1, 2 * sms // blocks)
+    return max(-(-steps // splits), 4)
+
+
+def _smCount(device):
     sms = _SMS.get(device)
     if sms is None:
         sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
 
-    blocks = (c // FG_BM) * (co // FG_BN)
-    splits = max(1, -(-2 * sms // blocks))
-    chunk = -(-(-(-tiles // splits)) // FG_BK) * FG_BK
-    return max(chunk, 4 * FG_BK)
+    return sms
 
 
 def filterGradNHWC(xh, dyh, pad):
     """The kernel launch: contiguous NHWC bf16 ``xh`` (N, H, W, C) and
     ``dyh`` (N, OH, OW, CO) on the card -> dU (16, C, CO) f32."""
-    if xh.device.type != "cuda" or dyh.device != xh.device:
-        raise ValueError("the winograd bwd-filter kernel runs on CUDA tensors, got %s and %s" %
-                         (xh.device, dyh.device))
-
     if xh.dtype != torch.bfloat16 or dyh.dtype != torch.bfloat16:
         raise TypeError("the winograd bwd-filter kernel takes bf16 x and dy, got %s and %s" % (xh.dtype, dyh.dtype))
 
@@ -401,13 +420,17 @@ def filterGradNHWC(xh, dyh, pad):
         raise ValueError("the winograd bwd-filter kernel takes C and CO positive multiples of %d and %d, "
                          "got %d and %d" % (FG_BM, FG_BN, c, co))
 
-    # channel pairs load as 4 bytes
-    if xh.data_ptr() % 4 != 0 or dyh.data_ptr() % 4 != 0:
-        raise ValueError("the winograd bwd-filter kernel needs x and dy 4-byte aligned")
+    if xh.device.type != "cuda" or dyh.device != xh.device:
+        raise ValueError("the winograd bwd-filter kernel runs on CUDA tensors, got %s and %s" %
+                         (xh.device, dyh.device))
 
-    tiles = n * -(-oh // 2) * -(-ow // 2)
-    chunk = _tileChunk(tiles, c, co, xh.device)
-    splits = -(-tiles // chunk)
+    # 8-channel chunks load as 16 bytes
+    if xh.data_ptr() % 16 != 0 or dyh.data_ptr() % 16 != 0:
+        raise ValueError("the winograd bwd-filter kernel needs x and dy 16-byte aligned")
+
+    steps = _stepGeometry(n, -(-oh // 2), -(-ow // 2))[3]
+    chunk = _tileChunk(steps, c, co, _smCount(xh.device))
+    splits = -(-steps // chunk)
 
     du = torch.empty((16, c, co), dtype=torch.float32, device=xh.device)
     work = torch.empty((splits, 16, c, co), dtype=torch.float32, device=xh.device) if splits > 1 else None

@@ -234,14 +234,27 @@ def testWrappersRejectWhatTheKernelsDoNotTake():
     with pytest.raises(ValueError):
         winograd.dataGrad(torch.zeros(1, 4, 8, 8), torch.zeros(4, 4, 3, 3), (3, 3))
 
-    with pytest.raises(ValueError):
-        winograd.filterGradNHWC(torch.zeros(1, 8, 8, 32, dtype=torch.bfloat16),
-                                torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16), (1, 1))
+    # K3 takes C a multiple of 64 and CO of 128 (filterGradApplicable admits
+    # multiples of 128 of both); the channel rule is checked before the device
+    for c, co in ((32, 128), (64, 64), (128, 192)):
+        with pytest.raises(ValueError, match="multiples of 64 and 128"):
+            winograd.filterGradNHWC(torch.zeros(1, 8, 8, c, dtype=torch.bfloat16),
+                                    torch.zeros(1, 8, 8, co, dtype=torch.bfloat16), (1, 1))
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        winograd.filterGradNHWC(torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16),
+                                torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16), (1, 1))
+
+
+# the smallest case (4 tiles, one step of less than one k16 block); odd OH
+# and OW at pad 0; C != CO both ways; steps of 2 rows of 13 tiles, none full
+# (26 of 32); rows of 33 tiles in runs of 17 and 16; pad 2
+_FG_CARD_CASES = [(1, 128, 4, 4, 128, 1), (2, 128, 9, 7, 128, 0), (3, 256, 14, 14, 128, 1), (2, 128, 10, 12, 256, 1),
+                  (4, 128, 30, 26, 256, 1), (1, 128, 70, 66, 128, 1), (2, 128, 5, 6, 128, 2)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 128, 9, 7, 128, 0), (1, 32, 12, 10, 64, 1), (3, 256, 14, 14, 128, 1),
-                                               (2, 64, 5, 5, 192, 1), (1, 32, 1, 1, 64, 1), (4, 128, 30, 26, 256, 1)])
+@pytest.mark.parametrize("n, c, h, w, co, p", _FG_CARD_CASES)
 def testFilterGradKernelMatchesPlainOnCard(n, c, h, w, co, p):
     """bf16 kernel against its plain version within 1e-3 of max|ref| (the
     chip_smoke.py bound), the same bits on a second call (the split partials
@@ -294,3 +307,137 @@ def testDataGradKernelMatchesPlainOnCard(n, c, h, w, co, p):
     assert (winograd.launches, winograd.dataGradLaunches) == (before[0] + 2, before[1] + 2)
     for out in (got, routed):
         assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
+
+
+def _stepTiles(n, th, tw, step):
+    """The tiles (image, tile row, tile column) of one of K3's steps, cut as
+    the kernel cuts them (``winograd._stepGeometry``), in the order of the
+    step's K axis: ``runs`` tile rows of ``length`` tiles from ``step``'s
+    first row and column."""
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+
+    length, runs, segs, _ = winograd._stepGeometry(n, th, tw)
+    row0, j0 = step // segs * runs, step % segs * length
+
+    return [(row // th, row % th, j) for row in range(row0, min(row0 + runs, n * th))
+            for j in range(j0, min(j0 + length, tw))]
+
+
+# VGG-16's six Winograd shapes at batch 32 (as K3 sees them: N, C, OH, OW, CO)
+# and ragged ones: odd sizes, rows longer than a step, one image of one tile
+_CHUNK_SHAPES = [(32, 128, 112, 112, 128), (32, 128, 56, 56, 256), (32, 256, 56, 56, 256), (32, 256, 28, 28, 512),
+                 (32, 512, 28, 28, 512), (32, 512, 14, 14, 512), (3, 128, 9, 7, 256), (1, 128, 1, 1, 128),
+                 (5, 256, 131, 67, 128), (2, 128, 3, 130, 128), (4096, 128, 2, 2, 128)]
+
+
+@pytest.mark.parametrize("n, c, oh, ow, co", _CHUNK_SHAPES)
+@pytest.mark.parametrize("sms", [132, 7])
+def testTileChunkSplitsCoverEveryTileOnce(n, c, oh, ow, co, sms):
+    """Each split of ``_tileChunk`` is a run of whole steps; the splits cover
+    every tile exactly once, no step holds more than FG_KT tiles or more
+    than FG_RMAX rows, and the grid stays within its 65,535 splits."""
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+
+    th, tw = -(-oh // 2), -(-ow // 2)
+    length, runs, segs, steps = winograd._stepGeometry(n, th, tw)
+    chunk = winograd._tileChunk(steps, c, co, sms)
+    splits = -(-steps // chunk)
+
+    assert 1 <= splits <= 65535 and chunk >= 1 and runs * length <= winograd.FG_KT and runs <= winograd.FG_RMAX
+
+    seen = np.zeros((n, th, tw), np.int64)
+    for split in range(splits):
+        for step in range(split * chunk, min((split + 1) * chunk, steps)):
+            tiles = _stepTiles(n, th, tw, step)
+            assert 1 <= len(tiles) <= winograd.FG_KT
+            for tile in tiles:
+                seen[tile] += 1
+
+    assert (seen == 1).all()
+
+
+def _xRows(xi):
+    """B^T's row xi: its two nonzero patch rows (first, second) and whether
+    they add (else the first less the second)."""
+    return {0: (0, 2, False), 1: (1, 2, True), 2: (2, 1, False), 3: (1, 3, False)}[xi]
+
+
+# A^T's column xi: its nonzero rows and signs (the reference's _ACOL)
+_ACOL = {0: ((0, 1), ), 1: ((0, 1), (1, 1)), 2: ((0, 1), (1, -1)), 3: ((1, -1), )}
+
+
+def _kernelOperands(x, dy, pad, xi):
+    """What one of K3's blocks for ``xi`` computes, by the kernel's recipe,
+    in bf16 (each torch op on bf16 rounds as the kernel's packed adds do):
+    the x rows of B^T's row xi give t1 of the patch's four columns; V[xi nu]
+    is t1 of nu's two columns (nu 0, 1 from columns 0-2, nu 2, 3 from
+    columns 1-3); Mbar[xi nu] adds the dY terms of A^T's columns xi (outer)
+    and nu (inner) in order.  Returns V (4, n, c, th, tw) and Mbar
+    (4, n, co, th, tw)."""
+    n, co, oh, ow = dy.shape
+    h, w = x.shape[2:]
+    th, tw = -(-oh // 2), -(-ow // 2)
+
+    # the patches as the kernel's zero-filled loads see them
+    xp = torch.nn.functional.pad(x, (pad[1], 2 * tw + 2 - w - pad[1], pad[0], 2 * th + 2 - h - pad[0]))
+    d = xp.unfold(2, 4, 2).unfold(3, 4, 2)   # (n, c, th, tw, 4 rows, 4 columns)
+
+    first, second, plus = _xRows(xi)
+    t1 = [d[..., first, b] + d[..., second, b] if plus else d[..., first, b] - d[..., second, b] for b in range(4)]
+    v = [t1[0] - t1[2], t1[1] + t1[2], t1[2] - t1[1], t1[1] - t1[3]]
+
+    g = torch.nn.functional.pad(dy, (0, 2 * tw - ow, 0, 2 * th - oh)).reshape(n, co, th, 2, tw, 2)
+    mbar = []
+    for nu in range(4):
+        m = None
+        for a, sa in _ACOL[xi]:
+            for b, sb in _ACOL[nu]:
+                term = g[:, :, :, a, :, b]
+                if m is None:
+                    m = term if sa * sb > 0 else -term
+                else:
+                    m = m + term if sa * sb > 0 else m - term
+        mbar.append(m)
+
+    return torch.stack(v), torch.stack(mbar)
+
+
+@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 16, 9, 7, 24, 0), (1, 8, 8, 10, 8, 1), (3, 8, 5, 6, 16, 2)])
+def testKernelOperandRecipeRebuildsPlainOperands(n, c, h, w, co, p):
+    """The operands one xi's block builds (the x rows and dY entries it
+    reads, the order of its bf16 adds) are bit for bit the V and Mbar of
+    ``filterGradPlain``, for every xi: splitting the 16 products by xi
+    changes no rounding."""
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+
+    x, dy = _inputs(13, n, c, h, w, co, p)
+    x, dy = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(dy).to(torch.bfloat16)
+    oh, ow = dy.shape[2:]
+    th, tw = -(-oh // 2), -(-ow // 2)
+
+    vPlain = winograd._inputTransform(x, (p, p), th, tw)   # (n, c, th, tw, 4, 4)
+    mPlain = winograd._gradTransform(dy, th, tw)           # (4, 4, n, co, th, tw)
+
+    for xi in range(4):
+        v, m = _kernelOperands(x, dy, (p, p), xi)
+        assert torch.equal(v.float(), vPlain[..., xi, :].permute(4, 0, 1, 2, 3))
+        assert torch.equal(m, mPlain[xi])
+
+
+@pytest.mark.cuda
+def testStepGeometryMatchesTheKernel():
+    """The wrapper's step rule is the kernel's (``pl_winograd_fg_steps``)."""
+    _cuda()
+    import ctypes
+
+    from puzzlelib_tpu_torch.ops.hopper import build, winograd
+
+    fn = build.load("winograd_fg").pl_winograd_fg_steps
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = None
+
+    for n, th, tw in [(32, 56, 56), (32, 28, 28), (32, 14, 14), (32, 7, 7), (3, 5, 3), (1, 1, 1), (5, 66, 34),
+                      (2, 2, 65), (7, 9, 32), (4, 15, 13)]:
+        out = [ctypes.c_int() for _ in range(4)]
+        fn(n, th, tw, *[ctypes.byref(o) for o in out])
+        assert tuple(o.value for o in out) == winograd._stepGeometry(n, th, tw)
