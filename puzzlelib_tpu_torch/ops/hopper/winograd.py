@@ -218,13 +218,16 @@ def _conv2dShape(x, w, pad):
     return torch.empty(_outputShape(x, w, pad), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
 
 
+# K2's blocking (csrc/winograd.cu): input channels per step, output channels
+# per block
+K2_BK, K2_BN = 32, 128
+
+
 def conv2dNHWC(xh, u, pad, dataGrad=False):
     """The kernel launch: contiguous NHWC bf16 ``xh`` on the card and U
     (16, C, CO) from ``filterTransform`` -> NHWC (N, OH, OW, CO) bf16.
-    ``dataGrad`` marks a bwd-data launch for its own count."""
-    if xh.device.type != "cuda" or u.device != xh.device:
-        raise ValueError("the winograd kernel runs on CUDA tensors, got %s and %s" % (xh.device, u.device))
-
+    ``dataGrad`` marks a bwd-data launch for its own count.  The operands'
+    types, shapes and channel counts are checked before their device."""
     if xh.dtype != torch.bfloat16 or u.dtype != torch.bfloat16:
         raise TypeError("the winograd kernel takes bf16 x and U, got %s and %s" % (xh.dtype, u.dtype))
 
@@ -236,13 +239,16 @@ def conv2dNHWC(xh, u, pad, dataGrad=False):
         raise ValueError("the winograd kernel takes contiguous NHWC x and (16, C, CO) U, got %s and %s" %
                          (tuple(xh.shape), tuple(u.shape)))
 
-    if c <= 0 or c % 32 != 0 or co <= 0 or co % 64 != 0:
-        raise ValueError("the winograd kernel takes C and CO positive multiples of 32 and 64, got %d and %d" %
-                         (c, co))
+    if c <= 0 or c % K2_BK != 0 or co <= 0 or co % K2_BN != 0:
+        raise ValueError("the winograd kernel takes C and CO positive multiples of %d and %d, got %d and %d" %
+                         (K2_BK, K2_BN, c, co))
 
-    # channel pairs load as 4 bytes, U rows as 16
-    if xh.data_ptr() % 4 != 0 or u.data_ptr() % 16 != 0:
-        raise ValueError("the winograd kernel needs x 4-byte and U 16-byte aligned")
+    if xh.device.type != "cuda" or u.device != xh.device:
+        raise ValueError("the winograd kernel runs on CUDA tensors, got %s and %s" % (xh.device, u.device))
+
+    # x and U load as 16-byte units
+    if xh.data_ptr() % 16 != 0 or u.data_ptr() % 16 != 0:
+        raise ValueError("the winograd kernel needs x and U 16-byte aligned")
 
     y = torch.empty((n, oh, ow, co), dtype=xh.dtype, device=xh.device)
 
