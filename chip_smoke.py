@@ -59,9 +59,10 @@ it fails:
    logits are checked for shape and finiteness, and the first request's
    against the same f32 weights on the library route;
 9. K5a and K5b (the flash-attention backward: dq; dk and dv) against their
-   plain version ``backwardPlain`` in bf16 at K4's shapes and at seqQ 80 >
-   seqK 48 causal (rows that see no key), beside the backward of
-   ``scaled_dot_product_attention``;
+   plain version ``backwardPlain`` in bf16 at K4's shapes, at seqQ 80 >
+   seqK 48 causal (rows that see no key) and at (4, 8, 2048, 128), beside
+   the backward of ``scaled_dot_product_attention``; each kernel alone, the
+   delta pass alone and the whole ``flash.backward`` are timed;
 10. the transformer training slice of ``tools/transformerslice.py``: the
    same classifier in bf16 trained by ``Trainer(batchsize=64)`` with
    ``Adam(alpha=1e-3)`` in global state and ``CrossEntropy(maxlabels=2)``
@@ -103,7 +104,8 @@ it fails:
 17. P1 ([P1-tapdot], the tap-dot probe's direct conv) within 5e-3 relative L2
    of its plain version and within the probe's 5e-2 of the f32 conv at the
    probe's three shapes and VGG-16's conv2_2 and conv5_2 at batch 32, and two
-   ragged shapes (one f16), beside cuDNN and K2;
+   ragged shapes (one f16), beside cuDNN and K2 on the same channels-last
+   operands (K2 also on NCHW ones), with P1's layout pass timed apart;
 18. the measurement path ([measure]): the probe scripts and the benchmarks
    (``gemmspeed`` and its ``--kernel-rate``, ``convspeed`` and its
    ``--chain`` on VGG-16's conv3_2, ``attnspeed``) run as a user runs them, with every counter reset just
@@ -239,9 +241,10 @@ FLASH_SHAPES = [
 FLASH_BOUND_OUT = 1e-2
 FLASH_BOUND_LSE = 1e-4
 
-# K5 (the backward) at K4's shapes, and seqQ > seqK causal, whose first 32
-# rows see no key (p = 1 for every key, as in the TPU kernels)
-FLASH_BWD_SHAPES = FLASH_SHAPES + [("blind", (64, 4, 80, 32), 48, True)]
+# K5 (the backward) at K4's shapes, seqQ > seqK causal, whose first 32 rows
+# see no key (p = 1 for every key, as in the TPU kernels), and the long
+# sequence at head dim 128, the instances with the most registers
+FLASH_BWD_SHAPES = FLASH_SHAPES + [("blind", (64, 4, 80, 32), 48, True), ("long", (4, 8, 2048, 128), 2048, False)]
 
 # K5a / K5b vs backwardPlain, relative to max |plain| of each of dq, dk, dv:
 # both round P and dS to bf16 for the products that take them and sum in
@@ -1111,7 +1114,9 @@ def phaseFlashBackward(torch, flash):
     beside the backward of ``scaled_dot_product_attention`` (the autograd
     backward of its output, forward excluded; timed as a yardstick, never on
     the path).  Returns the JSON entries' numbers (K5a, K5b) at the slice's
-    shape, not causal, the one the transformer slice runs."""
+    shape, not causal, the one the transformer slice runs, each with the
+    whole ``flash.backward`` (delta pass and both kernels) as
+    ``backward_ms``, the time to set beside the library's whole backward."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1134,6 +1139,7 @@ def phaseFlashBackward(torch, flash):
         delta = (do.float() * out.float()).sum(dim=-1).contiguous()
         msDq = deviceMs(lambda: flash.dq(q, k, v, do, lse, delta, causal), 10)
         msDkv = deviceMs(lambda: flash.dkv(q, k, v, do, lse, delta, causal), 10)
+        msDelta = deviceMs(lambda: (do.float() * out.float()).sum(dim=-1).contiguous(), 10)
         msAll = deviceMs(lambda: flash.backward(q, k, v, out, lse, do, causal), 10)
         plainMs = deviceMs(lambda: flash.backwardPlain(q, k, v, out, lse, do, causal), 2)
 
@@ -1157,10 +1163,10 @@ def phaseFlashBackward(torch, flash):
         boundFused, _ = bound(inputs + (b * h * seqQ * d + 2 * b * h * seqK * d) * 2, 10 * pairs)
 
         print("[K5] %-6s (b, h, seqQ, d) = %s, seqK %d, causal %-5s: rel err dq %.3e, dk %.3e, dv %.3e (bound %.0e); "
-              "K5a %.4f ms (bound %.4f, %s), K5b %.4f ms (bound %.4f, %s), backward with delta %.4f ms; plain %.4f "
-              "ms; scaled_dot_product_attention backward %.4f ms; a fused backward's bound %.4f ms" %
-              (name, (b, h, seqQ, d), seqK, causal, *errs, FLASH_BWD_BOUND, msDq, boundDq, byDq, msDkv, boundDkv,
-               byDkv, msAll, plainMs, libMs, boundFused))
+              "K5a %.4f ms (bound %.4f, %s), K5b %.4f ms (bound %.4f, %s), delta pass %.4f ms, backward with delta "
+              "%.4f ms; plain %.4f ms; scaled_dot_product_attention backward %.4f ms; a fused backward's bound %.4f "
+              "ms" % (name, (b, h, seqQ, d), seqK, causal, *errs, FLASH_BWD_BOUND, msDq, boundDq, byDq, msDkv,
+                      boundDkv, byDkv, msDelta, msAll, plainMs, libMs, boundFused))
 
         if not finite:
             fail("K5 %s gave values that are not finite" % ((b, h, seqQ, seqK, d, causal), ))
@@ -1171,9 +1177,9 @@ def phaseFlashBackward(torch, flash):
 
         if entries is None:
             entries = ({"max_abs_err": absErrs[0], "ms": msDq, "plain_ms": plainMs, "bound_ms": boundDq,
-                        "bound_by": byDq, "library_ms": libMs},
+                        "bound_by": byDq, "library_ms": libMs, "backward_ms": msAll},
                        {"max_abs_err": max(absErrs[1:]), "ms": msDkv, "plain_ms": plainMs, "bound_ms": boundDkv,
-                        "bound_by": byDkv, "library_ms": libMs})
+                        "bound_by": byDkv, "library_ms": libMs, "backward_ms": msAll})
 
     torch.cuda.empty_cache()
     return entries
@@ -1476,8 +1482,11 @@ def _tapdotCase(torch, tapdot, gen, xshape, co, dtype):
 def phaseTapdot(torch, tapdot, winograd):
     """P1 against its plain version and the f32 conv (TF32 off) at
     TAPDOT_SHAPES and the ragged ones, beside cuDNN (``F.conv2d`` on
-    channels-last bf16) and K2 where it takes the shape.  Returns the JSON
-    entry's numbers for the five timed shapes together."""
+    channels-last bf16) and K2 where it takes the shape, on the same
+    channels-last operands (and, labelled so, on NCHW ones, where its
+    wrapper's layout copies are in the timed call).  P1 itself is timed on
+    the operands ``tapdot.layout`` prepared, and its layout pass on its own.
+    Returns the JSON entry's numbers for the five timed shapes together."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1497,20 +1506,24 @@ def phaseTapdot(torch, tapdot, winograd):
         xl, wl = x.contiguous(memory_format=torch.channels_last), w.contiguous(memory_format=torch.channels_last)
 
         ms = deviceMs(lambda: tapdot.tapdot(xp, wk, **geometry), 10)
+        layoutMs = deviceMs(lambda: tapdot.layout(x, w, (1, 1)), 10)
         plainMs = deviceMs(lambda: tapdot.plain(xp, wk, **geometry), 2)
         libMs = deviceMs(lambda: F.conv2d(xl, wl, padding=1), 10)
         k2 = "n/a"
         if winograd.applicable(tuple(x.shape), tuple(w.shape), (1, 1), (1, 1), (1, 1), 1):
-            k2 = "%.4f ms" % deviceMs(lambda: winograd.conv2d(x, w, (1, 1)), 10)
+            k2Last = deviceMs(lambda: winograd.conv2d(xl, wl, (1, 1)), 10)
+            k2 = "%.4f ms on channels-last operands, %.4f ms on NCHW ones" % (
+                k2Last, deviceMs(lambda: winograd.conv2d(x, w, (1, 1)), 10))
 
         n, c, h, wd = xshape
         flops = 2.0 * n * co * h * wd * c * 9
         boundMs, boundBy = bound((n * c * h * wd + n * co * h * wd + co * c * 9) * 2, flops)
 
         print("[P1-tapdot] %-10s x=%s co=%d: relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e); "
-              "kernel %.4f ms, %.1f TFLOP/s useful; plain %.4f ms; library (cuDNN, NHWC) %.4f ms; K2 %s; bound "
-              "%.4f ms (%s)" % (name, xshape, co, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32, ms,
-                                flops / ms / 1e9, plainMs, libMs, k2, boundMs, boundBy))
+              "kernel %.4f ms on laid-out operands, %.1f TFLOP/s useful; its layout pass (tapdot.layout) %.4f ms; "
+              "plain %.4f ms; library (cuDNN, channels-last) %.4f ms; K2 %s; bound %.4f ms (%s)" %
+              (name, xshape, co, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32, ms, flops / ms / 1e9,
+               layoutMs, plainMs, libMs, k2, boundMs, boundBy))
 
         if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
             fail("P1 %s disagrees: %.3e vs plain, %.3e vs f32" % (name, errPlain, errF32))
@@ -1736,8 +1749,9 @@ def main():
           "5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a batch of 32, wrapper "
           "included, on NCHW operands (channels_last_ms and channels_last_library_ms on channels-last "
           "operands, as the training path hands them over); K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
-          "the backward of that layer, each kernel alone, plain_ms and library_ms the whole backward (dq, dk, dv) "
-          "of backwardPlain and of scaled_dot_product_attention); K4's training_launches and K5's launches the "
+          "the backward of that layer, each kernel alone, plain_ms, library_ms and backward_ms the whole backward "
+          "(dq, dk, dv) of backwardPlain, of scaled_dot_product_attention and of flash.backward, the delta pass "
+          "included); K4's training_launches and K5's launches the "
           "transformer training run's (4 steps of 64), K4's engine_launches the flash engine's (4 requests of 8); "
           "P1-P3's launches and K1-K5's measurement_launches the measurement path's (the probe scripts and "
           "benchmarks); P1: the 5 convs of [P1-tapdot] together, the kernel on prepared operands, library cuDNN "

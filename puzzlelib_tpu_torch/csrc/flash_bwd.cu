@@ -1,7 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): dq, dk and dv of
+// Flash-attention backward for Hopper (sm_90a) on wgmma: dq, dk and dv of
 // out = softmax(q k^T / sqrt(d)) v from the forward's out and per-row
-// logsumexp, without the (seqQ, seqK) probability matrix ever reaching device
-// memory.
+// logsumexp, without the (seqQ, seqK) probability matrix ever reaching shared
+// or device memory.
 //
 // Replaces the Pallas TPU kernels of puzzlelib_tpu/ops/pallas/flash.py
 // (wrapper `_flashBackward`):
@@ -14,7 +14,8 @@
 //   qPos + (seqK - seqQ) >= kPos (bottom-right) setting masked scores to -1e30;
 //   p = exp(s - lse), dP = dO v^T, dS = p * (dP - delta),
 // with delta = rowsum(dO * out) computed by the caller from the forward's
-// rounded out.  Then dq = dS k * scale, dk = dS^T q * scale, dv = p^T dO.
+// rounded out.  Then dq = dS k * scale, dk = dS^T q * scale, dv = p^T dO,
+// P and dS rounded to the input type for the products that take them.
 // A query row that sees no key (causal, seqQ > seqK) has lse = -1e30 (the
 // forward's -1e30 + log(seqK) rounds to it in f32), so its p is 1 for every
 // key, as in the TPU kernels: the gradient of an average over all keys that
@@ -28,36 +29,65 @@
 // dO, lse and delta once and writes its outputs once: at the transformer
 // slice's seq 80, d = 32 that is ~20 operations per byte and bound by memory
 // and launch latency; at seq 2048, d = 64 some 500 per byte, above the ~295
-// the tensor cores need.
+// the tensor cores need.  In practice, as for K2 and K3, the delivery from
+// L2 binds: every block reads all the walked tiles of its batch * head, so
+// L2 hands out seq / 128 times the bytes above.
 //
 // The design.  The split is the TPU kernels' own and suits blocks that run in
-// no order: K5a gives each block one 64-row query tile and writes dq, K5b one
-// 64-row key tile and writes dk and dv, so no block writes what another block
-// writes: no atomics, and the result is deterministic.  Like the forward
-// (csrc/flash.cu):
-//   - 4 warps of 16 rows each (query rows in K5a, key rows in K5b), on
-//     mma.sync m16n8k16 with bf16 or f16 inputs and f32 accumulators;
-//   - the tiles that are walked (K and V in K5a; q, dO, lse and delta in
-//     K5b) are double-buffered in shared memory with cp.async, so the next
-//     tile lands while this one is used; the block's own tiles stay in shared
-//     memory and their fragments are read there by ldmatrix at each use,
-//     which keeps the registers for the f32 accumulators (K5b holds dk and dv,
-//     two (16, d) accumulators per warp: 128 registers a thread at d = 128);
-//   - rows past the sequence are zero-filled (cp.async src-size 0); keys past
-//     seqK get p = 0 (scored -inf in K5a, set in K5b), and K5b's query
-//     columns past seqQ get p = 0 explicitly, since their lse and delta are
-//     not read;
-//   - the S accumulator fragments are the A fragments of the next product
-//     (dS k in K5a; P^T dO and dS^T q in K5b), rounded in place to the input
-//     type; the B operands that must be transposed (k in dS k, dO in P^T dO,
-//     q in dS^T q) come through ldmatrix.trans;
-//   - in K5b dP^T is computed one 8-column n-tile at a time and folded into
-//     S^T at once, so no dP array is live beside the two accumulators;
+// no order: K5a gives each block 128 query rows and writes their dq, K5b 128
+// key rows and writes their dk and dv, so no block writes what another block
+// writes: no atomics, and the result is deterministic.  A block is two
+// warpgroups (256 threads); each owns 64 of the block's rows, wgmma's M, and
+// both read the one walked tile of a step, which halves the bytes each
+// product takes from L2 against a block of one warpgroup (that bound the
+// first design: without its walked-tile loads it ran 2-3x faster):
+//   - every tile in shared memory is in wgmma's core matrices without
+//     swizzle (8 rows x 16 bytes, 128 contiguous bytes; the 8-row groups
+//     16 d bytes apart, the 8-column groups 128 apart), so that one copy of
+//     a tile is both the K-major operand of a product over its columns (LBO
+//     128, SBO 16 d) and the MN-major B of a product over its rows (LBO 16 d,
+//     SBO 128), and a thread's 16-byte cp.async lands at 16 times its index;
+//   - K5b, per query tile of BQ rows (64; 32 at d 128): S^T = K Q^T and
+//     dP^T = V dO^T as m64nBQk16 with both operands from shared memory,
+//     K-major; P^T and dS^T in f32 on the accumulators, rounded and repacked
+//     in registers as register-A fragments (the m64nN accumulator of a
+//     thread is its A fragment of a product over those N columns, so no
+//     value moves between threads); dV += P^T dO and dK += dS^T Q as
+//     m64n{d}k16 with A from registers and B the dO or Q tile already in
+//     shared memory, read MN-major (the transposed-B form bf16 and f16
+//     allow).  dK and dV stay in registers (d / 2 f32 each a thread) until
+//     the block's end.  At d 128 and BQ 64, S^T and dP^T beside them made
+//     ptxas spill, hence BQ 32 there (m64n32k16);
+//   - K5a, per key tile of 64 rows: S = Q K^T and dP = dO V^T as m64n64k16
+//     from shared memory, dS as register-A, dQ += dS K as m64n{d}k16 with
+//     the K tile read MN-major;
+//   - the walked tiles (q, dO, lse and delta in K5b; k and v in K5a) go
+//     through a three-stage ring by cp.async (16 bytes; 4 for lse and delta),
+//     rows past the sequence zero-filled; a step's loads are issued once the
+//     previous step's last products are done and land two steps later (two
+//     stages measured 1.2x slower for K5a, no faster for K5b);
+//   - a step issues its two score products as two commit groups and waits
+//     for the first only, so P is computed while dP is still on the tensor
+//     cores; the first product of every sum starts it with scale-d 0, so no
+//     instruction outside wgmma defines a sum, and the warpgroup index is
+//     broadcast from lane 0 (`__shfl_sync`) so that ptxas sees the address
+//     arithmetic on it as uniform;
+//   - masks only where a tile needs them: keys past seqK and queries past
+//     seqQ get p = 0, the causal mask -1e30, in the tiles at the ragged ends
+//     or on the diagonal; every other tile takes the unmasked path;
 //   - with causal, K5a skips the key tiles wholly above the diagonal when
 //     every row of its query tile sees key 0 (the forward's rule), and K5b
 //     skips the query tiles wholly before its key tile when no query row is
 //     fully masked (seqK >= seqQ): a fully masked row weighs every key 1.
-// wgmma, TMA and warp specialisation are the later steps.
+//     K5a's blocks with the most key tiles are launched first.
+// ptxas (CUDA 12.8, sm_90a; bf16 and f16 alike): K5b 156 / 186 / 206
+// registers at d 32 / 64 / 128, K5a 128 / 157 / 226, no spill, one block an
+// SM.  For K5b it reports a warpgroup.wait it injects into the loop (C7517):
+// NVVM copies the last dK product's accumulator registers before it issues
+// that product; issuing dK before dV, interleaving the two, fencing the
+// sums after the commit and an opaque start flag all kept it, and none
+// changed the time.  Shared memory: K5b 512 d + 3 (256 d + 512) bytes at d
+// <= 64, 512 d + 3 (128 d + 256) at d 128; K5a 1280 d.
 //
 // Types: bf16 and f16, head dims 32, 64 and 128.  f32 is refused by the
 // wrapper: Hopper's tensor cores have no f32 mode.
@@ -72,73 +102,100 @@
 #include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, THREADS = 128;
-constexpr float MASKED = -1e30f;              // the TPU kernels' NEG_INF
+constexpr int WG_ROWS = 64;             // a warpgroup's own rows (keys in K5b, queries in K5a): wgmma's M
+constexpr int WGS = 2;                  // warpgroups a block, sharing each walked tile
+constexpr int ROWS = WGS * WG_ROWS;     // the block's own rows
+constexpr int THREADS = 128 * WGS;
+constexpr int STAGES = 3;               // the ring of walked tiles: loads fly two tiles ahead
+constexpr int BK = 64;                  // K5a: key rows of a walked tile
+constexpr float MASKED = -1e30f;        // the TPU kernels' NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
 
+// K5b: query rows of a walked tile; 32 at d 128, where S^T and dP^T of 64
+// columns beside dK and dV made ptxas spill
 template <int D>
-__host__ __device__ constexpr int pitch() { return D + 8; }       // 16 bytes of padding: ldmatrix rows hit distinct banks
+__host__ __device__ constexpr int dkvBQ() { return D == 128 ? 32 : 64; }
 
-// six 64-row tiles: the block's two and two stages of the two it walks; K5b
-// adds two stages of the query tile's lse and delta
-template <typename T, int D>
-constexpr int tileBytes() { return 6 * 64 * pitch<D>() * (int)sizeof(T); }
+// shared memory: the block's own two tiles and STAGES of the walked ones
+// (K5b: q, dO, lse and delta; K5a: k and v)
+template <int D, int BQ>
+__host__ __device__ constexpr int dkvSmem() { return 2 * ROWS * D * 2 + STAGES * (2 * BQ * D * 2 + 2 * BQ * 4); }
+
+template <int D>
+__host__ __device__ constexpr int dqSmem() { return 2 * ROWS * D * 2 + STAGES * 2 * BK * D * 2; }
+
+__device__ __forceinline__ unsigned smemAddr(const void* p)
+{
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ void cpAsync16(void* smem, const void* gmem, bool valid)
 {
     // src-size 0 fills the 16 bytes with zeros and reads nothing
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
+                 :: "r"(smemAddr(smem)), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cpAsync4(void* smem, const void* gmem, bool valid)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smemAddr(smem)), "l"(gmem), "r"(valid ? 4 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cpAsyncCommit()
 {
-    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cpAsyncWaitAll()
+// this thread's copies but those of the last PENDING commit groups are in,
+// and visible to the tensor cores once every thread is past the next barrier
+template <int PENDING>
+__device__ __forceinline__ void cpAsyncLanded()
 {
-    asm volatile("cp.async.wait_group 0;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrixX4(uint32_t (&r)[4], const void* smem)
+__device__ __forceinline__ void wgmmaFence()
 {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrixX4Trans(uint32_t (&r)[4], const void* smem)
+__device__ __forceinline__ void wgmmaCommit()
 {
-    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col), f32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1);
-
-template <>
-__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)
+template <int N>
+__device__ __forceinline__ void wgmmaWait()
 {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-template <>
-__device__ __forceinline__ void mma<__half>(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)
+// ties the registers of a sum to this point of the program, so that the
+// compiler neither reads them before a wait for the products nor moves their
+// other uses across one
+template <int N>
+__device__ __forceinline__ void fenceSum(float (&acc)[N])
 {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+        asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// the same for register-A fragments, before the products that read them
+template <int N>
+__device__ __forceinline__ void fenceFragments(uint32_t (&a)[N][4])
+{
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+            asm volatile("" : "+r"(a[i][r])::"memory");
 }
 
 // two floats as one register of the type's pair, lo in the low half
@@ -159,126 +216,368 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi)
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [row0, row0 + 64) of a (rows, D) matrix into a pitched shared tile;
-// rows past the end are zero
-template <typename T, int D>
-__device__ __forceinline__ void loadTile(T* dst, const T* __restrict__ src, int row0, int rows, int tid)
+// rows [row0, row0 + R) of a (rows, D) matrix into a shared tile of core
+// matrices: 16-byte unit v (row 8 (v / 8 / (D / 8)) + v % 8, columns 8 ((v /
+// 8) % (D / 8)) ..) at byte 16 v; rows past the end are zero
+template <typename T, int D, int R>
+__device__ __forceinline__ void loadTile(unsigned char* dst, const T* __restrict__ src, int row0, int rows, int tid)
 {
-    constexpr int VECS = D / 8;   // 16-byte vectors per row
+    constexpr int G = D / 8;
+    static_assert(R * G % THREADS == 0, "whole 16-byte units per thread");
 #pragma unroll
-    for (int v = tid; v < 64 * VECS; v += THREADS) {
-        const int r = v / VECS, c = (v % VECS) * 8;
+    for (int i = 0; i < R * G / THREADS; ++i) {
+        const int v = tid + i * THREADS;
+        const int r = (v >> 3) / G * 8 + (v & 7), g = (v >> 3) % G;
         const bool ok = row0 + r < rows;
-        cpAsync16(dst + r * pitch<D>() + c, ok ? src + (size_t)(row0 + r) * D + c : src, ok);
+        cpAsync16(dst + 16 * v, ok ? src + (size_t)(row0 + r) * D + 8 * g : src, ok);
     }
 }
 
-// the A fragment (16x16, row-major) of rows [row0, row0 + 16) and columns
-// [16 c, 16 c + 16) of a pitched tile
-template <typename T, int D>
-__device__ __forceinline__ void fragA(uint32_t (&a)[4], const T* tile, int row0, int c, int lane)
-{
-    ldmatrixX4(a, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch<D>() + c * 16 + (lane >> 4) * 8);
-}
-
-// B fragments of a product with a tile's rows as the n index: rows
-// [8 n, 8 n + 8) and columns [32 cc, 32 cc + 32), two k16 chunks: b[0], b[1]
-// for chunk 2 cc, b[2], b[3] for chunk 2 cc + 1
-template <typename T, int D>
-__device__ __forceinline__ void fragB(uint32_t (&b)[4], const T* tile, int n, int cc, int lane)
-{
-    ldmatrixX4(b, tile + (n * 8 + (lane & 7)) * pitch<D>() + cc * 32 + (lane >> 3) * 8);
-}
-
-// B fragments of a product with a tile's rows as the k index (transposed):
-// rows [16 c, 16 c + 16) and columns of n-tiles t (b[0], b[1]) and t + 1
-// (b[2], b[3])
-template <typename T, int D>
-__device__ __forceinline__ void fragBTrans(uint32_t (&b)[4], const T* tile, int c, int t, int lane)
-{
-    ldmatrixX4Trans(b, tile + (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch<D>() + t * 8 + (lane >> 4) * 8);
-}
-
-// acc (16, D) += X (16, 64) * tile (64, D), X the warp's (16, 64) f32
-// accumulator fragments, rounded to T as the A operand
-template <typename T, int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&x)[8][4], const T* tile, int lane)
+// lse and delta of rows [row0, row0 + R) as [lse (R)][delta (R)] f32; rows
+// past the end are zero
+template <int R>
+__device__ __forceinline__ void loadStats(float* dst, const float* __restrict__ lse, const float* __restrict__ delta,
+                                          int row0, int rows, int tid)
 {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const uint32_t a[4] = {pack2<T>(x[2 * c][0], x[2 * c][1]), pack2<T>(x[2 * c][2], x[2 * c][3]),
-                               pack2<T>(x[2 * c + 1][0], x[2 * c + 1][1]),
-                               pack2<T>(x[2 * c + 1][2], x[2 * c + 1][3])};
-#pragma unroll
-        for (int t = 0; t < D / 8; t += 2) {
-            uint32_t b[4];
-            fragBTrans<T, D>(b, tile, c, t, lane);
-            mma<T>(acc[t], a, b[0], b[1]);
-            mma<T>(acc[t + 1], a, b[2], b[3]);
-        }
+    for (int v = tid; v < 2 * R; v += THREADS) {
+        const int r = v % R;
+        const bool ok = row0 + r < rows;
+        cpAsync4(dst + v, ok ? (v < R ? lse : delta) + row0 + r : lse, ok);
     }
 }
 
-// s (16, 64) = A rows [row0, row0 + 16) of `rowsTile` times the 64 rows of
-// `colsTile` transposed, over the D columns of both
-template <typename T, int D>
-__device__ __forceinline__ void scores(float (&s)[8][4], const T* rowsTile, int row0, const T* colsTile, int lane)
+// a shared-memory matrix descriptor without swizzle
+__device__ __forceinline__ uint64_t descriptor(const void* p, int lbo, int sbo)
 {
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            s[n][e] = 0.0f;
-
-#pragma unroll
-    for (int cc = 0; cc < D / 32; ++cc) {
-        uint32_t a0[4], a1[4];
-        fragA<T, D>(a0, rowsTile, row0, 2 * cc, lane);
-        fragA<T, D>(a1, rowsTile, row0, 2 * cc + 1, lane);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-            uint32_t b[4];
-            fragB<T, D>(b, colsTile, n, cc, lane);
-            mma<T>(s[n], a0, b[0], b[1]);
-            mma<T>(s[n], a1, b[2], b[3]);
-        }
-    }
+    return (uint64_t)((smemAddr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
-// rows [row0, row0 + 16) of the warp's (16, D) accumulator, times `mul`, to
-// a (rows, D) matrix; rows past `rows` are not stored
-template <typename T, int D>
-__device__ __forceinline__ void store(T* out, const float (&acc)[D / 8][4], int row0, int rows, float mul, int lane)
+// a tile as the K-major operand of a product over its columns: k-slice kc,
+// columns 16 kc .. 16 kc + 15
+template <int D>
+__device__ __forceinline__ uint64_t kMajor(const unsigned char* tile, int kc)
+{
+    return descriptor(tile + 256 * kc, 128, 16 * D);
+}
+
+// a tile as the MN-major B operand of a product over its rows: k-slice c,
+// rows 16 c .. 16 c + 15
+template <int D>
+__device__ __forceinline__ uint64_t mnMajor(const unsigned char* tile, int c)
+{
+    return descriptor(tile + 32 * D * c, 16 * D, 128);
+}
+
+#define PL_OUT8(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PL_OUT16(d) PL_OUT8(d, 0), PL_OUT8(d, 8)
+#define PL_OUT32(d) PL_OUT16(d), PL_OUT8(d, 16), PL_OUT8(d, 24)
+#define PL_OUT64(d) PL_OUT32(d), PL_OUT8(d, 32), PL_OUT8(d, 40), PL_OUT8(d, 48), PL_OUT8(d, 56)
+
+// d = A B + (accumulate ? d : 0), m64nNk16 in f32, N = 2 x the length of d:
+// SS (the score products, N = 32 or 64) takes A and B from shared memory,
+// both K-major; RS (the products into dK, dV, dQ, N = d) takes A from
+// registers and B from shared memory, MN-major (transposed)
+#define PL_WGMMA_SS_N32(TY) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+                 "%16, %17, p, 1, 1, 0, 0;\n}\n" \
+                 : PL_OUT16(d) : "l"(da), "l"(db), "r"(accumulate))
+
+#define PL_WGMMA_RS_N32(TY) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+                 "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+                 : PL_OUT16(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate))
+
+#define PL_WGMMA_SS_N64(TY) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n" \
+                 : PL_OUT32(d) : "l"(da), "l"(db), "r"(accumulate))
+
+#define PL_WGMMA_RS_N64(TY) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+                 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+                 : PL_OUT32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate))
+
+#define PL_WGMMA_RS_N128(TY) \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+                 "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+                 : PL_OUT64(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate))
+
+template <typename T>
+__device__ __forceinline__ void wgmmaSS(float (&d)[16], uint64_t da, uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) PL_WGMMA_SS_N32("bf16"); else PL_WGMMA_SS_N32("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmmaSS(float (&d)[32], uint64_t da, uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) PL_WGMMA_SS_N64("bf16"); else PL_WGMMA_SS_N64("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmmaRS(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) PL_WGMMA_RS_N32("bf16"); else PL_WGMMA_RS_N32("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmmaRS(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) PL_WGMMA_RS_N64("bf16"); else PL_WGMMA_RS_N64("f16");
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmmaRS(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) PL_WGMMA_RS_N128("bf16"); else PL_WGMMA_RS_N128("f16");
+}
+
+// acc (64, N) = the 64 rows of tile `a` times the N rows of tile `b`
+// transposed, over the D columns of both
+template <typename T, int D, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 2], const unsigned char* a, const unsigned char* b)
 {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = row0 + (lane >> 2) + 8 * i;
+    for (int kc = 0; kc < D / 16; ++kc)
+        wgmmaSS<T>(acc, kMajor<D>(a, kc), kMajor<D>(b, kc), kc > 0);
+}
+
+// acc (64, D) (+)= X (64, N) times tile (N, D), X as register-A fragments;
+// `start` begins the sum
+template <typename T, int D, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&x)[N / 16][4],
+                                           const unsigned char* tile, bool start)
+{
+#pragma unroll
+    for (int c = 0; c < N / 16; ++c)
+        wgmmaRS<T>(acc, x[c], mnMajor<D>(tile, c), !(start && c == 0));
+}
+
+// a (64, N) f32 accumulator rounded to T as the register-A fragments of a
+// product over its N columns: a thread's accumulator values 8 c .. 8 c + 7
+// (rows r, r + 8; columns 16 c + 2 (lane % 4) (+ 1) and 8 more) are its
+// fragment of k-slice c
+template <typename T, int N>
+__device__ __forceinline__ void toOperand(uint32_t (&a)[N / 16][4], const float (&x)[N / 2])
+{
+#pragma unroll
+    for (int c = 0; c < N / 16; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+            a[c][r] = pack2<T>(x[8 * c + 2 * r], x[8 * c + 2 * r + 1]);
+}
+
+// rows `row` and `row` + 8 of a (64, D) accumulator, times `mul`, to a (rows,
+// D) matrix; rows past `rows` are not stored.  A thread holds columns 8 n +
+// 2 (lane % 4) (+ 1) of them
+template <typename T, int D>
+__device__ __forceinline__ void store(T* out, const float (&acc)[D / 2], int row, int rows, float mul, int lane)
+{
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
         if (r >= rows)
             continue;
 #pragma unroll
-        for (int t = 0; t < D / 8; ++t)
-            *reinterpret_cast<uint32_t*>(out + (size_t)r * D + t * 8 + (lane & 3) * 2) =
-                pack2<T>(acc[t][2 * i] * mul, acc[t][2 * i + 1] * mul);
+        for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<uint32_t*>(out + (size_t)r * D + 8 * n + 2 * (lane & 3)) =
+                pack2<T>(acc[4 * n + 2 * h] * mul, acc[4 * n + 2 * h + 1] * mul);
     }
 }
 
-// K5a: dq of one 64-row query tile, walking the key tiles
+// p = exp(s * scale - lse) as exp2, from the unscaled score; the masked score
+// minus a blind row's lse is exactly 0
+__device__ __forceinline__ float prob(float s, float scale, float lse)
+{
+    return exp2f((s * scale - lse) * LOG2E);
+}
+
+__device__ __forceinline__ float maskedProb(float lse)
+{
+    return exp2f((MASKED - lse) * LOG2E);
+}
+
+// K5b: dk and dv of ROWS key rows, walking the query tiles
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(THREADS)
+flashBackwardDkv(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V, const T* __restrict__ dO,
+                 const float* __restrict__ LSE, const float* __restrict__ DELTA, T* __restrict__ dK,
+                 T* __restrict__ dV, int seqQ, int seqK, int causal, float scale)
+{
+    constexpr int KV = ROWS * D * 2, QT = BQ * D * 2, STAGE = 2 * QT + 2 * BQ * 4;
+    static_assert(dkvSmem<D, BQ>() == 2 * KV + STAGES * STAGE, "the launch's shared memory");
+
+    extern __shared__ __align__(128) unsigned char smem[];
+    unsigned char* const ks = smem;
+    unsigned char* const vs = smem + KV;
+    unsigned char* const ring = smem + 2 * KV;   // per stage: q, dO, lse, delta
+
+    const int tiles = (seqK + ROWS - 1) / ROWS;
+    const int bh = blockIdx.x / tiles, k0 = (blockIdx.x % tiles) * ROWS;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int wg = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);   // uniform: ptxas keeps the products asynchronous
+    const int offset = seqK - seqQ;
+
+    const T* q = Q + (size_t)bh * seqQ * D;
+    const T* dout = dO + (size_t)bh * seqQ * D;
+    const float* lse = LSE + (size_t)bh * seqQ;
+    const float* delta = DELTA + (size_t)bh * seqQ;
+
+    const int nq = (seqQ + BQ - 1) / BQ;
+
+    // with causal and no fully masked query row (offset >= 0), the query
+    // tiles whose rows all lie before k0 - offset see none of these keys;
+    // k0 - offset < seqQ, so at least one tile is left
+    const int first = causal && offset >= 0 ? max(0, k0 - offset) / BQ : 0;
+
+    auto load = [&](int j, int stage) {
+        unsigned char* st = ring + stage * STAGE;
+        loadTile<T, D, BQ>(st, q, j * BQ, seqQ, tid);
+        loadTile<T, D, BQ>(st + QT, dout, j * BQ, seqQ, tid);
+        loadStats<BQ>(reinterpret_cast<float*>(st + 2 * QT), lse, delta, j * BQ, seqQ, tid);
+    };
+
+    // the first STAGES - 1 query tiles, a commit group each, k and v with
+    // the first
+    loadTile<T, D, ROWS>(ks, K + (size_t)bh * seqK * D, k0, seqK, tid);
+    loadTile<T, D, ROWS>(vs, V + (size_t)bh * seqK * D, k0, seqK, tid);
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+        if (first + i < nq)
+            load(first + i, i);
+        cpAsyncCommit();
+    }
+
+    // this thread's accumulator rows: keys k0 + row (+ 8); its columns of a
+    // query tile: 8 n + col (+ 1).  Its warpgroup's rows of k and v
+    const int row = WG_ROWS * wg + 16 * ((tid >> 5) & 3) + (lane >> 2), col = 2 * (lane & 3);
+    const unsigned char* kw = ks + wg * (WG_ROWS * D * 2);
+    const unsigned char* vw = vs + wg * (WG_ROWS * D * 2);
+
+    float dk[D / 2], dv[D / 2];   // each set by its first product
+
+    for (int j = first; j < nq; ++j) {
+        const int i = j - first;
+        const unsigned char* qs = ring + i % STAGES * STAGE;
+        const unsigned char* dos = qs + QT;
+        const float* ls = reinterpret_cast<const float*>(qs + 2 * QT);
+        const float* ds = ls + BQ;
+
+        cpAsyncLanded<STAGES - 2>();
+        __syncthreads();   // tile j is in, for every thread and the tensor cores
+
+        float s[BQ / 2], dp[BQ / 2];   // S^T and dP^T, each set by its first product
+        wgmmaFence();
+        scores<T, D, BQ>(s, kw, qs);
+        wgmmaCommit();
+        scores<T, D, BQ>(dp, vw, dos);
+        wgmmaCommit();
+
+        wgmmaWait<1>();    // S^T is done, and step j - 1's dV and dK products
+        __syncthreads();   // ... in every warp: tile j - 1's stage is free
+        if (j + STAGES - 1 < nq)
+            load(j + STAGES - 1, (i + STAGES - 1) % STAGES);
+        cpAsyncCommit();
+        fenceSum(s);
+
+        // P^T = exp(S^T scale - lse) over the tile's queries (the columns)
+        const int q0 = j * BQ;
+        const bool edge = k0 + ROWS > seqK || q0 + BQ > seqQ || (causal && q0 + offset < k0 + ROWS - 1);
+        if (!edge) {
+#pragma unroll
+            for (int n = 0; n < BQ / 8; ++n) {
+                const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + col);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    s[4 * n + e] = prob(s[4 * n + e], scale, e & 1 ? l.y : l.x);
+            }
+        } else {
+            // keys past seqK and queries past seqQ get 0
+#pragma unroll
+            for (int n = 0; n < BQ / 8; ++n) {
+                const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + col);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int query = q0 + 8 * n + col + (e & 1), key = k0 + row + 8 * (e >> 1);
+                    const float lq = e & 1 ? l.y : l.x;
+                    float p = 0.0f;
+                    if (query < seqQ && key < seqK)
+                        p = causal && query + offset < key ? maskedProb(lq) : prob(s[4 * n + e], scale, lq);
+                    s[4 * n + e] = p;
+                }
+            }
+        }
+
+        // dS^T = P^T (dP^T - delta)
+        wgmmaWait<0>();
+        fenceSum(dp);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+            const float2 dl = *reinterpret_cast<const float2*>(ds + 8 * n + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                dp[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - (e & 1 ? dl.y : dl.x));
+        }
+
+        // dV += P^T dO, dK += dS^T Q
+        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+        toOperand<T, BQ>(pa, s);
+        toOperand<T, BQ>(dsa, dp);
+        // the fragments and sums are written before the fence, not moved past it
+        fenceFragments(pa);
+        fenceFragments(dsa);
+        fenceSum(dv);
+        fenceSum(dk);
+        wgmmaFence();
+        accumulate<T, D, BQ>(dv, pa, dos, j == first);
+        accumulate<T, D, BQ>(dk, dsa, qs, j == first);
+        wgmmaCommit();
+    }
+
+    wgmmaWait<0>();
+    fenceSum(dk);
+    fenceSum(dv);
+    store<T, D>(dK + (size_t)bh * seqK * D, dk, k0 + row, seqK, scale, lane);
+    store<T, D>(dV + (size_t)bh * seqK * D, dv, k0 + row, seqK, 1.0f, lane);
+}
+
+// K5a: dq of ROWS query rows, walking the key tiles
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flashBackwardDq(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V, const T* __restrict__ dO,
                 const float* __restrict__ LSE, const float* __restrict__ DELTA, T* __restrict__ dQ,
                 int seqQ, int seqK, int causal, float scale)
 {
-    constexpr int P = pitch<D>();
+    constexpr int QT = ROWS * D * 2, KT = BK * D * 2, STAGE = 2 * KT;
+    static_assert(dqSmem<D>() == 2 * QT + STAGES * STAGE, "the launch's shared memory");
 
     extern __shared__ __align__(128) unsigned char smem[];
-    T* Qs = reinterpret_cast<T*>(smem);
-    T* dOs = Qs + BQ * P;
-    T* Ks = dOs + BQ * P;         // two stages each
-    T* Vs = Ks + 2 * BK * P;
+    unsigned char* const qs = smem;
+    unsigned char* const dos = smem + QT;
+    unsigned char* const ring = smem + 2 * QT;   // per stage: k, v
 
-    const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // with causal the last query tiles walk the most key tiles: they go first
+    const int tiles = (seqQ + ROWS - 1) / ROWS;
+    const int bh = blockIdx.x / tiles, q0 = (tiles - 1 - (int)(blockIdx.x % tiles)) * ROWS;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int wg = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);   // uniform: ptxas keeps the products asynchronous
     const int offset = seqK - seqQ;
 
     const T* k = K + (size_t)bh * seqK * D;
@@ -288,200 +587,103 @@ flashBackwardDq(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
     if (causal && q0 + offset >= 0) {
         // every row of the tile sees key 0, so the tiles past its last
         // visible key add exactly nothing
-        const int lastKey = min(seqK - 1, min(q0 + BQ - 1, seqQ - 1) + offset);
+        const int lastKey = min(seqK - 1, min(q0 + ROWS - 1, seqQ - 1) + offset);
         nk = lastKey / BK + 1;
     }
 
-    loadTile<T, D>(Qs, Q + (size_t)bh * seqQ * D, q0, seqQ, tid);
-    loadTile<T, D>(dOs, dO + (size_t)bh * seqQ * D, q0, seqQ, tid);
-    loadTile<T, D>(Ks, k, 0, seqK, tid);
-    loadTile<T, D>(Vs, v, 0, seqK, tid);
-    cpAsyncCommit();
-
-    // this thread's rows of the warp's 16: r and r + 8; rows past seqQ are
-    // zero in q and dO, so their dS is 0 whatever lse and delta they get
-    const int rowA = q0 + warp * 16 + (lane >> 2);
-    const int rows[2] = {rowA, rowA + 8};
-    float lse[2], delta[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const bool ok = rows[i] < seqQ;
-        lse[i] = ok ? LSE[(size_t)bh * seqQ + rows[i]] : 0.0f;
-        delta[i] = ok ? DELTA[(size_t)bh * seqQ + rows[i]] : 0.0f;
-    }
-
-    float acc[D / 8][4];
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            acc[t][e] = 0.0f;
-
-    for (int j = 0; j < nk; ++j) {
-        cpAsyncWaitAll();   // tile j (and q, dO) has landed
-        __syncthreads();    // ... for every thread, and tile j - 1 is consumed
-
-        if (j + 1 < nk) {
-            loadTile<T, D>(Ks + ((j + 1) & 1) * BK * P, k, (j + 1) * BK, seqK, tid);
-            loadTile<T, D>(Vs + ((j + 1) & 1) * BK * P, v, (j + 1) * BK, seqK, tid);
-        }
-        cpAsyncCommit();
-
-        const T* ks = Ks + (j & 1) * BK * P;
-        const T* vs = Vs + (j & 1) * BK * P;
-
-        // S = q k^T and dP = dO v^T for the warp's 16 rows and the tile's 64 keys
-        float s[8][4], dp[8][4];
-        scores<T, D>(s, Qs, warp * 16, ks, lane);
-        scores<T, D>(dp, dOs, warp * 16, vs, lane);
-
-        // dS = P * (dP - delta), P = exp(s * scale - lse) under the masks
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = j * BK + n * 8 + (lane & 3) * 2 + (e & 1), i = e >> 1;
-                float p = 0.0f;
-                if (key < seqK) {
-                    const float x = causal && rows[i] + offset < key ? MASKED : s[n][e] * scale;
-                    p = exp2f((x - lse[i]) * LOG2E);
-                }
-                s[n][e] = p * (dp[n][e] - delta[i]);
-            }
-
-        // dq += dS k
-        accumulate<T, D>(acc, s, ks, lane);
-    }
-
-    cpAsyncWaitAll();
-    store<T, D>(dQ + (size_t)bh * seqQ * D, acc, q0 + warp * 16, seqQ, scale, lane);
-}
-
-// K5b: dk and dv of one 64-row key tile, walking the query tiles
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flashBackwardDkv(const T* __restrict__ Q, const T* __restrict__ K, const T* __restrict__ V, const T* __restrict__ dO,
-                 const float* __restrict__ LSE, const float* __restrict__ DELTA, T* __restrict__ dK,
-                 T* __restrict__ dV, int seqQ, int seqK, int causal, float scale)
-{
-    constexpr int P = pitch<D>();
-
-    extern __shared__ __align__(128) unsigned char smem[];
-    T* Ks = reinterpret_cast<T*>(smem);
-    T* Vs = Ks + BK * P;
-    T* Qs = Vs + BK * P;          // two stages each
-    T* dOs = Qs + 2 * BQ * P;
-    float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * P);   // two stages of 64 each
-    float* Ds = Ls + 2 * BQ;
-
-    const int bh = blockIdx.x, k0 = blockIdx.y * BK;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int offset = seqK - seqQ;
-
-    const T* q = Q + (size_t)bh * seqQ * D;
-    const T* dout = dO + (size_t)bh * seqQ * D;
-    const float* lseRow = LSE + (size_t)bh * seqQ;
-    const float* deltaRow = DELTA + (size_t)bh * seqQ;
-
-    const int nq = (seqQ + BQ - 1) / BQ;
-
-    // with causal and no fully masked query row (offset >= 0), the query
-    // tiles whose rows all lie before k0 - offset see none of these keys
-    const int first = causal && offset >= 0 ? max(0, k0 - offset) / BQ : 0;
-
-    auto loadStats = [&](int stage, int j) {
-        // plain loads: visible to every thread after the next __syncthreads
-        if (tid < BQ) {
-            const int r = j * BQ + tid;
-            Ls[stage * BQ + tid] = r < seqQ ? lseRow[r] : 0.0f;
-            Ds[stage * BQ + tid] = r < seqQ ? deltaRow[r] : 0.0f;
-        }
+    auto load = [&](int j, int stage) {
+        unsigned char* st = ring + stage * STAGE;
+        loadTile<T, D, BK>(st, k, j * BK, seqK, tid);
+        loadTile<T, D, BK>(st + KT, v, j * BK, seqK, tid);
     };
 
-    loadTile<T, D>(Ks, K + (size_t)bh * seqK * D, k0, seqK, tid);
-    loadTile<T, D>(Vs, V + (size_t)bh * seqK * D, k0, seqK, tid);
-    if (first < nq) {
-        loadTile<T, D>(Qs, q, first * BQ, seqQ, tid);
-        loadTile<T, D>(dOs, dout, first * BQ, seqQ, tid);
-        loadStats(0, first);
-    }
-    cpAsyncCommit();
-
-    const int keyA = k0 + warp * 16 + (lane >> 2);
-    const int keys[2] = {keyA, keyA + 8};
-
-    float dk[D / 8][4], dv[D / 8][4];
+    // the first STAGES - 1 key tiles, a commit group each, q and dO with the
+    // first
+    loadTile<T, D, ROWS>(qs, Q + (size_t)bh * seqQ * D, q0, seqQ, tid);
+    loadTile<T, D, ROWS>(dos, dO + (size_t)bh * seqQ * D, q0, seqQ, tid);
 #pragma unroll
-    for (int t = 0; t < D / 8; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            dk[t][e] = dv[t][e] = 0.0f;
-
-    for (int j = first; j < nq; ++j) {
-        const int stage = (j - first) & 1;
-
-        cpAsyncWaitAll();   // tile j (and k, v) has landed
-        __syncthreads();    // ... for every thread, and tile j - 1 is consumed
-
-        if (j + 1 < nq) {
-            loadTile<T, D>(Qs + (stage ^ 1) * BQ * P, q, (j + 1) * BQ, seqQ, tid);
-            loadTile<T, D>(dOs + (stage ^ 1) * BQ * P, dout, (j + 1) * BQ, seqQ, tid);
-            loadStats(stage ^ 1, j + 1);
-        }
+    for (int i = 0; i < STAGES - 1; ++i) {
+        if (i < nk)
+            load(i, i);
         cpAsyncCommit();
-
-        const T* qs = Qs + stage * BQ * P;
-        const T* dos = dOs + stage * BQ * P;
-        const float* ls = Ls + stage * BQ;
-        const float* ds = Ds + stage * BQ;
-
-        // S^T = k q^T for the warp's 16 keys and the tile's 64 queries, and
-        // P^T = exp(S^T * scale - lse) under the masks; keys past seqK and
-        // queries past seqQ get 0
-        float s[8][4];
-        scores<T, D>(s, Ks, warp * 16, qs, lane);
-
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = n * 8 + (lane & 3) * 2 + (e & 1), query = j * BQ + col, key = keys[e >> 1];
-                float p = 0.0f;
-                if (query < seqQ && key < seqK) {
-                    const float x = causal && query + offset < key ? MASKED : s[n][e] * scale;
-                    p = exp2f((x - ls[col]) * LOG2E);
-                }
-                s[n][e] = p;
-            }
-
-        // dv += P^T dO
-        accumulate<T, D>(dv, s, dos, lane);
-
-        // dS^T = P^T * (dP^T - delta), dP^T = v dO^T one n-tile at a time
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-            float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-            for (int cc = 0; cc < D / 32; ++cc) {
-                uint32_t a0[4], a1[4], b[4];
-                fragA<T, D>(a0, Vs, warp * 16, 2 * cc, lane);
-                fragA<T, D>(a1, Vs, warp * 16, 2 * cc + 1, lane);
-                fragB<T, D>(b, dos, n, cc, lane);
-                mma<T>(dp, a0, b[0], b[1]);
-                mma<T>(dp, a1, b[2], b[3]);
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-                s[n][e] *= dp[e] - ds[n * 8 + (lane & 3) * 2 + (e & 1)];
-        }
-
-        // dk += dS^T q
-        accumulate<T, D>(dk, s, qs, lane);
     }
 
-    cpAsyncWaitAll();
-    store<T, D>(dK + (size_t)bh * seqK * D, dk, k0 + warp * 16, seqK, scale, lane);
-    store<T, D>(dV + (size_t)bh * seqK * D, dv, k0 + warp * 16, seqK, 1.0f, lane);
+    // this thread's accumulator rows: queries q0 + row (+ 8); its columns of
+    // a key tile: 8 n + col (+ 1).  Rows past seqQ are zero in q and dO and
+    // are not stored.  Its warpgroup's rows of q and dO
+    const int row = WG_ROWS * wg + 16 * ((tid >> 5) & 3) + (lane >> 2), col = 2 * (lane & 3);
+    const unsigned char* qw = qs + wg * (WG_ROWS * D * 2);
+    const unsigned char* dow = dos + wg * (WG_ROWS * D * 2);
+    float lse[2], delta[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = q0 + row + 8 * h;
+        const bool ok = r < seqQ;
+        lse[h] = ok ? LSE[(size_t)bh * seqQ + r] : 0.0f;
+        delta[h] = ok ? DELTA[(size_t)bh * seqQ + r] : 0.0f;
+    }
+
+    float dq[D / 2];   // set by its first product
+
+    for (int j = 0; j < nk; ++j) {
+        const unsigned char* kts = ring + j % STAGES * STAGE;
+        const unsigned char* vts = kts + KT;
+
+        cpAsyncLanded<STAGES - 2>();
+        __syncthreads();   // tile j is in, for every thread and the tensor cores
+
+        float s[BK / 2], dp[BK / 2];   // S and dP, each set by its first product
+        wgmmaFence();
+        scores<T, D, BK>(s, qw, kts);
+        wgmmaCommit();
+        scores<T, D, BK>(dp, dow, vts);
+        wgmmaCommit();
+
+        wgmmaWait<1>();    // S is done, and step j - 1's dQ products
+        __syncthreads();   // ... in every warp: tile j - 1's stage is free
+        if (j + STAGES - 1 < nk)
+            load(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+        cpAsyncCommit();
+        fenceSum(s);
+
+        // P = exp(S scale - lse) over the tile's keys (the columns)
+        const int kt0 = j * BK;
+        const bool edge = kt0 + BK > seqK || q0 + ROWS > seqQ || (causal && q0 + offset < kt0 + BK - 1);
+        if (!edge) {
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i)
+                s[i] = prob(s[i], scale, lse[(i >> 1) & 1]);
+        } else {
+            // keys past seqK get 0
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) {
+                const int h = (i >> 1) & 1, key = kt0 + 8 * (i >> 2) + col + (i & 1);
+                float p = 0.0f;
+                if (key < seqK)
+                    p = causal && q0 + row + 8 * h + offset < key ? maskedProb(lse[h]) : prob(s[i], scale, lse[h]);
+                s[i] = p;
+            }
+        }
+
+        // dS = P (dP - delta), then dQ += dS K
+        wgmmaWait<0>();
+        fenceSum(dp);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+            dp[i] = s[i] * (dp[i] - delta[(i >> 1) & 1]);
+
+        uint32_t dsa[BK / 16][4];
+        toOperand<T, BK>(dsa, dp);
+        fenceFragments(dsa);
+        fenceSum(dq);
+        wgmmaFence();
+        accumulate<T, D, BK>(dq, dsa, kts, j == 0);
+        wgmmaCommit();
+    }
+
+    wgmmaWait<0>();
+    fenceSum(dq);
+    store<T, D>(dQ + (size_t)bh * seqQ * D, dq, q0 + row, seqQ, scale, lane);
 }
 
 template <typename Kernel>
@@ -504,17 +706,30 @@ struct Args {
     cudaStream_t stream;
 };
 
+// one block per (batch * head, ROWS-row tile), the tiles of one batch * head
+// side by side
+cudaError_t gridOf(const Args& a, int seq, unsigned& blocks)
+{
+    const long long n = (long long)a.bh * ((seq + ROWS - 1) / ROWS);
+    if (n > 0x7FFFFFFF)
+        return cudaErrorInvalidValue;
+    blocks = (unsigned)n;
+    return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t launchDq(const Args& a)
 {
-    constexpr int bytes = tileBytes<T, D>();
+    constexpr int bytes = dqSmem<D>();
     static bool sized = false;
-    const cudaError_t err = allowSmem(flashBackwardDq<T, D>, bytes, sized);
+    unsigned blocks = 0;
+    cudaError_t err = allowSmem(flashBackwardDq<T, D>, bytes, sized);
+    if (err == cudaSuccess)
+        err = gridOf(a, a.seqQ, blocks);
     if (err != cudaSuccess)
         return err;
 
-    const dim3 grid(a.bh, (a.seqQ + BQ - 1) / BQ);
-    flashBackwardDq<T, D><<<grid, THREADS, bytes, a.stream>>>(
+    flashBackwardDq<T, D><<<blocks, THREADS, bytes, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.seqQ, a.seqK, a.causal,
         1.0f / sqrtf((float)D));
@@ -524,14 +739,16 @@ cudaError_t launchDq(const Args& a)
 template <typename T, int D>
 cudaError_t launchDkv(const Args& a)
 {
-    constexpr int bytes = tileBytes<T, D>() + 4 * BQ * (int)sizeof(float);
+    constexpr int BQ = dkvBQ<D>(), bytes = dkvSmem<D, BQ>();
     static bool sized = false;
-    const cudaError_t err = allowSmem(flashBackwardDkv<T, D>, bytes, sized);
+    unsigned blocks = 0;
+    cudaError_t err = allowSmem(flashBackwardDkv<T, D, BQ>, bytes, sized);
+    if (err == cudaSuccess)
+        err = gridOf(a, a.seqK, blocks);
     if (err != cudaSuccess)
         return err;
 
-    const dim3 grid(a.bh, (a.seqK + BK - 1) / BK);
-    flashBackwardDkv<T, D><<<grid, THREADS, bytes, a.stream>>>(
+    flashBackwardDkv<T, D, BQ><<<blocks, THREADS, bytes, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seqQ,
         a.seqK, a.causal, 1.0f / sqrtf((float)D));

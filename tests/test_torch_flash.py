@@ -261,13 +261,19 @@ def testBackwardOnCpuTakesThePlainVersionAndChecks():
 @pytest.mark.parametrize("shape, seqK, causal", [((64, 4, 80, 32), 80, False), ((64, 4, 80, 32), 80, True),
                                                  ((2, 3, 80, 32), 200, True), ((2, 3, 200, 64), 80, True),
                                                  ((1, 2, 130, 128), 77, False), ((1, 2, 333, 64), 333, True),
-                                                 ((2, 2, 80, 128), 48, True), ((1, 3, 257, 128), 300, True)])
+                                                 ((2, 2, 80, 128), 48, True), ((1, 3, 257, 128), 300, True),
+                                                 ((2, 2, 65, 64), 129, False), ((2, 2, 127, 64), 255, False),
+                                                 ((1, 3, 65, 32), 255, True), ((2, 2, 127, 128), 255, True),
+                                                 ((1, 2, 129, 32), 127, False), ((1, 2, 255, 128), 129, True)])
 def testBackwardKernelsMatchPlainOnCard(shape, seqK, causal, dtype):
     """K5a and K5b against ``backwardPlain`` on the kernel forward's out and
     lse: dq, dk and dv within 1e-2 of max |plain| (both round P and dS to the
     input's type for the products; they differ by the order of the f32 sums,
     by exp2 against exp where a rounding of P or dS flips, and by one final
-    rounding), one launch of each kernel."""
+    rounding), one launch of each kernel, and the same bits on a second call
+    (no atomics).  The shapes cross the kernels' 64-row tiles (seqQ 65 and
+    127, seqK 129 and 255), with the causal offset both ways and query rows
+    that see no key (seqQ > seqK causal) at d 32 and 128."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ built with nvcc")
 
@@ -287,6 +293,9 @@ def testBackwardKernelsMatchPlainOnCard(shape, seqK, causal, dtype):
         assert g.dtype == dtype and g.shape == t.shape
         assert bool(torch.isfinite(g).all())
         assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= 1e-2
+
+    again = flash.backward(q, k, v, out, lse, do, causal)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
     with pytest.raises(TypeError):
         flash.backward(q.float(), k.float(), v.float(), out.float(), lse, do.float(), causal)
