@@ -62,8 +62,8 @@
 //     from shared memory, dS as register-A, dQ += dS K as m64n{d}k16 with
 //     the K tile read MN-major;
 //   - the walked tiles (q, dO, lse and delta in K5b; k and v in K5a) go
-//     through a three-stage ring by cp.async (16 bytes; 4 for lse and delta),
-//     rows past the sequence zero-filled; a step's loads are issued once the
+//     through a three-stage ring by cp.async through L1 (16 bytes; 4 for lse
+//     and delta), rows past the sequence zero-filled; a step's loads are issued once the
 //     previous step's last products are done and land two steps later (two
 //     stages measured 1.2x slower for K5a, no faster for K5b);
 //   - a step issues its two score products as two commit groups and waits
@@ -135,8 +135,9 @@ __device__ __forceinline__ unsigned smemAddr(const void* p)
 
 __device__ __forceinline__ void cpAsync16(void* smem, const void* gmem, bool valid)
 {
-    // src-size 0 fills the 16 bytes with zeros and reads nothing
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+    // src-size 0 fills the 16 bytes with zeros and reads nothing; through L1
+    // (.ca), which measured faster than past it (.cg), as for K2
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smemAddr(smem)), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
 }
 
