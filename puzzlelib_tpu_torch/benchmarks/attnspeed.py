@@ -3,7 +3,7 @@ the library's fused attention (counterpart of
 ``puzzlelib_tpu/benchmarks/attnspeed.py``).
 
 Run:  python3 -m puzzlelib_tpu_torch.benchmarks.attnspeed [--seqs 2048,4096] [--batch 4]
-          [--heads 8] [--dim 64] [--iters 10] [--device cpu] [--backward]
+          [--heads 8] [--dim 64] [--iters 10] [--device cpu]
 
 Times a training step's attention, the gradient of sum(out^2) with respect
 to q, k and v, for each sequence length, causal off and on, bf16:
@@ -24,15 +24,6 @@ versions.  The reference's write of the winner into the "auto" table
 (``attnspeed.py:84-91``) waits for the port's per-shape race.  Without
 ``--device cpu`` the script needs a card and raises ``DeviceError`` where
 there is none.
-
-With ``--backward`` it times the flash backward's parts instead, on the
-forward's ``out`` and ``lse`` and a seeded ``do``: K5a and K5b alone on the
-operands ``backward`` prepares, the delta = rowsum(dO * out) pass, the whole
-``flash.backward``, and the library's autograd backward of its output
-(forward excluded).  On the CPU only the whole backward (its plain version)
-and the library's run.  The script imports the package from ``sys.path``,
-so run by its path beside another checkout's package it times that
-checkout's kernels.
 """
 
 import argparse
@@ -66,28 +57,6 @@ def libraryGrad(q, k, v, causal):
     return torch.autograd.grad(_sumSquares(F.scaled_dot_product_attention(*leaves, is_causal=causal)), leaves)
 
 
-def backwardParts(q, k, v, causal, iters, device):
-    """{part: ms} of the flash backward at one shape (``--backward``)."""
-    from puzzlelib_tpu_torch.ops.hopper import flash
-
-    gen = torch.Generator(device=device).manual_seed(2)
-    do = torch.randn(q.shape, generator=gen, device=device).to(q.dtype)
-    out, lse = flash.flash(q, k, v, causal)
-
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    libOut = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-
-    times = {}
-    if device.type == "cuda":
-        delta = (do.float() * out.float()).sum(dim=-1).contiguous()
-        times["K5a"] = timeMs(lambda: flash.dq(q, k, v, do, lse, delta, causal), iters, device)
-        times["K5b"] = timeMs(lambda: flash.dkv(q, k, v, do, lse, delta, causal), iters, device)
-        times["delta"] = timeMs(lambda: (do.float() * out.float()).sum(dim=-1).contiguous(), iters, device)
-    times["backward"] = timeMs(lambda: flash.backward(q, k, v, out, lse, do, causal), iters, device)
-    times["library"] = timeMs(lambda: torch.autograd.grad(libOut, leaves, do, retain_graph=True), iters, device)
-    return times
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seqs", default="2048,4096")
@@ -96,7 +65,6 @@ def main(argv=None):
     parser.add_argument("--dim", type=int, default=64)
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--device", default=None, help="cpu to run on the CPU; default the card")
-    parser.add_argument("--backward", action="store_true", help="time the flash backward's parts instead")
     args = parser.parse_args(argv)
 
     from puzzlelib_tpu_torch import config as Config
@@ -119,16 +87,6 @@ def main(argv=None):
         flops = 4 * b * h * s * s * d * 3.5
 
         for causal in (False, True):
-            if args.backward:
-                results[(s, causal)] = times = backwardParts(q, k, v, causal, args.iters, device)
-                kernels = "".join("%s %8.4f ms | " % (part, times[part]) for part in ("K5a", "K5b", "delta")
-                                  if part in times)
-                print("seq %5d causal=%d d %d backward | %sflash.backward %8.4f ms (%6.1f TF/s) | "
-                      "scaled_dot_product_attention backward %8.4f ms%s" %
-                      (s, causal, d, kernels, times["backward"], flops / 3.5 * 2.5 / times["backward"] / 1e9,
-                       times["library"], "" if device.type == "cuda" else " (cpu)"))
-                continue
-
             times = {label: timeMs(lambda: fn(q, k, v, causal), args.iters, device)
                      for label, fn in (("flash", flashGrad), ("composed", composedGrad), ("library", libraryGrad))}
             results[(s, causal)] = times

@@ -79,7 +79,6 @@
 //     every row of its query tile sees key 0 (the forward's rule), and K5b
 //     skips the query tiles wholly before its key tile when no query row is
 //     fully masked (seqK >= seqQ): a fully masked row weighs every key 1.
-//     K5a's blocks with the most key tiles are launched first.
 // ptxas (CUDA 12.8, sm_90a; bf16 and f16 alike): K5b 156 / 186 / 206
 // registers at d 32 / 64 / 128, K5a 128 / 157 / 226, no spill, one block an
 // SM.  For K5b it reports a warpgroup.wait it injects into the loop (C7517):
@@ -574,9 +573,8 @@ flashBackwardDq(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
     unsigned char* const dos = smem + QT;
     unsigned char* const ring = smem + 2 * QT;   // per stage: k, v
 
-    // with causal the last query tiles walk the most key tiles: they go first
     const int tiles = (seqQ + ROWS - 1) / ROWS;
-    const int bh = blockIdx.x / tiles, q0 = (tiles - 1 - (int)(blockIdx.x % tiles)) * ROWS;
+    const int bh = blockIdx.x / tiles, q0 = (int)(blockIdx.x % tiles) * ROWS;
     const int tid = threadIdx.x, lane = tid & 31;
     const int wg = __shfl_sync(0xFFFFFFFFu, tid >> 7, 0);   // uniform: ptxas keeps the products asynchronous
     const int offset = seqK - seqQ;
