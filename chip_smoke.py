@@ -17,8 +17,12 @@ it fails:
    install probe) launched once and exact, the K1 f32 GEMM probe within
    its bound;
 3. K1 (GEMM) against its plain PyTorch version at the VGG-16 fc shapes
-   (M = 32) in bf16 and f32, a ragged 100 x 200 x 60, and the transformer
-   slice's three products in bf16 (``tools/transformerslice.py`` GEMMS);
+   (M = 32) in bf16, f16 and f32, a ragged 100 x 200 x 60, the transformer
+   slice's three products in bf16 and f16 (``tools/transformerslice.py``
+   GEMMS) and 8192^3 in bf16, each on the kernel its shape routes to (wgmma
+   where TMA can describe a bf16 or f16 product), with its second call bit
+   for bit, timed beside the WMMA kernel on the same operands, in turns,
+   and beside cuBLAS, with whether wgmma beat WMMA printed;
    K1-int8 against its plain version (an f64 product, exact) with exact
    int32 equality at each distinct int8 product of the VGG-16 int8 engine
    at batch 32 (INT8_SHAPES: the 13 convs as im2col products, conv1_1's K =
@@ -35,7 +39,9 @@ it fails:
 5. the serving slice: VGG-16 at full width in bf16, random He weights from
    ``np.random.seed(0)``, 128 seeded images through
    ``Calculator(net, batchsize=32).calcFromHost``.  The launch counters are
-   reset just before and read just after that run; the output is checked
+   reset just before and read just after that run (every K1 launch on
+   wgmma, here and in [train] and [engine-bf16]; in [transformer] and
+   [transformer-train] all but the head's); the output is checked
    for shape, finiteness and softmax rows, and fc8 of the first batch
    against the same f32 weights run on the library route;
 6. the training slice: the same net without its SoftMax, in bf16, trained by
@@ -186,11 +192,16 @@ INT8_SHAPES = [
     ("fc8", BATCH, 4096, 1000, 1),
 ]
 
+# an operations-bound product, no slice's shape: K1's sustained rate beside
+# the WMMA kernel and cuBLAS, one of the three sums wgmma is held to
+GEMM_SQUARE = ("8192^3", "bf16", 8192, 8192, 8192)
+
 # max |kernel - plain| / max |plain|.  bf16: both round one f32 sum to bf16
 # (8 mantissa bits, half an ulp is 2^-9 = 2e-3 of the value) and differ only
 # in summation order, so they disagree by at most about one bf16 ulp (4e-3).
+# f16: the same with 11 mantissa bits, one ulp 1e-3, inside the same bound.
 # f32: only the order of K f32 additions differs, ~sqrt(K) * 6e-8 < 1e-5.
-GEMM_BOUND = {"bf16": 1e-2, "f32": 1e-4}
+GEMM_BOUND = {"bf16": 1e-2, "f16": 1e-2, "f32": 1e-4}
 
 # Winograd: kernel vs plain share every rounding point (V and U rounded to
 # bf16, f32 sums, bf16 output), so they differ by summation order and the
@@ -329,58 +340,134 @@ def phaseBuild(build):
             print("[build] %s: %s" % (name, line))
 
 
-def _gemmCase(torch, matmul, gen, label, dtName, m, k, n):
-    """K1 against its plain version at one shape: (max |kernel - plain|, ms,
-    plain ms, library ms, bound ms, bound_by)."""
-    dtype = torch.bfloat16 if dtName == "bf16" else torch.float32
+def _inTurns(fns, iters=10):
+    """``deviceMs`` of each of ``fns``, timed in turns (a, b, b, a): the mean
+    of its two runs."""
+    times = [0.0] * len(fns)
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        times[i] += deviceMs(fns[i], iters) / 2
+    return times
+
+
+def _gemmCase(torch, matmul, gen, label, dtName, m, k, n, plainIters=10):
+    """K1 at one shape: the routed kernel against its plain version and its
+    second call bit for bit; the device times of the routed kernel and of
+    the tiled kernel on the same operands (WMMA for bf16 and f16, reached
+    through the wrapper's private path argument) in turns, of wgmma with
+    64-row blocks where the route takes 128, of the plain version and of
+    cuBLAS.  Returns the case's numbers."""
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[dtName]
     a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     b = (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
 
-    out, ref = matmul.matmul(a, b), matmul.plain(a, b)
-    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    path = matmul._route(m, n, k, dtype, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0, sms)
+    wmmaPath = "tiled-vec" if path.startswith("wgmma") else path
 
-    err = relErr(torch, out, ref)
-    ms = deviceMs(lambda: matmul.matmul(a, b), 10)
-    plainMs = deviceMs(lambda: matmul.plain(a, b), 10)
+    out, ref = matmul.matmul(a, b), matmul.plain(a, b)
+    again = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    err, repeats = relErr(torch, out, ref), torch.equal(out, again)
+
+    def onPath(route):
+        dst = torch.empty_like(out)
+        return lambda: matmul._launch(a, b, dst, route)
+
+    if wmmaPath == path:
+        ms = wmmaMs = deviceMs(lambda: matmul.matmul(a, b), 10)
+    else:
+        ms, wmmaMs = _inTurns([lambda: matmul.matmul(a, b), onPath(wmmaPath)])
+    step1Ms = deviceMs(onPath("wgmma-64"), 10) if path == "wgmma-128" else None
+    plainMs = deviceMs(lambda: matmul.plain(a, b), plainIters)
     libMs = deviceMs(lambda: torch.matmul(a, b), 10)
     boundMs, boundBy = bound((m * k + k * n + m * n) * a.element_size(), 2 * m * k * n,
                              F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
 
-    print("[K1] %-8s %s M=%d K=%d N=%d: rel err %.3e (bound %.0e), kernel %.4f ms, plain %.4f ms, "
-          "library (cuBLAS) %.4f ms, bound %.4f ms (%s)" %
-          (label, dtName, m, k, n, err, GEMM_BOUND[dtName], ms, plainMs, libMs, boundMs, boundBy))
+    others = "" if wmmaPath == path else ", WMMA %.4f ms" % wmmaMs
+    if step1Ms is not None:
+        others += ", wgmma-64 %.4f ms" % step1Ms
+    print("[K1] %-8s %s M=%d K=%d N=%d on %s: rel err %.3e (bound %.0e), second call %s; kernel %.4f ms (%.1f "
+          "TF/s)%s, plain %.4f ms, library (cuBLAS) %.4f ms, bound %.4f ms (%s)" %
+          (label, dtName, m, k, n, path, err, GEMM_BOUND[dtName], "bit-equal" if repeats else "DIFFERENT", ms,
+           2 * m * k * n / ms / 1e9, others, plainMs, libMs, boundMs, boundBy))
 
     if not err <= GEMM_BOUND[dtName]:
         fail("K1 %s %s disagrees with its plain version: %.3e" % (label, dtName, err))
 
-    return (out.float() - ref.float()).abs().max().item(), ms, plainMs, libMs, boundMs, boundBy
+    if not repeats:
+        fail("K1 %s %s gives other bits on a second call" % (label, dtName))
+
+    return {"name": label, "dtype": dtName, "path": path, "abs_err": (out.float() - ref.float()).abs().max().item(),
+            "ms": ms, "wmma_ms": wmmaMs, "step1_ms": step1Ms, "plain_ms": plainMs, "library_ms": libMs,
+            "bound_ms": boundMs, "bound_by": boundBy}
 
 
 def _addCase(main, binding, case, count=1):
-    absErr, ms, plainMs, libMs, boundMs, boundBy = case
-    main["max_abs_err"] = max(main["max_abs_err"], absErr)
-    for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs), ("bound_ms", boundMs)):
-        main[key] += value * count
-    binding.add(boundBy)
+    main["max_abs_err"] = max(main["max_abs_err"], case["abs_err"])
+    for key in ("ms", "wmma_ms", "plain_ms", "library_ms", "bound_ms"):
+        main[key] += case[key] * count
+    binding.add(case["bound_by"])
+
+
+def _againstWmma(vgg, transformer, square, cases):
+    """Whether K1 on wgmma beats the WMMA kernel in this call: faster at fc6
+    + fc7 + fc8, at one transformer request and at 8192^3, no more than 5 %
+    slower at any single slice shape, and 128-row blocks faster than 64-row
+    ones where the route takes them.  Printed, not a gate: a time is no
+    correctness check."""
+    ratios = [(case["ms"] / case["wmma_ms"], case["name"], case["dtype"]) for case in cases
+              if case["path"].startswith("wgmma")]
+    worst = max(ratios)
+    print("[K1] wgmma against WMMA (bf16, same call): fc6+fc7+fc8 %.4f against %.4f ms; one "
+          "transformer request %.4f against %.4f ms (its head stays on WMMA); 8192^3 %.4f ms (%.1f TF/s) against "
+          "%.4f ms (%.1f TF/s), 64-row blocks there %.4f ms (%.1f TF/s), cuBLAS %.4f ms (%.1f TF/s); slowest single "
+          "slice shape on wgmma against WMMA: %s %s at %.3fx" %
+          (vgg["ms"], vgg["wmma_ms"], transformer["ms"], transformer["wmma_ms"], square["ms"],
+           _tflops(square, "ms"), square["wmma_ms"], _tflops(square, "wmma_ms"), square["step1_ms"],
+           _tflops(square, "step1_ms"), square["library_ms"], _tflops(square, "library_ms"), worst[1], worst[2],
+           worst[0]))
+
+    met = (vgg["ms"] < vgg["wmma_ms"] and transformer["ms"] < transformer["wmma_ms"] and
+           square["ms"] < square["wmma_ms"] and square["ms"] < square["step1_ms"] and worst[0] <= 1.05)
+    print("[K1] wgmma faster than WMMA at the three sums and within 5 %% at every slice shape: %s" %
+          ("yes" if met else "NO"))
+
+
+def _tflops(case, key):
+    _, _, m, k, n = GEMM_SQUARE
+    return 2 * m * k * n / case[key] / 1e9
 
 
 def phaseGemm(torch, matmul):
-    """K1 at VGG's fc shapes and the ragged one in bf16 and f32, and at the
-    transformer slice's shapes in bf16.  Returns the JSON entries' numbers:
-    fc6 + fc7 + fc8 in bf16, and one request of the transformer slice."""
+    """K1 at VGG's fc shapes and the ragged one in bf16, f16 and f32, at the
+    transformer slice's shapes in bf16 and f16, and at 8192^3 in bf16, with
+    its wgmma kernel held against WMMA.  Returns the JSON entries'
+    numbers: fc6 + fc7 + fc8 in bf16, and one request of the transformer
+    slice."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    vgg, transformer = ({"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-                        for _ in range(2))
+    vgg, transformer = ({"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "library_ms": 0.0} for _ in range(2))
     vggBinding, transformerBinding = set(), set()
+    sliceCases = []
 
-    for dtName in ("bf16", "f32"):
+    for dtName in ("bf16", "f16", "f32"):
         for name, m, k, n in GEMM_SHAPES:
             case = _gemmCase(torch, matmul, gen, name, dtName, m, k, n)
             if dtName == "bf16" and name != "ragged":
                 _addCase(vgg, vggBinding, case)
+            if dtName != "f32" and name != "ragged":
+                sliceCases.append(case)
 
-    for name, m, k, n, count in Slice.GEMMS:
-        _addCase(transformer, transformerBinding, _gemmCase(torch, matmul, gen, name, "bf16", m, k, n), count)
+    for dtName in ("bf16", "f16"):
+        for name, m, k, n, count in Slice.GEMMS:
+            case = _gemmCase(torch, matmul, gen, name, dtName, m, k, n)
+            if dtName == "bf16":
+                _addCase(transformer, transformerBinding, case, count)
+            sliceCases.append(case)
+
+    square = _gemmCase(torch, matmul, gen, *GEMM_SQUARE, plainIters=2)
+    torch.cuda.empty_cache()
+    _againstWmma(vgg, transformer, square, sliceCases)
 
     vgg["bound_by"] = "/".join(sorted(vggBinding))
     transformer["bound_by"] = "/".join(sorted(transformerBinding))
@@ -575,16 +662,17 @@ def phaseSlice(torch, card):
         Config.gemmAlgo = Config.convAlgo = algo
         serve()
 
-    matmul.launches = winograd.launches = 0
+    matmul.launches = matmul.launchesWgmma = winograd.launches = 0
     out, secs = serve()
-    launches = {"matmul": matmul.launches, "winograd": winograd.launches}
+    launches = {"matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches}
 
     print("[slice] VGG-16 bf16, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
           (len(images), REQUESTS, BATCH, secs, len(images) / secs, card))
-    print("[slice] launches in that run: winograd %d, matmul %d" % (launches["winograd"], launches["matmul"]))
+    print("[slice] launches in that run: winograd %d, matmul %d (on wgmma %d)" %
+          (launches["winograd"], launches["matmul"], launches["matmulWgmma"]))
 
-    if launches != {"matmul": 3 * REQUESTS, "winograd": 10 * REQUESTS}:
-        fail("expected 40 Winograd and 12 GEMM launches, got %s" % launches)
+    if launches != {"matmul": 3 * REQUESTS, "matmulWgmma": 3 * REQUESTS, "winograd": 10 * REQUESTS}:
+        fail("expected 40 Winograd and 12 GEMM launches, all 12 on wgmma, got %s" % launches)
 
     if out.shape != (len(images), 1000) or not np.isfinite(out).all():
         fail("output of shape %s, finite: %s" % (out.shape, np.isfinite(out).all()))
@@ -753,18 +841,20 @@ def phaseTrain(torch, card):
     snapshot = [var.data.clone() for var in variables]
 
     losses = []
-    matmul.launches = winograd.launches = winograd.dataGradLaunches = winograd.filterGradLaunches = 0
+    matmul.launches = matmul.launchesWgmma = 0
+    winograd.launches = winograd.dataGradLaunches = winograd.filterGradLaunches = 0
     secs = train("hopper", losses)
-    launches = {"matmul": matmul.launches, "winograd": winograd.launches,
+    launches = {"matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches,
                 "winogradDataGrad": winograd.dataGradLaunches, "winogradFG": winograd.filterGradLaunches}
 
     print("[train] VGG-16 bf16, %d images in %d steps of %d: %.4f s, %.1f images/s on %s" %
           (len(images), STEPS, BATCH, secs, len(images) / secs, card))
-    print("[train] launches in that run: winograd %d (forward %d, bwd-data %d), winogradFG %d, matmul %d" %
-          (launches["winograd"], launches["winograd"] - launches["winogradDataGrad"], launches["winogradDataGrad"],
-           launches["winogradFG"], launches["matmul"]))
+    print("[train] launches in that run: winograd %d (forward %d, bwd-data %d), winogradFG %d, matmul %d (on wgmma "
+          "%d)" % (launches["winograd"], launches["winograd"] - launches["winogradDataGrad"],
+                   launches["winogradDataGrad"], launches["winogradFG"], launches["matmul"], launches["matmulWgmma"]))
 
-    expected = {"matmul": 3 * STEPS, "winograd": 20 * STEPS, "winogradDataGrad": 10 * STEPS, "winogradFG": 10 * STEPS}
+    expected = {"matmul": 3 * STEPS, "matmulWgmma": 3 * STEPS, "winograd": 20 * STEPS,
+                "winogradDataGrad": 10 * STEPS, "winogradFG": 10 * STEPS}
     if launches != expected:
         fail("expected launches %s, got %s" % (expected, launches))
 
@@ -1013,17 +1103,19 @@ def phaseEngineBf16(torch, card, workdir, net, requests):
     for module in (engine, clone):
         Engines.serve(module, requests)   # warm-up
 
-    matmul.launches = matmul.launchesInt8 = winograd.launches = 0
+    matmul.launches = matmul.launchesWgmma = matmul.launchesInt8 = winograd.launches = 0
     out, secs = Engines.serve(engine, requests)
-    launches = {"matmul": matmul.launches, "winograd": winograd.launches, "int8": matmul.launchesInt8}
+    launches = {"matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches,
+                "int8": matmul.launchesInt8}
 
     print("[engine-bf16] VGG-16 bf16 engine, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
           (len(requests), Engines.REQUESTS, Engines.BATCH, secs, len(requests) / secs, card))
-    print("[engine-bf16] launches in that run: winograd %d, K1 %d, K1-int8 %d" %
-          (launches["winograd"], launches["matmul"], launches["int8"]))
+    print("[engine-bf16] launches in that run: winograd %d, K1 %d (on wgmma %d), K1-int8 %d" %
+          (launches["winograd"], launches["matmul"], launches["matmulWgmma"], launches["int8"]))
 
-    if launches != {"matmul": 3 * Engines.REQUESTS, "winograd": 10 * Engines.REQUESTS, "int8": 0}:
-        fail("expected 40 Winograd and 12 GEMM launches, got %s" % launches)
+    if launches != {"matmul": 3 * Engines.REQUESTS, "matmulWgmma": 3 * Engines.REQUESTS,
+                    "winograd": 10 * Engines.REQUESTS, "int8": 0}:
+        fail("expected 40 Winograd and 12 GEMM launches, all 12 on wgmma, got %s" % launches)
 
     eager, _ = Engines.serve(clone, requests)
     rel = _relL2(torch.from_numpy(out), torch.from_numpy(eager))
@@ -1246,24 +1338,27 @@ def phaseTransformerTrain(torch, card):
     snapshot = [var.data.clone() for var in variables]
 
     losses = []
-    flash.launches = flash.launchesDq = flash.launchesDkv = matmul.launches = winograd.launches = 0
+    flash.launches = flash.launchesDq = flash.launchesDkv = matmul.launches = matmul.launchesWgmma = 0
+    winograd.launches = 0
     secs = Slice.train(routes, "hopper", tokens, labels, losses)
     launches = {"flash": flash.launches, "flashDq": flash.launchesDq, "flashDkv": flash.launchesDkv,
-                "matmul": matmul.launches, "winograd": winograd.launches}
+                "matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches}
 
     print("[transformer-train] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), Adam, %d rows "
           "in %d steps of %d: %.4f s, %.1f rows/s on %s" %
           (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
            len(tokens), Slice.STEPS, Slice.BATCH, secs, len(tokens) / secs, card))
-    print("[transformer-train] launches in that run: flash forward %d, flash dq %d, flash dk/dv %d, matmul %d, "
-          "winograd %d" % (launches["flash"], launches["flashDq"], launches["flashDkv"], launches["matmul"],
-                           launches["winograd"]))
+    print("[transformer-train] launches in that run: flash forward %d, flash dq %d, flash dk/dv %d, matmul %d (on "
+          "wgmma %d), winograd %d" % (launches["flash"], launches["flashDq"], launches["flashDkv"],
+                                      launches["matmul"], launches["matmulWgmma"], launches["winograd"]))
 
     # per step: one K4, one K5a and one K5b launch per attention layer (the
-    # backward reuses the forward's lse), one K1 launch per Linear forward
+    # backward reuses the forward's lse), one K1 launch per Linear forward,
+    # on wgmma but for the head's N = 2
     perLayer = config["nlayers"] * Slice.STEPS
     expected = {"flash": perLayer, "flashDq": perLayer, "flashDkv": perLayer,
-                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.STEPS, "winograd": 0}
+                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.STEPS,
+                "matmulWgmma": _wgmmaGemms() * Slice.STEPS, "winograd": 0}
     if launches != expected:
         fail("expected launches %s, got %s" % (expected, launches))
 
@@ -1318,6 +1413,13 @@ def phaseTransformerTrain(torch, card):
     return launches
 
 
+def _wgmmaGemms():
+    """The transformer slice's K1 launches a request (or step) whose operands
+    TMA can describe (K and N multiples of 8), which therefore go to wgmma:
+    every Linear but the head, whose N = 2."""
+    return sum(count for _, _, k, n, count in Slice.GEMMS if k % 8 == 0 and n % 8 == 0)
+
+
 def phaseTransformer(torch, card):
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
@@ -1338,21 +1440,24 @@ def phaseTransformer(torch, card):
     for algo in ("torch", "hopper"):
         Slice.serve(routes, algo, tokens)
 
-    flash.launches = matmul.launches = winograd.launches = 0
+    flash.launches = matmul.launches = matmul.launchesWgmma = winograd.launches = 0
     out, secs = Slice.serve(routes, "hopper", tokens)
-    launches = {"flash": flash.launches, "matmul": matmul.launches, "winograd": winograd.launches}
+    launches = {"flash": flash.launches, "matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma,
+                "winograd": winograd.launches}
 
     print("[transformer] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), %d rows in %d "
           "requests of %d: %.4f s, %.1f rows/s on %s" %
           (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
            len(tokens), Slice.REQUESTS, Slice.BATCH, secs, len(tokens) / secs, card))
-    print("[transformer] launches in that run: flash %d, matmul %d, winograd %d" %
-          (launches["flash"], launches["matmul"], launches["winograd"]))
+    print("[transformer] launches in that run: flash %d, matmul %d (on wgmma %d), winograd %d" %
+          (launches["flash"], launches["matmul"], launches["matmulWgmma"], launches["winograd"]))
 
     # per request: one K4 launch per attention layer, one K1 launch per
-    # Linear (two MLP layers per block and the head's classifier)
+    # Linear (two MLP layers per block and the head's classifier), on wgmma
+    # but for the head's N = 2
     expected = {"flash": config["nlayers"] * Slice.REQUESTS,
-                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.REQUESTS, "winograd": 0}
+                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.REQUESTS,
+                "matmulWgmma": _wgmmaGemms() * Slice.REQUESTS, "winograd": 0}
     if launches != expected:
         fail("expected launches %s, got %s" % (expected, launches))
 
@@ -1557,8 +1662,9 @@ def phaseMeasurementPath(torch, card):
     vgg = ["--dtype", "bfloat16", "--data", "%d,256,56,56" % BATCH, "--weights", "256,256,3,3", "--pad", "1"]
 
     counters = [(streamcopy, "launches"), (phasesplit, "launches"), (tapdot, "launches"), (matmul, "launches"),
-                (matmul, "launchesInt8"), (winograd, "launches"), (winograd, "dataGradLaunches"),
-                (winograd, "filterGradLaunches"), (flash, "launches"), (flash, "launchesDq"), (flash, "launchesDkv")]
+                (matmul, "launchesWgmma"), (matmul, "launchesInt8"), (winograd, "launches"),
+                (winograd, "dataGradLaunches"), (winograd, "filterGradLaunches"), (flash, "launches"),
+                (flash, "launchesDq"), (flash, "launchesDkv")]
     for module, counter in counters:
         setattr(module, counter, 0)
 
@@ -1577,7 +1683,8 @@ def phaseMeasurementPath(torch, card):
     secs = time.perf_counter() - start
 
     launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches, "K1": matmul.launches,
-                "K1-int8": matmul.launchesInt8, "K2": winograd.launches - winograd.dataGradLaunches,
+                "K1-wgmma": matmul.launchesWgmma, "K1-int8": matmul.launchesInt8,
+                "K2": winograd.launches - winograd.dataGradLaunches,
                 "K2-bwd": winograd.dataGradLaunches, "K3": winograd.filterGradLaunches, "K4": flash.launches,
                 "K5a": flash.launchesDq, "K5b": flash.launchesDkv}
 
@@ -1705,13 +1812,15 @@ def main():
              replaces="puzzlelib_tpu/checkinstall.py:37", launches=install["probe"], **installProbe),
         dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
-             serving_launches=serving["matmul"], engine_launches=engineBf16["matmul"],
-             measurement_launches=measured["K1"], **gemm),
+             launches_wgmma=training["matmulWgmma"], serving_launches=serving["matmul"],
+             engine_launches=engineBf16["matmul"], measurement_launches=measured["K1"],
+             measurement_launches_wgmma=measured["K1-wgmma"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
-             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
-             measurement_launches=measured["K1-int8"], **gemmInt8),
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"], launches_wgmma=0,
+             wmma_ms=gemmInt8["ms"], measurement_launches=measured["K1-int8"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
-             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"], **gemmTransformer),
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
+             launches_wgmma=transformer["matmulWgmma"], **gemmTransformer),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -1740,7 +1849,9 @@ def main():
              replaces="tools/roofline_probe.py:73", launches=measured["P3"], **roofline),
     ]
     print("[kernels] launches: K0 checkinstall's; K1-K3 the VGG training run's (4 steps of 32), serving_launches "
-          "the VGG serving run's (4 requests of 32), engine_launches the VGG bf16 engine's (4 requests of 32); "
+          "the VGG serving run's (4 requests of 32), engine_launches the VGG bf16 engine's (4 requests of 32); K1's "
+          "launches_wgmma those of its launches on wgmma, wmma_ms the time of the WMMA kernel at the same "
+          "shapes in the same call (K1-int8 is WMMA: its own time); "
           "K1-int8 the VGG int8 engine's (4 requests of 32); K1 at the transformer's shapes and K4 the transformer "
           "serving run's (4 requests of 64); ms, plain_ms, library_ms and bound_ms: the time one batch spends in "
           "the kernel, in its plain version, in the library call and at the card's bound (K0: one (8, 128) f32 "

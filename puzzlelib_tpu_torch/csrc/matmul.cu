@@ -9,21 +9,57 @@
 // accumulator in registers, because Hopper blocks run in no order and share
 // nothing.
 //
-// What bounds it on the H100: at the serving shapes (M = batch = 32 rows, the
-// VGG-16 fc layers) the product is bound by reading B (the weights) from
-// device memory: fc6 streams 25088 x 4096 bf16 = 205 MB for 6.6 GFLOP, some
-// 32 FLOP per byte, far under the ~295 the tensor cores need.  Streaming at
-// HBM rate needs many bytes in flight on every SM, so:
-//   - split-K: when the output tiles alone give fewer than two blocks per SM
-//     (N / 64 = 64 blocks for fc6 at M = 32), K is cut into slices run by
-//     separate blocks; each writes an f32 partial tile, and a second kernel
-//     sums the slices in a fixed order (deterministic) and rounds once;
-//   - a three-stage cp.async ring of A and B tiles, so two tiles are in
-//     flight while the tensor cores work on the third.
-// wgmma and TMA are the later steps.
+// What bounds it on the H100, shape by shape, and what the design does:
+//   - fc6 (32 x 25088 x 4096, VGG-16 at batch 32) is bound by reading the
+//     weights: 205 MB for 6.6 GFLOP, some 32 FLOP a byte against the ~295 the
+//     tensor cores need, 0.062 ms at 3.35 TB/s.  Streaming at HBM rate needs
+//     many bytes in flight on every SM.  Split-K: when the output tiles alone
+//     give fewer than two blocks an SM, K is cut into slices run by separate
+//     blocks; each writes an f32 partial tile, and a second kernel sums the
+//     slices in a fixed order (deterministic) and rounds once.  fc6 then runs
+//     288 blocks, two an SM, each with a four-stage TMA ring of 16 KB of
+//     weights a stage: ~128 KB in flight an SM, on which no thread spends a
+//     register or an instruction.  fc7 and fc8 are bytes-bound too, but their
+//     33.5 MB and 8 MB of weights stay in the 50 MB L2 across back-to-back
+//     calls, so timed calls can beat their HBM bound.
+//   - The transformer's products (5120 x 128 x 512 and 5120 x 512 x 128, 64
+//     rows of 80 tokens) move 6.7 MB each for 0.7 GFLOP: 2 us of bytes, and
+//     launch and latency besides.  The design keeps the path from a tile's
+//     arrival to its products and from the sums to device memory short: no
+//     thread computes a load address, and the sums go from the registers
+//     straight to device memory.
+//   - 8192^3 is bound by the operations: 1.1 TFLOP, 1.1 ms at 989 TFLOP/s.
+//     The 64 x 64 WMMA tiles of `gemmTensorCore` asked L2 for M N K 2 B (1/BN + 1/BM) = 34 GB,
+//     some 6 ms of L2's delivery, against 8.6 ms measured: L2 bound it, and
+//     WMMA (mma.sync) cannot reach Hopper's tensor-core rate anyway.  wgmma
+//     reads 64 x 128 or 128 x 128 tiles straight from shared memory: 26 or
+//     17 GB through L2.
 //
 // Types:
-//   bf16, f16 - WMMA 16x16x16 tensor-core fragments with f32 accumulators;
+//   bf16, f16 - where TMA can describe the operands (K and N multiples of 8,
+//               both bases on 16 bytes; the caller decides, from the shape
+//               alone): `gemmWgmma`, warpgroup products fed by TMA.  A block
+//               owns a 64 x 128 output tile with one consumer warpgroup, or
+//               128 x 128 with two (the caller's choice for large products
+//               bound by their operations), and walks K in steps of 64 (one
+//               128-byte swizzle atom of A a row) through a four-stage ring
+//               in dynamic shared memory.  One producer thread keeps the ring
+//               full: per stage one TMA box of A (K-major, BM x 64) and two
+//               of B ((K, N) row-major, so MN-major for wgmma: 64 K rows of
+//               64 columns each), 128-byte swizzled, with a full and an empty
+//               mbarrier.  TMA's zero fill masks the ragged M, N and K
+//               edges; nothing is padded.  Each consumer warpgroup issues
+//               four m64n128k16 products a step (B through wgmma's transpose
+//               bit), keeps one group in flight (`wgmma.wait_group 1`) and
+//               frees a stage only once the group that read it has retired.
+//               The sums go from the registers to device memory as packed
+//               pairs of the output type (f32 pairs for a split-K partial),
+//               masked at the ragged edge.  TMA descriptors are encoded on
+//               the host at each call through the CUDA driver's entry point
+//               as the runtime hands it over (cudaGetDriverEntryPoint), so
+//               that no CUDA driver library is linked.
+//               Otherwise (the transformer head's N = 2, any ragged K or N):
+//               WMMA 16x16x16 tensor-core fragments with f32 accumulators;
 //               64x64 block tile, BK = 32, four warps of 32x32.  Ragged M, N
 //               and K are masked at load (zero fill) and store; nothing is
 //               padded in device memory as `matmulPadded` pads.  Rows whose K
@@ -56,16 +92,18 @@
 //               its fc layers (M = 32) reading the weights.
 //
 // Entries: pl_matmul_splits(...) gives the number of K slices a shape takes
-// (the caller allocates that many partial tiles of M x N when it is more
-// than one: f32, or int32 for int8); pl_matmul(...) launches and returns the
-// cudaError_t of cudaGetLastError().  The caller allocates C and owns the
-// stream.
+// on a kernel path (the caller allocates that many partial tiles of M x N
+// when it is more than one: f32, or int32 for int8); pl_matmul(...) launches
+// and returns the cudaError_t of cudaGetLastError().  The caller chooses the
+// path, allocates C and owns the stream.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <mma.h>
 #include <stdint.h>
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -448,8 +486,19 @@ __global__ void sumSlices(const Acc* __restrict__ partial, T* __restrict__ C, lo
     }
 }
 
-void tileShape(int dtype, int* bm, int* bn, int* bk)
+// the kernel paths of pl_matmul: the tiled kernels with element or
+// 16-byte loads, and gemmWgmma with one or two consumer warpgroups
+enum Path { PATH_TILED = 0, PATH_TILED_VEC = 1, PATH_WGMMA_64 = 2, PATH_WGMMA_128 = 3 };
+
+constexpr int WBN = 128, WBK = 64;   // gemmWgmma's block columns and K step
+
+void tileShape(int dtype, int path, int* bm, int* bn, int* bk)
 {
+    if (path == PATH_WGMMA_64 || path == PATH_WGMMA_128) {
+        *bm = path == PATH_WGMMA_64 ? 64 : 128; *bn = WBN; *bk = WBK;
+        return;
+    }
+
     switch (dtype) {
     case 0:  *bm = SBM; *bn = SBN; *bk = SBK; break;
     case 3:  *bm = IBM; *bn = IBN; *bk = IBK; break;
@@ -475,15 +524,328 @@ void launchTensorCore(const void* a, const void* b, void* c, float* partial, int
         sumSlices<float, T><<<512, 256, 0, stream>>>(partial, C, (long long)m * n, slices);
 }
 
+// -- K1 on wgmma, fed by TMA (bf16, f16) ---------------------------------------
+
+constexpr int WSTAGES = 4;
+constexpr int W_A_BYTES = 64 * WBK * 2;   // a warpgroup's 64 rows of a K step: 64 rows of 128 bytes
+constexpr int W_B_BOX = WBK * 64 * 2;     // a TMA box of B: 64 K rows of 64 columns (128 bytes)
+constexpr int W_SWIZZLE = 1024;           // the 128-byte swizzle repeats every eight rows
+
+// WG consumer warpgroups of 64 output rows each, and one producer warp
+template <int WG>
+struct Ring {
+    static constexpr int BM = 64 * WG;
+    static constexpr int THREADS = 128 * WG + 32;
+    static constexpr int STAGE = WG * W_A_BYTES + 2 * W_B_BOX;
+    // the stages, a full and an empty barrier each, and room to align the
+    // stages to the swizzle's period
+    static constexpr int SMEM = WSTAGES * STAGE + 2 * WSTAGES * 8 + W_SWIZZLE;
+};
+
+__device__ __forceinline__ uint32_t smemAddr(const void* p)
+{
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barInit(uint64_t* bar, unsigned count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smemAddr(bar)), "r"(count) : "memory");
+}
+
+// the producer's arrival, announcing the bytes its TMA copies will bring
+__device__ __forceinline__ void barExpect(uint64_t* bar, unsigned bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smemAddr(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void barArrive(uint64_t* bar)
+{
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smemAddr(bar)) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void barWait(uint64_t* bar, unsigned parity)
+{
+    asm volatile("{\n.reg .pred done;\nWAIT:\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+                 "@!done bra WAIT;\n}\n" ::"r"(smemAddr(bar)), "r"(parity)
+                 : "memory");
+}
+
+// one box of `map` at (c0 along the rows, c1 across them) into dst, counted
+// on bar; TMA writes zeros where the box leaves the matrix
+__device__ __forceinline__ void tmaLoad(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar)
+{
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smemAddr(dst)),
+                 "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smemAddr(bar))
+                 : "memory");
+}
+
+// a shared-memory matrix descriptor of a 128-byte swizzled tile: SBO 1024
+// bytes (eight 128-byte rows) in both majors; LBO the distance between the
+// 64-column halves of an MN-major B (unused for a K-major A)
+__device__ __forceinline__ uint64_t swizzled(uint32_t addr, int lbo)
+{
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(W_SWIZZLE >> 4) << 32) |
+           (1ull << 62);
+}
+
+// d (+)= A B, m64n128k16, A K-major and B MN-major (transposed).  The first
+// product of a sum starts it with accumulate = 0: no instruction outside
+// wgmma defines the sum's registers, so ptxas leaves the products
+// asynchronous
+#define SUM_REGS \
+    "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15," \
+    "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31," \
+    "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47," \
+    "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+#define SUM_OPERANDS(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+template <typename T>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db, int accumulate)
+{
+    if constexpr (std::is_same<T, __half>::value)
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " SUM_REGS ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+                     : SUM_OPERANDS(d)
+                     : "l"(da), "l"(db), "r"(accumulate));
+    else
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                     "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SUM_REGS ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+                     : SUM_OPERANDS(d)
+                     : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef SUM_REGS
+#undef SUM_OPERANDS
+
+// ties the registers of a sum to this point of the program, so that the
+// compiler neither reads them before the wait for the products nor moves
+// their other uses across it
+__device__ __forceinline__ void fenceSum(float (&acc)[64])
+{
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+        asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+__device__ __forceinline__ __nv_bfloat162 pack(float x, float y, __nv_bfloat16)
+{
+    return __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ __half2 pack(float x, float y, __half)
+{
+    return __floats2half2_rn(x, y);
+}
+
+// one (BM x 128) output tile over K tiles [z * tilesPerSlice, (z + 1) *
+// tilesPerSlice); with one slice the tile goes to C, else to partial[z] in
+// f32.  Warps 0 .. 4 WG - 1 are the consumer warpgroups, warp 4 WG the
+// producer.
+template <typename T, int WG>
+__global__ void __launch_bounds__(Ring<WG>::THREADS, 1)
+gemmWgmma(const __grid_constant__ CUtensorMap mapA, const __grid_constant__ CUtensorMap mapB, T* __restrict__ C,
+          float* __restrict__ partial, int M, int N, int K, int tilesPerSlice)
+{
+    using R = Ring<WG>;
+    extern __shared__ __align__(128) unsigned char smemRaw[];
+    unsigned char* smem = smemRaw + ((W_SWIZZLE - (smemAddr(smemRaw) & (W_SWIZZLE - 1))) & (W_SWIZZLE - 1));
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + WSTAGES * R::STAGE);
+    uint64_t* empty = full + WSTAGES;
+
+    const int tid = threadIdx.x;
+    const int warp = __shfl_sync(0xFFFFFFFFu, tid >> 5, 0);
+    const int m0 = blockIdx.y * R::BM, n0 = blockIdx.x * WBN;
+
+    const int kTiles = (K + WBK - 1) / WBK;
+    const int kt0 = blockIdx.z * tilesPerSlice;
+    const int nt = max(min(kt0 + tilesPerSlice, kTiles) - kt0, 0);
+
+    if (tid == 0) {
+        for (int s = 0; s < WSTAGES; ++s) {
+            barInit(&full[s], 1);
+            barInit(&empty[s], 4 * WG);   // lane 0 of every consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == 4 * WG) {
+        // the producer: one thread keeps the ring full.  A box of B wholly
+        // right of N is not loaded: its columns reach no stored output
+        if ((tid & 31) == 0) {
+            const bool second = n0 + 64 < N;
+            const unsigned bytes = WG * W_A_BYTES + (second ? 2 : 1) * W_B_BOX;
+            for (int i = 0; i < nt; ++i) {
+                const int s = i % WSTAGES;
+                if (i >= WSTAGES)
+                    barWait(&empty[s], (i / WSTAGES - 1) & 1);
+
+                unsigned char* as = smem + s * R::STAGE;
+                unsigned char* bs = as + WG * W_A_BYTES;
+                const int k0 = (kt0 + i) * WBK;
+                barExpect(&full[s], bytes);
+                tmaLoad(as, &mapA, k0, m0, &full[s]);
+                tmaLoad(bs, &mapB, n0, k0, &full[s]);
+                if (second)
+                    tmaLoad(bs + W_B_BOX, &mapB, n0 + 64, k0, &full[s]);
+            }
+        }
+        return;
+    }
+
+    // a consumer warpgroup: rows 64 wg .. 64 wg + 63 of the tile
+    const int wg = warp >> 2;
+    float acc[64];   // set by its first product
+    for (int i = 0; i < nt; ++i) {
+        const int s = i % WSTAGES;
+        barWait(&full[s], (i / WSTAGES) & 1);
+
+        // A: the warpgroup's 64 rows of 128 bytes, k16 step kk 32 bytes on;
+        // B: k16 step kk 16 rows of 128 bytes on, its second 64 columns one
+        // box on (LBO)
+        const uint32_t as = smemAddr(smem + s * R::STAGE) + wg * W_A_BYTES;
+        const uint32_t bs = smemAddr(smem + s * R::STAGE + WG * W_A_BYTES);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < WBK / 16; ++kk)
+            wgmma<T>(acc, swizzled(as + 32 * kk, 16), swizzled(bs + 16 * 128 * kk, W_B_BOX), i > 0 || kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+
+        // step i - 1's products have retired: its stage is free
+        if (i > 0 && (tid & 31) == 0)
+            barArrive(&empty[(i - 1) % WSTAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fenceSum(acc);
+
+    // thread (warp w of its warpgroup, lane l) holds rows 16 w + l / 4 (h = 0)
+    // and + 8 (h = 1), columns 8 j + 2 (l % 4) and + 1: acc[4 j + 2 h], + 1.
+    // N is a multiple of 8, so a pair is wholly inside or outside
+    using Pair = decltype(pack(0.0f, 0.0f, T()));
+    const int w = warp & 3, l = tid & 31;
+    float* out = partial + (size_t)blockIdx.z * M * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + 64 * wg + 16 * w + l / 4 + 8 * h;
+        if (gm >= M)
+            continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            const int gn = n0 + 8 * j + 2 * (l & 3);
+            if (gn >= N)
+                continue;
+            const float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+            if (gridDim.z == 1)
+                *reinterpret_cast<Pair*>(C + (size_t)gm * N + gn) = pack(x, y, T());
+            else
+                *reinterpret_cast<float2*>(out + (size_t)gm * N + gn) = make_float2(x, y);
+        }
+    }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled as the CUDA runtime finds it in the CUDA driver it loaded
+EncodeTiled findEncoder()
+{
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
+}
+
+// a row-major (rows, cols) matrix of 16-bit values as TMA reads it: boxes of
+// boxRows rows of 64 columns (128 bytes), 128-byte swizzled, zeros outside
+// the matrix
+bool tensorMap(CUtensorMap* map, const void* base, int rows, int cols, int boxRows, bool half)
+{
+    static const EncodeTiled encode = findEncoder();
+    if (encode == nullptr)
+        return false;
+
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)boxRows};
+    const cuuint32_t steps[2] = {1, 1};
+    return encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int WG>
+cudaError_t launchWgmma(const void* a, const void* b, void* c, float* partial, int m, int n, int k, int slices,
+                        int tilesPerSlice, cudaStream_t stream)
+{
+    using R = Ring<WG>;
+    const bool half = std::is_same<T, __half>::value;
+
+    CUtensorMap mapA, mapB;
+    if (!tensorMap(&mapA, a, m, k, R::BM, half) || !tensorMap(&mapB, b, k, n, WBK, half))
+        return cudaErrorInvalidValue;
+
+    const cudaError_t err = cudaFuncSetAttribute(gemmWgmma<T, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 R::SMEM);
+    if (err != cudaSuccess)
+        return err;
+
+    const dim3 grid((n + WBN - 1) / WBN, (m + R::BM - 1) / R::BM, slices);
+    gemmWgmma<T, WG><<<grid, R::THREADS, R::SMEM, stream>>>(mapA, mapB, static_cast<T*>(c), partial, m, n, k,
+                                                            tilesPerSlice);
+    if (slices > 1)
+        sumSlices<float, T><<<512, 256, 0, stream>>>(partial, static_cast<T*>(c), (long long)m * n, slices);
+
+    return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launchFloat16(const void* a, const void* b, void* c, float* partial, int m, int n, int k, int path,
+                          int slices, int tilesPerSlice, cudaStream_t stream)
+{
+    switch (path) {
+    case PATH_TILED:
+    case PATH_TILED_VEC:
+        launchTensorCore<T>(a, b, c, partial, m, n, k, path == PATH_TILED_VEC, slices, tilesPerSlice, stream);
+        return cudaSuccess;
+    case PATH_WGMMA_64:
+        return launchWgmma<T, 1>(a, b, c, partial, m, n, k, slices, tilesPerSlice, stream);
+    case PATH_WGMMA_128:
+        return launchWgmma<T, 2>(a, b, c, partial, m, n, k, slices, tilesPerSlice, stream);
+    default:
+        return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
-// The number of K slices for an (m, k) @ (k, n) product of type `dtype` on a
-// card with `sms` SMs: one when the output tiles give two blocks per SM,
-// else enough to reach that, with at least MIN_TILES_PER_SLICE K tiles each.
-extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int sms)
+// The number of K slices for an (m, k) @ (k, n) product of type `dtype` on
+// kernel path `path` on a card with `sms` SMs: one when the output tiles
+// give two blocks per SM, else enough to reach that, with at least
+// MIN_TILES_PER_SLICE K tiles each.
+extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int path, int sms)
 {
     int bm, bn, bk;
-    tileShape(dtype, &bm, &bn, &bk);
+    tileShape(dtype, path, &bm, &bn, &bk);
 
     const long long blocks = (long long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
     const int kTiles = (k + bk - 1) / bk;
@@ -499,24 +861,29 @@ extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int sms)
     return (kTiles + perSlice - 1) / perSlice;
 }
 
-// dtype: 0 = f32, 1 = bf16, 2 = f16, 3 = int8 (C in int32).  vec: the caller
-// has checked that A and B start on 16-byte boundaries and that K and N are
-// multiples of 8 (16 for int8): one 16-byte vector.  partial: `slices` tiles
-// of m x n, f32 (int32 for int8), used when slices > 1.
+// dtype: 0 = f32, 1 = bf16, 2 = f16, 3 = int8 (C in int32).  path (Path):
+// PATH_TILED_VEC where the caller has checked that A and B start on 16-byte
+// boundaries and that K and N are multiples of 8 (16 for int8), one 16-byte
+// vector; PATH_WGMMA_64 or PATH_WGMMA_128 (bf16 and f16 only) under the same
+// checks with K and N multiples of 8, M, N and K above 0; PATH_TILED for any
+// shape.  f32 takes its one kernel on either tiled path.  partial: `slices`
+// tiles of m x n, f32 (int32 for int8), used when slices > 1.
 extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, int m, int n, int k,
-                         int dtype, int vec, int slices, void* stream)
+                         int dtype, int path, int slices, void* stream)
 {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* part = static_cast<float*>(partial);
 
-    if (slices < 1 || (slices > 1 && part == nullptr))
+    if (slices < 1 || (slices > 1 && part == nullptr) || path < PATH_TILED || path > PATH_WGMMA_128 ||
+        (path >= PATH_WGMMA_64 && (dtype == 0 || dtype == 3)))
         return static_cast<int>(cudaErrorInvalidValue);
 
     int bm, bn, bk;
-    tileShape(dtype, &bm, &bn, &bk);
+    tileShape(dtype, path, &bm, &bn, &bk);
     const int kTiles = (k + bk - 1) / bk;
     const int tilesPerSlice = (kTiles + slices - 1) / slices;
 
+    cudaError_t err = cudaSuccess;
     switch (dtype) {
     case 0: {
         const dim3 grid((n + SBN - 1) / SBN, (m + SBM - 1) / SBM, slices);
@@ -527,10 +894,10 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
         break;
     }
     case 1:
-        launchTensorCore<__nv_bfloat16>(a, b, c, part, m, n, k, vec != 0, slices, tilesPerSlice, s);
+        err = launchFloat16<__nv_bfloat16>(a, b, c, part, m, n, k, path, slices, tilesPerSlice, s);
         break;
     case 2:
-        launchTensorCore<__half>(a, b, c, part, m, n, k, vec != 0, slices, tilesPerSlice, s);
+        err = launchFloat16<__half>(a, b, c, part, m, n, k, path, slices, tilesPerSlice, s);
         break;
     case 3: {
         const dim3 grid((n + IBN - 1) / IBN, (m + IBM - 1) / IBM, slices);
@@ -538,7 +905,7 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
         const int8_t* B = static_cast<const int8_t*>(b);
         int* C = static_cast<int*>(c);
         int* ipart = static_cast<int*>(partial);
-        if (vec)
+        if (path == PATH_TILED_VEC)
             gemmInt8<true><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
         else
             gemmInt8<false><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
@@ -550,5 +917,7 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
         return static_cast<int>(cudaErrorInvalidValue);
     }
 
+    if (err != cudaSuccess)
+        return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -104,10 +104,10 @@ def load(name):
 
 def compilerReport(name):
     """The ``ptxas`` lines of the last build of ``name``: registers, shared
-    memory and spill stores of each kernel."""
+    memory and spill stores of each kernel, and the compiler's warnings."""
     log = libraryPath(name).with_suffix(".log")
     if not log.exists():
         return []
 
     return [line.strip() for line in log.read_text().splitlines()
-            if any(word in line for word in ("entry function", "registers", "spill"))]
+            if any(word in line for word in ("entry function", "registers", "spill", "warning"))]

@@ -6,21 +6,26 @@ with f32 accumulation and returns the input's type, for f32, bf16 and f16;
 for two int8 matrices (K1-int8, the int8 serving engine's product) it
 accumulates exactly in int32 and returns int32, as the reference does
 (``matmul.py:54-56``).  Ragged M, N and K are masked inside the kernel, so
-nothing is padded.  bf16, f16 and int8 run on the tensor cores (WMMA); f32
-runs as FFMA, in full f32, since Hopper's tensor cores have no f32 mode.
-Where the output tiles are too few to fill the card (the serving shapes, M =
-32), K is split into slices whose partial tiles (f32, or int32 for int8) a
-second kernel sums in order; the wrapper allocates them.  The row blocks lie
-on the grid's second axis, which holds 65535 blocks: a product of more than
-64 * 65535 = 4,194,240 rows (an int8 engine's first conv beyond batch 83)
-runs in chunks of that many rows, one launch each.  What bounds it and how
-it is tiled is in the note at the top of ``csrc/matmul.cu``.
+nothing is padded.  K1 is two kernels, chosen from the shape before launch
+(``_route``): bf16 and f16 products that TMA can describe (K and N multiples
+of 8, both bases on 16 bytes) run on ``wgmma`` fed by TMA, with 128-row
+blocks for large products bound by their operations and 64-row blocks
+elsewhere; the rest (the transformer head's N = 2, ragged K or N) on the
+WMMA kernel.  f32 runs as FFMA, in full f32, since Hopper's tensor cores have
+no f32 mode; int8 on WMMA.  Where the output tiles are too few to fill the
+card (the serving shapes, M = 32), K is split into slices whose partial
+tiles (f32, or int32 for int8) a second kernel sums in order; the wrapper
+allocates them.  The row blocks lie on the grid's second axis, which holds
+65535 blocks: a product of more than 64 * 65535 = 4,194,240 rows (an int8
+engine's first conv beyond batch 83) runs in chunks of that many rows, one
+launch each.  What bounds it and how it is tiled is in the note at the top
+of ``csrc/matmul.cu``.
 
 ``plain`` is the same function in plain PyTorch.  ``matmul`` takes it for
 tensors on the CPU, where no kernel can run; for CUDA tensors it launches the
-kernel or raises.  ``launches`` counts the float launches and
-``launchesInt8`` the int8 ones, so a run can show that its products went
-through the kernel.
+kernel or raises.  ``launches`` counts the float launches (both kernels),
+``launchesWgmma`` those of them on ``wgmma`` and ``launchesInt8`` the int8
+ones, so a run can show that its products went through the kernels.
 
 ``matmulOp`` is ``matmul`` registered as the custom operator
 ``puzzlelib::matmul``, with a shape function.  ``matmul`` hands a fake
@@ -39,6 +44,7 @@ from puzzlelib_tpu_torch.ops.hopper import build
 
 
 launches = 0
+launchesWgmma = 0
 launchesInt8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
@@ -47,6 +53,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 # block rows (a grid's second axis holds at most 65535 blocks of them)
 _VECTOR = {torch.float32: 8, torch.bfloat16: 8, torch.float16: 8, torch.int8: 16}
 _BLOCK_ROWS, _MAX_GRID_Y = 64, 65535
+
+# the kernel paths of pl_matmul (``Path`` in csrc/matmul.cu): the tiled
+# kernels with element or 16-byte loads, and wgmma with 64- or 128-row blocks
+_PATHS = {"tiled": 0, "tiled-vec": 1, "wgmma-64": 2, "wgmma-128": 3}
+
+# the H100's operations per byte of device memory at which bf16 products
+# turn from bytes-bound to operations-bound: 989 TFLOP/s over 3.35 TB/s
+_RIDGE = 295
 
 
 def _outType(dtype):
@@ -72,7 +86,7 @@ def plain(a, b):
 def _entries():
     lib = build.load("matmul")
 
-    lib.pl_matmul_splits.argtypes = [ctypes.c_int] * 5
+    lib.pl_matmul_splits.argtypes = [ctypes.c_int] * 6
     lib.pl_matmul_splits.restype = ctypes.c_int
 
     lib.pl_matmul.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -123,17 +137,40 @@ def matmul(a, b):
     return out
 
 
-def _launch(a, b, out):
+def _route(m, n, k, dtype, aligned, sms):
+    """The kernel path of an (m, k) @ (k, n) product of ``dtype`` on a card
+    of ``sms`` SMs, chosen from the shape alone, never from a failure.  bf16
+    and f16 products that TMA can describe (K and N multiples of 8, both
+    bases on 16 bytes: ``aligned``) go to wgmma.  Two consumer warpgroups a
+    block (128 rows) halve the traffic through L2 that binds an
+    operations-bound product, but only one such block fits an SM: they take
+    the products that are bound by their operations and whose 128-row tiles
+    alone give two blocks an SM, so that split-K stays off.  The rest (the
+    slices' products, bound by their bytes) take one warpgroup (64 rows),
+    two blocks an SM.  Products that TMA cannot describe go to the tiled
+    kernels, with 16-byte loads where K, N and the bases allow."""
+    vec = aligned and k % _VECTOR[dtype] == 0 and n % _VECTOR[dtype] == 0
+    if vec and dtype in (torch.bfloat16, torch.float16) and min(m, n, k) > 0:
+        operationsBound = m * n * k > _RIDGE * (m * k + k * n + m * n)   # 2 m n k FLOP against 2-byte elements
+        tiles = -(-m // 128) * -(-n // 128)
+        return "wgmma-128" if operationsBound and tiles >= 2 * sms else "wgmma-64"
+
+    return "tiled-vec" if vec else "tiled"
+
+
+def _launch(a, b, out, path=None):
+    """One launch of K1 on ``path`` (``_route``'s choice unless given: the
+    measurement of the WMMA kernel beside the new one names its path)."""
     m, k = a.shape
     n = b.shape[1]
 
-    width = _VECTOR[a.dtype]
-    vec = k % width == 0 and n % width == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    if path is None:
+        path = _route(m, n, k, a.dtype, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0, sms)
     splitsOf, launch = _entries()
 
     # K slices, each a partial tile (f32; int32 for int8) that a second kernel sums
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    slices = splitsOf(m, n, k, _DTYPES[a.dtype], sms)
+    slices = splitsOf(m, n, k, _DTYPES[a.dtype], _PATHS[path], sms)
     partial = None
     if slices > 1:
         partial = torch.empty((slices, m, n), dtype=torch.int32 if a.dtype == torch.int8 else torch.float32,
@@ -141,17 +178,20 @@ def _launch(a, b, out):
 
     with torch.cuda.device(a.device):
         err = launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), 0 if partial is None else partial.data_ptr(),
-                     m, n, k, _DTYPES[a.dtype], int(vec), slices, torch.cuda.current_stream(a.device).cuda_stream)
+                     m, n, k, _DTYPES[a.dtype], _PATHS[path], slices,
+                     torch.cuda.current_stream(a.device).cuda_stream)
 
     if err != 0:
-        raise RuntimeError("matmul kernel launch failed for %s @ %s %s: cudaError %d" %
-                           (tuple(a.shape), tuple(b.shape), a.dtype, err))
+        raise RuntimeError("matmul kernel launch failed for %s @ %s %s on path %s: cudaError %d" %
+                           (tuple(a.shape), tuple(b.shape), a.dtype, path, err))
 
-    global launches, launchesInt8
+    global launches, launchesWgmma, launchesInt8
     if a.dtype == torch.int8:
         launchesInt8 += 1
     else:
         launches += 1
+        if path.startswith("wgmma"):
+            launchesWgmma += 1
 
 
 @torch.library.custom_op("puzzlelib::matmul", mutates_args=())

@@ -160,3 +160,140 @@ def testKernelMatchesPlainOnCard(dtype, bound):
 
         assert matmul.launches == before + 1
         assert ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= bound
+
+
+@pytest.mark.parametrize("m, n, k, dtype, aligned, path", [
+    (32, 4096, 25088, torch.bfloat16, True, "wgmma-64"),   # fc6 at batch 32
+    (64, 1000, 4096, torch.float16, True, "wgmma-64"),
+    (65, 4096, 4096, torch.float16, True, "wgmma-64"),     # bound by its bytes
+    (5120, 512, 128, torch.bfloat16, True, "wgmma-64"),    # the transformer's mlp-up
+    (8192, 8192, 8192, torch.bfloat16, True, "wgmma-128"), # bound by its operations
+    (4096, 4096, 4096, torch.float16, True, "wgmma-128"),
+    (2048, 2048, 2048, torch.bfloat16, True, "wgmma-64"),  # 256 tiles of 128 rows: under two an SM
+    (64, 2, 128, torch.bfloat16, True, "tiled"),           # the transformer head's N = 2
+    (100, 60, 200, torch.bfloat16, True, "tiled"),         # the ragged shape
+    (32, 4096, 4100, torch.float16, True, "tiled"),        # K off a multiple of 8
+    (32, 4096, 4096, torch.bfloat16, False, "tiled"),      # a base off 16 bytes
+    (64, 8, 0, torch.bfloat16, True, "tiled-vec"),         # K = 0: TMA describes no empty matrix
+    (32, 4096, 4096, torch.float32, True, "tiled-vec"),    # f32 stays on FFMA
+    (32, 4096, 4096, torch.int8, True, "tiled-vec"),       # int8 stays on K1-int8
+    (32, 1000, 27, torch.int8, True, "tiled"),
+])
+def testRouteChoosesTheKernelFromTheShape(m, n, k, dtype, aligned, path):
+    """bf16 and f16 products that TMA can describe go to wgmma, with 128-row
+    blocks where the operations bind and the tiles fill an H100's 132 SMs
+    twice; N = 2, ragged shapes, unaligned bases, f32 and int8 stay on the
+    tiled kernels."""
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    assert matmul._route(m, n, k, dtype, aligned, 132) == path
+
+
+def _cardOperands(device, dtype, m, k, n, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=device) / k ** 0.5).to(dtype)
+    return a, b
+
+
+def _relErr(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+_HALF = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALF)
+def testWgmmaSingleTile(dtype):
+    """One block, one K step of four m64n128k16 products: the swizzled
+    descriptors of A (K-major) and B (MN-major).  A one-hot A picks B's rows,
+    so a wrong descriptor shows as a wrong row or column, exactly."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    m, k, n = 64, 64, 128
+    _, b = _cardOperands(device, dtype, m, k, n)
+    pick = torch.arange(m, device=device) * 5 % k
+    a = torch.zeros((m, k), device=device, dtype=dtype)
+    a[torch.arange(m, device=device), pick] = 1
+
+    assert matmul._route(m, n, k, dtype, True, 132) == "wgmma-64"
+    assert torch.equal(matmul.matmul(a, b), b[pick])
+
+    a, b = _cardOperands(device, dtype, m, k, n, seed=1)
+    assert _relErr(matmul.matmul(a, b), matmul.plain(a, b)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALF)
+@pytest.mark.parametrize("path", ["wgmma-64", "wgmma-128"])
+@pytest.mark.parametrize("m, k, n", [(1, 64, 128), (63, 40, 200), (65, 264, 136), (130, 200, 72), (130, 8, 8),
+                                     (200, 1032, 392)])
+def testWgmmaTileEdges(m, k, n, path, dtype):
+    """Shapes that cross every tile edge: M of 1, 63, 65 and 130, N off a
+    multiple of 128 and below 64, K below 64 and off a multiple of 64; on
+    both block heights (one and two consumer warpgroups), within the bound
+    of chip_smoke.py's GEMM_BOUND."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, b = _cardOperands(device, dtype, m, k, n)
+    got = torch.full((m, n), float("nan"), device=device, dtype=dtype)
+    before = matmul.launchesWgmma
+    matmul._launch(a, b, got, path)
+    torch.cuda.synchronize()
+
+    assert matmul.launchesWgmma == before + 1
+    assert _relErr(got, matmul.plain(a, b)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALF)
+@pytest.mark.parametrize("m, k, n", [(32, 4096, 1000), (32, 4104, 264), (32, 25088, 512)])
+def testWgmmaSplitK(m, k, n, dtype):
+    """Split-K shapes (M = 32, K >= 4096): several slices, summed in order,
+    and the same bits from a second call."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splitsOf, _ = matmul._entries()
+    assert splitsOf(m, n, k, matmul._DTYPES[dtype], matmul._PATHS["wgmma-64"], sms) > 1
+
+    a, b = _cardOperands(device, dtype, m, k, n)
+    got = matmul.matmul(a, b)
+    assert _relErr(got, matmul.plain(a, b)) <= 1e-2
+    assert torch.equal(matmul.matmul(a, b), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALF)
+def testWgmmaRepeatsBitForBit(dtype):
+    """The transformer's products, a one-block product and a 128-row routed
+    one give the same bits twice: no atomics, a fixed order of sums."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    for m, k, n in [(5120, 128, 512), (5120, 512, 128), (8, 256, 64), (2048, 4096, 4096)]:
+        a, b = _cardOperands(device, dtype, m, k, n)
+        assert torch.equal(matmul.matmul(a, b), matmul.matmul(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _HALF)
+@pytest.mark.parametrize("m, k, n, wgmma", [(64, 128, 512, True), (64, 128, 2, False), (100, 200, 60, False)])
+def testRouteCounters(m, k, n, wgmma, dtype):
+    """Every float launch counts in ``launches``; the wgmma ones also in
+    ``launchesWgmma``: an aligned shape moves both, the head's N = 2 and the
+    ragged shape only the first."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, b = _cardOperands(device, dtype, m, k, n)
+    launches, wgmmaLaunches = matmul.launches, matmul.launchesWgmma
+    got = matmul.matmul(a, b)
+
+    assert matmul.launches == launches + 1
+    assert matmul.launchesWgmma == wgmmaLaunches + int(wgmma)
+    assert _relErr(got, matmul.plain(a, b)) <= 1e-2
