@@ -24,10 +24,16 @@ it fails:
    for bit, timed beside the WMMA kernel on the same operands, in turns,
    and beside cuBLAS, with whether wgmma beat WMMA printed;
    K1-int8 against its plain version (an f64 product, exact) with exact
-   int32 equality at each distinct int8 product of the VGG-16 int8 engine
-   at batch 32 (INT8_SHAPES: the 13 convs as im2col products, conv1_1's K =
-   27 on the byte-load path, and fc6, fc7, fc8 at M = 32) and a ragged 100
-   x 200 x 60, beside ``torch._int_mm``;
+   int32 equality and a bit-equal second call at each distinct int8
+   product of the VGG-16 int8 engine at batch 32 (INT8_SHAPES: the 13 convs
+   as im2col products, conv1_1's K = 27 padded to 32, and fc6, fc7, fc8 at
+   M = 32) and two ragged shapes (INT8_RAGGED: K off a multiple of 16, on
+   the WMMA kernel, and K a multiple of 16, on wgmma), each through
+   ``matmulNT`` on a pre-laid-out B^T on the kernel its shape routes to,
+   timed in turns beside the WMMA kernel on the same operands and
+   ``torch._int_mm``, the per-call transpose of ``matmul(a, b)`` apart;
+   then the request's 16 products on both kernels and whether the wgmma
+   kernel met its landing rule (printed, not a gate);
 4. K2 (Winograd conv), K2-bwd (K2 as the stride-1 bwd-data,
    ``winograd.dataGrad``) and K3 (Winograd bwd-filter) against their plain
    versions and against an f32 library reference with TF32 off
@@ -86,10 +92,12 @@ it fails:
    dtype="int8")`` on the card into a temporary directory under ``build/``,
    loaded back by ``Engine`` and served 4 requests of 32 through
    ``Calculator(engine, batchsize=32).calcFromHost``.  The counters are
-   reset just before and read just after that run (64 K1-int8, no float K1,
-   no K2); the engine file must hold at most 1.1 x its int8 weights, scales
-   and biases; the first request's logits must be finite and within cosine
-   0.99 of the same f32 weights on the library route;
+   reset just before and read just after that run (64 K1-int8, all 64 on
+   wgmma, no float K1, no K2); the graph must record
+   ``puzzlelib::matmul_nt`` 16 times; the engine file must hold at most 1.1
+   x its int8 weights, scales and biases; the first request's logits must be
+   finite and within cosine 0.99 of the same f32 weights on the library
+   route;
 12. the bf16 engine of the same net ([engine-bf16]): built, loaded and
    served the same way, with 40 K2 and 12 K1 launches, and its logits within
    1e-3 relative L2 of the eager bf16 ``Calculator`` on a clone of the net;
@@ -176,9 +184,10 @@ GEMM_SHAPES = [
 ]
 
 # (name, M, K, N, launches per request): the int8 engine's products at batch
-# 32, each conv an im2col product (M = 32 OH OW, K = 9 C, N = O)
+# 32, each conv an im2col product (M = 32 OH OW, K = 9 C, N = O; conv1_1's K
+# = 27 padded with zeros to 32, as the engine runs it)
 INT8_SHAPES = [
-    ("conv1_1", BATCH * 224 * 224, 27, 64, 1),
+    ("conv1_1", BATCH * 224 * 224, 32, 64, 1),
     ("conv1_2", BATCH * 224 * 224, 576, 64, 1),
     ("conv2_1", BATCH * 112 * 112, 576, 128, 1),
     ("conv2_2", BATCH * 112 * 112, 1152, 128, 1),
@@ -191,6 +200,10 @@ INT8_SHAPES = [
     ("fc7", BATCH, 4096, 4096, 1),
     ("fc8", BATCH, 4096, 1000, 1),
 ]
+
+# ragged M and N, with K off a multiple of 16 (the WMMA kernel) and on one
+# (wgmma): no engine product, checked and timed, counted in no request
+INT8_RAGGED = [("ragged", 100, 200, 60, 0), ("ragged16", 100, 208, 60, 0)]
 
 # an operations-bound product, no slice's shape: K1's sustained rate beside
 # the WMMA kernel and cuBLAS, one of the three sums wgmma is held to
@@ -954,48 +967,90 @@ def _libraryInt8(torch, a, b):
 
 
 def phaseGemmInt8(torch, matmul):
-    """K1-int8 against its plain version, exactly, at each distinct int8
-    product of the VGG-16 engine at batch 32 and a ragged shape, beside
-    ``torch._int_mm``.  Returns the JSON entry's numbers for one request (the
-    engine's 16 products)."""
+    """K1-int8 at each distinct int8 product of the VGG-16 engine at batch 32
+    and the ragged shapes: ``matmulNT`` on a pre-laid-out B^T, on the kernel
+    its shape routes to, against its plain version exactly and its second
+    call bit for bit; timed in turns beside the WMMA kernel on the same
+    operands (B as the (K, N) matrix it reads) and ``torch._int_mm``, with
+    the per-call transpose that ``matmul(a, b)`` adds timed apart.  Prints
+    the request's 16 products on both kernels and the landing rule's verdict.
+    Returns the JSON entry's numbers for one request (the engine's 16
+    products)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    main = {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    binding = set()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    main = {"max_abs_err": 0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding, ratios = set(), []
 
-    for name, m, k, n, count in INT8_SHAPES + [("ragged", 100, 200, 60, 0)]:
+    for name, m, k, n, count in INT8_SHAPES + INT8_RAGGED:
         a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
-        b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+        bt = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        b = bt.t().contiguous()
+        path = matmul._route(m, n, k, torch.int8, a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0, sms)
 
-        out, ref = matmul.matmul(a, b), matmul.plain(a, b)
+        out, ref = matmul.matmulNT(a, bt), matmul.plain(a, b)
+        again = matmul.matmulNT(a, bt)
         torch.cuda.synchronize()
 
         exact = out.dtype == torch.int32 and torch.equal(out, ref)
+        repeats = torch.equal(out, again)
         absErr = (out.long() - ref.long()).abs().max().item()
-        del out, ref
+        del out, ref, again
 
-        ms = deviceMs(lambda: matmul.matmul(a, b), 10)
-        plainMs = deviceMs(lambda: matmul.plain(a, b), 2)
+        # the WMMA kernel on the same operands, on the path the route gave
+        # int8 before wgmma: 16-byte loads where K and N allow
+        wmmaPath = "tiled-vec" if k % 16 == 0 and n % 16 == 0 else "tiled"
+        wmmaOut = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        fns = [lambda: matmul.matmulNT(a, bt)]
+        if path.startswith("wgmma"):
+            fns.append(lambda: matmul._launch(a, b, wmmaOut, wmmaPath))
         library = _libraryInt8(torch, a, b)
-        libMs = None if library is None else deviceMs(library, 10)
+        if library is not None:
+            fns.append(library)
+
+        times = _inTurns(fns)
+        ms = times[0]
+        wmmaMs = times[1] if path.startswith("wgmma") else ms
+        libMs = times[-1] if library is not None else None
+        transposeMs = deviceMs(lambda: b.t().contiguous(), 10) if path.startswith("wgmma") else None
+        plainMs = deviceMs(lambda: matmul.plain(a, b), 2)
         boundMs, boundBy = bound(m * k + k * n + m * n * 4, 2 * m * k * n, INT8_OP_PER_S)
 
-        print("[K1-int8] %-7s M=%d K=%d N=%d: %s (max |kernel - plain| %d), kernel %.4f ms, plain (f64) %.4f ms, "
-              "library (torch._int_mm) %s ms, bound %.4f ms (%s)" %
-              (name, m, k, n, "exact" if exact else "NOT EXACT", absErr, ms, plainMs,
-               "n/a" if libMs is None else "%.4f" % libMs, boundMs, boundBy))
+        print("[K1-int8] %-8s M=%d K=%d N=%d on %s: %s (max |kernel - plain| %d), second call %s; kernel %.4f ms "
+              "(%.1f TOP/s)%s, WMMA (%s) %.4f ms, plain (f64) %.4f ms, library (torch._int_mm) %s ms, bound %.4f ms "
+              "(%s)%s" %
+              (name, m, k, n, path, "exact" if exact else "NOT EXACT", absErr, "bit-equal" if repeats else "DIFFERENT",
+               ms, 2 * m * k * n / ms / 1e9,
+               "" if transposeMs is None else ", matmul(a, b)'s per-call transpose of b %.4f ms more" % transposeMs,
+               wmmaPath, wmmaMs, plainMs, "n/a" if libMs is None else "%.4f" % libMs, boundMs, boundBy,
+               "" if path.startswith("wgmma") else " (K off a multiple of 16: the WMMA kernel is the kernel)"))
 
         if not exact:
             fail("K1-int8 %s differs from its plain version by up to %d" % (name, absErr))
 
+        if not repeats:
+            fail("K1-int8 %s gives other bits on a second call" % name)
+
         if count:
             main["ms"] += ms * count
+            main["wmma_ms"] += wmmaMs * count
             main["plain_ms"] += plainMs * count
             main["library_ms"] += libMs * count
             main["bound_ms"] += boundMs * count
             binding.add(boundBy)
+            if path.startswith("wgmma"):
+                ratios.append((ms / wmmaMs, name))
 
-        del a, b
+        del a, b, bt, wmmaOut
         torch.cuda.empty_cache()
+
+    worst = max(ratios)
+    met = main["ms"] <= main["wmma_ms"] / 2 and worst[0] <= 1.05
+    print("[K1-int8] a request's 16 products (%d of the 12 shapes on wgmma): kernel %.4f ms against WMMA's %.4f ms in "
+          "this call (%.2fx), torch._int_mm %.4f, bound %.4f; slowest shape on wgmma against WMMA: %s at %.3fx" %
+          (len(ratios), main["ms"], main["wmma_ms"], main["wmma_ms"] / main["ms"], main["library_ms"],
+           main["bound_ms"], worst[1], worst[0]))
+    print("[K1-int8] landing rule (a request >= 2x faster than WMMA, no shape on wgmma more than 5 %% slower): %s" %
+          ("met" if met else "NOT MET"))
 
     main["bound_by"] = "/".join(sorted(binding))
     return main
@@ -1047,19 +1102,27 @@ def phaseEngineInt8(torch, card, workdir):
     if not size <= 1.1 * payload:
         fail("the int8 engine file holds %d bytes, above 1.1 x %d" % (size, payload))
 
+    with open(path.replace(".engine", ".graph.txt")) as f:
+        recorded = f.read().count("torch.ops.puzzlelib.matmul_nt.default")
+    print("[engine-int8] K1-int8 calls in its graph (puzzlelib::matmul_nt): %d" % recorded)
+
+    if recorded != 16:
+        fail("the int8 engine's graph records %d puzzlelib::matmul_nt calls, expected 16" % recorded)
+
     Engines.serve(engine, requests)   # warm-up: allocator blocks of these sizes
 
-    matmul.launches = matmul.launchesInt8 = winograd.launches = 0
+    matmul.launches = matmul.launchesInt8 = matmul.launchesInt8Wgmma = winograd.launches = 0
     out, secs = Engines.serve(engine, requests)
-    launches = {"int8": matmul.launchesInt8, "matmul": matmul.launches, "winograd": winograd.launches}
+    launches = {"int8": matmul.launchesInt8, "int8Wgmma": matmul.launchesInt8Wgmma, "matmul": matmul.launches,
+                "winograd": winograd.launches}
 
     print("[engine-int8] VGG-16 int8 engine, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
           (len(requests), Engines.REQUESTS, Engines.BATCH, secs, len(requests) / secs, card))
-    print("[engine-int8] launches in that run: K1-int8 %d, K1 (float) %d, winograd %d" %
-          (launches["int8"], launches["matmul"], launches["winograd"]))
+    print("[engine-int8] launches in that run: K1-int8 %d (on wgmma %d), K1 (float) %d, winograd %d" %
+          (launches["int8"], launches["int8Wgmma"], launches["matmul"], launches["winograd"]))
 
-    if launches != {"int8": 16 * Engines.REQUESTS, "matmul": 0, "winograd": 0}:
-        fail("expected 64 K1-int8 launches and no other, got %s" % launches)
+    if launches != {"int8": 16 * Engines.REQUESTS, "int8Wgmma": 16 * Engines.REQUESTS, "matmul": 0, "winograd": 0}:
+        fail("expected 64 K1-int8 launches, all 64 on wgmma, and no other, got %s" % launches)
 
     if out.shape != (len(requests), 1000) or not np.isfinite(out).all():
         fail("logits of shape %s, finite: %s" % (out.shape, np.isfinite(out).all()))
@@ -1662,7 +1725,8 @@ def phaseMeasurementPath(torch, card):
     vgg = ["--dtype", "bfloat16", "--data", "%d,256,56,56" % BATCH, "--weights", "256,256,3,3", "--pad", "1"]
 
     counters = [(streamcopy, "launches"), (phasesplit, "launches"), (tapdot, "launches"), (matmul, "launches"),
-                (matmul, "launchesWgmma"), (matmul, "launchesInt8"), (winograd, "launches"),
+                (matmul, "launchesWgmma"), (matmul, "launchesInt8"), (matmul, "launchesInt8Wgmma"),
+                (winograd, "launches"),
                 (winograd, "dataGradLaunches"), (winograd, "filterGradLaunches"), (flash, "launches"),
                 (flash, "launchesDq"), (flash, "launchesDkv")]
     for module, counter in counters:
@@ -1684,6 +1748,7 @@ def phaseMeasurementPath(torch, card):
 
     launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches, "K1": matmul.launches,
                 "K1-wgmma": matmul.launchesWgmma, "K1-int8": matmul.launchesInt8,
+                "K1-int8-wgmma": matmul.launchesInt8Wgmma,
                 "K2": winograd.launches - winograd.dataGradLaunches,
                 "K2-bwd": winograd.dataGradLaunches, "K3": winograd.filterGradLaunches, "K4": flash.launches,
                 "K5a": flash.launchesDq, "K5b": flash.launchesDkv}
@@ -1816,8 +1881,9 @@ def main():
              engine_launches=engineBf16["matmul"], measurement_launches=measured["K1"],
              measurement_launches_wgmma=measured["K1-wgmma"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
-             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"], launches_wgmma=0,
-             wmma_ms=gemmInt8["ms"], measurement_launches=measured["K1-int8"], **gemmInt8),
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
+             launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
+             measurement_launches_wgmma=measured["K1-int8-wgmma"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
              launches_wgmma=transformer["matmulWgmma"], **gemmTransformer),
@@ -1850,13 +1916,14 @@ def main():
     ]
     print("[kernels] launches: K0 checkinstall's; K1-K3 the VGG training run's (4 steps of 32), serving_launches "
           "the VGG serving run's (4 requests of 32), engine_launches the VGG bf16 engine's (4 requests of 32); K1's "
-          "launches_wgmma those of its launches on wgmma, wmma_ms the time of the WMMA kernel at the same "
-          "shapes in the same call (K1-int8 is WMMA: its own time); "
+          "launches_wgmma those of its launches on wgmma (K1-int8's too), wmma_ms the time of the WMMA kernel at "
+          "the same shapes in the same call; "
           "K1-int8 the VGG int8 engine's (4 requests of 32); K1 at the transformer's shapes and K4 the transformer "
           "serving run's (4 requests of 64); ms, plain_ms, library_ms and bound_ms: the time one batch spends in "
           "the kernel, in its plain version, in the library call and at the card's bound (K0: one (8, 128) f32 "
-          "block; K1: fc6+fc7+fc8 forward in bf16; K1-int8: the 16 int8 products of one request of 32 images, "
-          "plain in f64, library torch._int_mm with conv1_1's K padded to 32; K1 at the transformer's shapes: the "
+          "block; K1: fc6+fc7+fc8 forward in bf16; K1-int8: the 16 int8 products of one request of 32 images "
+          "(conv1_1's K padded to 32), the kernel through matmulNT on laid-out tables, plain in f64, library "
+          "torch._int_mm; K1 at the transformer's shapes: the "
           "5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a batch of 32, wrapper "
           "included, on NCHW operands (channels_last_ms and channels_last_library_ms on channels-last "
           "operands, as the training path hands them over); K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "

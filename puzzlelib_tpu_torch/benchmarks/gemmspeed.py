@@ -6,7 +6,9 @@ Run:  python3 -m puzzlelib_tpu_torch.benchmarks.gemmspeed [--sizes 1024,2048,409
 
 For each square size and type it times the library's product
 (``torch.matmul``; ``torch._int_mm`` for int8) and K1 (``ops/hopper/matmul``;
-K1-int8 for int8) on the same operands and prints TFLOP/s (TOP/s for int8)
+K1-int8 for int8, through ``matmulNT`` on B laid out once as the K-major
+table B^T, as the int8 engine holds its weights) on the same operands and
+prints TFLOP/s (TOP/s for int8)
 and, on the card, the share of the H100 SXM's data-sheet peak
 (``tools/timing.py``: 67 TFLOP/s f32 outside the tensor cores, since TF32
 stays off; 989 bf16 and f16; 1979 int8).  Times on the card are the
@@ -51,6 +53,18 @@ def library(a, b):
     return torch._int_mm(a, b) if a.dtype == torch.int8 else torch.matmul(a, b)
 
 
+def kernelCall(a, b):
+    """K1's call on a and b: for int8 ``matmulNT`` on B^T, laid out here,
+    before any timing."""
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    if a.dtype == torch.int8:
+        bt = b.t().contiguous()
+        return lambda: matmul.matmulNT(a, bt)
+
+    return lambda: matmul.matmul(a, b)
+
+
 def _rate(ops, ms, dtname, device):
     rate = ops / ms / 1e9
     unit = "TOP/s" if dtname == "int8" else "TF/s"
@@ -62,8 +76,6 @@ def _rate(ops, ms, dtname, device):
 
 def sweep(sizes, dtnames, iters, device):
     """One line per (size, type): the library's and K1's rates."""
-    from puzzlelib_tpu_torch.ops.hopper import matmul
-
     results = {}
     for size in sizes:
         for dtname in dtnames:
@@ -71,7 +83,7 @@ def sweep(sizes, dtnames, iters, device):
             ops = 2.0 * size ** 3
 
             libMs = timeMs(lambda: library(a, b), iters, device)
-            kernelMs = timeMs(lambda: matmul.matmul(a, b), iters, device)
+            kernelMs = timeMs(kernelCall(a, b), iters, device)
             results[(size, dtname)] = (libMs, kernelMs)
 
             label = "torch._int_mm" if dtname == "int8" else "torch.matmul "
@@ -86,16 +98,14 @@ def sweep(sizes, dtnames, iters, device):
 def kernelRate(iters, device):
     """The sustained rate of one (8192, 65536) @ (65536, 8192) product, bf16
     and int8, library and K1, on operands made on the card."""
-    from puzzlelib_tpu_torch.ops.hopper import matmul
-
     m, k, n = 8192, 65536, 8192
     ops = 2.0 * m * n * k
 
     results = {}
     for dtname in ("bfloat16", "int8"):
         a, b = operands(m, k, n, dtname, device)
-        for label, fn in (("library", library), ("K1", matmul.matmul)):
-            ms = timeMs(lambda: fn(a, b), iters, device)
+        for label, fn in (("library", lambda: library(a, b)), ("K1", kernelCall(a, b))):
+            ms = timeMs(fn, iters, device)
             results[(dtname, label)] = ms
             print("kernel-rate %dx%dx%d %-8s | %-7s %s" % (m, k, n, dtname, label, _rate(ops, ms, dtname, device)))
         del a, b

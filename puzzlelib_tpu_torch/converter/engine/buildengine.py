@@ -14,8 +14,8 @@ freezes its weights, and the program is saved with ``torch.export.save``:
   ``.stablehlo.mlir``, whose reader, the PJRT host driver, is not ported.
 
 The hand kernels appear in the graph as their custom operators
-(``puzzlelib::matmul``, ``puzzlelib::winograd_conv2d``,
-``puzzlelib::flash``), so a loaded engine
+(``puzzlelib::matmul``, ``puzzlelib::matmul_nt`` for the int8 products,
+``puzzlelib::winograd_conv2d``, ``puzzlelib::flash``), so a loaded engine
 launches them as the eager net does.  An exported program records the
 device it was traced on: build an engine on the device where it serves.
 The net's tensors are read through a closure, not registered on the traced
@@ -86,9 +86,9 @@ def _patchQuantized(modules, scales):
     Weights are quantized per output channel ahead of time, on the host as in
     the reference, and go to the module's device as int8 tables; the
     calibrated activation scale comes from ``scales[id(mod)]``.  Each table
-    is laid out here once as the operand K1-int8 takes: a transposed
-    ``Linear``'s (out, in) table as (in, out), a conv's as
-    ``quant.convOperand`` gives it.
+    is laid out here once as the K-major operand B^T that K1-int8 on
+    ``wgmma`` takes: a ``Linear``'s as (out, in) (``quant.linearOperand``), a
+    conv's as ``quant.convOperand`` gives it, K padded to a multiple of 16.
     """
     from puzzlelib_tpu_torch.modules.linear import Linear
     from puzzlelib_tpu_torch.ops import quant
@@ -105,11 +105,10 @@ def _patchQuantized(modules, scales):
 
         if isinstance(mod, Linear):
             wq, wscale = quant.quantizeWeight(w, 0 if mod.transpose else 1)
-            wq = torch.from_numpy(np.ascontiguousarray(wq.T if mod.transpose else wq)).to(device)
 
-            def patched(data, mod=mod, wq=wq, wscale=torch.from_numpy(wscale.reshape(-1)).to(device),
-                        xscale=xscale, bias=bias):
-                mod.data = quant.quantLinear(data, wq, wscale, xscale, bias)
+            def patched(data, mod=mod, wt=quant.linearOperand(torch.from_numpy(wq), mod.transpose).to(device),
+                        wscale=torch.from_numpy(wscale.reshape(-1)).to(device), xscale=xscale, bias=bias):
+                mod.data = quant.quantLinear(data, wt, wscale, xscale, bias)
 
         else:
             wq, wscale = quant.quantizeWeight(w, axis=0)

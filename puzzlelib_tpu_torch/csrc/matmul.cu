@@ -72,24 +72,68 @@
 //               the same split-K.
 //   int8      - K1-int8, the reference's int8 operands with an exact int32
 //               accumulator and an int32 output (matmul.py:54-56), the
-//               product of the int8 serving engine.  WMMA 16x16x16 s8
-//               fragments with int32 accumulators; 64x64 block tile,
-//               BK = 64 (64 bytes a row, as bf16's 32); the same cp.async
-//               ring and split-K, but the partial tiles are int32: integer
-//               sums are exact in any order (|acc| <= K * 127^2, 4.05e8 at
-//               K = 25088, below 2^31).  WMMA wants every 8-bit fragment on
-//               a 32-byte boundary, which a 16-byte K step breaks in a
-//               row-major tile, so the shared tiles are kept as 16-column
-//               slabs: A as [k / 16][m][16], B as [n / 16][k][16], each
-//               fragment a contiguous 256-byte block.  Slabs are 1056 bytes
-//               apart (64 rows and two 16-byte chunks of padding), so the
-//               16-byte cp.async stores of one quarter-warp (two rows, four
-//               slabs) fall into eight distinct bank groups.  Rows whose K
-//               and N are multiples of 16 load as 16-byte vectors; other
-//               shapes (conv1_1's K = 27, fc8's N = 1000) byte by byte.
-//               What bounds it on the H100: at the engine's conv shapes
-//               (M = 32 H W rows) the operations, 2 M N K at 1979 TOP/s; at
-//               its fc layers (M = 32) reading the weights.
+//               product of the int8 serving engine.  Integer sums are exact
+//               in any order (|acc| <= K * 127^2, 4.05e8 at K = 25088, below
+//               2^31), so split-K partials are int32 and any split gives the
+//               same bits.
+//               What bounds it on the H100, at the engine's shapes (batch
+//               32; each input read once, each output written once, at 3.35
+//               TB/s and 1979 TOP/s): conv1_1 to conv3_2 (M = 32 H W rows of
+//               the im2col'd A, N = 64 to 256) their bytes, the A of 9 C
+//               values a row and the int32 output of 4 bytes an element
+//               (conv1_2 moves 925 MB of A and 411 MB of C, 0.399 ms, for
+//               0.060 ms of operations); conv4_1 both about equally; conv4_2
+//               and conv5_1 their operations; fc6 to fc8 (M = 32) reading the
+//               weights, 103 MB at fc6.
+//               Where TMA can describe the operands (K a multiple of 16,
+//               both bases on 16 bytes; the caller decides, from the shape
+//               alone): `gemmInt8Wgmma`.  For 8-bit types wgmma reads both
+//               operands K-major (the transpose bits are f16 and bf16 only),
+//               so B comes as B^T, the (N, K) table the engine lays out once
+//               at build time.  A block owns BM = 64 or 128 rows (one or two
+//               consumer warpgroups) by BN columns: all of N up to 256 on
+//               128-row blocks, so that a tall conv product reads its rows of
+//               A from device memory once and its B^T (at most 590 KB at
+//               conv3_2) from L2; N = 512 takes two column blocks of one row
+//               tile, next to each other in the grid's order, so that the
+//               second finds the row tile in L2.  The rows with M = 32 (the
+//               fc layers) take 64-row blocks of 128 columns and split-K.
+//               A four-stage ring of 128-byte swizzled TMA boxes (A: BM rows
+//               of 128 K values; B^T: BN rows of 128) with a full and an empty
+//               mbarrier a stage and one producer thread, as gemmWgmma's; A's
+//               descriptor serves both operands (K-major, SBO 1024), and a
+//               stage is four m64nBNk32 products, each 32 bytes further into
+//               the swizzle atom.  The int32 sums (BN / 2 registers a thread,
+//               128 at BN = 256) go from the registers to device memory as
+//               int2 pairs, masked at the ragged edge (single ints where N is
+//               odd).  Row tiles and column blocks share the grid's first
+//               axis (2^31 - 1 blocks), so no product is cut into chunks of
+//               rows.  Split-K fills one wave of the blocks a ring lets an SM
+//               hold, never more.  ptxas: 154 registers at 128 x 256, 90 at
+//               128 x 128 and 64 x 128, 58 at 128 x 64 and 64 x 64, no
+//               spill; 197,696 / 132,160 / 99,392 / 99,392 / 66,624 bytes of
+//               dynamic shared memory (one, one, two, two, three blocks an
+//               SM).  On an H100 80GB HBM3 at 700 W (chip_smoke.py
+//               [K1-int8]) a request's 16 products take 1.89 ms against the
+//               WMMA kernel's 8.82 and a bound of 1.37: 1.14-1.32x the bound
+//               from conv1_2 to conv3_2; 2.0x at conv1_1, whose one stage of
+//               32 K values a block leaves its 411 MB of stores unhidden;
+//               1.7-2.1x from conv4_1 to conv5_1, where each stage's 48 KB
+//               through L2 feeds 1 MOP of products (unmeasured: no ncu).
+//               Otherwise (K off a multiple of 16, a base off 16 bytes):
+//               `gemmInt8`, WMMA 16x16x16 s8 fragments with int32
+//               accumulators; 64x64 block tile, BK = 64 (64 bytes a row, as
+//               bf16's 32); the same cp.async ring and split-K.  WMMA wants
+//               every 8-bit fragment on a 32-byte boundary, which a 16-byte K
+//               step breaks in a row-major tile, so the shared tiles are kept
+//               as 16-column slabs: A as [k / 16][m][16], B as [n / 16][k][16],
+//               each fragment a contiguous 256-byte block.  Slabs are 1056
+//               bytes apart (64 rows and two 16-byte chunks of padding), so
+//               the 16-byte cp.async stores of one quarter-warp (two rows,
+//               four slabs) fall into eight distinct bank groups.  Rows whose
+//               K and N are multiples of 16 load as 16-byte vectors; other
+//               shapes byte by byte.  It reads B as the (K, N) row-major
+//               matrix.
 //
 // Entries: pl_matmul_splits(...) gives the number of K slices a shape takes
 // on a kernel path (the caller allocates that many partial tiles of M x N
@@ -487,24 +531,11 @@ __global__ void sumSlices(const Acc* __restrict__ partial, T* __restrict__ C, lo
 }
 
 // the kernel paths of pl_matmul: the tiled kernels with element or
-// 16-byte loads, and gemmWgmma with one or two consumer warpgroups
+// 16-byte loads, and the wgmma kernels (gemmWgmma for bf16 and f16,
+// gemmInt8Wgmma for int8) with one or two consumer warpgroups
 enum Path { PATH_TILED = 0, PATH_TILED_VEC = 1, PATH_WGMMA_64 = 2, PATH_WGMMA_128 = 3 };
 
 constexpr int WBN = 128, WBK = 64;   // gemmWgmma's block columns and K step
-
-void tileShape(int dtype, int path, int* bm, int* bn, int* bk)
-{
-    if (path == PATH_WGMMA_64 || path == PATH_WGMMA_128) {
-        *bm = path == PATH_WGMMA_64 ? 64 : 128; *bn = WBN; *bk = WBK;
-        return;
-    }
-
-    switch (dtype) {
-    case 0:  *bm = SBM; *bn = SBN; *bk = SBK; break;
-    case 3:  *bm = IBM; *bn = IBN; *bk = IBK; break;
-    default: *bm = HBM; *bn = HBN; *bk = HBK; break;
-    }
-}
 
 template <typename T>
 void launchTensorCore(const void* a, const void* b, void* c, float* partial, int m, int n, int k, bool vec,
@@ -774,21 +805,21 @@ EncodeTiled findEncoder()
     return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
 }
 
-// a row-major (rows, cols) matrix of 16-bit values as TMA reads it: boxes of
-// boxRows rows of 64 columns (128 bytes), 128-byte swizzled, zeros outside
-// the matrix
-bool tensorMap(CUtensorMap* map, const void* base, int rows, int cols, int boxRows, bool half)
+// a row-major (rows, cols) matrix of `bytes`-byte values of `type` as TMA
+// reads it: boxes of boxRows rows of 128 bytes (64 columns of 16 bits, 128
+// of 8), 128-byte swizzled, zeros outside the matrix
+bool tensorMap(CUtensorMap* map, const void* base, int rows, int cols, int boxRows, CUtensorMapDataType type,
+               int bytes)
 {
     static const EncodeTiled encode = findEncoder();
     if (encode == nullptr)
         return false;
 
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-    const cuuint32_t box[2] = {64, (cuuint32_t)boxRows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)(128 / bytes), (cuuint32_t)boxRows};
     const cuuint32_t steps[2] = {1, 1};
-    return encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+    return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -798,10 +829,11 @@ cudaError_t launchWgmma(const void* a, const void* b, void* c, float* partial, i
                         int tilesPerSlice, cudaStream_t stream)
 {
     using R = Ring<WG>;
-    const bool half = std::is_same<T, __half>::value;
+    const CUtensorMapDataType type =
+        std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
     CUtensorMap mapA, mapB;
-    if (!tensorMap(&mapA, a, m, k, R::BM, half) || !tensorMap(&mapB, b, k, n, WBK, half))
+    if (!tensorMap(&mapA, a, m, k, R::BM, type, 2) || !tensorMap(&mapB, b, k, n, WBK, type, 2))
         return cudaErrorInvalidValue;
 
     const cudaError_t err = cudaFuncSetAttribute(gemmWgmma<T, WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -836,26 +868,336 @@ cudaError_t launchFloat16(const void* a, const void* b, void* c, float* partial,
     }
 }
 
+// -- K1-int8 on wgmma, fed by TMA -----------------------------------------------
+
+constexpr int I8_BK = 128;             // K values a stage: one 128-byte swizzle row of A and of B^T
+constexpr int I8_STAGES = 4;
+constexpr int SM_SMEM = 233472;        // an SM's shared memory, of which each resident block also takes 1 KB
+
+// WG consumer warpgroups of 64 output rows each, one producer warp, BN
+// output columns; the blocks of this ring that fit an SM's shared memory
+template <int WG, int BN>
+struct Int8Ring {
+    static constexpr int BM = 64 * WG;
+    static constexpr int THREADS = 128 * WG + 32;
+    static constexpr int A_BYTES = BM * I8_BK;
+    static constexpr int STAGE = A_BYTES + BN * I8_BK;
+    static constexpr int SMEM = I8_STAGES * STAGE + 2 * I8_STAGES * 8 + W_SWIZZLE;
+    static constexpr int PER_SM = SM_SMEM / (SMEM + 1024);
+};
+
+// the block columns of an int8 product of n columns on WG warpgroups: all of
+// n up to 256 (128 on one warpgroup, whose rows are few), so that a tall
+// product reads its rows of A from device memory once
+inline int int8Bn(int n, int wg)
+{
+    return n <= 64 ? 64 : (n <= 128 || wg == 1) ? 128 : 256;
+}
+
+#define I8_SUM8(d, b) \
+    "+r"(d[b]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3]), "+r"(d[b + 4]), "+r"(d[b + 5]), "+r"(d[b + 6]), \
+    "+r"(d[b + 7])
+#define I8_SUM32(d) I8_SUM8(d, 0), I8_SUM8(d, 8), I8_SUM8(d, 16), I8_SUM8(d, 24)
+#define I8_SUM64(d) I8_SUM32(d), I8_SUM8(d, 32), I8_SUM8(d, 40), I8_SUM8(d, 48), I8_SUM8(d, 56)
+#define I8_SUM128(d) \
+    I8_SUM64(d), I8_SUM8(d, 64), I8_SUM8(d, 72), I8_SUM8(d, 80), I8_SUM8(d, 88), I8_SUM8(d, 96), I8_SUM8(d, 104), \
+    I8_SUM8(d, 112), I8_SUM8(d, 120)
+
+// d (+)= A B^T, m64nBNk32 in int8 with int32 sums, A and B^T both K-major
+// (wgmma reads 8-bit operands K-major only).  As for bf16, the first product
+// of a sum starts it with accumulate = 0
+template <int BN>
+__device__ __forceinline__ void wgmmaInt8(int (&d)[BN / 2], uint64_t da, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmmaInt8<64>(int (&d)[32], uint64_t da, uint64_t db, int accumulate)
+{
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+                 "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+                 ", %32, %33, p;\n}\n"
+                 : I8_SUM32(d)
+                 : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmmaInt8<128>(int (&d)[64], uint64_t da, uint64_t db, int accumulate)
+{
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+                 "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+                 "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+                 "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+                 ", %64, %65, p;\n}\n"
+                 : I8_SUM64(d)
+                 : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmmaInt8<256>(int (&d)[128], uint64_t da, uint64_t db, int accumulate)
+{
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+                 "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+                 "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+                 "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+                 "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+                 "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+                 "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+                 "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}"
+                 ", %128, %129, p;\n}\n"
+                 : I8_SUM128(d)
+                 : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef I8_SUM8
+#undef I8_SUM32
+#undef I8_SUM64
+#undef I8_SUM128
+
+template <int R>
+__device__ __forceinline__ void fenceSum(int (&acc)[R])
+{
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+        asm volatile("" : "+r"(acc[i])::"memory");
+}
+
+// one (BM x BN) int32 output tile of A (M, K) @ B^T (N, K)^T over K tiles [y
+// tilesPerSlice, (y + 1) tilesPerSlice), y = blockIdx.y; with one slice the
+// tile goes to C, else to partial[y].  blockIdx.x walks the column blocks of
+// one row tile before the next row tile, so that the blocks that share a row
+// tile of A run side by side and the later ones find it in L2.  Warps 0 ..
+// 4 WG - 1 are the consumer warpgroups, warp 4 WG the producer.
+template <int WG, int BN>
+__global__ void __launch_bounds__(Int8Ring<WG, BN>::THREADS, Int8Ring<WG, BN>::PER_SM)
+gemmInt8Wgmma(const __grid_constant__ CUtensorMap mapA, const __grid_constant__ CUtensorMap mapB,
+              int* __restrict__ C, int* __restrict__ partial, int M, int N, int K, int colBlocks, int tilesPerSlice)
+{
+    using R = Int8Ring<WG, BN>;
+    extern __shared__ __align__(128) unsigned char smemRaw[];
+    unsigned char* smem = smemRaw + ((W_SWIZZLE - (smemAddr(smemRaw) & (W_SWIZZLE - 1))) & (W_SWIZZLE - 1));
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + I8_STAGES * R::STAGE);
+    uint64_t* empty = full + I8_STAGES;
+
+    const int tid = threadIdx.x;
+    const int warp = __shfl_sync(0xFFFFFFFFu, tid >> 5, 0);
+    const int m0 = (blockIdx.x / colBlocks) * R::BM, n0 = (blockIdx.x % colBlocks) * BN;
+
+    const int kTiles = (K + I8_BK - 1) / I8_BK;
+    const int kt0 = blockIdx.y * tilesPerSlice;
+    const int nt = max(min(kt0 + tilesPerSlice, kTiles) - kt0, 0);
+
+    if (tid == 0) {
+        for (int s = 0; s < I8_STAGES; ++s) {
+            barInit(&full[s], 1);
+            barInit(&empty[s], 4 * WG);   // lane 0 of every consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == 4 * WG) {
+        // the producer: one thread keeps the ring full, a box of A (BM rows
+        // of 128 K values) and one of B^T (BN rows) a stage.  TMA counts the
+        // whole boxes, the zeros it writes outside the matrices included
+        if ((tid & 31) == 0) {
+            for (int i = 0; i < nt; ++i) {
+                const int s = i % I8_STAGES;
+                if (i >= I8_STAGES)
+                    barWait(&empty[s], (i / I8_STAGES - 1) & 1);
+
+                unsigned char* as = smem + s * R::STAGE;
+                const int k0 = (kt0 + i) * I8_BK;
+                barExpect(&full[s], R::STAGE);
+                tmaLoad(as, &mapA, k0, m0, &full[s]);
+                tmaLoad(as + R::A_BYTES, &mapB, k0, n0, &full[s]);
+            }
+        }
+        return;
+    }
+
+    // a consumer warpgroup: rows 64 wg .. 64 wg + 63 of the tile, four k32
+    // products a stage, each 32 bytes further into the 128-byte rows of A and
+    // B^T; one group in flight
+    const int wg = warp >> 2;
+    int acc[BN / 2];   // set by its first product
+    for (int i = 0; i < nt; ++i) {
+        const int s = i % I8_STAGES;
+        barWait(&full[s], (i / I8_STAGES) & 1);
+
+        const uint32_t as = smemAddr(smem + s * R::STAGE) + wg * 64 * I8_BK;
+        const uint32_t bs = smemAddr(smem + s * R::STAGE + R::A_BYTES);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < I8_BK / 32; ++kk)
+            wgmmaInt8<BN>(acc, swizzled(as + 32 * kk, 16), swizzled(bs + 32 * kk, 16), i > 0 || kk > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+
+        // step i - 1's products have retired: its stage is free
+        if (i > 0 && (tid & 31) == 0)
+            barArrive(&empty[(i - 1) % I8_STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fenceSum(acc);
+
+    // thread (warp w of its warpgroup, lane l) holds rows 16 w + l / 4 (h = 0)
+    // and + 8 (h = 1), columns 8 j + 2 (l % 4) and + 1: acc[4 j + 2 h], + 1.
+    // With N even a pair is wholly inside or outside and lands on 8 bytes
+    const int w = warp & 3, l = tid & 31;
+    int* out = gridDim.y == 1 ? C : partial + (size_t)blockIdx.y * M * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + 64 * wg + 16 * w + l / 4 + 8 * h;
+        if (gm >= M)
+            continue;
+        int* row = out + (size_t)gm * N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+            const int gn = n0 + 8 * j + 2 * (l & 3);
+            const int x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
+            if ((N & 1) == 0) {
+                if (gn < N)
+                    *reinterpret_cast<int2*>(row + gn) = make_int2(x, y);
+            } else {
+                if (gn < N)
+                    row[gn] = x;
+                if (gn + 1 < N)
+                    row[gn + 1] = y;
+            }
+        }
+    }
+}
+
+template <int WG, int BN>
+cudaError_t launchInt8Wgmma(const void* a, const void* bt, int* c, int* partial, int m, int n, int k, int slices,
+                            int tilesPerSlice, cudaStream_t stream)
+{
+    using R = Int8Ring<WG, BN>;
+
+    CUtensorMap mapA, mapB;
+    if (!tensorMap(&mapA, a, m, k, R::BM, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1) ||
+        !tensorMap(&mapB, bt, n, k, BN, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1))
+        return cudaErrorInvalidValue;
+
+    const cudaError_t err = cudaFuncSetAttribute(gemmInt8Wgmma<WG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 R::SMEM);
+    if (err != cudaSuccess)
+        return err;
+
+    // the row tiles and their column blocks on the grid's first axis, which
+    // holds 2^31 - 1 blocks: conv1_x's 1.6 M rows need no chunks
+    const int colBlocks = (n + BN - 1) / BN;
+    const long long blocks = (long long)((m + R::BM - 1) / R::BM) * colBlocks;
+    if (blocks > 0x7FFFFFFFLL)
+        return cudaErrorInvalidValue;
+
+    gemmInt8Wgmma<WG, BN><<<dim3((unsigned)blocks, slices), R::THREADS, R::SMEM, stream>>>(
+        mapA, mapB, c, partial, m, n, k, colBlocks, tilesPerSlice);
+    if (slices > 1)
+        sumSlices<int, int><<<512, 256, 0, stream>>>(partial, c, (long long)m * n, slices);
+
+    return cudaSuccess;
+}
+
+// the tile of a product of n columns of type `dtype` on kernel path `path`:
+// block rows, columns and K step, and the blocks an SM holds (two, the
+// target of the float paths' split-K; for int8 on wgmma those its ring fits)
+void tileShape(int dtype, int path, int n, int* bm, int* bn, int* bk, int* perSm)
+{
+    *perSm = 2;
+    if (path == PATH_WGMMA_64 || path == PATH_WGMMA_128) {
+        const int wg = path == PATH_WGMMA_64 ? 1 : 2;
+        *bm = 64 * wg;
+        if (dtype != 3) {
+            *bn = WBN; *bk = WBK;
+            return;
+        }
+        *bn = int8Bn(n, wg); *bk = I8_BK;
+        if (wg == 1)
+            *perSm = *bn == 64 ? Int8Ring<1, 64>::PER_SM : Int8Ring<1, 128>::PER_SM;
+        else
+            *perSm = *bn == 64 ? Int8Ring<2, 64>::PER_SM
+                     : *bn == 128 ? Int8Ring<2, 128>::PER_SM : Int8Ring<2, 256>::PER_SM;
+        return;
+    }
+
+    switch (dtype) {
+    case 0:  *bm = SBM; *bn = SBN; *bk = SBK; break;
+    case 3:  *bm = IBM; *bn = IBN; *bk = IBK; break;
+    default: *bm = HBM; *bn = HBN; *bk = HBK; break;
+    }
+}
+
+cudaError_t launchInt8(const void* a, const void* b, void* c, void* partial, int m, int n, int k, int path, int slices,
+                       int tilesPerSlice, cudaStream_t stream)
+{
+    const int8_t* A = static_cast<const int8_t*>(a);
+    const int8_t* B = static_cast<const int8_t*>(b);
+    int* C = static_cast<int*>(c);
+    int* part = static_cast<int*>(partial);
+
+    switch (path) {
+    case PATH_TILED:
+    case PATH_TILED_VEC: {
+        const dim3 grid((n + IBN - 1) / IBN, (m + IBM - 1) / IBM, slices);
+        if (path == PATH_TILED_VEC)
+            gemmInt8<true><<<grid, HTHREADS, 0, stream>>>(A, B, C, part, m, n, k, tilesPerSlice);
+        else
+            gemmInt8<false><<<grid, HTHREADS, 0, stream>>>(A, B, C, part, m, n, k, tilesPerSlice);
+        if (slices > 1)
+            sumSlices<int, int><<<512, 256, 0, stream>>>(part, C, (long long)m * n, slices);
+        return cudaSuccess;
+    }
+    case PATH_WGMMA_64:
+        if (int8Bn(n, 1) == 64)
+            return launchInt8Wgmma<1, 64>(a, b, C, part, m, n, k, slices, tilesPerSlice, stream);
+        return launchInt8Wgmma<1, 128>(a, b, C, part, m, n, k, slices, tilesPerSlice, stream);
+    case PATH_WGMMA_128:
+        switch (int8Bn(n, 2)) {
+        case 64:
+            return launchInt8Wgmma<2, 64>(a, b, C, part, m, n, k, slices, tilesPerSlice, stream);
+        case 128:
+            return launchInt8Wgmma<2, 128>(a, b, C, part, m, n, k, slices, tilesPerSlice, stream);
+        default:
+            return launchInt8Wgmma<2, 256>(a, b, C, part, m, n, k, slices, tilesPerSlice, stream);
+        }
+    default:
+        return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // The number of K slices for an (m, k) @ (k, n) product of type `dtype` on
 // kernel path `path` on a card with `sms` SMs: one when the output tiles
-// give two blocks per SM, else enough to reach that, with at least
-// MIN_TILES_PER_SLICE K tiles each.
+// fill the SMs (two blocks each; for int8 on wgmma the blocks its ring lets
+// an SM hold), else enough to reach that, with at least MIN_TILES_PER_SLICE
+// K tiles each.
 extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int path, int sms)
 {
-    int bm, bn, bk;
-    tileShape(dtype, path, &bm, &bn, &bk);
+    const bool int8Wgmma = dtype == 3 && (path == PATH_WGMMA_64 || path == PATH_WGMMA_128);
+    int bm, bn, bk, perSm;
+    tileShape(dtype, path, n, &bm, &bn, &bk, &perSm);
 
     const long long blocks = (long long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
     const int kTiles = (k + bk - 1) / bk;
 
-    if (blocks >= 2LL * sms || kTiles < 2 * MIN_TILES_PER_SLICE)
+    if (blocks >= (long long)perSm * sms || kTiles < 2 * MIN_TILES_PER_SLICE)
         return 1;
 
-    int slices = (int)((2LL * sms + blocks - 1) / blocks);
+    // the float paths round the slices up to two blocks an SM; int8 on wgmma
+    // down to one wave of the blocks its ring lets an SM hold, since a second
+    // wave of slices adds partial tiles and no SM
+    int slices = int8Wgmma ? (int)((long long)perSm * sms / blocks) : (int)((2LL * sms + blocks - 1) / blocks);
     if (slices > kTiles / MIN_TILES_PER_SLICE)
         slices = kTiles / MIN_TILES_PER_SLICE;
+    if (slices <= 1)
+        return 1;
 
     const int perSlice = (kTiles + slices - 1) / slices;
     return (kTiles + perSlice - 1) / perSlice;
@@ -864,10 +1206,13 @@ extern "C" int pl_matmul_splits(int m, int n, int k, int dtype, int path, int sm
 // dtype: 0 = f32, 1 = bf16, 2 = f16, 3 = int8 (C in int32).  path (Path):
 // PATH_TILED_VEC where the caller has checked that A and B start on 16-byte
 // boundaries and that K and N are multiples of 8 (16 for int8), one 16-byte
-// vector; PATH_WGMMA_64 or PATH_WGMMA_128 (bf16 and f16 only) under the same
-// checks with K and N multiples of 8, M, N and K above 0; PATH_TILED for any
-// shape.  f32 takes its one kernel on either tiled path.  partial: `slices`
-// tiles of m x n, f32 (int32 for int8), used when slices > 1.
+// vector; PATH_WGMMA_64 or PATH_WGMMA_128 for bf16 and f16 under the same
+// checks with K and N multiples of 8, M, N and K above 0, and for int8 with
+// K a multiple of 16, both bases on 16 bytes and M, N and K above 0, where
+// `b` is B^T, the (n, k) row-major table (wgmma reads 8-bit operands
+// K-major only); PATH_TILED for any shape.  f32 takes its one kernel on
+// either tiled path.  partial: `slices` tiles of m x n, f32 (int32 for
+// int8), used when slices > 1.
 extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, int m, int n, int k,
                          int dtype, int path, int slices, void* stream)
 {
@@ -875,11 +1220,11 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
     float* part = static_cast<float*>(partial);
 
     if (slices < 1 || (slices > 1 && part == nullptr) || path < PATH_TILED || path > PATH_WGMMA_128 ||
-        (path >= PATH_WGMMA_64 && (dtype == 0 || dtype == 3)))
+        (path >= PATH_WGMMA_64 && dtype == 0))
         return static_cast<int>(cudaErrorInvalidValue);
 
-    int bm, bn, bk;
-    tileShape(dtype, path, &bm, &bn, &bk);
+    int bm, bn, bk, perSm;
+    tileShape(dtype, path, n, &bm, &bn, &bk, &perSm);
     const int kTiles = (k + bk - 1) / bk;
     const int tilesPerSlice = (kTiles + slices - 1) / slices;
 
@@ -899,20 +1244,9 @@ extern "C" int pl_matmul(const void* a, const void* b, void* c, void* partial, i
     case 2:
         err = launchFloat16<__half>(a, b, c, part, m, n, k, path, slices, tilesPerSlice, s);
         break;
-    case 3: {
-        const dim3 grid((n + IBN - 1) / IBN, (m + IBM - 1) / IBM, slices);
-        const int8_t* A = static_cast<const int8_t*>(a);
-        const int8_t* B = static_cast<const int8_t*>(b);
-        int* C = static_cast<int*>(c);
-        int* ipart = static_cast<int*>(partial);
-        if (path == PATH_TILED_VEC)
-            gemmInt8<true><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
-        else
-            gemmInt8<false><<<grid, HTHREADS, 0, s>>>(A, B, C, ipart, m, n, k, tilesPerSlice);
-        if (slices > 1)
-            sumSlices<int, int><<<512, 256, 0, s>>>(ipart, C, (long long)m * n, slices);
+    case 3:
+        err = launchInt8(a, b, c, partial, m, n, k, path, slices, tilesPerSlice, s);
         break;
-    }
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

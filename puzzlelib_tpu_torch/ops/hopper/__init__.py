@@ -5,7 +5,8 @@ Each kernel module holds the wrapper that launches the CUDA C++ kernel from
 which CPU tensors take, and a launch counter (``launches``):
 
 - ``matmul``   K1, the tiled GEMM, in f32, bf16, f16 and int8 -> int32
-  (K1-int8, counter ``launchesInt8``) (``ops/pallas/matmul.py``);
+  (K1-int8, counter ``launchesInt8``; ``matmulNT`` takes the K-major
+  table B^T that K1-int8 on ``wgmma`` reads) (``ops/pallas/matmul.py``);
 - ``winograd`` K2, the fused Winograd F(2x2, 3x3) forward conv, which also
   runs the stride-1 bwd-data (``dataGrad``), and K3, the transform-domain
   bwd-filter (``filterGrad``, plain version ``filterGradPlain``, counter
@@ -18,7 +19,7 @@ which CPU tensors take, and a launch counter (``launches``):
 
 The kernels that an engine's forward reaches are also custom operators with
 shape functions, ``matmul.matmulOp`` (``puzzlelib::matmul``, every type),
-``winograd.conv2dOp`` (``puzzlelib::winograd_conv2d``) and ``flash.flashOp``
+``matmul.matmulNTOp`` (``puzzlelib::matmul_nt``, int8), ``winograd.conv2dOp`` (``puzzlelib::winograd_conv2d``) and ``flash.flashOp``
 (``puzzlelib::flash``): their wrappers hand them the fake tensors of a
 ``torch.export`` trace, so that an engine's graph records the kernels, and
 launch directly on real tensors.  The training-only kernels (K2 as

@@ -6,33 +6,44 @@ with f32 accumulation and returns the input's type, for f32, bf16 and f16;
 for two int8 matrices (K1-int8, the int8 serving engine's product) it
 accumulates exactly in int32 and returns int32, as the reference does
 (``matmul.py:54-56``).  Ragged M, N and K are masked inside the kernel, so
-nothing is padded.  K1 is two kernels, chosen from the shape before launch
-(``_route``): bf16 and f16 products that TMA can describe (K and N multiples
-of 8, both bases on 16 bytes) run on ``wgmma`` fed by TMA, with 128-row
-blocks for large products bound by their operations and 64-row blocks
-elsewhere; the rest (the transformer head's N = 2, ragged K or N) on the
-WMMA kernel.  f32 runs as FFMA, in full f32, since Hopper's tensor cores have
-no f32 mode; int8 on WMMA.  Where the output tiles are too few to fill the
-card (the serving shapes, M = 32), K is split into slices whose partial
-tiles (f32, or int32 for int8) a second kernel sums in order; the wrapper
-allocates them.  The row blocks lie on the grid's second axis, which holds
-65535 blocks: a product of more than 64 * 65535 = 4,194,240 rows (an int8
-engine's first conv beyond batch 83) runs in chunks of that many rows, one
-launch each.  What bounds it and how it is tiled is in the note at the top
-of ``csrc/matmul.cu``.
+nothing is padded.  K1 is two kernels a type, chosen from the shape before
+launch (``_route``): products that TMA can describe run on ``wgmma`` fed by
+TMA (bf16 and f16 with K and N multiples of 8, int8 with K a multiple of 16,
+both bases on 16 bytes), the rest (the transformer head's N = 2, ragged K or
+N, conv1_1's K = 27 if it came unpadded) on the WMMA kernel.  bf16 and f16
+take 128-row blocks for large products bound by their operations and
+64-row blocks elsewhere; int8 takes 128-row blocks unless M <= 64.  f32 runs
+as FFMA, in full f32, since Hopper's tensor cores have no f32 mode.  Where
+the output tiles are too few to fill the card (the serving shapes, M = 32),
+K is split into slices whose partial tiles (f32, or int32 for int8) a second
+kernel sums in order; the wrapper allocates them.  The WMMA kernels' row
+blocks lie on the grid's second axis, which holds 65535 blocks: a product of
+more than 64 * 65535 = 4,194,240 rows runs there in chunks of that many
+rows, one launch each (the wgmma kernels need none).  What bounds it and how
+it is tiled is in the note at the top of ``csrc/matmul.cu``.
 
-``plain`` is the same function in plain PyTorch.  ``matmul`` takes it for
-tensors on the CPU, where no kernel can run; for CUDA tensors it launches the
-kernel or raises.  ``launches`` counts the float launches (both kernels),
-``launchesWgmma`` those of them on ``wgmma`` and ``launchesInt8`` the int8
-ones, so a run can show that its products went through the kernels.
+For 8-bit types ``wgmma`` reads both operands K-major, so K1-int8 on
+``wgmma`` takes B as B^T, an (N, K) table: ``matmulNT(a, bt)`` computes (M,
+K) @ (N, K)^T into int32, and the int8 engine lays its weight tables out
+that way once, at build time.  ``matmul(a, b)`` with a row-major int8 (K, N)
+``b`` keeps its contract: on the card it lays ``b`` out as B^T at each call
+and launches the same kernel.  ``matmulNT`` on a shape the WMMA kernel takes
+lays ``bt`` out as (K, N) at each call.
 
-``matmulOp`` is ``matmul`` registered as the custom operator
-``puzzlelib::matmul``, with a shape function.  ``matmul`` hands a fake
-tensor, which is what ``torch.export`` traces with, to it, so that an
-engine's graph records the kernel instead of the ctypes call, which cannot
-run there; on real tensors ``matmul`` launches directly, without the
-operator's dispatch.
+``plain`` and ``plainNT`` are the same functions in plain PyTorch.  The
+wrappers take them for tensors on the CPU, where no kernel can run; for CUDA
+tensors they launch the kernel or raise.  ``launches`` counts the float
+launches (both kernels), ``launchesWgmma`` those of them on ``wgmma``,
+``launchesInt8`` the int8 ones (both kernels) and ``launchesInt8Wgmma``
+those of them on ``wgmma``, so a run can show that its products went
+through the kernels.
+
+``matmulOp`` and ``matmulNTOp`` are ``matmul`` and ``matmulNT`` registered as
+the custom operators ``puzzlelib::matmul`` and ``puzzlelib::matmul_nt``, with
+shape functions.  The wrappers hand a fake tensor, which is what
+``torch.export`` traces with, to them, so that an engine's graph records the
+kernel instead of the ctypes call, which cannot run there; on real tensors
+they launch directly, without the operator's dispatch.
 """
 
 import ctypes
@@ -46,11 +57,12 @@ from puzzlelib_tpu_torch.ops.hopper import build
 launches = 0
 launchesWgmma = 0
 launchesInt8 = 0
+launchesInt8Wgmma = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
 
-# the bytes of one vector load, in elements of each type, and the kernel's
-# block rows (a grid's second axis holds at most 65535 blocks of them)
+# the bytes of one vector load, in elements of each type, and the tiled
+# kernels' block rows (a grid's second axis holds at most 65535 blocks of them)
 _VECTOR = {torch.float32: 8, torch.bfloat16: 8, torch.float16: 8, torch.int8: 16}
 _BLOCK_ROWS, _MAX_GRID_Y = 64, 65535
 
@@ -83,6 +95,11 @@ def plain(a, b):
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+def plainNT(a, bt):
+    """int8 (M, K) @ (N, K)^T, the exact int32 product, as ``plain``."""
+    return plain(a, bt.t())
+
+
 def _entries():
     lib = build.load("matmul")
 
@@ -107,6 +124,33 @@ def _check(a, b):
                         (a.dtype, b.dtype))
 
 
+def _onCard(a, b, name):
+    if a.device.type != "cuda":
+        raise ValueError("%s runs on CUDA or CPU tensors, got %s" % (name, a.device))
+
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("%s takes contiguous row-major operands" % name)
+
+
+def _pathOf(a, b, n):
+    """``_route``'s path for ``a`` (M, K) against a second operand ``b`` of
+    N columns (or N rows, for B^T) on ``a``'s card."""
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    m, k = a.shape
+    return _route(m, n, k, a.dtype, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0, sms)
+
+
+def _checkNT(a, bt):
+    if a.device != bt.device:
+        raise ValueError("matmulNT operands on %s and %s" % (a.device, bt.device))
+
+    if a.dim() != 2 or bt.dim() != 2 or a.shape[1] != bt.shape[1]:
+        raise ValueError("matmulNT takes (M, K) @ (N, K)^T, got %s @ %s^T" % (tuple(a.shape), tuple(bt.shape)))
+
+    if a.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise TypeError("matmulNT takes two int8 matrices, got %s and %s" % (a.dtype, bt.dtype))
+
+
 def matmul(a, b):
     """a (M, K) @ b (K, N) -> (M, N) in a's type (int32 for int8), through
     kernel K1."""
@@ -118,38 +162,73 @@ def matmul(a, b):
     if a.device.type == "cpu":
         return plain(a, b)
 
-    if a.device.type != "cuda":
-        raise ValueError("matmul runs on CUDA or CPU tensors, got %s" % a.device)
+    _onCard(a, b, "matmul")
 
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul takes contiguous row-major operands")
-
-    m, k = a.shape
     n = b.shape[1]
-    out = torch.empty((m, n), dtype=_outType(a.dtype), device=a.device)
+    out = torch.empty((a.shape[0], n), dtype=_outType(a.dtype), device=a.device)
 
-    # the row blocks sit on the grid's second axis: longer products run in
-    # chunks of rows, one launch each
-    for row in range(0, m, _BLOCK_ROWS * _MAX_GRID_Y):
-        rows = slice(row, row + _BLOCK_ROWS * _MAX_GRID_Y)
-        _launch(a[rows], b, out[rows])
+    path = _pathOf(a, b, n)
+    if a.dtype == torch.int8 and path.startswith("wgmma"):
+        # wgmma reads B^T (N, K): laid out here, at each call (an engine
+        # holds its tables laid out and calls matmulNT)
+        _launch(a, b.t().contiguous(), out, path)
+    else:
+        _launchRows(a, b, out, path)
+
+    return out
+
+
+def matmulNT(a, bt):
+    """int8 a (M, K) @ bt (N, K)^T -> int32 (M, N), through kernel K1-int8:
+    on ``wgmma`` where TMA can describe the operands, ``bt`` as it is; on the
+    WMMA kernel otherwise, ``bt`` laid out as (K, N) at each call."""
+    if is_fake(a):
+        return matmulNTOp(a, bt)
+
+    _checkNT(a, bt)
+
+    if a.device.type == "cpu":
+        return plainNT(a, bt)
+
+    _onCard(a, bt, "matmulNT")
+
+    n = bt.shape[0]
+    out = torch.empty((a.shape[0], n), dtype=torch.int32, device=a.device)
+
+    path = _pathOf(a, bt, n)
+    if path.startswith("wgmma"):
+        _launch(a, bt, out, path)
+    else:
+        _launchRows(a, bt.t().contiguous(), out, path)
 
     return out
 
 
 def _route(m, n, k, dtype, aligned, sms):
     """The kernel path of an (m, k) @ (k, n) product of ``dtype`` on a card
-    of ``sms`` SMs, chosen from the shape alone, never from a failure.  bf16
-    and f16 products that TMA can describe (K and N multiples of 8, both
-    bases on 16 bytes: ``aligned``) go to wgmma.  Two consumer warpgroups a
-    block (128 rows) halve the traffic through L2 that binds an
-    operations-bound product, but only one such block fits an SM: they take
-    the products that are bound by their operations and whose 128-row tiles
-    alone give two blocks an SM, so that split-K stays off.  The rest (the
-    slices' products, bound by their bytes) take one warpgroup (64 rows),
-    two blocks an SM.  Products that TMA cannot describe go to the tiled
-    kernels, with 16-byte loads where K, N and the bases allow."""
+    of ``sms`` SMs, chosen from the shape alone, never from a failure.
+    Products that TMA can describe go to wgmma: bf16 and f16 with K and N
+    multiples of 8, int8 with K a multiple of 16 (its rows of 16-byte
+    multiples), both bases on 16 bytes (``aligned``), M, N and K above 0.
+
+    bf16 and f16: two consumer warpgroups a block (128 rows) halve the
+    traffic through L2 that binds an operations-bound product, but only one
+    such block fits an SM: they take the products that are bound by their
+    operations and whose 128-row tiles alone give two blocks an SM, so that
+    split-K stays off.  The rest (the slices' products, bound by their
+    bytes) take one warpgroup (64 rows), two blocks an SM.
+
+    int8: 128-row blocks with all of N up to 256 columns, so that a tall
+    conv product reads A once and shares each walked tile of B^T between
+    two warpgroups; 64-row blocks of 128 columns where M <= 64 (the fc
+    layers at batch 32, whose rows would leave a second warpgroup idle).
+
+    Products that TMA cannot describe go to the tiled kernels, with 16-byte
+    loads where K, N and the bases allow."""
     vec = aligned and k % _VECTOR[dtype] == 0 and n % _VECTOR[dtype] == 0
+    if min(m, n, k) > 0 and dtype == torch.int8 and aligned and k % 16 == 0:
+        return "wgmma-64" if m <= 64 else "wgmma-128"
+
     if vec and dtype in (torch.bfloat16, torch.float16) and min(m, n, k) > 0:
         operationsBound = m * n * k > _RIDGE * (m * k + k * n + m * n)   # 2 m n k FLOP against 2-byte elements
         tiles = -(-m // 128) * -(-n // 128)
@@ -158,15 +237,22 @@ def _route(m, n, k, dtype, aligned, sms):
     return "tiled-vec" if vec else "tiled"
 
 
-def _launch(a, b, out, path=None):
-    """One launch of K1 on ``path`` (``_route``'s choice unless given: the
-    measurement of the WMMA kernel beside the new one names its path)."""
+def _launchRows(a, b, out, path):
+    """K1 on a tiled path, whose row blocks sit on the grid's second axis:
+    longer products run in chunks of rows, one launch each."""
+    for row in range(0, a.shape[0], _BLOCK_ROWS * _MAX_GRID_Y):
+        rows = slice(row, row + _BLOCK_ROWS * _MAX_GRID_Y)
+        _launch(a[rows], b, out[rows], path)
+
+
+def _launch(a, b, out, path):
+    """One launch of K1 on ``path`` into ``out`` (M, N): ``b`` is the (K, N)
+    matrix, or for int8 on a wgmma path the (N, K) table B^T.  The
+    measurement of the WMMA kernel beside the new one names its path."""
     m, k = a.shape
-    n = b.shape[1]
+    n = out.shape[1]
 
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    if path is None:
-        path = _route(m, n, k, a.dtype, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0, sms)
     splitsOf, launch = _entries()
 
     # K slices, each a partial tile (f32; int32 for int8) that a second kernel sums
@@ -185,9 +271,11 @@ def _launch(a, b, out, path=None):
         raise RuntimeError("matmul kernel launch failed for %s @ %s %s on path %s: cudaError %d" %
                            (tuple(a.shape), tuple(b.shape), a.dtype, path, err))
 
-    global launches, launchesWgmma, launchesInt8
+    global launches, launchesWgmma, launchesInt8, launchesInt8Wgmma
     if a.dtype == torch.int8:
         launchesInt8 += 1
+        if path.startswith("wgmma"):
+            launchesInt8Wgmma += 1
     else:
         launches += 1
         if path.startswith("wgmma"):
@@ -203,3 +291,14 @@ def matmulOp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _matmulShape(a, b):
     _check(a, b)
     return a.new_empty((a.shape[0], b.shape[1]), dtype=_outType(a.dtype))
+
+
+@torch.library.custom_op("puzzlelib::matmul_nt", mutates_args=())
+def matmulNTOp(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    return matmulNT(a, bt)
+
+
+@matmulNTOp.register_fake
+def _matmulNTShape(a, bt):
+    _checkNT(a, bt)
+    return a.new_empty((a.shape[0], bt.shape[0]), dtype=torch.int32)

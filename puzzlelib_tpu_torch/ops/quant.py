@@ -3,13 +3,17 @@
 
 Activations are quantized symmetrically with a calibrated per-tensor scale,
 weights per output channel, and every integer product goes to kernel K1-int8
-(``ops/hopper/matmul.py``; in a trace its custom operator): int8 operands,
-an exact int32 accumulator, int32 out.  The reference leaves its
-products to XLA (``lax.dot_general`` and ``lax.conv_general_dilated`` at
+(``ops/hopper/matmul.py`` ``matmulNT``; in a trace its custom operator):
+int8 operands, an exact int32 accumulator, int32 out.  The reference leaves
+its products to XLA (``lax.dot_general`` and ``lax.conv_general_dilated`` at
 ``preferred_element_type=int32``); integer sums are exact, so K1-int8 gives
 the same int32 values.  On CPU tensors the wrapper runs its plain version.
 Dequantisation and the bias stay in f32, in the reference's order:
 ``acc * (wscale * xscale)``, then ``+ b``.
+
+K1-int8 on ``wgmma`` reads both operands K-major, so every weight table is
+laid out once, at build time, as B^T: (out, in) for a Linear
+(``linearOperand``), (groups, O / groups, K) for a conv (``convOperand``).
 
 The conv is an im2col product: x is quantized first, then the int8 values
 are laid out channels-last, padded with zeros (quantize(0) = 0, so the
@@ -18,8 +22,11 @@ int8 matrix by one strided slice per filter tap, one product per group.
 The gather copies the int8 bytes themselves, never a float copy of them (the
 library's ``unfold`` has no int8 kernel), 8, 4 or 2 channels at a time as
 one wider integer where C allows: VGG-16's conv1_2 at batch 32 writes
-1,605,632 x 576 bytes = 0.92 GB.  The output is the NCHW view of the
-channels-last product, as K2's is.
+1,605,632 x 576 bytes = 0.92 GB.  TMA reads rows of 16-byte multiples, so a
+product's K (taps * C / groups) is padded with zeros to a multiple of 16,
+in the table at build time and in the gathered rows (conv1_1's K = 27 runs
+as 32): zero taps against zero weights leave every int32 sum as it was.
+The output is the NCHW view of the channels-last product, as K2's is.
 """
 
 import itertools
@@ -71,12 +78,19 @@ def _dequantize(acc, wscale, xscale, b):
     return out
 
 
-def quantLinear(x, wq, wscale, xscale, b):
-    """y = dequant(int8(x) @ int8(w)) + b; wq is the (in, out) table, which
-    an engine transposes once at build time for a transposed Linear; wscale
-    holds one scale per output."""
+def linearOperand(wq, transpose):
+    """An int8 Linear table as K1-int8's operand B^T, (out, in): a
+    transposed Linear's (out, in) table as it is, another's (in, out) one
+    transposed.  An engine lays it out once, at build time."""
+    wq = torch.as_tensor(wq)
+    return (wq if transpose else wq.t()).contiguous()
+
+
+def quantLinear(x, wt, wscale, xscale, b):
+    """y = dequant(int8(x) @ int8(w)) + b; wt is the (out, in) table as
+    ``linearOperand`` lays it out; wscale holds one scale per output."""
     xq = _quantizeAct(x, xscale)
-    acc = _k1.matmul(xq, wq)
+    acc = _k1.matmulNT(xq, wt)
     return _dequantize(acc, wscale, xscale, b)
 
 
@@ -84,20 +98,30 @@ def _outSize(size, k, stride, pad, dilation):
     return (size + 2 * pad - dilation * (k - 1) - 1) // stride + 1
 
 
-def im2col(xq, ksize, stride, pad, dilation):
-    """int8 NC* ``xq`` -> (N, *out, taps, C) int8, channels last: for each
-    filter tap (in row-major order over ``ksize``) the strided slice of the
-    zero-padded input that the tap meets at every output position."""
+def _padK(k):
+    """A product's K as K1-int8 takes it: a multiple of 16."""
+    return -(-k // 16) * 16
+
+
+def im2col(xq, ksize, stride, pad, dilation, kcols=None):
+    """int8 NC* ``xq`` -> (N, *out, kcols) int8, channels last: for each
+    filter tap (in row-major order over ``ksize``) the C values of the
+    strided slice of the zero-padded input that the tap meets at every
+    output position, then zeros up to ``kcols`` (taps * C by default)."""
     nd = xq.dim() - 2
+    c = xq.shape[1]
     xl = xq.movedim(1, -1)
+
+    ntaps = int(np.prod(ksize))
+    kcols = ntaps * c if kcols is None else kcols
 
     padding = []
     for p in reversed(pad):
         padding += [p, p]
 
-    # the gather moves 8, 4 or 2 channels as one wider element where C allows:
-    # the same bytes, in a fraction of the copies
-    width = next(w for w in (8, 4, 2, 1) if xq.shape[1] % w == 0)
+    # the gather moves 8, 4 or 2 channels as one wider element where C and
+    # the row allow: the same bytes, in a fraction of the copies
+    width = next(w for w in (8, 4, 2, 1) if c % w == 0 and kcols % w == 0)
     xl = F.pad(xl, [0, 0] + padding).contiguous().view(_WIDE[width])
 
     out = [_outSize(xq.shape[2 + i], ksize[i], stride[i], pad[i], dilation[i]) for i in range(nd)]
@@ -111,37 +135,43 @@ def im2col(xq, ksize, stride, pad, dilation):
 
         taps.append(xl[tuple(index)])
 
-    return torch.stack(taps, dim=-2).view(torch.int8)
+    if kcols > ntaps * c:
+        tail = taps[0].shape[:-1] + ((kcols - ntaps * c) // width, )
+        taps.append(xl.new_zeros(()).expand(tail))
+
+    return torch.cat(taps, dim=-1).view(torch.int8)
 
 
 def convOperand(wq, groups):
-    """An int8 conv table (O, C / groups, *k) as K1-int8's operands: (groups,
-    taps * C / groups, O / groups), K ordered (tap, channel) as ``im2col``
-    gathers.  An engine lays it out once, at build time."""
+    """An int8 conv table (O, C / groups, *k) as K1-int8's operands B^T:
+    (groups, O / groups, K), K = taps * C / groups ordered (tap, channel) as
+    ``im2col`` gathers, then zeros up to a multiple of 16.  An engine lays it
+    out once, at build time."""
     o, cg = wq.shape[:2]
     taps = wq[0, 0].numel()
-    wmat = wq.reshape(groups, o // groups, cg, taps).permute(0, 3, 2, 1)
-    return wmat.reshape(groups, taps * cg, o // groups).contiguous()
+    k = taps * cg
+    wmat = wq.reshape(groups, o // groups, cg, taps).transpose(2, 3).reshape(groups, o // groups, k)
+    return F.pad(wmat, (0, _padK(k) - k)).contiguous()
 
 
 def convAcc(xq, wmat, ksize, stride, pad, dilation):
     """The int32 products of the int8 conv: ``xq`` int8 NC*, ``wmat`` the
     table as ``convOperand`` lays it out, for a filter of ``ksize`` ->
     (N * prod(out), O) int32, rows in (N, *out) order.  One K1-int8 product
-    per group."""
-    groups = wmat.shape[0]
+    per group, its rows padded with zeros to the table's K."""
+    groups, _, kpad = wmat.shape
     c = xq.shape[1]
     taps = int(np.prod(ksize))
-
-    cols = im2col(xq, ksize, stride, pad, dilation)      # (N, *out, taps, C)
-    rows = cols.numel() // (taps * c)
+    k = taps * c // groups
 
     if groups == 1:
-        return _k1.matmul(cols.reshape(rows, taps * c), wmat[0])
+        cols = im2col(xq, ksize, stride, pad, dilation, kcols=kpad)   # (N, *out, kpad)
+        return _k1.matmulNT(cols.reshape(-1, kpad), wmat[0])
 
-    cols = cols.reshape(rows, taps, groups, c // groups)
+    cols = im2col(xq, ksize, stride, pad, dilation)                  # (N, *out, taps * C)
+    cols = cols.reshape(-1, taps, groups, c // groups)
     return torch.cat([
-        _k1.matmul(cols[:, :, g].reshape(rows, taps * c // groups).contiguous(), wmat[g])
+        _k1.matmulNT(F.pad(cols[:, :, g].reshape(-1, k), (0, kpad - k)).contiguous(), wmat[g])
         for g in range(groups)
     ], dim=1)
 

@@ -13,7 +13,8 @@ Times, by CUDA events behind a device sleep (``tools/timing.deviceMs``):
   (``roofline_probe.py:84-88``); here nothing rides along;
 - the NCHW -> NHWC transpose of (32, 256, 56, 56) bf16;
 - bf16 GEMMs at 4096^3 and 8192^3 through cuBLAS (``torch.matmul``) and K1,
-  and int8 GEMMs through ``torch._int_mm`` and K1-int8;
+  and int8 GEMMs through ``torch._int_mm`` and K1-int8 (``matmulNT`` on B
+  laid out once as B^T, as the int8 engine holds its tables);
 - cuDNN 3x3 convs (``F.conv2d`` on channels-last bf16, pad 1) at ResNet-50's
   body shapes r50-56 (32, 256, 56, 56) and r50-28 (32, 512, 28, 28), which
   are VGG-16's conv3_x and conv4_x at batch 32.
@@ -127,10 +128,11 @@ def main(argv=None):
         rates["int_mm-%d" % size] = _compute("int8 %d^3 torch._int_mm" % size,
                                              deviceMs(lambda: torch._int_mm(ai, bi), iters), ops, INT8_OP_PER_S,
                                              "TOP/s")
+        bti = bi.t().contiguous()   # the K-major table K1-int8 on wgmma reads, laid out once
         rates["K1-int8-%d" % size] = _compute("int8 %d^3 K1-int8" % size,
-                                              deviceMs(lambda: matmul.matmul(ai, bi), iters), ops, INT8_OP_PER_S,
+                                              deviceMs(lambda: matmul.matmulNT(ai, bti), iters), ops, INT8_OP_PER_S,
                                               "TOP/s")
-        del a, b, ai, bi
+        del a, b, ai, bi, bti
 
     # -- cuDNN direct 3x3 convs (NHWC) ---------------------------------------
     for name, (n, c, h, w), co in CONV_SHAPES:

@@ -28,8 +28,9 @@ from puzzlelib_tpu_torch.handlers import Calculator
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# a K1-int8 product in the exported graph: int8 operands, an int32 result
-_INT8_OP = re.compile(r'"i32\[[0-9, ]*\]" = torch\.ops\.puzzlelib\.matmul\.default\((\w+), (\w+)\)')
+# a K1-int8 product in the exported graph: int8 operands (the activations and
+# the K-major table), an int32 result
+_INT8_OP = re.compile(r'"i32\[[0-9, ]*\]" = torch\.ops\.puzzlelib\.matmul_nt\.default\((\w+), (\w+)\)')
 
 
 def _jax():
@@ -428,9 +429,11 @@ def testProbeKernelExactOnCard():
 
 @pytest.mark.cuda
 def testNarrowInt8EngineOnCard(monkeypatch, tmp_path):
-    """A narrow int8 engine built and served on the card launches K1-int8 once
-    per quantized module per batch and nothing else, and with the same scales
-    gives the CPU engine's output (exact products, the same f32 statements)."""
+    """A narrow int8 engine built, saved and reloaded on the card launches
+    K1-int8 once per quantized module per batch, every launch on wgmma, and
+    nothing else; its graph records ``puzzlelib::matmul_nt`` once a module;
+    with the same scales it gives the CPU engine's output (exact products,
+    the same f32 statements)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ built with nvcc")
 
@@ -455,8 +458,11 @@ def testNarrowInt8EngineOnCard(monkeypatch, tmp_path):
     engine = buildEngine(net, (4, 3, 16, 16), str(tmp_path), dtype="int8", name="cuda", calibrator=scales)
     assert engine.device.type == "cuda"
 
-    before = (matmul.launchesInt8, matmul.launches, winograd.launches)
-    got = Calculator(engine, batchsize=4).calcFromHost(x)
+    assert len(_INT8_OP.findall((tmp_path / "cuda.int8.graph.txt").read_text())) == 5
 
-    assert (matmul.launchesInt8 - before[0], matmul.launches - before[1], winograd.launches - before[2]) == (15, 0, 0)
+    before = (matmul.launchesInt8, matmul.launchesInt8Wgmma, matmul.launches, winograd.launches)
+    got = Calculator(engine, batchsize=4).calcFromHost(x)
+    after = (matmul.launchesInt8, matmul.launchesInt8Wgmma, matmul.launches, winograd.launches)
+
+    assert tuple(y - x for x, y in zip(before, after)) == (15, 15, 0, 0)
     assert _relL2(got, want) <= 1e-6

@@ -176,14 +176,26 @@ def testKernelMatchesPlainOnCard(dtype, bound):
     (32, 4096, 4096, torch.bfloat16, False, "tiled"),      # a base off 16 bytes
     (64, 8, 0, torch.bfloat16, True, "tiled-vec"),         # K = 0: TMA describes no empty matrix
     (32, 4096, 4096, torch.float32, True, "tiled-vec"),    # f32 stays on FFMA
-    (32, 4096, 4096, torch.int8, True, "tiled-vec"),       # int8 stays on K1-int8
-    (32, 1000, 27, torch.int8, True, "tiled"),
+    (32, 4096, 4096, torch.int8, True, "wgmma-64"),        # fc7 at batch 32: int8 on wgmma, 64 rows
+    (32, 1000, 27, torch.int8, True, "tiled"),             # K off a multiple of 16: WMMA
+    (32, 4096, 25088, torch.int8, True, "wgmma-64"),       # fc6
+    (32, 1000, 4096, torch.int8, True, "wgmma-64"),        # fc8: N off 16 is no bar for B^T's rows
+    (1605632, 64, 32, torch.int8, True, "wgmma-128"),      # conv1_1 with K padded to 32
+    (1605632, 64, 576, torch.int8, True, "wgmma-128"),     # conv1_2
+    (100352, 256, 2304, torch.int8, True, "wgmma-128"),    # conv3_2
+    (6272, 512, 4608, torch.int8, True, "wgmma-128"),      # conv5_1
+    (64, 17, 16, torch.int8, True, "wgmma-64"),            # the last row count on 64-row blocks
+    (65, 17, 48, torch.int8, True, "wgmma-128"),
+    (100, 60, 200, torch.int8, True, "tiled"),             # the ragged shape: K off 16
+    (100, 64, 208, torch.int8, False, "tiled"),            # a base off 16 bytes
+    (64, 16, 0, torch.int8, True, "tiled-vec"),            # K = 0: TMA describes no empty matrix
 ])
 def testRouteChoosesTheKernelFromTheShape(m, n, k, dtype, aligned, path):
     """bf16 and f16 products that TMA can describe go to wgmma, with 128-row
     blocks where the operations bind and the tiles fill an H100's 132 SMs
-    twice; N = 2, ragged shapes, unaligned bases, f32 and int8 stay on the
-    tiled kernels."""
+    twice; int8 products with K a multiple of 16 go to wgmma too, with
+    64-row blocks where M <= 64 and 128-row ones elsewhere; N = 2, ragged
+    shapes, unaligned bases and f32 stay on the tiled kernels."""
     from puzzlelib_tpu_torch.ops.hopper import matmul
 
     assert matmul._route(m, n, k, dtype, aligned, 132) == path

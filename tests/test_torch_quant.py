@@ -1,11 +1,13 @@
 """Kernel K1-int8 (the port's int8 -> int32 GEMM), the int8 primitives of
 ``ops/quant.py`` and the ``DataCalibrator``, against the JAX package.
 
-On the CPU the GEMM wrapper runs its plain version, which is held exactly to
-the Pallas kernel in interpret mode (as tests/test_pallas.py runs it); the
-quantized Linear and conv are held to the reference's XLA int8 products,
-exactly for the int32 products and within 1e-6 relative for the dequantized
-outputs.  The CUDA cases run only where a card is present.
+On the CPU the GEMM wrappers (``matmul``, and ``matmulNT`` with the K-major
+table B^T) run their plain versions, which are held exactly to the Pallas
+kernel in interpret mode (as tests/test_pallas.py runs it); the quantized
+Linear and conv, on the K-major tables the engine lays out, are held to the
+reference's XLA int8 products, exactly for the int32 products and within
+1e-6 relative for the dequantized outputs.  The CUDA cases run only where a
+card is present.
 """
 
 import numpy as np
@@ -69,6 +71,43 @@ def testInt8PlainMatchesPallasInterpret(m, k, n, padded):
     assert (matmul.launches, matmul.launchesInt8) == before   # the CPU takes the plain version
 
 
+@pytest.mark.parametrize("m, k, n", [(100, 200, 60), (33, 27, 17), (130, 144, 72), (1, 32, 300)])
+def testInt8PlainNTMatchesPallasInterpret(m, k, n):
+    """``matmulNT`` (a @ bt^T with the (N, K) table) and its operator equal
+    the Pallas kernel on the (K, N) matrix exactly, on ragged shapes
+    (``matmulPadded``, the int8 granule of 32 rows)."""
+    jnp, _ = _jax()
+    from puzzlelib_tpu.ops.pallas.matmul import matmulPadded
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    rng = np.random.RandomState(13)
+    a, bt = _int8(rng, m, k), _int8(rng, n, k)
+
+    want = np.asarray(matmulPadded(jnp.asarray(a), jnp.asarray(np.ascontiguousarray(bt.T)), bm=128, bn=128, bk=128,
+                                   interpret=True))
+
+    before = (matmul.launchesInt8, matmul.launchesInt8Wgmma)
+    for got in (matmul.matmulNT(torch.from_numpy(a), torch.from_numpy(bt)),
+                matmul.matmulNTOp(torch.from_numpy(a), torch.from_numpy(bt))):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+        assert np.array_equal(got.numpy(), want)
+
+    assert (matmul.launchesInt8, matmul.launchesInt8Wgmma) == before   # the CPU takes the plain version
+
+
+def testMatmulNTRejectsWhatTheKernelDoesNotTake():
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    with pytest.raises(ValueError):
+        matmul.matmulNT(torch.zeros(4, 5, dtype=torch.int8), torch.zeros(5, 3, dtype=torch.int8))
+
+    with pytest.raises(TypeError):
+        matmul.matmulNT(torch.zeros(4, 5), torch.zeros(3, 5))
+
+    with pytest.raises(TypeError):
+        matmul.matmulNT(torch.zeros(4, 5, dtype=torch.int8), torch.zeros(3, 5, dtype=torch.int32))
+
+
 def testInt8PlainDoesNotWrapAround():
     """``torch.matmul`` of two int8 tensors returns int8 on the CPU and wraps;
     the plain version gives the exact int32 sum, up to K * 127^2."""
@@ -115,7 +154,8 @@ def testQuantLinearTwin(transpose, bias):
     """The int32 products exactly (against ``lax.dot_general`` at
     ``preferred_element_type=int32``), the outputs within 1e-6 relative.  The
     reference takes a transposed Linear's (out, in) table as it is; the port
-    takes the (in, out) table an engine lays out once at build time."""
+    takes the K-major (out, in) table an engine lays out once at build time
+    (``linearOperand``)."""
     jnp, lax = _jax()
     from puzzlelib_tpu.ops import quant as jquant
     from puzzlelib_tpu_torch.ops import quant
@@ -126,7 +166,7 @@ def testQuantLinearTwin(transpose, bias):
     wq, wscale, xscale = _quantOperands(rng, (outsize, insize) if transpose else (insize, outsize),
                                         0 if transpose else 1)
     b = rng.randn(outsize).astype(np.float32) if bias else None
-    operand = torch.from_numpy(np.ascontiguousarray(wq.T if transpose else wq))
+    operand = quant.linearOperand(torch.from_numpy(wq), transpose)
 
     want = np.asarray(jquant.quantLinear(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wscale), xscale,
                                          None if b is None else jnp.asarray(b), transpose=transpose))
@@ -138,15 +178,33 @@ def testQuantLinearTwin(transpose, bias):
 
     jacc = lax.dot_general(jnp.asarray(xq), jnp.asarray(wq), (((1, ), (1 if transpose else 0, )), ((), ())),
                            preferred_element_type=jnp.int32)
-    acc = quant._k1.matmul(torch.from_numpy(xq), operand)
+    acc = quant._k1.matmulNT(torch.from_numpy(xq), operand)
     assert np.array_equal(acc.numpy(), np.asarray(jacc))
 
     assert got.dtype == np.float32 and got.shape == want.shape == (10, outsize)
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("transpose", [False, True])
+def testLinearOperandGivesTheSameProducts(transpose):
+    """The K-major (out, in) table gives the int32 products that the (in,
+    out) table gave through ``matmul``, exactly."""
+    from puzzlelib_tpu_torch.ops import quant
+
+    rng = np.random.RandomState(14)
+    insize, outsize = 40, 24
+    wq = _int8(rng, outsize, insize) if transpose else _int8(rng, insize, outsize)
+    x = torch.from_numpy(_int8(rng, 7, insize))
+    old = torch.from_numpy(np.ascontiguousarray(wq.T if transpose else wq))   # (in, out)
+
+    wt = quant.linearOperand(torch.from_numpy(wq), transpose)
+    assert tuple(wt.shape) == (outsize, insize) and wt.is_contiguous() and torch.equal(wt, old.t())
+    assert torch.equal(quant._k1.matmulNT(x, wt), quant._k1.matmul(x, old))
+
+
 # (x shape, w shape, stride, pad, dilation, groups): strided, padded, dilated,
-# grouped, all at once, and the 1-d and 3-d convs
+# grouped, all at once, the 1-d and 3-d convs, and conv1_1's three channels
+# (K = 27, padded to 32)
 _CONVS = [
     ((2, 6, 9, 9), (8, 6, 3, 3), (2, 2), (0, 0), (1, 1), 1),
     ((2, 6, 9, 9), (8, 6, 3, 3), (1, 1), (1, 2), (1, 1), 1),
@@ -155,6 +213,7 @@ _CONVS = [
     ((2, 8, 12, 11), (12, 2, 3, 2), (2, 1), (1, 2), (2, 1), 4),
     ((3, 4, 17), (5, 4, 5), (2, ), (2, ), (1, ), 1),
     ((1, 4, 6, 6, 6), (6, 2, 3, 3, 3), (1, 1, 1), (1, 1, 1), (1, 1, 1), 2),
+    ((2, 3, 9, 9), (8, 3, 3, 3), (1, 1), (1, 1), (1, 1), 1),
 ]
 
 
@@ -192,6 +251,76 @@ def testQuantConvNdTwin(xshape, wshape, stride, pad, dilation, groups):
 
     assert got.dtype == np.float32 and got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("xshape, wshape, stride, pad, dilation, groups", _CONVS)
+def testConvOperandGivesTheSameProducts(xshape, wshape, stride, pad, dilation, groups):
+    """The K-major table (groups, O / groups, K padded to 16) holds the old
+    (groups, K, O / groups) table transposed, then zeros, and ``convAcc``
+    gives the int32 products that the old table gave through ``matmul`` on
+    the unpadded im2col rows, exactly."""
+    from puzzlelib_tpu_torch.ops import quant
+
+    rng = np.random.RandomState(15)
+    xq = torch.from_numpy(_int8(rng, *xshape))
+    wq = torch.from_numpy(_int8(rng, *wshape))
+    o, cg = wshape[:2]
+    taps = int(np.prod(wshape[2:]))
+    k = taps * cg
+
+    old = wq.reshape(groups, o // groups, cg, taps).permute(0, 3, 2, 1).reshape(groups, k, o // groups)
+    wmat = quant.convOperand(wq, groups)
+    kpad = wmat.shape[2]
+
+    assert tuple(wmat.shape[:2]) == (groups, o // groups) and kpad % 16 == 0 and k <= kpad < k + 16
+    assert torch.equal(wmat[:, :, :k], old.transpose(1, 2)) and not wmat[:, :, k:].any()
+
+    cols = quant.im2col(xq, wshape[2:], stride, pad, dilation)
+    rows = cols.numel() // (taps * xshape[1])
+    cols = cols.reshape(rows, taps, groups, cg)
+    want = torch.cat([quant._k1.matmul(cols[:, :, g].reshape(rows, k).contiguous(), old[g].contiguous())
+                      for g in range(groups)], dim=1)
+
+    assert torch.equal(quant.convAcc(xq, wmat, wshape[2:], stride, pad, dilation), want)
+
+
+# VGG-16's 13 convs: (input channels, output channels), 3x3 at pad 1
+_VGG_CONVS = [(3, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256), (256, 256), (256, 512),
+              (512, 512), (512, 512), (512, 512), (512, 512), (512, 512)]
+
+
+def testEveryVggConvProductTakesWgmma(monkeypatch):
+    """Each of VGG-16's 13 int8 conv products, conv1_1's K = 27 padded to
+    32, is one that the route sends to K1-int8 on ``wgmma`` (K a multiple of
+    16, 16-byte bases), and the padded products equal
+    ``lax.conv_general_dilated``'s int32 sums exactly (at 6 x 6 inputs)."""
+    jnp, lax = _jax()
+    from puzzlelib_tpu_torch.ops import quant
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    products = []
+    original = matmul.matmulNT
+
+    def recording(a, bt):
+        aligned = a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0
+        products.append(matmul._route(a.shape[0], bt.shape[0], a.shape[1], a.dtype, aligned, 132))
+        return original(a, bt)
+
+    monkeypatch.setattr(matmul, "matmulNT", recording)
+
+    rng = np.random.RandomState(16)
+    for c, o in _VGG_CONVS:
+        xq, wq = _int8(rng, 2, c, 6, 6), _int8(rng, o, c, 3, 3)
+        wmat = quant.convOperand(torch.from_numpy(wq), 1)
+        assert wmat.shape[2] == (32 if c == 3 else 9 * c)
+
+        got = quant.convAcc(torch.from_numpy(xq), wmat, (3, 3), (1, 1), (1, 1), (1, 1))
+        want = np.asarray(lax.conv_general_dilated(
+            jnp.asarray(xq), jnp.asarray(wq), window_strides=(1, 1), padding=[(1, 1), (1, 1)],
+            dimension_numbers=("NCHW", "OIHW", "NCHW"), preferred_element_type=jnp.int32))
+        assert np.array_equal(got.reshape(2, 6, 6, o).permute(0, 3, 1, 2).numpy(), want)
+
+    assert products == ["wgmma-128"] * 13
 
 
 def _narrowNets():
@@ -314,25 +443,27 @@ def testQuantConvOnCardMatchesCpu():
 
 @pytest.mark.cuda
 def testInt8KernelBeyondOneGridOfRows():
-    """A product of more rows than the grid's second axis holds in blocks
-    (64 * 65535), as an int8 engine's first conv gives beyond batch 83, runs
-    in two launches and equals its plain version exactly; so does a narrow
-    int8 conv at batch 86 of 224 x 224 (4,315,136 output rows) against the
-    CPU."""
+    """A product of more rows than the WMMA kernel's grid's second axis holds
+    in blocks (64 * 65535), as an int8 engine's first conv gives beyond batch
+    83, runs in one launch on wgmma (row tiles on the grid's first axis) and,
+    with K off a multiple of 16, in two WMMA launches; both equal the plain
+    version exactly; so does a narrow int8 conv at batch 86 of 224 x 224
+    (4,315,136 output rows) against the CPU."""
     device = _cuda()
     from puzzlelib_tpu_torch.ops import quant
     from puzzlelib_tpu_torch.ops.hopper import matmul
 
-    m, k, n = 64 * 65535 + 100, 32, 16
+    m, n = 64 * 65535 + 100, 16
     gen = torch.Generator(device=device).manual_seed(1)
-    a = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
-    b = torch.randint(-127, 128, (k, n), generator=gen, device=device, dtype=torch.int8)
+    for k, launches, onWgmma in ((32, 1, 1), (24, 2, 0)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=gen, device=device, dtype=torch.int8)
 
-    before = matmul.launchesInt8
-    got = matmul.matmul(a, b)
-    assert matmul.launchesInt8 == before + 2
-    assert torch.equal(got, matmul.plain(a, b))
-    del a, got
+        before = (matmul.launchesInt8, matmul.launchesInt8Wgmma)
+        got = matmul.matmul(a, b)
+        assert (matmul.launchesInt8 - before[0], matmul.launchesInt8Wgmma - before[1]) == (launches, onWgmma)
+        assert torch.equal(got, matmul.plain(a, b))
+        del a, got
 
     rng = np.random.RandomState(12)
     x = torch.from_numpy(rng.randn(86, 3, 224, 224).astype(np.float32))
@@ -344,3 +475,114 @@ def testInt8KernelBeyondOneGridOfRows():
                             (1, 1), (1, 1), (1, 1))
 
     assert torch.equal(got.cpu(), want)
+
+
+def _cardInt8(device, seed, *shape):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n, path", [(64, 64, "wgmma-64"), (64, 128, "wgmma-64"), (128, 64, "wgmma-128"),
+                                        (128, 128, "wgmma-128"), (128, 256, "wgmma-128")])
+def testInt8WgmmaSingleTile(m, n, path):
+    """One block, one stage of four k32 products, on every ring the route
+    uses: a one-hot A picks columns of B^T and a one-hot B^T picks columns of
+    A, so a wrong descriptor of either operand shows as a wrong row or
+    column, exactly."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    k = 128
+    a, bt = _cardInt8(device, 0, m, k), _cardInt8(device, 1, n, k)
+    assert matmul._route(m, n, k, torch.int8, True, 132) == path
+
+    pick = torch.arange(m, device=device) * 5 % k
+    onehot = torch.zeros((m, k), device=device, dtype=torch.int8)
+    onehot[torch.arange(m, device=device), pick] = 1
+    assert torch.equal(matmul.matmulNT(onehot, bt), bt[:, pick].t().int())
+
+    pick = torch.arange(n, device=device) * 7 % k
+    onehot = torch.zeros((n, k), device=device, dtype=torch.int8)
+    onehot[torch.arange(n, device=device), pick] = 1
+    assert torch.equal(matmul.matmulNT(a, onehot), a[:, pick].int())
+
+    assert torch.equal(matmul.matmulNT(a, bt), matmul.plainNT(a, bt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wgmma-64", "wgmma-128"])
+@pytest.mark.parametrize("m, k, n", [(1, 128, 64), (63, 16, 8), (65, 48, 17), (130, 144, 72), (130, 400, 200),
+                                     (200, 272, 264), (130, 1040, 520), (65, 32, 1000)])
+def testInt8WgmmaTileEdges(m, k, n, path):
+    """Shapes that cross every tile edge: M of 1, 63, 65, 130 and 200, N
+    below a block, odd and off every block width (up to two column blocks
+    of 256 and beyond), K below and off a multiple of 128; on both block
+    heights.  Exact, and every output written (a sentinel fill)."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, bt = _cardInt8(device, 2, m, k), _cardInt8(device, 3, n, k)
+    got = torch.full((m, n), -2 ** 31, device=device, dtype=torch.int32)
+    before = matmul.launchesInt8Wgmma
+    matmul._launch(a, bt, got, path)
+    torch.cuda.synchronize()
+
+    assert matmul.launchesInt8Wgmma == before + 1
+    assert torch.equal(got, matmul.plainNT(a, bt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 1000, 4096])
+def testInt8WgmmaSplitK(n):
+    """fc6's K = 25088 at M = 32: several slices of int32 partials, summed in
+    order, exact, and the same bits from a second call."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    m, k = 32, 25088
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splitsOf, _ = matmul._entries()
+    assert splitsOf(m, n, k, matmul._DTYPES[torch.int8], matmul._PATHS["wgmma-64"], sms) > 1
+
+    a, bt = _cardInt8(device, 4, m, k), _cardInt8(device, 5, n, k)
+    got = matmul.matmulNT(a, bt)
+    assert torch.equal(got, matmul.plainNT(a, bt))
+    assert torch.equal(matmul.matmulNT(a, bt), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(12544, 576, 64), (12544, 1152, 128), (6272, 2304, 256), (1568, 4608, 512),
+                                     (8, 256, 64)])
+def testInt8WgmmaRepeatsBitForBit(m, k, n):
+    """The engine's conv shapes at batch 4 (and a one-block product): exact,
+    and the same bits twice."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, bt = _cardInt8(device, 6, m, k), _cardInt8(device, 7, n, k)
+    got = matmul.matmulNT(a, bt)
+    assert torch.equal(got, matmul.plainNT(a, bt))
+    assert torch.equal(matmul.matmulNT(a, bt), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n, wgmma", [(64, 128, 512, True), (300, 32, 64, True), (33, 27, 17, False),
+                                            (100, 200, 60, False)])
+def testInt8RouteCounters(m, k, n, wgmma):
+    """Every int8 launch counts in ``launchesInt8``, the wgmma ones also in
+    ``launchesInt8Wgmma``, through ``matmul`` (B laid out as B^T at the
+    call) and ``matmulNT`` (B^T laid out as B at the call for the WMMA
+    kernel) alike; the float counters stay."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, bt = _cardInt8(device, 8, m, k), _cardInt8(device, 9, n, k)
+    b = bt.t().contiguous()
+    for run in (lambda: matmul.matmul(a, b), lambda: matmul.matmulNT(a, bt)):
+        before = (matmul.launches, matmul.launchesWgmma, matmul.launchesInt8, matmul.launchesInt8Wgmma)
+        got = run()
+        after = (matmul.launches, matmul.launchesWgmma, matmul.launchesInt8, matmul.launchesInt8Wgmma)
+
+        assert tuple(y - x for x, y in zip(before, after)) == (0, 0, 1, int(wgmma))
+        assert torch.equal(got, matmul.plainNT(a, bt))
