@@ -30,8 +30,9 @@ it fails:
    M = 32) and two ragged shapes (INT8_RAGGED: K off a multiple of 16, on
    the WMMA kernel, and K a multiple of 16, on wgmma), each through
    ``matmulNT`` on a pre-laid-out B^T on the kernel its shape routes to,
-   timed in turns beside the WMMA kernel on the same operands and
-   ``torch._int_mm``, the per-call transpose of ``matmul(a, b)`` apart;
+   timed in turns beside the WMMA kernel on the same operands (which must
+   give the same int32 values) and ``torch._int_mm``, the per-call
+   transpose of ``matmul(a, b)`` apart, each bound at the function's own K;
    then the request's 16 products on both kernels and whether the wgmma
    kernel met its landing rule (printed, not a gate);
 4. K2 (Winograd conv), K2-bwd (K2 as the stride-1 bwd-data,
@@ -184,10 +185,11 @@ GEMM_SHAPES = [
 ]
 
 # (name, M, K, N, launches per request): the int8 engine's products at batch
-# 32, each conv an im2col product (M = 32 OH OW, K = 9 C, N = O; conv1_1's K
-# = 27 padded with zeros to 32, as the engine runs it)
+# 32, each conv an im2col product (M = 32 OH OW, K = 9 C, N = O).  K is the
+# function's own; the engine runs each K padded with zeros to a multiple of
+# 16 (conv1_1's 27 as 32), and so does [K1-int8]
 INT8_SHAPES = [
-    ("conv1_1", BATCH * 224 * 224, 32, 64, 1),
+    ("conv1_1", BATCH * 224 * 224, 27, 64, 1),
     ("conv1_2", BATCH * 224 * 224, 576, 64, 1),
     ("conv2_1", BATCH * 112 * 112, 576, 128, 1),
     ("conv2_2", BATCH * 112 * 112, 1152, 128, 1),
@@ -981,11 +983,15 @@ def phaseGemmInt8(torch, matmul):
     main = {"max_abs_err": 0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     binding, ratios = set(), []
 
-    for name, m, k, n, count in INT8_SHAPES + INT8_RAGGED:
+    shapes = [(shape, True) for shape in INT8_SHAPES] + [(shape, False) for shape in INT8_RAGGED]
+    for (name, m, k, n, count), engine in shapes:
+        # an engine product's K padded with zeros, as the engine lays it out
+        kt = -(-k // 16) * 16 if engine else k
         a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
         bt = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        a, bt = (torch.nn.functional.pad(x, (0, kt - k)).contiguous() for x in (a, bt))
         b = bt.t().contiguous()
-        path = matmul._route(m, n, k, torch.int8, a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0, sms)
+        path = matmul._route(m, n, kt, torch.int8, a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0, sms)
 
         out, ref = matmul.matmulNT(a, bt), matmul.plain(a, b)
         again = matmul.matmulNT(a, bt)
@@ -994,11 +1000,11 @@ def phaseGemmInt8(torch, matmul):
         exact = out.dtype == torch.int32 and torch.equal(out, ref)
         repeats = torch.equal(out, again)
         absErr = (out.long() - ref.long()).abs().max().item()
-        del out, ref, again
+        del out, again
 
         # the WMMA kernel on the same operands, on the path the route gave
         # int8 before wgmma: 16-byte loads where K and N allow
-        wmmaPath = "tiled-vec" if k % 16 == 0 and n % 16 == 0 else "tiled"
+        wmmaPath = "tiled-vec" if kt % 16 == 0 and n % 16 == 0 else "tiled"
         wmmaOut = torch.empty((m, n), dtype=torch.int32, device="cuda")
         fns = [lambda: matmul.matmulNT(a, bt)]
         if path.startswith("wgmma"):
@@ -1013,15 +1019,22 @@ def phaseGemmInt8(torch, matmul):
         libMs = times[-1] if library is not None else None
         transposeMs = deviceMs(lambda: b.t().contiguous(), 10) if path.startswith("wgmma") else None
         plainMs = deviceMs(lambda: matmul.plain(a, b), 2)
+        wmmaExact = not path.startswith("wgmma") or torch.equal(wmmaOut, ref)
+        del ref
+
+        # the bound at the function's own K; at the padded K beside it
         boundMs, boundBy = bound(m * k + k * n + m * n * 4, 2 * m * k * n, INT8_OP_PER_S)
+        paddedBound = "" if kt == k else ", %.4f ms at the padded K = %d" % (
+            bound(m * kt + kt * n + m * n * 4, 2 * m * kt * n, INT8_OP_PER_S)[0], kt)
 
         print("[K1-int8] %-8s M=%d K=%d N=%d on %s: %s (max |kernel - plain| %d), second call %s; kernel %.4f ms "
-              "(%.1f TOP/s)%s, WMMA (%s) %.4f ms, plain (f64) %.4f ms, library (torch._int_mm) %s ms, bound %.4f ms "
-              "(%s)%s" %
+              "(%.1f TOP/s)%s, WMMA (%s) %.4f ms, %s, plain (f64) %.4f ms, library (torch._int_mm) %s ms, bound "
+              "%.4f ms (%s%s)%s" %
               (name, m, k, n, path, "exact" if exact else "NOT EXACT", absErr, "bit-equal" if repeats else "DIFFERENT",
                ms, 2 * m * k * n / ms / 1e9,
                "" if transposeMs is None else ", matmul(a, b)'s per-call transpose of b %.4f ms more" % transposeMs,
-               wmmaPath, wmmaMs, plainMs, "n/a" if libMs is None else "%.4f" % libMs, boundMs, boundBy,
+               wmmaPath, wmmaMs, "exact" if wmmaExact else "NOT EXACT", plainMs,
+               "n/a" if libMs is None else "%.4f" % libMs, boundMs, boundBy, paddedBound,
                "" if path.startswith("wgmma") else " (K off a multiple of 16: the WMMA kernel is the kernel)"))
 
         if not exact:
@@ -1029,6 +1042,9 @@ def phaseGemmInt8(torch, matmul):
 
         if not repeats:
             fail("K1-int8 %s gives other bits on a second call" % name)
+
+        if not wmmaExact:
+            fail("the WMMA kernel (%s) at %s differs from the plain version" % (wmmaPath, name))
 
         if count:
             main["ms"] += ms * count

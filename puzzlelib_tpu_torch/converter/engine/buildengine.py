@@ -88,7 +88,8 @@ def _patchQuantized(modules, scales):
     calibrated activation scale comes from ``scales[id(mod)]``.  Each table
     is laid out here once as the K-major operand B^T that K1-int8 on
     ``wgmma`` takes: a ``Linear``'s as (out, in) (``quant.linearOperand``), a
-    conv's as ``quant.convOperand`` gives it, K padded to a multiple of 16.
+    conv's as ``quant.convOperand`` gives it, each with K padded with zeros
+    to a multiple of 16.
     """
     from puzzlelib_tpu_torch.modules.linear import Linear
     from puzzlelib_tpu_torch.ops import quant

@@ -874,16 +874,29 @@ constexpr int I8_BK = 128;             // K values a stage: one 128-byte swizzle
 constexpr int I8_STAGES = 4;
 constexpr int SM_SMEM = 233472;        // an SM's shared memory, of which each resident block also takes 1 KB
 
+// the shared memory of an int8 ring of wg warpgroups by bn columns (the
+// stages, their full and empty mbarriers, the swizzle's alignment slack),
+// and the blocks of it that fit an SM
+__host__ __device__ constexpr int int8RingSmem(int wg, int bn)
+{
+    return I8_STAGES * (64 * wg + bn) * I8_BK + 2 * I8_STAGES * 8 + W_SWIZZLE;
+}
+
+__host__ __device__ constexpr int int8PerSm(int wg, int bn)
+{
+    return SM_SMEM / (int8RingSmem(wg, bn) + 1024);
+}
+
 // WG consumer warpgroups of 64 output rows each, one producer warp, BN
-// output columns; the blocks of this ring that fit an SM's shared memory
+// output columns
 template <int WG, int BN>
 struct Int8Ring {
     static constexpr int BM = 64 * WG;
     static constexpr int THREADS = 128 * WG + 32;
     static constexpr int A_BYTES = BM * I8_BK;
     static constexpr int STAGE = A_BYTES + BN * I8_BK;
-    static constexpr int SMEM = I8_STAGES * STAGE + 2 * I8_STAGES * 8 + W_SWIZZLE;
-    static constexpr int PER_SM = SM_SMEM / (SMEM + 1024);
+    static constexpr int SMEM = int8RingSmem(WG, BN);
+    static constexpr int PER_SM = int8PerSm(WG, BN);
 };
 
 // the block columns of an int8 product of n columns on WG warpgroups: all of
@@ -1118,11 +1131,7 @@ void tileShape(int dtype, int path, int n, int* bm, int* bn, int* bk, int* perSm
             return;
         }
         *bn = int8Bn(n, wg); *bk = I8_BK;
-        if (wg == 1)
-            *perSm = *bn == 64 ? Int8Ring<1, 64>::PER_SM : Int8Ring<1, 128>::PER_SM;
-        else
-            *perSm = *bn == 64 ? Int8Ring<2, 64>::PER_SM
-                     : *bn == 128 ? Int8Ring<2, 128>::PER_SM : Int8Ring<2, 256>::PER_SM;
+        *perSm = int8PerSm(wg, *bn);
         return;
     }
 

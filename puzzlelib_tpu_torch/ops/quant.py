@@ -14,6 +14,9 @@ Dequantisation and the bias stay in f32, in the reference's order:
 K1-int8 on ``wgmma`` reads both operands K-major, so every weight table is
 laid out once, at build time, as B^T: (out, in) for a Linear
 (``linearOperand``), (groups, O / groups, K) for a conv (``convOperand``).
+TMA reads rows of 16-byte multiples, so each table's K is padded with zeros
+to a multiple of 16, and the activations' rows with it at each product:
+zero columns against zero weights leave every int32 sum as it was.
 
 The conv is an im2col product: x is quantized first, then the int8 values
 are laid out channels-last, padded with zeros (quantize(0) = 0, so the
@@ -22,10 +25,8 @@ int8 matrix by one strided slice per filter tap, one product per group.
 The gather copies the int8 bytes themselves, never a float copy of them (the
 library's ``unfold`` has no int8 kernel), 8, 4 or 2 channels at a time as
 one wider integer where C allows: VGG-16's conv1_2 at batch 32 writes
-1,605,632 x 576 bytes = 0.92 GB.  TMA reads rows of 16-byte multiples, so a
-product's K (taps * C / groups) is padded with zeros to a multiple of 16,
-in the table at build time and in the gathered rows (conv1_1's K = 27 runs
-as 32): zero taps against zero weights leave every int32 sum as it was.
+1,605,632 x 576 bytes = 0.92 GB.  A conv product's K (taps * C / groups)
+is padded in the gathered rows themselves (conv1_1's K = 27 runs as 32).
 The output is the NCHW view of the channels-last product, as K2's is.
 """
 
@@ -78,29 +79,41 @@ def _dequantize(acc, wscale, xscale, b):
     return out
 
 
+def _padK(k):
+    """A product's K as K1-int8 takes it: a multiple of 16."""
+    return -(-k // 16) * 16
+
+
 def linearOperand(wq, transpose):
     """An int8 Linear table as K1-int8's operand B^T, (out, in): a
     transposed Linear's (out, in) table as it is, another's (in, out) one
-    transposed.  An engine lays it out once, at build time."""
+    transposed, then zeros up to in's multiple of 16.  An engine lays it out
+    once, at build time."""
     wq = torch.as_tensor(wq)
-    return (wq if transpose else wq.t()).contiguous()
+    wt = wq if transpose else wq.t()
+    return F.pad(wt, (0, _padK(wt.shape[1]) - wt.shape[1])).contiguous()
+
+
+def linearAcc(xq, wt):
+    """The int32 products of the int8 Linear: ``xq`` int8 (M, in), ``wt``
+    the table as ``linearOperand`` lays it out -> (M, out) int32, the rows
+    of ``xq`` padded with zeros to the table's K."""
+    k, kpad = xq.shape[1], wt.shape[1]
+    if kpad > k:
+        xq = F.pad(xq, (0, kpad - k))
+
+    return _k1.matmulNT(xq, wt)
 
 
 def quantLinear(x, wt, wscale, xscale, b):
     """y = dequant(int8(x) @ int8(w)) + b; wt is the (out, in) table as
     ``linearOperand`` lays it out; wscale holds one scale per output."""
-    xq = _quantizeAct(x, xscale)
-    acc = _k1.matmulNT(xq, wt)
+    acc = linearAcc(_quantizeAct(x, xscale), wt)
     return _dequantize(acc, wscale, xscale, b)
 
 
 def _outSize(size, k, stride, pad, dilation):
     return (size + 2 * pad - dilation * (k - 1) - 1) // stride + 1
-
-
-def _padK(k):
-    """A product's K as K1-int8 takes it: a multiple of 16."""
-    return -(-k // 16) * 16
 
 
 def im2col(xq, ksize, stride, pad, dilation, kcols=None):

@@ -178,7 +178,7 @@ def testQuantLinearTwin(transpose, bias):
 
     jacc = lax.dot_general(jnp.asarray(xq), jnp.asarray(wq), (((1, ), (1 if transpose else 0, )), ((), ())),
                            preferred_element_type=jnp.int32)
-    acc = quant._k1.matmulNT(torch.from_numpy(xq), operand)
+    acc = quant.linearAcc(torch.from_numpy(xq), operand)
     assert np.array_equal(acc.numpy(), np.asarray(jacc))
 
     assert got.dtype == np.float32 and got.shape == want.shape == (10, outsize)
@@ -186,9 +186,45 @@ def testQuantLinearTwin(transpose, bias):
 
 
 @pytest.mark.parametrize("transpose", [False, True])
+def testQuantLinearTwinPadsK(transpose):
+    """A Linear of 27 in-features, off a multiple of 16: its table is padded
+    with zeros to 32 once (``linearOperand``), its quantized rows at each
+    call, so its product is one that the route sends to ``wgmma`` with no
+    per-call transpose; the int32 products equal ``lax.dot_general``'s
+    exactly and the outputs the reference's within 1e-6 relative."""
+    jnp, lax = _jax()
+    from puzzlelib_tpu.ops import quant as jquant
+    from puzzlelib_tpu_torch.ops import quant
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    rng = np.random.RandomState(17)
+    insize, outsize = 27, 24
+    x = rng.randn(10, insize).astype(np.float32)
+    wq, wscale, xscale = _quantOperands(rng, (outsize, insize) if transpose else (insize, outsize),
+                                        0 if transpose else 1)
+    b = rng.randn(outsize).astype(np.float32)
+    wt = quant.linearOperand(torch.from_numpy(wq), transpose)
+    assert tuple(wt.shape) == (outsize, 32) and wt.is_contiguous() and not wt[:, insize:].any()
+    assert matmul._route(10, outsize, wt.shape[1], torch.int8, True, 132) == "wgmma-64"
+
+    want = np.asarray(jquant.quantLinear(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(wscale), xscale,
+                                         jnp.asarray(b), transpose=transpose))
+    got = quant.quantLinear(torch.from_numpy(x), wt, torch.from_numpy(wscale), xscale, torch.from_numpy(b)).numpy()
+
+    xq = np.array(jquant._quantizeAct(jnp.asarray(x), xscale))
+    jacc = lax.dot_general(jnp.asarray(xq), jnp.asarray(wq), (((1, ), (1 if transpose else 0, )), ((), ())),
+                           preferred_element_type=jnp.int32)
+    assert np.array_equal(quant.linearAcc(torch.from_numpy(xq), wt).numpy(), np.asarray(jacc))
+
+    assert got.dtype == np.float32 and got.shape == want.shape == (10, outsize)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("transpose", [False, True])
 def testLinearOperandGivesTheSameProducts(transpose):
-    """The K-major (out, in) table gives the int32 products that the (in,
-    out) table gave through ``matmul``, exactly."""
+    """The K-major (out, in) table, in padded with zeros to a multiple of
+    16, gives the int32 products that the (in, out) table gave through
+    ``matmul``, exactly."""
     from puzzlelib_tpu_torch.ops import quant
 
     rng = np.random.RandomState(14)
@@ -198,8 +234,9 @@ def testLinearOperandGivesTheSameProducts(transpose):
     old = torch.from_numpy(np.ascontiguousarray(wq.T if transpose else wq))   # (in, out)
 
     wt = quant.linearOperand(torch.from_numpy(wq), transpose)
-    assert tuple(wt.shape) == (outsize, insize) and wt.is_contiguous() and torch.equal(wt, old.t())
-    assert torch.equal(quant._k1.matmulNT(x, wt), quant._k1.matmul(x, old))
+    assert tuple(wt.shape) == (outsize, 48) and wt.is_contiguous()
+    assert torch.equal(wt[:, :insize], old.t()) and not wt[:, insize:].any()
+    assert torch.equal(quant.linearAcc(x, wt), quant._k1.matmul(x, old))
 
 
 # (x shape, w shape, stride, pad, dilation, groups): strided, padded, dilated,
@@ -586,3 +623,49 @@ def testInt8RouteCounters(m, k, n, wgmma):
 
         assert tuple(y - x for x, y in zip(before, after)) == (0, 0, 1, int(wgmma))
         assert torch.equal(got, matmul.plainNT(a, bt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(6272, 576, 64), (130, 144, 80), (32, 4096, 512), (1, 16, 16)])
+def testInt8WmmaVecExactOnCard(m, k, n):
+    """The WMMA kernel's 16-byte-load instance, which the route now reaches
+    only at an empty product and ``chip_smoke.py`` times as the yardstick,
+    equals the plain version exactly: a conv shape, tile edges, split-K at
+    M = 32 and a single element tile; every output written (a sentinel
+    fill)."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    a, b = _cardInt8(device, 10, m, k), _cardInt8(device, 11, k, n)
+    got = torch.full((m, n), -2 ** 31, device=device, dtype=torch.int32)
+    before = (matmul.launchesInt8, matmul.launchesInt8Wgmma)
+    matmul._launch(a, b, got, "tiled-vec")
+    torch.cuda.synchronize()
+
+    assert (matmul.launchesInt8, matmul.launchesInt8Wgmma) == (before[0] + 1, before[1])
+    assert torch.equal(got, matmul.plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def testQuantLinearPaddedOnCardMatchesCpu(transpose):
+    """An int8 Linear of 27 in-features on the card: its table padded once to
+    32, its product one launch on ``wgmma`` with no other launch, and its
+    values the CPU's bit for bit."""
+    device = _cuda()
+    from puzzlelib_tpu_torch.ops import quant
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    rng = np.random.RandomState(18)
+    x = torch.from_numpy(rng.randn(40, 27).astype(np.float32))
+    wq, wscale, xscale = _quantOperands(rng, (24, 27) if transpose else (27, 24), 0 if transpose else 1)
+    wt, wscale = quant.linearOperand(torch.from_numpy(wq), transpose), torch.from_numpy(wscale)
+    b = torch.from_numpy(rng.randn(24).astype(np.float32))
+
+    want = quant.quantLinear(x, wt, wscale, xscale, b)
+    before = (matmul.launches, matmul.launchesInt8, matmul.launchesInt8Wgmma)
+    got = quant.quantLinear(x.to(device), wt.to(device), wscale.to(device), xscale, b.to(device))
+    after = (matmul.launches, matmul.launchesInt8, matmul.launchesInt8Wgmma)
+
+    assert tuple(y - x for x, y in zip(before, after)) == (0, 1, 1)
+    assert torch.equal(got.cpu(), want)
