@@ -48,9 +48,10 @@ it fails:
    ``Calculator(net, batchsize=32).calcFromHost``.  The launch counters are
    reset just before and read just after that run (every K1 launch on
    wgmma, here and in [train] and [engine-bf16]; in [transformer] and
-   [transformer-train] all but the head's); the output is checked
-   for shape, finiteness and softmax rows, and fc8 of the first batch
-   against the same f32 weights run on the library route;
+   [transformer-train] all but the head's; every K4 launch on its wgmma
+   kernel in [transformer], [transformer-train] and [engine-flash]); the
+   output is checked for shape, finiteness and softmax rows, and fc8 of the
+   first batch against the same f32 weights run on the library route;
 6. the training slice: the same net without its SoftMax, in bf16, trained by
    ``Trainer(batchsize=32).trainFromHost`` with ``CrossEntropy`` and
    ``MomentumSGD`` in global state on 128 seeded images and labels (4
@@ -61,8 +62,15 @@ it fails:
    the 4 losses with the library route's;
 7. K4 (flash-attention forward) against its plain version in bf16, ``out``
    and ``lse``, at the transformer slice's shape, at the long sequences of
-   ``puzzlelib_tpu/benchmarks/attnspeed.py`` and at seqQ != seqK (causal,
-   the bottom-right offset), beside ``scaled_dot_product_attention``;
+   ``puzzlelib_tpu/benchmarks/attnspeed.py``, at seqQ != seqK (causal,
+   the bottom-right offset), at the flash engine's shape and at head dim
+   128: the wgmma kernel at the block height the wrapper routes each shape
+   to, with its second call bit for bit, and its other block height and
+   the first mma.sync kernel (the yardstick) held to the plain version too;
+   all three timed in turns, beside ``scaled_dot_product_attention``, with
+   whether the wgmma kernel met its landing rule against the yardstick
+   printed, and each kernel instance's registers, spills and shared memory
+   from the build's ptxas report (a spill in a wgmma instance fails);
 8. the transformer serving slice of ``tools/transformerslice.py``: the IMDB
    transformer classifier of ``testlib/transformertrain.py`` at full width
    (vocab 20000, seq 80, emb 128, 4 heads, 2 layers, 2 classes) in bf16 with
@@ -72,8 +80,8 @@ it fails:
    logits are checked for shape and finiteness, and the first request's
    against the same f32 weights on the library route;
 9. K5a and K5b (the flash-attention backward: dq; dk and dv) against their
-   plain version ``backwardPlain`` in bf16 at K4's shapes, at seqQ 80 >
-   seqK 48 causal (rows that see no key) and at (4, 8, 2048, 128), beside
+   plain version ``backwardPlain`` in bf16 at K4's shapes and at seqQ 80 >
+   seqK 48 causal (rows that see no key), beside
    the backward of ``scaled_dot_product_attention``; each kernel alone and
    the whole ``flash.backward`` are timed, the rest of the whole (the delta
    pass and the wrapper's set-up) printed as their difference;
@@ -106,8 +114,9 @@ it fails:
    (LayerNorm, MultiHeadAttention at emb 256, 4 heads) whose "auto" core is
    flash in bf16 on the card at seq 1024, built as a bf16 engine (K4 in its
    graph as ``puzzlelib::flash``), loaded back and served 4 requests of 8
-   with the counters reset just before and read just after (4 K4, nothing
-   else), its output within 1e-3 of the eager bf16 net's;
+   with the counters reset just before and read just after (4 K4, all on
+   the wgmma kernel, nothing else), its output within 1e-3 of the eager
+   bf16 net's;
 14. [transformer-train] (phase 10) runs the hand route a second time from
    the same start and fails unless the losses and the embedding gradient
    repeat bit for bit;
@@ -248,7 +257,8 @@ FG_BOUND_PLAIN = 1e-3
 FG_BOUND_F32 = 2e-2
 
 # K4: (name, (batch, heads, seqQ, d), seqK, causal).  The slice's shape, the
-# long sequences of puzzlelib_tpu/benchmarks/attnspeed.py, and seqQ != seqK
+# long sequences of puzzlelib_tpu/benchmarks/attnspeed.py, seqQ != seqK, the
+# flash engine's shape ([engine-flash]) and head dim 128 at a long sequence
 FLASH_SHAPES = [
     ("slice", (64, 4, 80, 32), 80, False),
     ("slice", (64, 4, 80, 32), 80, True),
@@ -257,7 +267,14 @@ FLASH_SHAPES = [
     ("long", (4, 8, 4096, 64), 4096, False),
     ("long", (4, 8, 4096, 64), 4096, True),
     ("offset", (64, 4, 80, 32), 200, True),
+    ("engine", (8, 4, 1024, 64), 1024, False),
+    ("long", (4, 8, 2048, 128), 2048, False),
 ]
+
+# K4's kernels: the wgmma kernel with 64 and 128 query rows a block (the
+# wrapper picks one by flash.blockRows), and the first mma.sync kernel, the
+# yardstick
+FLASH_PATHS = ("wgmma-64", "wgmma-128", "mma")
 
 # K4 vs its plain version, relative to max |plain|.  out: both round P to bf16
 # for the product with v and sum in f32; they differ in where P is rounded
@@ -268,10 +285,10 @@ FLASH_SHAPES = [
 FLASH_BOUND_OUT = 1e-2
 FLASH_BOUND_LSE = 1e-4
 
-# K5 (the backward) at K4's shapes, seqQ > seqK causal, whose first 32 rows
-# see no key (p = 1 for every key, as in the TPU kernels), and the long
-# sequence at head dim 128, the instances with the most registers
-FLASH_BWD_SHAPES = FLASH_SHAPES + [("blind", (64, 4, 80, 32), 48, True), ("long", (4, 8, 2048, 128), 2048, False)]
+# K5 (the backward) at K4's shapes, the long sequence at head dim 128 among
+# them (the instances with the most registers), and seqQ > seqK causal, whose
+# first 32 rows see no key (p = 1 for every key, as in the TPU kernels)
+FLASH_BWD_SHAPES = FLASH_SHAPES + [("blind", (64, 4, 80, 32), 48, True)]
 
 # K5a / K5b vs backwardPlain, relative to max |plain| of each of dq, dk, dv:
 # both round P and dS to bf16 for the products that take them and sum in
@@ -1226,26 +1243,87 @@ def _visiblePairs(seqQ, seqK, causal):
     return sum(min(seqK, i + seqK - seqQ + 1) if i + seqK - seqQ >= 0 else seqK for i in range(seqQ))
 
 
-def phaseFlash(torch, flash):
-    """K4 against its plain version at FLASH_SHAPES in bf16, beside
-    ``scaled_dot_product_attention`` (timed as a yardstick, never on the
-    path).  Returns the JSON entry's numbers at the slice's shape, not causal,
-    the one the transformer slice runs."""
+def _flashInstances(build, flash):
+    """Each kernel instance of ``csrc/flash.cu`` with its registers, spill
+    stores and loads and static shared memory, from the build's ``ptxas``
+    report, and its dynamic shared memory: ``(kernel, type, d, registers,
+    spill stores, spill loads, static bytes, dynamic bytes)``."""
+    import re
+
+    log = build.libraryPath("flash").with_suffix(".log").read_text()
+    found, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = re.search(r"(wg|mmaSync)\d+flashForwardI(13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?",
+                             entry.group(1))
+            continue
+
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+
+        used = re.search(r"Used (\d+) registers", line)
+        static = re.search(r"(\d+) bytes smem", line)
+        if used and name:
+            d = int(name.group(3))
+            kernel = "wgmma-%d" % (64 * int(name.group(4))) if name.group(1) == "wg" else "mma"
+            found.append((kernel, "bf16" if "bfloat16" in name.group(2) else "f16", d, int(used.group(1)), *spills,
+                          int(static.group(1)) if static else 0, flash.smemBytes(d, kernel)))
+            name, spills = None, (0, 0)
+
+    return sorted(found)
+
+
+def phaseFlash(torch, flash, build):
+    """K4 against its plain version at FLASH_SHAPES in bf16, on the kernel the
+    wrapper routes each shape to and on every other path of FLASH_PATHS (the
+    wgmma kernel's other block height, the first mma.sync kernel), each held to
+    the plain version and the routed one bit-equal on a second call; timed
+    in turns, beside the plain version and ``scaled_dot_product_attention``
+    (timed as a yardstick, never on the path).  Prints each instance's
+    ptxas report and whether the wgmma kernel met its landing rule (printed,
+    not a gate: a time is no correctness check).  Returns the JSON entry's
+    numbers at the slice's shape, not causal, the one the transformer slice
+    runs."""
     import torch.nn.functional as F
 
+    instances = _flashInstances(build, flash)
+    for kernel, dtName, d, regs, stores, loads, static, dynamic in instances:
+        print("[K4] ptxas %-9s %-4s d %3d: %3d registers, %d bytes spill stores, %d bytes spill loads, %d bytes "
+              "static and %d bytes dynamic shared memory" % (kernel, dtName, d, regs, stores, loads, static, dynamic))
+    if len(instances) != 3 * 2 * len(flash.HEAD_DIMS):
+        fail("the flash build reports %d kernel instances, expected %d" %
+             (len(instances), 3 * 2 * len(flash.HEAD_DIMS)))
+    if any(kernel != "mma" and stores + loads for kernel, _, _, _, stores, loads, _, _ in instances):
+        fail("a wgmma instance of K4 spills")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(5)
-    main = None
+    main, ratios = None, []
 
     for name, (b, h, seqQ, d), seqK, causal in FLASH_SHAPES:
         q, k, v = [torch.randn((b, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
                    for seq in (seqQ, seqK, seqK)]
+        routed = "wgmma-%d" % flash.blockRows(seqQ, b * h, d, sms)
 
-        (out, lse), (ref, refLse) = flash.flash(q, k, v, causal), flash.plain(q, k, v, causal)
+        ref, refLse = flash.plain(q, k, v, causal)
+        out, lse = flash.flash(q, k, v, causal)
+        again = flash.flash(q, k, v, causal)
         torch.cuda.synchronize()
-
-        errOut, errLse = relErr(torch, out, ref), relErr(torch, lse, refLse)
+        repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         absOut = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+        del again
+
+        errs = {}
+        for path in FLASH_PATHS:
+            got, gotLse = (out, lse) if path == routed else flash._launch(q, k, v, causal, path)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all()) and bool(torch.isfinite(gotLse).all())
+            errs[path] = (relErr(torch, got, ref), relErr(torch, gotLse, refLse))
+            if not finite:
+                fail("K4 %s on %s gave values that are not finite" % ((b, h, seqQ, seqK, d, causal), path))
+            del got, gotLse
         del out, lse, ref, refLse
 
         # the library's causal flag aligns top-left; bottom-right is a mask
@@ -1253,7 +1331,10 @@ def phaseFlash(torch, flash):
         if causal and seqQ != seqK:
             mask = torch.ones((seqQ, seqK), dtype=torch.bool, device="cuda").tril(diagonal=seqK - seqQ)
 
-        ms = deviceMs(lambda: flash.flash(q, k, v, causal), 10)
+        others = [path for path in FLASH_PATHS if path != routed]
+        times = _inTurns([lambda: flash.flash(q, k, v, causal)] +
+                         [lambda path=path: flash._launch(q, k, v, causal, path) for path in others])
+        ms, pathMs = times[0], dict(zip([routed] + others, times))
         plainMs = deviceMs(lambda: flash.plain(q, k, v, causal), 2)
         libMs = deviceMs(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal and mask is None), 10)
@@ -1261,21 +1342,37 @@ def phaseFlash(torch, flash):
         nbytes = (2 * b * h * seqQ * d + 2 * b * h * seqK * d) * 2 + b * h * seqQ * 4
         boundMs, boundBy = bound(nbytes, 4 * b * h * d * _visiblePairs(seqQ, seqK, causal))
 
-        print("[K4] %-6s (b, h, seqQ, d) = %s, seqK %d, causal %-5s: out rel err %.3e (bound %.0e), lse rel err "
-              "%.3e (bound %.0e); kernel %.4f ms, plain %.4f ms, scaled_dot_product_attention %.4f ms, bound %.4f ms "
-              "(%s)" % (name, (b, h, seqQ, d), seqK, causal, errOut, FLASH_BOUND_OUT, errLse, FLASH_BOUND_LSE, ms,
-                        plainMs, libMs, boundMs, boundBy))
+        print("[K4] %-6s (b, h, seqQ, d) = %s, seqK %d, causal %-5s on %s: out rel err %.3e (bound %.0e), lse rel "
+              "err %.3e (bound %.0e), second call %s; kernel %.4f ms; wgmma-64 %.4f ms, wgmma-128 %.4f ms, mma.sync "
+              "(the yardstick) %.4f ms (%.3fx of it); plain %.4f ms, scaled_dot_product_attention %.4f ms, bound "
+              "%.4f ms (%s)" %
+              (name, (b, h, seqQ, d), seqK, causal, routed, errs[routed][0], FLASH_BOUND_OUT, errs[routed][1],
+               FLASH_BOUND_LSE, "bit-equal" if repeats else "DIFFERENT", ms, pathMs["wgmma-64"],
+               pathMs["wgmma-128"], pathMs["mma"], ms / pathMs["mma"], plainMs, libMs, boundMs, boundBy))
+        print("[K4] %-6s the other paths against plain: %s" %
+              (name, ", ".join("%s out %.3e, lse %.3e" % (path, *errs[path]) for path in others)))
 
-        if not finite:
-            fail("K4 %s gave values that are not finite" % ((b, h, seqQ, seqK, d, causal), ))
+        for path, (errOut, errLse) in errs.items():
+            if not (errOut <= FLASH_BOUND_OUT and errLse <= FLASH_BOUND_LSE):
+                fail("K4 %s on %s disagrees with its plain version: out %.3e, lse %.3e" %
+                     ((b, h, seqQ, seqK, d, causal), path, errOut, errLse))
 
-        if not (errOut <= FLASH_BOUND_OUT and errLse <= FLASH_BOUND_LSE):
-            fail("K4 %s disagrees with its plain version: out %.3e, lse %.3e" %
-                 ((b, h, seqQ, seqK, d, causal), errOut, errLse))
+        if not repeats:
+            fail("K4 %s gives other bits on a second call" % ((b, h, seqQ, seqK, d, causal), ))
 
+        ratios.append((name, (b, h, seqQ, d), seqK, causal, ms / pathMs["mma"]))
         if main is None:
-            main = {"max_abs_err": absOut, "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs,
-                    "bound_by": boundBy, "library_ms": libMs}
+            main = {"max_abs_err": absOut, "ms": ms, "mma_ms": pathMs["mma"], "plain_ms": plainMs,
+                    "bound_ms": boundMs, "bound_by": boundBy, "library_ms": libMs}
+
+    # the landing rule: faster than the mma.sync kernel at every long shape and
+    # at the engine's, no more than 5 % slower at the short ones
+    short = [r for r in ratios if r[0] in ("slice", "offset")]
+    longer = [r for r in ratios if r[0] not in ("slice", "offset")]
+    met = all(r[-1] < 1.0 for r in longer) and all(r[-1] <= 1.05 for r in short)
+    print("[K4] wgmma against mma.sync (same call): %s; faster at every long and engine shape and within 5 %% at "
+          "every short one: %s" % (", ".join("%s %s/%d%s %.3fx" % (r[0], r[1], r[2], " causal" if r[3] else "", r[4])
+                                             for r in ratios), "yes" if met else "NO"))
 
     torch.cuda.empty_cache()
     return main
@@ -1417,25 +1514,27 @@ def phaseTransformerTrain(torch, card):
     snapshot = [var.data.clone() for var in variables]
 
     losses = []
-    flash.launches = flash.launchesDq = flash.launchesDkv = matmul.launches = matmul.launchesWgmma = 0
-    winograd.launches = 0
+    flash.launches = flash.launchesWgmma = flash.launchesDq = flash.launchesDkv = 0
+    matmul.launches = matmul.launchesWgmma = winograd.launches = 0
     secs = Slice.train(routes, "hopper", tokens, labels, losses)
-    launches = {"flash": flash.launches, "flashDq": flash.launchesDq, "flashDkv": flash.launchesDkv,
-                "matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches}
+    launches = {"flash": flash.launches, "flashWgmma": flash.launchesWgmma, "flashDq": flash.launchesDq,
+                "flashDkv": flash.launchesDkv, "matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma,
+                "winograd": winograd.launches}
 
     print("[transformer-train] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), Adam, %d rows "
           "in %d steps of %d: %.4f s, %.1f rows/s on %s" %
           (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
            len(tokens), Slice.STEPS, Slice.BATCH, secs, len(tokens) / secs, card))
-    print("[transformer-train] launches in that run: flash forward %d, flash dq %d, flash dk/dv %d, matmul %d (on "
-          "wgmma %d), winograd %d" % (launches["flash"], launches["flashDq"], launches["flashDkv"],
-                                      launches["matmul"], launches["matmulWgmma"], launches["winograd"]))
+    print("[transformer-train] launches in that run: flash forward %d (on wgmma %d), flash dq %d, flash dk/dv %d, "
+          "matmul %d (on wgmma %d), winograd %d" %
+          (launches["flash"], launches["flashWgmma"], launches["flashDq"], launches["flashDkv"], launches["matmul"],
+           launches["matmulWgmma"], launches["winograd"]))
 
-    # per step: one K4, one K5a and one K5b launch per attention layer (the
-    # backward reuses the forward's lse), one K1 launch per Linear forward,
-    # on wgmma but for the head's N = 2
+    # per step: one K4 (on wgmma), one K5a and one K5b launch per attention
+    # layer (the backward reuses the forward's lse), one K1 launch per Linear
+    # forward, on wgmma but for the head's N = 2
     perLayer = config["nlayers"] * Slice.STEPS
-    expected = {"flash": perLayer, "flashDq": perLayer, "flashDkv": perLayer,
+    expected = {"flash": perLayer, "flashWgmma": perLayer, "flashDq": perLayer, "flashDkv": perLayer,
                 "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.STEPS,
                 "matmulWgmma": _wgmmaGemms() * Slice.STEPS, "winograd": 0}
     if launches != expected:
@@ -1519,22 +1618,23 @@ def phaseTransformer(torch, card):
     for algo in ("torch", "hopper"):
         Slice.serve(routes, algo, tokens)
 
-    flash.launches = matmul.launches = matmul.launchesWgmma = winograd.launches = 0
+    flash.launches = flash.launchesWgmma = matmul.launches = matmul.launchesWgmma = winograd.launches = 0
     out, secs = Slice.serve(routes, "hopper", tokens)
-    launches = {"flash": flash.launches, "matmul": matmul.launches, "matmulWgmma": matmul.launchesWgmma,
-                "winograd": winograd.launches}
+    launches = {"flash": flash.launches, "flashWgmma": flash.launchesWgmma, "matmul": matmul.launches,
+                "matmulWgmma": matmul.launchesWgmma, "winograd": winograd.launches}
 
     print("[transformer] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), %d rows in %d "
           "requests of %d: %.4f s, %.1f rows/s on %s" %
           (config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
            len(tokens), Slice.REQUESTS, Slice.BATCH, secs, len(tokens) / secs, card))
-    print("[transformer] launches in that run: flash %d, matmul %d (on wgmma %d), winograd %d" %
-          (launches["flash"], launches["matmul"], launches["matmulWgmma"], launches["winograd"]))
+    print("[transformer] launches in that run: flash %d (on wgmma %d), matmul %d (on wgmma %d), winograd %d" %
+          (launches["flash"], launches["flashWgmma"], launches["matmul"], launches["matmulWgmma"],
+           launches["winograd"]))
 
-    # per request: one K4 launch per attention layer, one K1 launch per
-    # Linear (two MLP layers per block and the head's classifier), on wgmma
-    # but for the head's N = 2
-    expected = {"flash": config["nlayers"] * Slice.REQUESTS,
+    # per request: one K4 launch per attention layer, on wgmma, one K1 launch
+    # per Linear (two MLP layers per block and the head's classifier), on
+    # wgmma but for the head's N = 2
+    expected = {"flash": config["nlayers"] * Slice.REQUESTS, "flashWgmma": config["nlayers"] * Slice.REQUESTS,
                 "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.REQUESTS,
                 "matmulWgmma": _wgmmaGemms() * Slice.REQUESTS, "winograd": 0}
     if launches != expected:
@@ -1744,7 +1844,7 @@ def phaseMeasurementPath(torch, card):
                 (matmul, "launchesWgmma"), (matmul, "launchesInt8"), (matmul, "launchesInt8Wgmma"),
                 (winograd, "launches"),
                 (winograd, "dataGradLaunches"), (winograd, "filterGradLaunches"), (flash, "launches"),
-                (flash, "launchesDq"), (flash, "launchesDkv")]
+                (flash, "launchesWgmma"), (flash, "launchesDq"), (flash, "launchesDkv")]
     for module, counter in counters:
         setattr(module, counter, 0)
 
@@ -1767,7 +1867,7 @@ def phaseMeasurementPath(torch, card):
                 "K1-int8-wgmma": matmul.launchesInt8Wgmma,
                 "K2": winograd.launches - winograd.dataGradLaunches,
                 "K2-bwd": winograd.dataGradLaunches, "K3": winograd.filterGradLaunches, "K4": flash.launches,
-                "K5a": flash.launchesDq, "K5b": flash.launchesDkv}
+                "K4-wgmma": flash.launchesWgmma, "K5a": flash.launchesDq, "K5b": flash.launchesDkv}
 
     print("[measure] the probes and benchmarks ran in %.2f s on %s; launches in that run: %s" %
           (secs, card, ", ".join("%s %d" % item for item in launches.items())))
@@ -1823,16 +1923,17 @@ def phaseEngineFlash(torch, card, workdir):
     for module in (engine, clone):
         Engines.serve(module, requests, batch=batch)   # warm-up
 
-    flash.launches = matmul.launches = winograd.launches = 0
+    flash.launches = flash.launchesWgmma = matmul.launches = winograd.launches = 0
     out, secs = Engines.serve(engine, requests, batch=batch)
-    launches = {"flash": flash.launches, "matmul": matmul.launches, "winograd": winograd.launches}
+    launches = {"flash": flash.launches, "flashWgmma": flash.launchesWgmma, "matmul": matmul.launches,
+                "winograd": winograd.launches}
 
-    print("[engine-flash] %d requests of %d: %.4f s, %.1f rows/s on %s; launches in that run: flash %d, matmul %d, "
-          "winograd %d" % (REQUESTS, batch, secs, len(requests) / secs, card, launches["flash"], launches["matmul"],
-                           launches["winograd"]))
+    print("[engine-flash] %d requests of %d: %.4f s, %.1f rows/s on %s; launches in that run: flash %d (on wgmma "
+          "%d), matmul %d, winograd %d" % (REQUESTS, batch, secs, len(requests) / secs, card, launches["flash"],
+                                           launches["flashWgmma"], launches["matmul"], launches["winograd"]))
 
-    if launches != {"flash": REQUESTS, "matmul": 0, "winograd": 0}:
-        fail("expected %d K4 launches and no other, got %s" % (REQUESTS, launches))
+    if launches != {"flash": REQUESTS, "flashWgmma": REQUESTS, "matmul": 0, "winograd": 0}:
+        fail("expected %d K4 launches, all on wgmma, and no other, got %s" % (REQUESTS, launches))
 
     eager, _ = Engines.serve(clone, requests, batch=batch)
     rel = _relL2(torch.from_numpy(out), torch.from_numpy(eager))
@@ -1862,7 +1963,7 @@ def main():
     gemm, gemmTransformer = phaseGemm(torch, matmul)
     gemmInt8 = phaseGemmInt8(torch, matmul)
     wino, dataGrad, filterGrad = phaseWinograd(torch, winograd)
-    attention = phaseFlash(torch, flash)
+    attention = phaseFlash(torch, flash, build)
     serving = phaseSlice(torch, card)
     torch.cuda.empty_cache()
     training = phaseTrain(torch, card)
@@ -1915,8 +2016,10 @@ def main():
              measurement_launches=measured["K3"], **filterGrad),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
-             training_launches=transformerTrain["flash"], engine_launches=engineFlash["flash"],
-             measurement_launches=measured["K4"], **attention),
+             launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
+             training_launches_wgmma=transformerTrain["flashWgmma"], engine_launches=engineFlash["flash"],
+             engine_launches_wgmma=engineFlash["flashWgmma"], measurement_launches=measured["K4"],
+             measurement_launches_wgmma=measured["K4-wgmma"], **attention),
         dict(name="K5a flash-attention dQ", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"],
              measurement_launches=measured["K5a"], **attentionDq),
@@ -1942,7 +2045,10 @@ def main():
           "torch._int_mm; K1 at the transformer's shapes: the "
           "5 products of one request of 64 rows; K2 and K3: the 10 Winograd convs of a batch of 32, wrapper "
           "included, on NCHW operands (channels_last_ms and channels_last_library_ms on channels-last "
-          "operands, as the training path hands them over); K4: one attention layer of the transformer slice, (64, 4, 80, 32), not causal; K5a and K5b: "
+          "operands, as the training path hands them over); K4: one attention layer of the transformer slice, "
+          "(64, 4, 80, 32), not causal, its launches_wgmma (and training_, engine_, measurement_launches_wgmma) "
+          "those on the wgmma kernel, mma_ms the time of the first mma.sync kernel at the same shape in the same call; "
+          "K5a and K5b: "
           "the backward of that layer, each kernel alone, plain_ms, library_ms and backward_ms the whole backward "
           "(dq, dk, dv) of backwardPlain, of scaled_dot_product_attention and of flash.backward, the delta pass "
           "included); K4's training_launches and K5's launches the "

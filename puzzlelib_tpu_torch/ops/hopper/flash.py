@@ -36,7 +36,11 @@ backward) rounded to the input's type for the products that take them, where
 the kernels round them for the tensor cores.  ``flash`` and ``backward``
 take them for tensors on the CPU, where no kernel can run; for CUDA tensors
 they launch the kernels or raise.  ``launches``, ``launchesDq`` and
-``launchesDkv`` count kernel launches.
+``launchesDkv`` count kernel launches; ``launchesWgmma`` counts the K4
+launches of the ``wgmma`` kernel, the one ``flash`` takes, with 64 or 128
+query rows a block as ``blockRows`` chooses.  The first ``mma.sync`` kernel
+stays in ``csrc/flash.cu`` as the yardstick that ``chip_smoke.py`` times
+beside it, reached only through ``_launch``'s private ``path`` argument.
 """
 
 import ctypes
@@ -49,6 +53,7 @@ from puzzlelib_tpu_torch.ops.hopper import build
 
 
 launches = 0
+launchesWgmma = 0
 launchesDq = 0
 launchesDkv = 0
 
@@ -86,11 +91,27 @@ def plain(q, k, v, causal=False):
     return out.to(q.dtype), lse
 
 
-def _entry(name, symbol, pointers):
+def blockRows(seqQ, bh, d, sms):
+    """Query rows a block of K4's ``wgmma`` kernel owns, 64 or 128, for
+    ``bh`` batch * heads of ``seqQ`` rows at head dim ``d`` on a card of
+    ``sms`` SMs.  128 (two warpgroups that share each K and V tile) where the
+    grid of 128-row blocks fills the SMs at least once, at d 32 and 128; else
+    64 (one warpgroup).  Measured on an H100 (``chip_smoke.py`` [K4] times
+    both at every shape): 128 rows win at the transformer slice's (64, 4, 80,
+    32), 256 blocks, in spite of 48 dead rows a block, and by a third at d
+    128; 64 rows win where the 128-row grid leaves SMs idle, and at every d
+    64 shape timed, since the 128-row block fits two to an SM there only at
+    a register bound that spills."""
+    if d != 64 and bh * -(-seqQ // 128) >= sms:
+        return 128
+    return 64
+
+
+def _entry(name, symbol, pointers, ints=6):
     lib = build.load(name)
     fn = getattr(lib, symbol)
 
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     return fn
@@ -146,6 +167,22 @@ def flash(q, k, v, causal=False):
         raise ValueError("flash runs on CUDA or CPU tensors, got %s" % q.device)
 
     batch, heads, seqQ, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return _launch(q, k, v, causal, "wgmma-%d" % blockRows(seqQ, batch * heads, d, sms))
+
+
+_PATHS = ("wgmma-64", "wgmma-128", "mma")
+
+
+def _launch(q, k, v, causal, path):
+    """K4 on checked CUDA operands through the kernel of ``path``: the
+    ``wgmma`` kernel with 64 or 128 query rows a block, or the first
+    ``mma.sync`` kernel, the yardstick (``chip_smoke.py`` and a card-only
+    test reach it; ``flash`` never does)."""
+    if path not in _PATHS:
+        raise ValueError("flash kernel paths are %s, got %r" % (_PATHS, path))
+
+    batch, heads, seqQ, d = q.shape
     seqK = k.shape[2]
 
     # the kernel reads (batch * heads, seq, d) rows; a transposed head layout
@@ -158,19 +195,34 @@ def flash(q, k, v, causal=False):
     if batch * heads == 0 or seqQ == 0:
         return out, lse
 
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            batch * heads, seqQ, seqK, d, _DTYPES[q.dtype], int(bool(causal)))
     with torch.cuda.device(q.device):
-        err = _entry("flash", "pl_flash_forward", 5)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            batch * heads, seqQ, seqK, d, _DTYPES[q.dtype], int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if path == "mma":
+            err = _entry("flash", "pl_flash_forward_mma", 5)(*args, stream)
+        else:
+            err = _entry("flash", "pl_flash_forward", 5, ints=7)(*args, int(path[6:]), stream)
 
     if err != 0:
-        raise RuntimeError("flash kernel launch failed for q %s, k %s %s: cudaError %d" %
-                           (tuple(q.shape), tuple(k.shape), q.dtype, err))
+        raise RuntimeError("flash kernel launch (%s) failed for q %s, k %s %s: cudaError %d" %
+                           (path, tuple(q.shape), tuple(k.shape), q.dtype, err))
 
-    global launches
+    global launches, launchesWgmma
     launches += 1
+    if path != "mma":
+        launchesWgmma += 1
     return out, lse
+
+
+def smemBytes(d, path):
+    """The dynamic shared memory of the K4 kernel instance of ``path`` (one of
+    ``_PATHS``) at head dim ``d``, as the kernels' source computes it (0 for
+    an instance it does not have)."""
+    fn = build.load("flash").pl_flash_forward_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, 0 if path == "mma" else int(path[6:]))
 
 
 @torch.library.custom_op("puzzlelib::flash", mutates_args=())

@@ -173,6 +173,124 @@ def testKernelMatchesPlainOnCard(shape, seqK, causal, dtype):
         flash.flash(q.float(), k.float(), v.float(), causal)
 
 
+# the wgmma kernel's block height: 128 rows at d 32 and 128 where the grid of
+# 128-row blocks fills the card's SMs once, else 64
+_BLOCK_ROWS = [
+    ((80, 256, 32, 132), 128),     # the transformer slice: 256 blocks of 128
+    ((80, 64, 32, 132), 64),       # 64 blocks of 128, under one wave
+    ((2048, 32, 128, 132), 128),
+    ((2048, 16, 128, 132), 128),   # 256 blocks
+    ((1024, 8, 128, 132), 64),     # 64 blocks
+    ((128, 132, 128, 132), 128),
+    ((128, 131, 128, 132), 64),
+    ((129, 66, 32, 132), 128),     # two tiles a head, the second one row
+    ((2048, 32, 64, 132), 64),     # d 64: always 64
+    ((1024, 32, 64, 132), 64),     # the flash engine
+    ((2048, 32, 128, 1024), 64),   # a card with more SMs than tiles
+]
+
+
+@pytest.mark.parametrize("args, rows", _BLOCK_ROWS)
+def testBlockRowsRule(args, rows):
+    assert flash.blockRows(*args) == rows
+
+
+def _assertMatchesPlain(out, lse, ref, refLse, seqK, causal):
+    """out within 1e-2 of max |plain|, lse within 1e-4 of max |plain| over
+    the rows that see a key, and the rows that see none (causal, seqQ >
+    seqK) at exactly -1e30 + log(seqK) in both, as in
+    ``testKernelMatchesPlainOnCard``."""
+    bh, _, seqQ = lse.shape
+    assert out.dtype == ref.dtype and out.shape == ref.shape and lse.shape == refLse.shape
+    assert bool(torch.isfinite(out).all())
+    assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
+
+    blind = max(0, seqQ - seqK) if causal else 0
+    masked = torch.tensor(-1e30, dtype=torch.float32) + torch.tensor(float(np.log(seqK)), dtype=torch.float32)
+    assert torch.equal(lse[:, 0, :blind].cpu(), masked.expand(bh, blind))
+    assert torch.equal(refLse[:, 0, :blind].cpu(), masked.expand(bh, blind))
+
+    seen, refSeen = lse[:, 0, blind:], refLse[:, 0, blind:]
+    assert ((seen - refSeen).abs().max() / refSeen.abs().max()).item() <= 1e-4
+
+
+# seqQ and seqK across the 64-row query and key tiles and the 128-row block
+# (63, 64, 65, 127, 128, 129, 255), with causal offsets both ways and query
+# rows that see no key (causal, seqQ > seqK) at every head dim
+_EDGE_CASES = [((2, 2, 63, 64), 64, False), ((2, 2, 64, 32), 65, True), ((2, 2, 65, 32), 127, False),
+               ((1, 3, 127, 128), 128, True), ((1, 3, 128, 64), 129, False), ((1, 2, 129, 32), 255, True),
+               ((1, 2, 255, 128), 63, True), ((2, 2, 129, 64), 65, True), ((1, 2, 255, 32), 255, False),
+               ((1, 2, 65, 128), 255, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape, seqK, causal", _EDGE_CASES)
+def testWgmmaMatchesPlainAtBlockEdges(shape, seqK, causal, dtype, rows):
+    """The wgmma kernel with 64 and 128 query rows a block against the plain
+    version at the tiles' edges, one launch counted on it, and the same bits
+    on a second call (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel is CUDA C++ built with nvcc")
+
+    b, h, seqQ, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = [torch.randn((b, h, seq, d), generator=gen, device="cuda").to(dtype) for seq in (seqQ, seqK, seqK)]
+
+    before = (flash.launches, flash.launchesWgmma)
+    out, lse = flash._launch(q, k, v, causal, "wgmma-%d" % rows)
+    ref, refLse = flash.plain(q, k, v, causal)
+    torch.cuda.synchronize()
+
+    assert (flash.launches - before[0], flash.launchesWgmma - before[1]) == (1, 1)
+    _assertMatchesPlain(out, lse, ref, refLse, seqK, causal)
+
+    again = flash._launch(q, k, v, causal, "wgmma-%d" % rows)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+def testFlashTakesTheWgmmaKernelOnCard():
+    """``flash`` launches the wgmma kernel at the block height ``blockRows``
+    picks, and gives what that path gives, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel is CUDA C++ built with nvcc")
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for b, h, seqQ, d in ((64, 4, 80, 32), (4, 8, 1024, 64), (4, 8, 512, 128)):
+        q, k, v = [torch.randn((b, h, seqQ, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3)]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+        before = flash.launchesWgmma
+        out, lse = flash.flash(q, k, v, True)
+        assert flash.launchesWgmma == before + 1
+
+        want = flash._launch(q, k, v, True, "wgmma-%d" % flash.blockRows(seqQ, b * h, d, sms))
+        assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+
+
+@pytest.mark.cuda
+def testMmaYardstickMatchesPlainOnCard():
+    """The first mma.sync kernel, kept as the yardstick, against the plain
+    version, counted in ``launches`` and not in ``launchesWgmma``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel is CUDA C++ built with nvcc")
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = [torch.randn((2, 3, seq, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for seq in (200, 80, 80)]
+
+    before = (flash.launches, flash.launchesWgmma)
+    out, lse = flash._launch(q, k, v, True, "mma")
+    ref, refLse = flash.plain(q, k, v, True)
+    torch.cuda.synchronize()
+
+    assert (flash.launches - before[0], flash.launchesWgmma - before[1]) == (1, 0)
+    _assertMatchesPlain(out, lse, ref, refLse, 80, True)
+
+
 # -- the backward: K5a (dq) and K5b (dk, dv) -------------------------------------------------
 
 def _backwardInputs(seed, b, h, seqQ, seqK, d):
