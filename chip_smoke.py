@@ -15,7 +15,8 @@ it fails:
    checkinstall: ``puzzlelib_tpu_torch.checkinstall.main()`` on the card,
    with the counters reset just before and read just after: K0 (the
    install probe) launched once and exact, the K1 f32 GEMM probe within
-   its bound;
+   its bound; K0 then timed against ``torch.mul`` in 5 alternating turns of
+   200 calls, the medians printed;
 3. K1 (GEMM) against its plain PyTorch version at the VGG-16 fc shapes
    (M = 32) in bf16, f16 and f32, a ragged 100 x 200 x 60, the transformer
    slice's three products in bf16 and f16 (``tools/transformerslice.py``
@@ -122,19 +123,25 @@ it fails:
    repeat bit for bit;
 15. P3 ([P3-roofline], the roofline probe's streaming ``x + 1``) bit-equal
    to its plain version on 64 Mi bf16 values, and in f16, f32 and a ragged
-   length, beside ``torch.add``;
+   length, beside ``torch.add`` (5 alternating turns of 200 calls, the
+   medians printed);
 16. P2 ([P2-phasesplit], the strided-copy probe's phase-slab copy) bit-equal
    to its plain version at the probe's shape, VGG-16's largest activation at
    batch 1 and a ragged one;
-17. P1 ([P1-tapdot], the tap-dot probe's direct conv) within 5e-3 relative L2
-   of its plain version and within the probe's 5e-2 of the f32 conv at the
-   probe's three shapes and VGG-16's conv2_2 and conv5_2 at batch 32, and two
-   ragged shapes (one f16), beside cuDNN and K2 on the same channels-last
-   operands (K2 also on NCHW ones), with P1's layout pass timed apart;
+17. P1 ([P1-tapdot], the tap-dot probe's direct conv), its wgmma kernel and
+   the first mma.sync kernel (the yardstick, through ``tapdot._launch``),
+   each within 5e-3 relative L2 of its plain version and within the probe's
+   5e-2 of the f32 conv at the probe's three shapes and VGG-16's conv2_2 and
+   conv5_2 at batch 32, and two ragged shapes (one f16); at the five shapes
+   both kernels, cuDNN and K2 on the same channels-last operands timed in
+   turns (K2 also on NCHW ones), with P1's layout pass timed apart; each
+   instance's ptxas registers, spills and shared memory (a spill in a
+   wgmma instance fails), and whether wgmma beat mma.sync at every shape;
 18. the measurement path ([measure]): the probe scripts and the benchmarks
    (``gemmspeed`` and its ``--kernel-rate``, ``convspeed`` and its
    ``--chain`` on VGG-16's conv3_2, ``attnspeed``) run as a user runs them, with every counter reset just
-   before and read just after; each of P1-P3 and K1-K5b must have run.
+   before and read just after; each of P1-P3 and K1-K5b must have run, and
+   every P1 launch on the wgmma kernel.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -333,6 +340,16 @@ TAPDOT_SHAPES = [
 ]
 TAPDOT_RAGGED = [("ragged", (3, 48, 13, 11), 80, "bf16"), ("ragged-f16", (2, 32, 9, 30), 48, "f16")]
 
+# P1's kernels: the wgmma one tapdot takes, and the first mma.sync one, the
+# yardstick, reached through tapdot._launch
+TAPDOT_PATHS = ("wgmma", "mma")
+
+# K0 and P3 against their library calls: 200 calls a turn, 5 alternating
+# turns, the medians (both sit within a few per cent of their calls, where
+# 10 calls could not tell them apart)
+LAUNCH_FLOOR_CALLS = 200
+LAUNCH_FLOOR_TURNS = 5
+
 # P1 against its plain version, relative L2: both sum exact bf16 products in
 # f32 and round once, in another order; against the f32 conv, max |error| /
 # max |f32|, the probe's own gate (tools/tapdot_probe.py:244)
@@ -379,6 +396,18 @@ def _inTurns(fns, iters=10):
     for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
         times[i] += deviceMs(fns[i], iters) / 2
     return times
+
+
+def _medianTurns(fns, iters=LAUNCH_FLOOR_CALLS, turns=LAUNCH_FLOOR_TURNS):
+    """``deviceMs`` of each of ``fns`` over ``iters`` calls, in ``turns``
+    alternating turns (a, b; b, a; ...): each one's median and all its
+    turns."""
+    runs = [[] for _ in fns]
+    for turn in range(turns):
+        order = range(len(fns)) if turn % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            runs[i].append(deviceMs(fns[i], iters))
+    return [(float(np.median(r)), r) for r in runs]
 
 
 def _gemmCase(torch, matmul, gen, label, dtName, m, k, n, plainIters=10):
@@ -955,13 +984,14 @@ def phaseCheckinstall(torch, matmul, probe):
         fail("K0 differs from x * 2 by %.3e" % result["probe_abs_err"])
 
     x = torch.randn((8, 128), device="cuda")
-    ms = deviceMs(lambda: probe.double(x), 10)
+    (ms, runs), (libMs, libRuns) = _medianTurns([lambda: probe.double(x), lambda: torch.mul(x, 2.0)])
     plainMs = deviceMs(lambda: probe.plain(x), 10)
-    libMs = deviceMs(lambda: torch.mul(x, 2.0), 10)
     boundMs, boundBy = bound(2 * x.numel() * 4, x.numel(), F32_FLOP_PER_S)
 
-    print("[checkinstall] K0 on (8, 128) f32: kernel %.4f ms, plain %.4f ms, library (torch.mul) %.4f ms, bound "
-          "%.6f ms (%s)" % (ms, plainMs, libMs, boundMs, boundBy))
+    print("[checkinstall] K0 on (8, 128) f32, medians of %d alternating turns of %d calls: kernel %.5f ms (turns "
+          "%s), library (torch.mul) %.5f ms (turns %s), kernel / library %.3f; plain %.4f ms; bound %.6f ms (%s)" %
+          (LAUNCH_FLOOR_TURNS, LAUNCH_FLOOR_CALLS, ms, ", ".join("%.5f" % t for t in runs), libMs,
+           ", ".join("%.5f" % t for t in libRuns), ms / libMs, plainMs, boundMs, boundBy))
 
     entry = {"max_abs_err": result["probe_abs_err"], "ms": ms, "plain_ms": plainMs, "bound_ms": boundMs,
              "bound_by": boundBy, "library_ms": libMs}
@@ -1243,20 +1273,18 @@ def _visiblePairs(seqQ, seqK, causal):
     return sum(min(seqK, i + seqK - seqQ + 1) if i + seqK - seqQ >= 0 else seqK for i in range(seqQ))
 
 
-def _flashInstances(build, flash):
-    """Each kernel instance of ``csrc/flash.cu`` with its registers, spill
-    stores and loads and static shared memory, from the build's ``ptxas``
-    report, and its dynamic shared memory: ``(kernel, type, d, registers,
-    spill stores, spill loads, static bytes, dynamic bytes)``."""
+def _ptxasReport(build, source, pattern):
+    """Each kernel instance of ``csrc/<source>.cu`` whose mangled name
+    ``pattern`` matches, from the build's ``ptxas`` report: ``(match,
+    registers, spill stores, spill loads, static shared bytes)``."""
     import re
 
-    log = build.libraryPath("flash").with_suffix(".log").read_text()
+    log = build.libraryPath(source).with_suffix(".log").read_text()
     found, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            name = re.search(r"(wg|mmaSync)\d+flashForwardI(13__nv_bfloat16|6__half)Li(\d+)E(?:Li(\d+)E)?",
-                             entry.group(1))
+            name = re.search(pattern, entry.group(1))
             continue
 
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -1266,12 +1294,24 @@ def _flashInstances(build, flash):
         used = re.search(r"Used (\d+) registers", line)
         static = re.search(r"(\d+) bytes smem", line)
         if used and name:
-            d = int(name.group(3))
-            kernel = "wgmma-%d" % (64 * int(name.group(4))) if name.group(1) == "wg" else "mma"
-            found.append((kernel, "bf16" if "bfloat16" in name.group(2) else "f16", d, int(used.group(1)), *spills,
-                          int(static.group(1)) if static else 0, flash.smemBytes(d, kernel)))
+            found.append((name, int(used.group(1)), *spills, int(static.group(1)) if static else 0))
             name, spills = None, (0, 0)
 
+    return found
+
+
+def _flashInstances(build, flash):
+    """Each kernel instance of ``csrc/flash.cu`` with its registers, spill
+    stores and loads and static shared memory, and its dynamic shared
+    memory: ``(kernel, type, d, registers, spill stores, spill loads, static
+    bytes, dynamic bytes)``."""
+    found = []
+    for name, *report in _ptxasReport(build, "flash", r"(wg|mmaSync)\d+flashForwardI(13__nv_bfloat16|6__half)"
+                                                      r"Li(\d+)E(?:Li(\d+)E)?"):
+        d = int(name.group(3))
+        kernel = "wgmma-%d" % (64 * int(name.group(4))) if name.group(1) == "wg" else "mma"
+        found.append((kernel, "bf16" if "bfloat16" in name.group(2) else "f16", d, *report,
+                      flash.smemBytes(d, kernel)))
     return sorted(found)
 
 
@@ -1688,16 +1728,18 @@ def phaseStreamCopy(torch, streamcopy):
     absErr = (y.float() - ref.float()).abs().max().item()
     del y, ref
 
-    ms = deviceMs(lambda: streamcopy.addOne(x), 20)
+    (ms, runs), (libMs, libRuns) = _medianTurns([lambda: streamcopy.addOne(x), lambda: torch.add(x, 1)])
     plainMs = deviceMs(lambda: streamcopy.plain(x), 20)
-    libMs = deviceMs(lambda: torch.add(x, 1), 20)
     nbytes = 2 * x.numel() * x.element_size()
     boundMs, boundBy = bound(nbytes, x.numel(), F32_FLOP_PER_S)
 
     print("[P3-roofline] x + 1 on %s bf16: %s (max |kernel - plain| %.1e; f16, f32 and a ragged 1001 exact too); "
-          "kernel %.4f ms, %.1f GB/s (%.1f %% of 3.35 TB/s); plain %.4f ms; library (torch.add) %.4f ms, %.1f GB/s; "
-          "bound %.4f ms (%s)" % (STREAM_SHAPE, "exact" if exact else "NOT EXACT", absErr, ms, nbytes / ms / 1e6,
-                                  nbytes / ms / 1e6 / 33.5, plainMs, libMs, nbytes / libMs / 1e6, boundMs, boundBy))
+          "medians of %d alternating turns of %d calls: kernel %.5f ms (turns %s), %.1f GB/s (%.1f %% of 3.35 TB/s); "
+          "library (torch.add) %.5f ms (turns %s), %.1f GB/s; kernel / library %.3f; plain %.4f ms; bound %.4f ms "
+          "(%s)" % (STREAM_SHAPE, "exact" if exact else "NOT EXACT", absErr, LAUNCH_FLOOR_TURNS, LAUNCH_FLOOR_CALLS,
+                    ms, ", ".join("%.5f" % t for t in runs), nbytes / ms / 1e6, nbytes / ms / 1e6 / 33.5, libMs,
+                    ", ".join("%.5f" % t for t in libRuns), nbytes / libMs / 1e6, ms / libMs, plainMs, boundMs,
+                    boundBy))
 
     if not exact:
         fail("P3 differs from its plain version by up to %.3e" % absErr)
@@ -1743,83 +1785,128 @@ def phasePhaseSplit(torch, phasesplit):
     return main
 
 
+def _tapdotInstances(build):
+    """Each kernel instance of ``csrc/tapdot.cu`` with its registers, spill
+    stores and loads and static shared memory: ``(kernel, type, channel
+    chunk, registers, spill stores, spill loads, static bytes)``."""
+    return sorted(("wgmma" if name.group(1) == "wg" else "mma", "bf16" if "bfloat16" in name.group(2) else "f16",
+                   int(name.group(3) or 32), *report)
+                  for name, *report in _ptxasReport(build, "tapdot", r"(wg|mmaSync)\d+tapdot(?:Wgmma|Mma)I"
+                                                                     r"(13__nv_bfloat16|6__half)(?:Li(\d+)E)?"))
+
+
 def _tapdotCase(torch, tapdot, gen, xshape, co, dtype):
-    """P1 on seeded operands of one 3x3 pad-1 conv: (operands, kernel output,
-    relative L2 against the plain version, max relative error of the conv
-    against the f32 conv, max |kernel - plain|)."""
+    """P1 on seeded operands of one 3x3 pad-1 conv through both kernels:
+    (operands, {path: (relative L2 against the plain version, max relative
+    error of the conv against the f32 conv, max |kernel - plain|)})."""
     import torch.nn.functional as F
 
     x = (torch.randn(xshape, generator=gen, device="cuda") * 0.3).to(dtype)
     w = (torch.randn((co, xshape[1], 3, 3), generator=gen, device="cuda") * 0.1).to(dtype)
     xp, wk, geometry, (oh, ow) = tapdot.layout(x, w, (1, 1))
 
-    got, ref = tapdot.tapdot(xp, wk, **geometry), tapdot.plain(xp, wk, **geometry)
+    ref = tapdot.plain(xp, wk, **geometry)
     f32 = F.conv2d(x.float(), w.float(), padding=1)
-    torch.cuda.synchronize()
+    errs = {}
+    for path in TAPDOT_PATHS:
+        got = tapdot.tapdot(xp, wk, **geometry) if path == "wgmma" else tapdot._launch(xp, wk, **geometry, path=path)
+        torch.cuda.synchronize()
+        errs[path] = (_relL2(got.float(), ref.float()), relErr(torch, tapdot.crop(got, geometry, oh, ow), f32),
+                      (got.float() - ref.float()).abs().max().item())
+        del got
+    return (x, w, xp, wk, geometry), errs
 
-    errPlain = _relL2(got.float(), ref.float())
-    errF32 = relErr(torch, tapdot.crop(got, geometry, oh, ow), f32)
-    absErr = (got.float() - ref.float()).abs().max().item()
-    return (x, w, xp, wk, geometry), errPlain, errF32, absErr
+
+def _tapdotHeld(name, errs):
+    """Fails unless every path of ``errs`` is within both bounds."""
+    for path, (errPlain, errF32, _) in errs.items():
+        if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
+            fail("P1 %s on %s disagrees: %.3e vs plain, %.3e vs f32" % (name, path, errPlain, errF32))
 
 
-def phaseTapdot(torch, tapdot, winograd):
-    """P1 against its plain version and the f32 conv (TF32 off) at
-    TAPDOT_SHAPES and the ragged ones, beside cuDNN (``F.conv2d`` on
-    channels-last bf16) and K2 where it takes the shape, on the same
-    channels-last operands (and, labelled so, on NCHW ones, where its
-    wrapper's layout copies are in the timed call).  P1 itself is timed on
-    the operands ``tapdot.layout`` prepared, and its layout pass on its own.
-    Returns the JSON entry's numbers for the five timed shapes together."""
+def phaseTapdot(torch, tapdot, winograd, build):
+    """P1 on both kernels (``wgmma``, the one ``tapdot`` takes, and the first
+    ``mma.sync`` kernel, the yardstick) against its plain version and the f32
+    conv (TF32 off) at TAPDOT_SHAPES and the ragged ones.  At the five shapes
+    both kernels, cuDNN (``F.conv2d`` on channels-last bf16) and K2 on the
+    same channels-last operands are timed in turns; K2 on NCHW operands
+    (its wrapper's layout copies in the timed call), P1's layout pass and
+    the plain version apart.  The kernels run on the operands
+    ``tapdot.layout`` prepared.  Prints each instance's ptxas report (a
+    spill in a wgmma instance fails), each shape's channel chunk and shared
+    memory, and whether the wgmma kernel beat the yardstick at every shape
+    (printed, not a gate: a time is no correctness check).  Returns the
+    JSON entry's numbers for the five timed shapes together."""
     import torch.nn.functional as F
 
+    instances = _tapdotInstances(build)
+    for kernel, dtName, chunk, regs, stores, loads, static in instances:
+        print("[P1-tapdot] ptxas %-5s %-4s chunk %d: %3d registers, %d bytes spill stores, %d bytes spill loads, %d "
+              "bytes static shared memory" % (kernel, dtName, chunk, regs, stores, loads, static))
+    if sorted((kernel, dtName, chunk) for kernel, dtName, chunk, *_ in instances) != sorted(
+            [("wgmma", dt, chunk) for dt in ("bf16", "f16") for chunk in (32, 64)] +
+            [("mma", dt, 32) for dt in ("bf16", "f16")]):
+        fail("the tapdot build reports the instances %s" % [instance[:3] for instance in instances])
+    if any(kernel == "wgmma" and stores + loads for kernel, _, _, _, stores, loads, _ in instances):
+        fail("a wgmma instance of P1 spills")
+
     gen = torch.Generator(device="cuda").manual_seed(13)
-    main = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    main = {"max_abs_err": 0.0, "ms": 0.0, "mma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    ratios = []
 
     for name, xshape, co, dtName in TAPDOT_RAGGED:
-        _, errPlain, errF32, _ = _tapdotCase(torch, tapdot, gen, xshape, co,
-                                             torch.float16 if dtName == "f16" else torch.bfloat16)
-        print("[P1-tapdot] %-10s x=%s co=%d %s: relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e)" %
-              (name, xshape, co, dtName, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32))
-        if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
-            fail("P1 %s disagrees: %.3e vs plain, %.3e vs f32" % (name, errPlain, errF32))
+        _, errs = _tapdotCase(torch, tapdot, gen, xshape, co, torch.float16 if dtName == "f16" else torch.bfloat16)
+        print("[P1-tapdot] %-10s x=%s co=%d %s: %s" % (name, xshape, co, dtName, "; ".join(
+            "%s relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e)" %
+            (path, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32)
+            for path, (errPlain, errF32, _) in errs.items())))
+        _tapdotHeld(name, errs)
 
     for name, xshape, co in TAPDOT_SHAPES:
-        (x, w, xp, wk, geometry), errPlain, errF32, absErr = _tapdotCase(torch, tapdot, gen, xshape, co,
-                                                                        torch.bfloat16)
+        (x, w, xp, wk, geometry), errs = _tapdotCase(torch, tapdot, gen, xshape, co, torch.bfloat16)
+        _tapdotHeld(name, errs)
         xl, wl = x.contiguous(memory_format=torch.channels_last), w.contiguous(memory_format=torch.channels_last)
 
-        ms = deviceMs(lambda: tapdot.tapdot(xp, wk, **geometry), 10)
+        fns = [lambda: tapdot.tapdot(xp, wk, **geometry), lambda: tapdot._launch(xp, wk, **geometry, path="mma"),
+               lambda: F.conv2d(xl, wl, padding=1)]
+        k2 = winograd.applicable(tuple(x.shape), tuple(w.shape), (1, 1), (1, 1), (1, 1), 1)
+        if k2:
+            fns.append(lambda: winograd.conv2d(xl, wl, (1, 1)))
+        times = _inTurns(fns)
+        ms, mmaMs, libMs = times[:3]
+        k2Text = "n/a"
+        if k2:
+            k2Text = "%.4f ms on channels-last operands, %.4f ms on NCHW ones" % (
+                times[3], deviceMs(lambda: winograd.conv2d(x, w, (1, 1)), 10))
         layoutMs = deviceMs(lambda: tapdot.layout(x, w, (1, 1)), 10)
         plainMs = deviceMs(lambda: tapdot.plain(xp, wk, **geometry), 2)
-        libMs = deviceMs(lambda: F.conv2d(xl, wl, padding=1), 10)
-        k2 = "n/a"
-        if winograd.applicable(tuple(x.shape), tuple(w.shape), (1, 1), (1, 1), (1, 1), 1):
-            k2Last = deviceMs(lambda: winograd.conv2d(xl, wl, (1, 1)), 10)
-            k2 = "%.4f ms on channels-last operands, %.4f ms on NCHW ones" % (
-                k2Last, deviceMs(lambda: winograd.conv2d(x, w, (1, 1)), 10))
 
         n, c, h, wd = xshape
         flops = 2.0 * n * co * h * wd * c * 9
         boundMs, boundBy = bound((n * c * h * wd + n * co * h * wd + co * c * 9) * 2, flops)
+        chunk, smem = tapdot.launchShape(geometry["wp"], 3, 3)
 
-        print("[P1-tapdot] %-10s x=%s co=%d: relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound %.0e); "
-              "kernel %.4f ms on laid-out operands, %.1f TFLOP/s useful; its layout pass (tapdot.layout) %.4f ms; "
-              "plain %.4f ms; library (cuDNN, channels-last) %.4f ms; K2 %s; bound %.4f ms (%s)" %
-              (name, xshape, co, errPlain, TAPDOT_BOUND_PLAIN, errF32, TAPDOT_BOUND_F32, ms, flops / ms / 1e9,
-               layoutMs, plainMs, libMs, k2, boundMs, boundBy))
+        print("[P1-tapdot] %-10s x=%s co=%d: wgmma relative L2 %.3e vs plain (bound %.0e), %.3e vs f32 (bound "
+              "%.0e), mma.sync %.3e, %.3e; on laid-out operands, in turns: wgmma %.4f ms, %.1f TFLOP/s useful (chunk "
+              "%d, %d bytes of dynamic shared memory), mma.sync (the yardstick) %.4f ms, %.1f TFLOP/s (wgmma %.3fx "
+              "of it), library (cuDNN, channels-last) %.4f ms, K2 %s; its layout pass (tapdot.layout) %.4f ms; plain "
+              "%.4f ms; bound %.4f ms (%s)" %
+              (name, xshape, co, errs["wgmma"][0], TAPDOT_BOUND_PLAIN, errs["wgmma"][1], TAPDOT_BOUND_F32,
+               errs["mma"][0], errs["mma"][1], ms, flops / ms / 1e9, chunk, smem, mmaMs, flops / mmaMs / 1e9,
+               ms / mmaMs, libMs, k2Text, layoutMs, plainMs, boundMs, boundBy))
 
-        if not (errPlain <= TAPDOT_BOUND_PLAIN and errF32 <= TAPDOT_BOUND_F32):
-            fail("P1 %s disagrees: %.3e vs plain, %.3e vs f32" % (name, errPlain, errF32))
-
-        main["max_abs_err"] = max(main["max_abs_err"], absErr)
-        for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs), ("bound_ms", boundMs)):
+        ratios.append((name, ms / mmaMs))
+        main["max_abs_err"] = max(main["max_abs_err"], errs["wgmma"][2])
+        for key, value in (("ms", ms), ("mma_ms", mmaMs), ("plain_ms", plainMs), ("library_ms", libMs),
+                           ("bound_ms", boundMs)):
             main[key] += value
         main["bound_by"] = boundBy
 
         del x, w, xp, wk, xl, wl
         torch.cuda.empty_cache()
 
+    print("[P1-tapdot] wgmma against mma.sync (same call): %s; faster at every timed shape: %s" %
+          (", ".join("%s %.3fx" % r for r in ratios), "yes" if all(r[1] < 1.0 for r in ratios) else "NO"))
     return main
 
 
@@ -1840,7 +1927,8 @@ def phaseMeasurementPath(torch, card):
     Config.gemmAlgo = Config.convAlgo = "hopper"
     vgg = ["--dtype", "bfloat16", "--data", "%d,256,56,56" % BATCH, "--weights", "256,256,3,3", "--pad", "1"]
 
-    counters = [(streamcopy, "launches"), (phasesplit, "launches"), (tapdot, "launches"), (matmul, "launches"),
+    counters = [(streamcopy, "launches"), (phasesplit, "launches"), (tapdot, "launches"), (tapdot, "launchesWgmma"),
+                (matmul, "launches"),
                 (matmul, "launchesWgmma"), (matmul, "launchesInt8"), (matmul, "launchesInt8Wgmma"),
                 (winograd, "launches"),
                 (winograd, "dataGradLaunches"), (winograd, "filterGradLaunches"), (flash, "launches"),
@@ -1862,7 +1950,8 @@ def phaseMeasurementPath(torch, card):
         torch.cuda.empty_cache()
     secs = time.perf_counter() - start
 
-    launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches, "K1": matmul.launches,
+    launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches,
+                "P1-wgmma": tapdot.launchesWgmma, "K1": matmul.launches,
                 "K1-wgmma": matmul.launchesWgmma, "K1-int8": matmul.launchesInt8,
                 "K1-int8-wgmma": matmul.launchesInt8Wgmma,
                 "K2": winograd.launches - winograd.dataGradLaunches,
@@ -1875,6 +1964,10 @@ def phaseMeasurementPath(torch, card):
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         fail("the measurement path launched no %s" % ", ".join(missing))
+
+    if launches["P1-wgmma"] != launches["P1"]:
+        fail("%d of the measurement path's %d P1 launches ran on the wgmma kernel, expected all" %
+             (launches["P1-wgmma"], launches["P1"]))
 
     return launches
 
@@ -1985,7 +2078,7 @@ def main():
 
     roofline = phaseStreamCopy(torch, streamcopy)
     phaseSlabs = phasePhaseSplit(torch, phasesplit)
-    tapdotConv = phaseTapdot(torch, tapdot, winograd)
+    tapdotConv = phaseTapdot(torch, tapdot, winograd, build)
     measured = phaseMeasurementPath(torch, card)
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
@@ -2027,7 +2120,8 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
              measurement_launches=measured["K5b"], **attentionDkv),
         dict(name="P1 tap-dot direct conv (probe)", route="cuda", source=source % "tapdot",
-             replaces="tools/tapdot_probe.py:32", launches=measured["P1"], **tapdotConv),
+             replaces="tools/tapdot_probe.py:32", launches=measured["P1"], launches_wgmma=measured["P1-wgmma"],
+             **tapdotConv),
         dict(name="P2 stride-2 phase-slab copy (probe)", route="cuda", source=source % "phasesplit",
              replaces="tools/strided_dma_probe.py:25", launches=measured["P2"], **phaseSlabs),
         dict(name="P3 streaming x + 1 (roofline probe)", route="cuda", source=source % "streamcopy",
@@ -2054,9 +2148,11 @@ def main():
           "included); K4's training_launches and K5's launches the "
           "transformer training run's (4 steps of 64), K4's engine_launches the flash engine's (4 requests of 8); "
           "P1-P3's launches and K1-K5's measurement_launches the measurement path's (the probe scripts and "
-          "benchmarks); P1: the 5 convs of [P1-tapdot] together, the kernel on prepared operands, library cuDNN "
-          "on channels-last bf16; P2: (1, 64, 64, 256) at 4 rows a tile, library = plain, the permuted copy; P3: "
-          "x + 1 on 64 Mi bf16 values, library torch.add; max_abs_err: largest |kernel - plain| at those shapes")
+          "benchmarks); P1: the 5 convs of [P1-tapdot] together, the kernel on prepared operands, its "
+          "launches_wgmma those on the wgmma kernel, mma_ms the first mma.sync kernel's time in the same call, "
+          "library cuDNN on channels-last bf16; K0 and P3: medians of 5 alternating turns of 200 calls; P2: (1, "
+          "64, 64, 256) at 4 rows a tile, library = plain, the permuted copy; P3: x + 1 on 64 Mi bf16 values, "
+          "library torch.add; max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -19,6 +19,13 @@ card raises ``TypeError``.  ``bi`` is the TPU program's tile of output rows:
 it sets how many rows are computed (the crop removes the extra), not how the
 kernel tiles, which the note at the top of the source describes.
 
+On a CUDA tensor ``tapdot`` launches the ``wgmma`` kernel fed by TMA: blocks
+of 256 output rows by 128 output channels, the slab of input rows held
+unswizzled and K-major so that each tap's shift is an offset on a
+shared-memory descriptor.  The first kernel, on ``mma.sync``, stays in the
+source as the yardstick that ``chip_smoke.py`` times beside it, reached
+only through ``_launch``'s private ``path`` argument.
+
 P1 is a probe, the direct-conv alternative to K2 that the card is asked
 about; no ``Config.convAlgo`` route reaches it, as none does in the JAX
 package.
@@ -26,7 +33,7 @@ package.
 ``plain`` is the same kh kw shifted products in f32 with ``torch.matmul``,
 rounded once.  ``tapdot`` takes it for tensors on the CPU, where no kernel
 can run; for CUDA tensors it launches the kernel or raises.  ``launches``
-counts kernel launches.
+counts kernel launches, ``launchesWgmma`` those of the ``wgmma`` kernel.
 """
 
 import ctypes
@@ -37,8 +44,12 @@ from puzzlelib_tpu_torch.ops.hopper import build
 
 
 launches = 0
+launchesWgmma = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float16: 2}
+
+# the kernels of ``pl_tapdot``'s path argument
+_PATHS = {"wgmma": 0, "mma": 1}
 
 
 def _check(xp, wk, bi, wp, kh, kw, c, co, nTiles):
@@ -80,7 +91,7 @@ def plain(xp, wk, bi, wp, kh, kw, c, co, nTiles):
 
 def _entry():
     fn = build.load("tapdot").pl_tapdot
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,6 +103,16 @@ def tapdot(xp, wk, bi, wp, kh, kw, c, co, nTiles):
 
     if xp.device.type == "cpu":
         return plain(xp, wk, bi, wp, kh, kw, c, co, nTiles)
+
+    return _launch(xp, wk, bi, wp, kh, kw, c, co, nTiles, "wgmma")
+
+
+def _launch(xp, wk, bi, wp, kh, kw, c, co, nTiles, path):
+    """P1 on checked operands through the kernel of ``path``: ``"wgmma"``,
+    the one ``tapdot`` takes, or ``"mma"``, the first ``mma.sync`` kernel,
+    the yardstick (``chip_smoke.py`` and a card-only test reach it)."""
+    if path not in _PATHS:
+        raise ValueError("tap-dot kernel paths are %s, got %r" % (tuple(_PATHS), path))
 
     if xp.device.type != "cuda":
         raise ValueError("the tap-dot kernel runs on CUDA or CPU tensors, got %s" % xp.device)
@@ -115,15 +136,32 @@ def tapdot(xp, wk, bi, wp, kh, kw, c, co, nTiles):
 
     with torch.cuda.device(xp.device):
         err = _entry()(xp.data_ptr(), wk.data_ptr(), out.data_ptr(), n, rows, m, c, co, wp, kh, kw,
-                       _DTYPES[xp.dtype], torch.cuda.current_stream(xp.device).cuda_stream)
+                       _DTYPES[xp.dtype], _PATHS[path], torch.cuda.current_stream(xp.device).cuda_stream)
 
     if err != 0:
-        raise RuntimeError("tap-dot kernel launch failed for xp %s, wk %s %s at pitch %d: cudaError %d" %
-                           (tuple(xp.shape), tuple(wk.shape), xp.dtype, wp, err))
+        raise RuntimeError("tap-dot kernel launch failed (%s) for xp %s, wk %s %s at pitch %d: cudaError %d" %
+                           (path, tuple(xp.shape), tuple(wk.shape), xp.dtype, wp, err))
 
-    global launches
+    global launches, launchesWgmma
     launches += 1
+    if path == "wgmma":
+        launchesWgmma += 1
     return out
+
+
+def launchShape(wp, kh, kw, path="wgmma"):
+    """(channel chunk, dynamic shared memory bytes) of a launch of ``path``'s
+    kernel at pitch ``wp`` and a kh x kw filter on the current card, as the
+    source computes them; (0, 0) where the slab does not fit and the launch
+    refuses."""
+    lib = build.load("tapdot")
+    sizes = []
+    for symbol in ("pl_tapdot_chunk", "pl_tapdot_smem"):
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        sizes.append(fn(wp, kh, kw, _PATHS[path]))
+    return tuple(sizes)
 
 
 def pickBi(oh, wp):

@@ -50,12 +50,15 @@ def _relMax(got, want):
 # -- P1: the tap-dot conv --------------------------------------------------------------
 
 # (n, c, h, w, co, k, pad, bi): the probe's --interpret shapes, with the
-# probe's own bi, and the first with a ragged bi (2 tiles of 8 rows for 12)
-TAPDOT_CASES = [(2, 128, 12, 10, 128, 3, 1, None), (1, 128, 9, 9, 128, 5, 2, None), (2, 128, 12, 10, 128, 3, 1, 8)]
+# probe's own bi, the first with a ragged bi (2 tiles of 8 rows for 12), and
+# C = 48 and CO = 80, off the wgmma kernel's 64-channel chunk and 128-column
+# block
+TAPDOT_CASES = [(2, 128, 12, 10, 128, 3, 1, None), (1, 128, 9, 9, 128, 5, 2, None), (2, 128, 12, 10, 128, 3, 1, 8),
+                (2, 48, 12, 10, 80, 3, 1, None)]
 
 
 @pytest.mark.parametrize("dtype, bound", [("float32", 1e-5), ("bfloat16", 1e-2)])
-@pytest.mark.parametrize("case", TAPDOT_CASES, ids=["k3", "k5", "ragged-bi"])
+@pytest.mark.parametrize("case", TAPDOT_CASES, ids=["k3", "k5", "ragged-bi", "c48-co80"])
 def testTapdotConvTwin(case, dtype, bound):
     """``tapdot.conv2d`` (its plain version on the CPU) against the probe's
     ``conv2d(..., interpret=True)`` on the same inputs: f32 within 1e-5 of
@@ -87,6 +90,16 @@ def testTapdotPickBiAsTheProbe():
         bi = tapdot.pickBi(oh, wp)
         assert (bi * wp) % 8 == 0 and bi >= 8
     assert tapdot.pickBi(56, 58) == 8 and tapdot.pickBi(12, 12) == 12
+
+
+def testTapdotRefusesUnknownPaths():
+    """``_launch`` names its kernels; any other path is refused before a
+    launch."""
+    xp, wk = torch.zeros((1, 64, 16)), torch.zeros((9, 16, 16))
+    before = tapdot.launches
+    with pytest.raises(ValueError, match="paths"):
+        tapdot._launch(xp, wk, 1, 8, 3, 3, 16, 16, 1, "wmma")
+    assert tapdot.launches == before
 
 
 def testTapdotPlainIsTheShiftedProducts():
@@ -284,3 +297,91 @@ def testTapdotRefusalsOnCard():
     with pytest.raises(RuntimeError, match="launch failed"):
         tapdot.tapdot(xp, wk.half(), 1, wp, 3, 3, 16, 16, 1)
     assert tapdot.launches == before
+
+
+def _tapdotOperands(xshape, co, k, pad, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(xshape, generator=gen, device="cuda") * 0.3).to(dtype)
+    w = (torch.randn((co, xshape[1], k, k), generator=gen, device="cuda") * 0.1).to(dtype)
+    return tapdot.layout(x, w, (pad, pad))
+
+
+def _relL2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", [5, 101])
+def testTapdotShiftedDescriptorOnCard(channel):
+    """The wgmma kernel's shifted A descriptor, one-hot: image i of xp is
+    zeros with a single 1 at (row i, channel), wk an identity on that
+    channel at one tap at a time and zeros elsewhere.  Output row g must
+    read exactly 1 in that channel where g + r wp + s is row i, and 0
+    everywhere else, for each of the 9 taps, at rows on both sides of 64,
+    128 and 256 and of the block's 256 rows (C = CO = 128: the channel in the
+    first or second 64-channel chunk and 64-column box)."""
+    _needsCard()
+    wp, bi, nTiles, c = 30, 10, 2, 128
+    m = nTiles * bi * wp
+    rows = [0, 63, 64, 127, 128, 255, 256, 257, 300, 511, 512, m + 2 * wp + 1]
+    xp = torch.zeros((len(rows), m + 2 * wp + 2, c), device="cuda", dtype=torch.bfloat16)
+    for i, row in enumerate(rows):
+        xp[i, row, channel] = 1
+
+    for tap in range(9):
+        wk = torch.zeros((9, c, c), device="cuda", dtype=torch.bfloat16)
+        wk[tap, channel, channel] = 1
+        want = torch.zeros((len(rows), m, c), device="cuda", dtype=torch.bfloat16)
+        for i, row in enumerate(rows):
+            g = row - (tap // 3) * wp - tap % 3
+            if 0 <= g < m:
+                want[i, g, channel] = 1
+
+        got = tapdot.tapdot(xp, wk, bi, wp, 3, 3, c, c, nTiles)
+        assert torch.equal(got, want), "tap %d: ones at %s, want %s" % (
+            tap, got.nonzero().tolist(), want.nonzero().tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, pad, width", [(5, 2, 110), (3, 1, 112)], ids=["5x5-chunk32", "3x3-chunk64"])
+def testTapdotWgmmaEdgesOnCard(k, pad, width):
+    """The wgmma kernel within 5e-3 relative L2 of its plain version at pitch
+    114 (a slab of 486 or 716 rows, cut into TMA boxes across row 256), C 48
+    and CO 80 (off the chunk and the 128-column block), f16, one image, and
+    912 output rows (off a multiple of 256); the 5x5 slab takes 32-channel
+    chunks, the 3x3 one 64."""
+    _needsCard()
+    xp, wk, geometry, _ = _tapdotOperands((1, 48, 7, width), 80, k, pad, torch.float16, 7)
+    assert geometry["wp"] == 114 and geometry["nTiles"] * geometry["bi"] * geometry["wp"] == 912
+
+    got, ref = tapdot.tapdot(xp, wk, **geometry), tapdot.plain(xp, wk, **geometry)
+    assert _relL2(got, ref) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xshape, co, dtype", [((2, 64, 20, 18), 32, torch.bfloat16),
+                                               ((3, 48, 13, 11), 80, torch.float16)])
+def testTapdotYardstickOnCard(xshape, co, dtype):
+    """The first mma.sync kernel, reached through ``_launch``, within 5e-3
+    relative L2 of the plain version; it counts in ``launches`` and not in
+    ``launchesWgmma``."""
+    _needsCard()
+    xp, wk, geometry, _ = _tapdotOperands(xshape, co, 3, 1, dtype, 9)
+
+    before, beforeWgmma = tapdot.launches, tapdot.launchesWgmma
+    got = tapdot._launch(xp, wk, **geometry, path="mma")
+    assert (tapdot.launches, tapdot.launchesWgmma) == (before + 1, beforeWgmma)
+    assert _relL2(got, tapdot.plain(xp, wk, **geometry)) <= 5e-3
+
+
+@pytest.mark.cuda
+def testTapdotTakesWgmmaOnCard():
+    """``tapdot`` on CUDA tensors launches the wgmma kernel: both counters
+    move by one."""
+    _needsCard()
+    xp, wk, geometry, _ = _tapdotOperands((2, 32, 9, 30), 48, 3, 1, torch.bfloat16, 11)
+
+    before, beforeWgmma = tapdot.launches, tapdot.launchesWgmma
+    got = tapdot.tapdot(xp, wk, **geometry)
+    assert (tapdot.launches, tapdot.launchesWgmma) == (before + 1, beforeWgmma + 1)
+    assert _relL2(got, tapdot.plain(xp, wk, **geometry)) <= 5e-3
