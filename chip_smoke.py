@@ -389,25 +389,16 @@ def phaseBuild(build):
             print("[build] %s: %s" % (name, line))
 
 
-def _inTurns(fns, iters=10):
-    """``deviceMs`` of each of ``fns``, timed in turns (a, b, b, a): the mean
-    of its two runs."""
-    times = [0.0] * len(fns)
-    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
-        times[i] += deviceMs(fns[i], iters) / 2
-    return times
-
-
-def _medianTurns(fns, iters=LAUNCH_FLOOR_CALLS, turns=LAUNCH_FLOOR_TURNS):
+def _medianTurns(fns, iters=10, turns=2):
     """``deviceMs`` of each of ``fns`` over ``iters`` calls, in ``turns``
-    alternating turns (a, b; b, a; ...): each one's median and all its
+    alternating turns (a, b; b, a; ...): each one's median, and each one's
     turns."""
     runs = [[] for _ in fns]
     for turn in range(turns):
         order = range(len(fns)) if turn % 2 == 0 else reversed(range(len(fns)))
         for i in order:
             runs[i].append(deviceMs(fns[i], iters))
-    return [(float(np.median(r)), r) for r in runs]
+    return [float(np.median(r)) for r in runs], runs
 
 
 def _gemmCase(torch, matmul, gen, label, dtName, m, k, n, plainIters=10):
@@ -437,7 +428,7 @@ def _gemmCase(torch, matmul, gen, label, dtName, m, k, n, plainIters=10):
     if wmmaPath == path:
         ms = wmmaMs = deviceMs(lambda: matmul.matmul(a, b), 10)
     else:
-        ms, wmmaMs = _inTurns([lambda: matmul.matmul(a, b), onPath(wmmaPath)])
+        (ms, wmmaMs), _ = _medianTurns([lambda: matmul.matmul(a, b), onPath(wmmaPath)])
     step1Ms = deviceMs(onPath("wgmma-64"), 10) if path == "wgmma-128" else None
     plainMs = deviceMs(lambda: matmul.plain(a, b), plainIters)
     libMs = deviceMs(lambda: torch.matmul(a, b), 10)
@@ -984,7 +975,8 @@ def phaseCheckinstall(torch, matmul, probe):
         fail("K0 differs from x * 2 by %.3e" % result["probe_abs_err"])
 
     x = torch.randn((8, 128), device="cuda")
-    (ms, runs), (libMs, libRuns) = _medianTurns([lambda: probe.double(x), lambda: torch.mul(x, 2.0)])
+    (ms, libMs), (runs, libRuns) = _medianTurns([lambda: probe.double(x), lambda: torch.mul(x, 2.0)],
+                                                 LAUNCH_FLOOR_CALLS, LAUNCH_FLOOR_TURNS)
     plainMs = deviceMs(lambda: probe.plain(x), 10)
     boundMs, boundBy = bound(2 * x.numel() * 4, x.numel(), F32_FLOP_PER_S)
 
@@ -1060,7 +1052,7 @@ def phaseGemmInt8(torch, matmul):
         if library is not None:
             fns.append(library)
 
-        times = _inTurns(fns)
+        times, _ = _medianTurns(fns)
         ms = times[0]
         wmmaMs = times[1] if path.startswith("wgmma") else ms
         libMs = times[-1] if library is not None else None
@@ -1372,8 +1364,8 @@ def phaseFlash(torch, flash, build):
             mask = torch.ones((seqQ, seqK), dtype=torch.bool, device="cuda").tril(diagonal=seqK - seqQ)
 
         others = [path for path in FLASH_PATHS if path != routed]
-        times = _inTurns([lambda: flash.flash(q, k, v, causal)] +
-                         [lambda path=path: flash._launch(q, k, v, causal, path) for path in others])
+        times, _ = _medianTurns([lambda: flash.flash(q, k, v, causal)] +
+                                 [lambda path=path: flash._launch(q, k, v, causal, path) for path in others])
         ms, pathMs = times[0], dict(zip([routed] + others, times))
         plainMs = deviceMs(lambda: flash.plain(q, k, v, causal), 2)
         libMs = deviceMs(lambda: F.scaled_dot_product_attention(
@@ -1728,7 +1720,8 @@ def phaseStreamCopy(torch, streamcopy):
     absErr = (y.float() - ref.float()).abs().max().item()
     del y, ref
 
-    (ms, runs), (libMs, libRuns) = _medianTurns([lambda: streamcopy.addOne(x), lambda: torch.add(x, 1)])
+    (ms, libMs), (runs, libRuns) = _medianTurns([lambda: streamcopy.addOne(x), lambda: torch.add(x, 1)],
+                                                 LAUNCH_FLOOR_CALLS, LAUNCH_FLOOR_TURNS)
     plainMs = deviceMs(lambda: streamcopy.plain(x), 20)
     nbytes = 2 * x.numel() * x.element_size()
     boundMs, boundBy = bound(nbytes, x.numel(), F32_FLOP_PER_S)
@@ -1872,7 +1865,7 @@ def phaseTapdot(torch, tapdot, winograd, build):
         k2 = winograd.applicable(tuple(x.shape), tuple(w.shape), (1, 1), (1, 1), (1, 1), 1)
         if k2:
             fns.append(lambda: winograd.conv2d(xl, wl, (1, 1)))
-        times = _inTurns(fns)
+        times, _ = _medianTurns(fns)
         ms, mmaMs, libMs = times[:3]
         k2Text = "n/a"
         if k2:

@@ -85,9 +85,9 @@
 // (cudaErrorInvalidValue for a type or path it has no instance for, or a
 // slab too tall for shared memory).  The caller allocates out (n, mOut, co),
 // passes 16-byte aligned operands and guarantees rowsX >= mOut + (kh - 1) wp
-// + kw - 1.  pl_tapdot_chunk(wp, kh, kw, path) gives the channel chunk a
-// launch takes and pl_tapdot_smem(wp, kh, kw, path) its dynamic shared
-// memory (both 0 where it refuses).
+// + kw - 1.  pl_tapdot_smem(wp, kh, kw, chunk) gives the dynamic shared
+// memory of a wgmma launch and writes its channel chunk to *chunk (both 0
+// where it refuses).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -761,25 +761,8 @@ extern "C" int pl_tapdot(const void* xp, const void* wk, void* out, int n, int r
     }
 }
 
-extern "C" int pl_tapdot_chunk(int wp, int kh, int kw, int path)
+extern "C" int pl_tapdot_smem(int wp, int kh, int kw, int* chunk)
 {
-    const int optin = maxSmem();
-    switch (path) {
-    case PATH_WGMMA: return wg::chunkOf(wp, kh, kw, optin);
-    case PATH_MMA:   return mmaSync::smemBytes(wp, kh, kw) <= (size_t)optin ? mmaSync::CK : 0;
-    default:         return 0;
-    }
-}
-
-extern "C" int pl_tapdot_smem(int wp, int kh, int kw, int path)
-{
-    const int ck = pl_tapdot_chunk(wp, kh, kw, path);
-    if (ck == 0)
-        return 0;
-
-    switch (path) {
-    case PATH_WGMMA: return (int)wg::smemBytes(ck, wg::slabOf(wp, kh, kw));
-    case PATH_MMA:   return (int)mmaSync::smemBytes(wp, kh, kw);
-    default:         return 0;
-    }
+    *chunk = wg::chunkOf(wp, kh, kw, maxSmem());
+    return *chunk == 0 ? 0 : (int)wg::smemBytes(*chunk, wg::slabOf(wp, kh, kw));
 }

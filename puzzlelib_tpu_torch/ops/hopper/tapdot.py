@@ -149,19 +149,17 @@ def _launch(xp, wk, bi, wp, kh, kw, c, co, nTiles, path):
     return out
 
 
-def launchShape(wp, kh, kw, path="wgmma"):
-    """(channel chunk, dynamic shared memory bytes) of a launch of ``path``'s
-    kernel at pitch ``wp`` and a kh x kw filter on the current card, as the
-    source computes them; (0, 0) where the slab does not fit and the launch
+def launchShape(wp, kh, kw):
+    """(channel chunk, dynamic shared memory bytes) of a ``wgmma`` launch at
+    pitch ``wp`` and a kh x kw filter on the current card, as the source
+    computes them; (0, 0) where the slab does not fit and the launch
     refuses."""
-    lib = build.load("tapdot")
-    sizes = []
-    for symbol in ("pl_tapdot_chunk", "pl_tapdot_smem"):
-        fn = getattr(lib, symbol)
-        fn.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_int
-        sizes.append(fn(wp, kh, kw, _PATHS[path]))
-    return tuple(sizes)
+    fn = build.load("tapdot").pl_tapdot_smem
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    chunk = ctypes.c_int(0)
+    smem = fn(wp, kh, kw, ctypes.byref(chunk))
+    return chunk.value, smem
 
 
 def pickBi(oh, wp):
