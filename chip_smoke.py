@@ -141,7 +141,33 @@ it fails:
    (``gemmspeed`` and its ``--kernel-rate``, ``convspeed`` and its
    ``--chain`` on VGG-16's conv3_2, ``attnspeed``) run as a user runs them, with every counter reset just
    before and read just after; each of P1-P3 and K1-K5b must have run, and
-   every P1 launch on the wgmma kernel.
+   every P1 launch on the wgmma kernel;
+19. the CNN training slices of ``tools/cnnslice.py``, after phase 10.
+   [lenet]: K1 held to its plain version at LeNet's two products at batch
+   128 (f32 and bf16); LeNet in f32 trained 8 steps of 128 by
+   ``Trainer.trainFromHost`` with ``MomentumSGD(0.01, 0.9)`` in global
+   state, then ``Validator.validateFromHost`` over 1024 images, on the hand
+   route and the library route; the K1 launches of each counted run (2 a
+   step, 2 a validated batch, on the f32 kernel), the losses within 1e-4
+   of the library route's, the validation errors equal; 5 runs of each
+   route in turns; one bf16 run with 8 K1 launches on wgmma (800 -> 1024)
+   and 8 on WMMA (1024 -> 10);
+20. [nin-cifar]: the CIFAR-10 NIN of ``testlib/cnncifar10nin.py`` in f32,
+   with ``hooks.WeightDecay(1e-4)`` and its two dropouts (draws reseeded at
+   each run), trained and validated the same way; no hand-kernel launch;
+   the losses against the library route's, two validations the same bits;
+21. [nin]: the ImageNet NiN (``models/nets/nin.py``) in bf16 at batch 128,
+   He weights from ``np.random.seed(0)``: 4 requests through ``Calculator``
+   (logits of the first within 5e-2 of the same f32 weights on the library
+   route), then without its SoftMax 4 training steps with ``CrossEntropy``
+   and ``MomentumSGD(1e-4, 0.9)`` in global state (the first step's dW of
+   conv3 and conv4-1024 on the hand kernels within 5e-2 of the library's
+   backward on the same forward; the losses within 5e-2 of the library
+   route's); each of conv3 and conv4-1024 must show one K2 forward a
+   request, and one K2 forward, one K2 bwd-data and one K3 a step (counted
+   inside each layer's own calls); then K2, K2-bwd and K3 at those two
+   convs' shapes against their plain versions, and timed on channels-last
+   operands against cuDNN in 5 alternating turns.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -169,7 +195,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
 from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
     BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, cardName, deviceMs
@@ -318,6 +345,15 @@ LEARN_RATE = 1e-4
 TRAIN_BOUND = 5e-2
 GRAD_LAYERS = ("conv2_2", "conv3_1", "conv4_2", "conv5_3", "fc6", "fc8")
 
+# [lenet]: LeNet's two products at batch 128, (name, M, K, N); K1 runs
+# both forward (f32 on the scalar-load kernel; in bf16 the first on wgmma,
+# the second, N off a multiple of 8, on WMMA)
+LENET_GEMMS = [("lenet-fc1", Cnn.BATCH, 800, 1024), ("lenet-fc2", Cnn.BATCH, 1024, 10)]
+
+# [lenet], [nin-cifar]: f32 step losses of the hand route against the
+# library route's, relative difference (the f32 products differ in
+# summation order only)
+CNN_LOSS_BOUND = 1e-4
 
 # P3: 64 Mi bf16 values as (131072, 512), the roofline probe's stream
 STREAM_SHAPE = (131072, 512)
@@ -526,6 +562,19 @@ def phaseGemm(torch, matmul):
     return vgg, transformer
 
 
+def _winogradBound(xshape, co, transformOps, weightBytes):
+    """(2x2 output tiles, bound ms, what binds) of a 3x3 pad-1 Winograd conv
+    of x (N, C, H, W) to ``co`` channels: x and y (N, CO, H, W) read or
+    written once in bf16, the filter in ``weightBytes`` per value, the 16
+    products per tile per (c, co) and ``transformOps(tiles, c, co)`` f32
+    operations."""
+    n, c, h, w = xshape
+    tiles = n * -(-h // 2) * -(-w // 2)
+    boundMs, boundBy = bound((n * c * h * w + n * co * h * w) * 2 + co * c * 9 * weightBytes,
+                             2 * 16 * tiles * c * co, f32Flops=transformOps(tiles, c, co))
+    return tiles, boundMs, boundBy
+
+
 def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, transformOps, weightBytes=2):
     """One conv kernel against its plain version and against an f32 library
     reference (TF32 off) at each distinct Winograd-eligible VGG-16 conv at
@@ -567,10 +616,7 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
         plainMs = deviceMs(lambda: plain(*args), 2)
         libMs = deviceMs(lambda: library(*args), 10)
 
-        n, c, h, w = xshape
-        tiles = n * -(-h // 2) * -(-w // 2)
-        boundMs, boundBy = bound((n * c * h * w + n * co * h * w) * 2 + co * c * 9 * weightBytes,
-                                 2 * 16 * tiles * c * co, f32Flops=transformOps(tiles, c, co))
+        tiles, boundMs, boundBy = _winogradBound(xshape, co, transformOps, weightBytes)
 
         print("[%s] %-7s x=%s co=%d: rel err %.3e vs plain (bound %.0e), %.3e vs f32 library (bound %.0e); "
               "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms, bound %.4f ms (%s)" %
@@ -584,7 +630,7 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
 
         lastMs = deviceMs(lambda: kernel(*last), 10)
         libLastMs = deviceMs(lambda: library(*last), 10)
-        rate = 2 * 16 * tiles * c * co / 1e9
+        rate = 2 * 16 * tiles * xshape[1] * co / 1e9
         print("[%s] %-7s channels-last operands: kernel %.4f ms (%.1f TF/s of the 16 products; NCHW %.1f), "
               "the wrapper's layout copies %.1f %% of the NCHW time, library bf16 %.4f ms; two calls and the "
               "channels-last call bit-equal: %s" %
@@ -615,9 +661,12 @@ def phaseConv(torch, tag, seed, operands, kernel, plain, library, f32, bounds, t
     return main
 
 
-def phaseWinograd(torch, winograd):
+def _winogradSpecs(torch, winograd):
     """K2 forward; K2 as bwd-data (the forward on the rotated, io-swapped
-    filter); K3, whose dW is compared before the cast to the weight's type."""
+    filter); K3, whose dW is compared before the cast to the weight's type:
+    {tag: ``phaseConv``'s arguments after the tag}, each kernel with its
+    operands, plain version, library call (bf16) and f32 library
+    reference."""
     import torch.nn.functional as F
     from torch.nn.grad import conv2d_input, conv2d_weight
 
@@ -646,34 +695,38 @@ def phaseWinograd(torch, winograd):
     def wshapeOf(x, dy):
         return (dy.shape[1], x.shape[1], 3, 3)
 
-    forward = phaseConv(
-        torch, "K2", 2, forwardOperands,
-        kernel=lambda x, w: winograd.conv2d(x, w, (1, 1)),
-        plain=lambda x, w: winograd.plain(x, w, (1, 1)),
-        library=lambda x, w: F.conv2d(x, w, padding=1),
-        f32=lambda x, w: F.conv2d(x.float(), w.float(), padding=1),
-        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
-        transformOps=lambda tiles, c, co: (V_ADDS * c + OUT_ADDS * co) * tiles + FILTER_OPS * c * co)
+    return {
+        "K2": dict(
+            seed=2, operands=forwardOperands,
+            kernel=lambda x, w: winograd.conv2d(x, w, (1, 1)),
+            plain=lambda x, w: winograd.plain(x, w, (1, 1)),
+            library=lambda x, w: F.conv2d(x, w, padding=1),
+            f32=lambda x, w: F.conv2d(x.float(), w.float(), padding=1),
+            bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
+            transformOps=lambda tiles, c, co: (V_ADDS * c + OUT_ADDS * co) * tiles + FILTER_OPS * c * co),
+        "K2-bwd": dict(
+            seed=3, operands=dataGradOperands,
+            kernel=lambda dy, w: winograd.dataGrad(dy, w, (1, 1)),
+            plain=lambda dy, w: winograd.plain(dy, w.flip((2, 3)).transpose(0, 1), (1, 1)),
+            library=lambda dy, w: conv2d_input(xshapeOf(dy, w), w, dy, padding=1),
+            f32=lambda dy, w: conv2d_input(xshapeOf(dy, w), w.float(), dy.float(), padding=1),
+            bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
+            transformOps=lambda tiles, c, co: (V_ADDS * co + OUT_ADDS * c) * tiles + FILTER_OPS * c * co),
+        "K3": dict(
+            seed=4, operands=filterGradOperands,
+            kernel=lambda x, dy: winograd.filterGrad(x, dy, (1, 1)),
+            plain=lambda x, dy: winograd.filterGradPlain(x, dy, (1, 1)),
+            library=lambda x, dy: conv2d_weight(x, wshapeOf(x, dy), dy, padding=1),
+            f32=lambda x, dy: conv2d_weight(x.float(), wshapeOf(x, dy), dy.float(), padding=1),
+            bounds=(FG_BOUND_PLAIN, FG_BOUND_F32), weightBytes=4,
+            transformOps=lambda tiles, c, co: (V_ADDS * c + MBAR_ADDS * co) * tiles + FILTER_OPS * c * co),
+    }
 
-    dataGrad = phaseConv(
-        torch, "K2-bwd", 3, dataGradOperands,
-        kernel=lambda dy, w: winograd.dataGrad(dy, w, (1, 1)),
-        plain=lambda dy, w: winograd.plain(dy, w.flip((2, 3)).transpose(0, 1), (1, 1)),
-        library=lambda dy, w: conv2d_input(xshapeOf(dy, w), w, dy, padding=1),
-        f32=lambda dy, w: conv2d_input(xshapeOf(dy, w), w.float(), dy.float(), padding=1),
-        bounds=(WINOGRAD_BOUND_PLAIN, WINOGRAD_BOUND_F32),
-        transformOps=lambda tiles, c, co: (V_ADDS * co + OUT_ADDS * c) * tiles + FILTER_OPS * c * co)
 
-    filterGrad = phaseConv(
-        torch, "K3", 4, filterGradOperands,
-        kernel=lambda x, dy: winograd.filterGrad(x, dy, (1, 1)),
-        plain=lambda x, dy: winograd.filterGradPlain(x, dy, (1, 1)),
-        library=lambda x, dy: conv2d_weight(x, wshapeOf(x, dy), dy, padding=1),
-        f32=lambda x, dy: conv2d_weight(x.float(), wshapeOf(x, dy), dy.float(), padding=1),
-        bounds=(FG_BOUND_PLAIN, FG_BOUND_F32), weightBytes=4,
-        transformOps=lambda tiles, c, co: (V_ADDS * c + MBAR_ADDS * co) * tiles + FILTER_OPS * c * co)
-
-    return forward, dataGrad, filterGrad
+def phaseWinograd(torch, winograd):
+    """K2, K2-bwd and K3 at VGG-16's shapes (``phaseConv``)."""
+    specs = _winogradSpecs(torch, winograd)
+    return tuple(phaseConv(torch, tag, **specs[tag]) for tag in ("K2", "K2-bwd", "K3"))
 
 
 def phaseSlice(torch, card):
@@ -760,8 +813,8 @@ def phaseSlice(torch, card):
     return launches
 
 
-def _layerGrads(net):
-    return {name: net[name].vars["W"].grad.float().clone() for name in GRAD_LAYERS}
+def _layerGrads(net, names=GRAD_LAYERS):
+    return {name: net[name].vars["W"].grad.float().clone() for name in names}
 
 
 def _stepGrads(trainer, net, images, labels):
@@ -772,23 +825,23 @@ def _stepGrads(trainer, net, images, labels):
     return _layerGrads(net)
 
 
-def _backwardGrads(torch, Config, trainer, net, images, labels):
+def _backwardGrads(torch, Config, trainer, net, images, labels, names=GRAD_LAYERS, batch=BATCH):
     """One forward pass of the first batch on the hand kernels, then the
     backward of that same forward on each route, as ``Trainer.handleBatch``
-    runs it: {route: GRAD_LAYERS' weight gradients in f32}."""
+    runs it: {route: the weight gradients of the layers ``names`` in f32}."""
     from puzzlelib_tpu_torch.backend import gpuarray
 
     Config.gemmAlgo = Config.convAlgo = "hopper"
     net.trainMode()
-    grad = trainer.cost(net(gpuarray.to_gpu(images[:BATCH], dtype=torch.bfloat16)),
-                        gpuarray.to_gpu(labels[:BATCH]), queryError=False)
+    grad = trainer.cost(net(gpuarray.to_gpu(images[:batch], dtype=torch.bfloat16)),
+                        gpuarray.to_gpu(labels[:batch]), queryError=False)
 
     grads = {}
     for algo in ("hopper", "torch"):
         Config.gemmAlgo = Config.convAlgo = algo
         trainer.optimizer.zeroGradParams()
         net.backward(grad, updGrad=False)
-        grads[algo] = _layerGrads(net)
+        grads[algo] = _layerGrads(net, names)
 
     net.reset()
     return grads
@@ -948,6 +1001,398 @@ def phaseTrain(torch, card):
               (label, " ".join("%.4f" % t for t in runs[algo]), len(images) / float(np.median(runs[algo])), card))
 
     return launches
+
+
+def _cnnWarmUp(run, images, labels, valImages, valLabels):
+    """Both routes trained and validated once (library conv plans,
+    allocator blocks of these sizes)."""
+    for algo in ("torch", "hopper"):
+        run.train(algo, images, labels)
+        run.validate(algo, valImages, valLabels)
+
+
+def _cnnTurns(tag, run, images, labels, valImages, valLabels, card):
+    """5 runs of training then validation on each route, in turns: the
+    seconds and median images/s of each, printed."""
+    runs = {algo: {"train": [], "validate": []} for algo in ("hopper", "torch")}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo]["train"].append(run.train(algo, images, labels))
+            runs[algo]["validate"].append(run.validate(algo, valImages, valLabels)[1])
+
+    for algo, label in (("hopper", "hand route"), ("torch", "library route (cuBLAS / cuDNN)")):
+        for what, count in (("train", len(images)), ("validate", len(valImages))):
+            secs = runs[algo][what]
+            print("[%s] %s, %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+                  (tag, label, what, " ".join("%.4f" % t for t in secs), count / float(np.median(secs)), card))
+
+
+def _lossesAgainstLibrary(tag, losses, libLosses, boundRel):
+    print("[%s] step losses: %s" % (tag, " ".join("%.6f" % loss for loss in losses)))
+    if len(losses) != len(libLosses) or not np.isfinite(losses).all():
+        fail("%s step losses %s against %s" % (tag, losses, libLosses))
+
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, libLosses))
+    print("[%s] library route step losses: %s; largest relative difference %.3e (bound %.0e)" %
+          (tag, " ".join("%.6f" % loss for loss in libLosses), rel, boundRel))
+
+    if not rel <= boundRel:
+        fail("%s step losses differ from the library route's by %.3e" % (tag, rel))
+
+
+def phaseLeNet(torch, card):
+    """LeNet in f32 as ``bench.py`` trains it (``tools/cnnslice.py``): 8
+    steps of 128 through ``trainFromHost``, then ``validateFromHost`` over
+    1024 images, on the hand route and the library route, K1's launches
+    counted in each counted run and in one bf16 run.  K1 is first held to
+    its plain version at LeNet's two products.  Returns the launches and
+    the JSON entry's numbers (the two f32 products at batch 128)."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    Config.device = "cuda"
+    images, labels = Cnn.data("lenet", Cnn.BATCH * Cnn.STEPS)
+    valImages, valLabels = Cnn.data("lenet", Cnn.VALIDATION, seed=2)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    for dtName in ("f32", "bf16"):
+        for name, m, k, n in LENET_GEMMS:
+            case = _gemmCase(torch, matmul, gen, name, dtName, m, k, n)
+            if dtName == "f32":
+                _addCase(main, binding, case)
+    main["bound_by"] = "/".join(sorted(binding))
+    del main["wmma_ms"]
+
+    run = Cnn.buildRun("lenet")
+    _cnnWarmUp(run, images, labels, valImages, valLabels)
+
+    losses = []
+    matmul.launches = matmul.launchesWgmma = 0
+    secs = run.train("hopper", images, labels, losses)
+    launches = {"train": matmul.launches, "trainWgmma": matmul.launchesWgmma}
+
+    matmul.launches = matmul.launchesWgmma = 0
+    error, valSecs = run.validate("hopper", valImages, valLabels)
+    launches.update(validate=matmul.launches, validateWgmma=matmul.launchesWgmma)
+
+    print("[lenet] LeNet f32, MomentumSGD(%g, %g) in global state: %d images in %d steps of %d, %.4f s, %.1f "
+          "images/s; validation of %d images, %.4f s, %.1f images/s on %s" %
+          (Cnn.LEARN_RATE, Cnn.MOM_RATE, len(images), Cnn.STEPS, Cnn.BATCH, secs, len(images) / secs,
+           len(valImages), valSecs, len(valImages) / valSecs, card))
+    print("[lenet] K1 launches (gemmF32): training %d, validation %d (on wgmma %d, %d)" %
+          (launches["train"], launches["validate"], launches["trainWgmma"], launches["validateWgmma"]))
+
+    expected = {"train": 2 * Cnn.STEPS, "trainWgmma": 0, "validate": 2 * Cnn.VALIDATION // Cnn.BATCH,
+                "validateWgmma": 0}
+    if launches != expected:
+        fail("[lenet] expected K1 launches %s, got %s" % (expected, launches))
+
+    libLosses = []
+    run.train("torch", images, labels, libLosses)
+    libError, _ = run.validate("torch", valImages, valLabels)
+    _lossesAgainstLibrary("lenet", losses, libLosses, CNN_LOSS_BOUND)
+
+    print("[lenet] validation error: hand route %r, library route %r" % (error, libError))
+    if error != libError:
+        fail("[lenet] validation errors differ between the routes: %r against %r" % (error, libError))
+
+    _cnnTurns("lenet", run, images, labels, valImages, valLabels, card)
+    del run
+
+    # one bf16 run: the 800 -> 1024 product on wgmma, the 1024 -> 10 one
+    # (N off a multiple of 8) on the WMMA kernel
+    run16 = Cnn.buildRun("lenet", dtype=torch.bfloat16)
+    run16.train("hopper", images, labels)
+    losses16 = []
+    matmul.launches = matmul.launchesWgmma = 0
+    run16.train("hopper", images, labels, losses16)
+    launches.update(bf16=matmul.launches, bf16Wgmma=matmul.launchesWgmma)
+
+    print("[lenet] LeNet bf16 on the hand route: step losses %s; K1 launches %d, on wgmma %d, on WMMA %d" %
+          (" ".join("%.6f" % loss for loss in losses16), launches["bf16"], launches["bf16Wgmma"],
+           launches["bf16"] - launches["bf16Wgmma"]))
+
+    if (launches["bf16"], launches["bf16Wgmma"]) != (2 * Cnn.STEPS, Cnn.STEPS) or not np.isfinite(losses16).all():
+        fail("[lenet] bf16: expected %d K1 launches, %d on wgmma, and finite losses; got %s, %s" %
+             (2 * Cnn.STEPS, Cnn.STEPS, launches, losses16))
+
+    return launches, main
+
+
+def phaseNiNCifar(torch, card):
+    """The CIFAR-10 NIN of ``testlib/cnncifar10nin.py`` in f32 with
+    ``WeightDecay(1e-4)`` (``tools/cnnslice.py``): 8 steps of 128, then 1024
+    validated, on both routes.  It reaches no hand kernel: its 192-channel
+    convs go to cuDNN on both routes.  The dropout draws start from one seed
+    in every run; in eval mode dropout is the identity, so two validations
+    give the same bits."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    images, labels = Cnn.data("nin-cifar", Cnn.BATCH * Cnn.STEPS)
+    valImages, valLabels = Cnn.data("nin-cifar", Cnn.VALIDATION, seed=2)
+
+    run = Cnn.buildRun("nin-cifar")
+    _cnnWarmUp(run, images, labels, valImages, valLabels)
+
+    losses = []
+    matmul.launches = winograd.launches = winograd.filterGradLaunches = 0
+    secs = run.train("hopper", images, labels, losses)
+    error, valSecs = run.validate("hopper", valImages, valLabels)
+    again, _ = run.validate("hopper", valImages, valLabels)
+    launches = {"matmul": matmul.launches, "winograd": winograd.launches, "winogradFG": winograd.filterGradLaunches}
+
+    print("[nin-cifar] CIFAR-10 NIN f32, MomentumSGD(%g, %g) with WeightDecay(%g) in global state: %d images in %d "
+          "steps of %d, %.4f s, %.1f images/s; validation of %d images, %.4f s, %.1f images/s on %s" %
+          (Cnn.LEARN_RATE, Cnn.MOM_RATE, Cnn.WEIGHT_DECAY, len(images), Cnn.STEPS, Cnn.BATCH, secs,
+           len(images) / secs, len(valImages), valSecs, len(valImages) / valSecs, card))
+    print("[nin-cifar] launches in that run: K1 %d, K2 %d, K3 %d (its 192-channel convs go to cuDNN)" %
+          (launches["matmul"], launches["winograd"], launches["winogradFG"]))
+
+    if any(launches.values()):
+        fail("[nin-cifar] expected no hand-kernel launch, got %s" % launches)
+
+    libLosses = []
+    run.train("torch", images, labels, libLosses)
+    libError, _ = run.validate("torch", valImages, valLabels)
+    _lossesAgainstLibrary("nin-cifar", losses, libLosses, CNN_LOSS_BOUND)
+
+    print("[nin-cifar] validation error: %r, a second validation %r (dropout is the identity in eval mode); "
+          "library route %r" % (error, again, libError))
+    if not error == again == libError:
+        fail("[nin-cifar] validation errors differ: %r, %r, library %r" % (error, again, libError))
+
+    _cnnTurns("nin-cifar", run, images, labels, valImages, valLabels, card)
+    return launches
+
+
+class _LayerLaunches:
+    """K2 forward, K2 bwd-data and K3 launches counted inside each named
+    conv's own calls (its ``updateData``, ``updateGrad`` and
+    ``accGradParams``, wrapped on the instance)."""
+
+    def __init__(self, winograd, net, names):
+        self.winograd = winograd
+        self.counts = {name: [0, 0, 0] for name in names}
+
+        for name in names:
+            mod = net[name]
+            for method in ("updateData", "updateGrad", "accGradParams"):
+                setattr(mod, method, self._wrap(name, getattr(mod, method)))
+
+    def _now(self):
+        w = self.winograd
+        return w.launches - w.dataGradLaunches, w.dataGradLaunches, w.filterGradLaunches
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            before = self._now()
+            result = fn(*args, **kwargs)
+            for i, (b, a) in enumerate(zip(before, self._now())):
+                self.counts[name][i] += a - b
+            return result
+
+        return call
+
+    def reset(self):
+        for counts in self.counts.values():
+            counts[:] = [0, 0, 0]
+
+    def check(self, tag, want):
+        """Fail unless each conv shows ``want`` (forward, bwd-data, bwd-filter)."""
+        print("[%s] launches by layer (K2 forward, K2 bwd-data, K3): %s" %
+              (tag, ", ".join("%s %s" % (name, tuple(c)) for name, c in self.counts.items())))
+
+        for name, counts in self.counts.items():
+            if tuple(counts) != want:
+                fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, tuple(counts)))
+
+
+def _ninKernels(torch, winograd):
+    """K2, K2-bwd and K3 at the ImageNet NiN's conv3 and conv4-1024 at batch
+    128: each against its plain version, then kernel and cuDNN on
+    channels-last operands (as the training path hands them over) in 5
+    alternating turns of 10 calls.  Returns the JSON entries' numbers, the
+    two convs summed."""
+    specs = _winogradSpecs(torch, winograd)
+    entries = {}
+
+    for tag in ("K2", "K2-bwd", "K3"):
+        spec = specs[tag]
+        gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+        entry = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        binding = set()
+
+        for name, inshape, co in Cnn.NIN_KERNEL_CONVS:
+            xshape = (Cnn.BATCH, ) + inshape
+            args = spec["operands"](gen, xshape, co)
+            out, ref = spec["kernel"](*args), spec["plain"](*args)
+            torch.cuda.synchronize()
+            err, absErr = relErr(torch, out, ref), (out.float() - ref.float()).abs().max().item()
+            del out, ref
+
+            last = tuple(a.contiguous(memory_format=torch.channels_last) for a in args)
+            (ms, libMs), turns = _medianTurns([lambda: spec["kernel"](*last), lambda: spec["library"](*last)],
+                                              turns=5)
+            plainMs = deviceMs(lambda: spec["plain"](*args), 2)
+            _, boundMs, boundBy = _winogradBound(xshape, co, spec["transformOps"], spec.get("weightBytes", 2))
+
+            print("[nin] %-6s %-10s x=%s co=%d: rel err %.3e vs plain (bound %.0e); channels-last operands, medians "
+                  "of 5 alternating turns: kernel %.4f ms (turns %s), cuDNN %.4f ms (turns %s), %.2fx cuDNN; plain "
+                  "%.4f ms, bound %.4f ms (%s)" %
+                  (tag, name, xshape, co, err, spec["bounds"][0], ms, " ".join("%.4f" % t for t in turns[0]), libMs,
+                   " ".join("%.4f" % t for t in turns[1]), ms / libMs, plainMs, boundMs, boundBy))
+
+            if not err <= spec["bounds"][0]:
+                fail("[nin] %s %s disagrees with its plain version: %.3e" % (tag, name, err))
+
+            entry["max_abs_err"] = max(entry["max_abs_err"], absErr)
+            entry["ms"] += ms
+            entry["plain_ms"] += plainMs
+            entry["library_ms"] += libMs
+            entry["bound_ms"] += boundMs
+            binding.add(boundBy)
+            del args, last
+
+        entry["bound_by"] = "/".join(sorted(binding))
+        entries[tag] = entry
+
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phaseNiN(torch, card):
+    """The ImageNet NiN in bf16 at batch 128 (``tools/cnnslice.py``): 4
+    requests served through ``Calculator`` (logits of the first against
+    the same f32 weights on the library route), then, without its SoftMax,
+    4 steps trained with ``CrossEntropy`` and ``MomentumSGD`` in global
+    state (the first step's dW of conv3 and conv4-1024 on the hand kernels
+    against the library's backward on the same forward; the losses against
+    the library route's).  Each of conv3 and conv4-1024 must show one K2
+    forward a request, and one K2 forward, one K2 bwd-data and one K3 a
+    step.  Then K2, K2-bwd and K3 at those two convs' shapes
+    (``_ninKernels``).  Returns the launches and the kernels' numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.handlers import Calculator
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False   # the net is trained after it serves
+    convs = [name for name, _, _ in Cnn.NIN_KERNEL_CONVS]
+
+    net = Cnn.build("nin")
+    images, labels = Cnn.data("nin", Cnn.BATCH * REQUESTS)
+    first = torch.from_numpy(images[:Cnn.BATCH]).cuda()
+
+    # the f32 reference: the same weights on the library route (TF32 off)
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    net.evalMode()
+    net(first)
+    refLogits = net.graph[-2].data.float().clone()
+    net.reset()
+
+    net.calcMode(torch.bfloat16)
+    counter = _LayerLaunches(winograd, net, convs)
+
+    def serve(algo):
+        Config.gemmAlgo = Config.convAlgo = algo
+        synchronize()
+        start = time.perf_counter()
+        result = Calculator(net, batchsize=Cnn.BATCH).calcFromHost(images)
+        synchronize()
+        return result, time.perf_counter() - start
+
+    for algo in ("torch", "hopper"):
+        serve(algo)
+
+    counter.reset()
+    matmul.launches = winograd.launches = winograd.dataGradLaunches = winograd.filterGradLaunches = 0
+    out, secs = serve("hopper")
+    serving = {"winograd": winograd.launches, "matmul": matmul.launches}
+
+    print("[nin] ImageNet NiN bf16, %d images in %d requests of %d: %.4f s, %.1f images/s on %s" %
+          (len(images), REQUESTS, Cnn.BATCH, secs, len(images) / secs, card))
+    print("[nin] serving launches: winograd %d, matmul %d" % (serving["winograd"], serving["matmul"]))
+    counter.check("nin", (REQUESTS, 0, 0))
+
+    if serving != {"winograd": 2 * REQUESTS, "matmul": 0}:
+        fail("[nin] expected %d Winograd launches and no GEMM in serving, got %s" % (2 * REQUESTS, serving))
+
+    if out.shape != (len(images), 1000) or not np.isfinite(out).all():
+        fail("[nin] output of shape %s, finite: %s" % (out.shape, np.isfinite(out).all()))
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    net(first.to(torch.bfloat16))
+    rel = _relL2(net.graph[-2].data.float(), refLogits)
+    net.reset()
+    print("[nin] logits of the first request vs the f32 library run: relative L2 %.3e (bound %.0e)" %
+          (rel, SLICE_BOUND))
+    if not rel <= SLICE_BOUND:
+        fail("[nin] logits relative L2 error %.3e against the f32 run" % rel)
+
+    runs = {"hopper": [], "torch": []}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo].append(serve(algo)[1])
+
+    for algo, label in (("hopper", "hand kernels"), ("torch", "library route (cuDNN)")):
+        print("[nin] serving, %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+              (label, " ".join("%.4f" % t for t in runs[algo]), len(images) / float(np.median(runs[algo])), card))
+
+    # training, without the SoftMax
+    run = Cnn.buildRun("nin", net=net)
+    run.restore()
+    backward = _backwardGrads(torch, Config, run.trainer, net, images, labels, names=convs, batch=Cnn.BATCH)
+    for name in convs:
+        rel = _relL2(backward["hopper"][name], backward["torch"][name])
+        print("[nin] first-step dW of %s: backward on the hand kernels vs the library's, same forward: relative "
+              "L2 %.3e (bound %.0e)" % (name, rel, TRAIN_BOUND))
+        if not rel <= TRAIN_BOUND:
+            fail("[nin] first-step gradient of %s differs from the library's by %.3e" % (name, rel))
+
+    for algo in ("torch", "hopper"):
+        run.train(algo, images, labels)
+
+    losses = []
+    counter.reset()
+    matmul.launches = winograd.launches = winograd.dataGradLaunches = winograd.filterGradLaunches = 0
+    secs = run.train("hopper", images, labels, losses)
+    training = {"winograd": winograd.launches, "winogradDataGrad": winograd.dataGradLaunches,
+                "winogradFG": winograd.filterGradLaunches, "matmul": matmul.launches}
+
+    print("[nin] ImageNet NiN bf16 training, MomentumSGD(%g, %g): %d images in %d steps of %d, %.4f s, %.1f "
+          "images/s on %s" % (Cnn.NIN_LEARN_RATE, Cnn.MOM_RATE, len(images), REQUESTS, Cnn.BATCH, secs,
+                              len(images) / secs, card))
+    print("[nin] training launches: winograd %d (forward %d, bwd-data %d), winogradFG %d, matmul %d" %
+          (training["winograd"], training["winograd"] - training["winogradDataGrad"], training["winogradDataGrad"],
+           training["winogradFG"], training["matmul"]))
+    counter.check("nin", (REQUESTS, REQUESTS, REQUESTS))
+
+    expected = {"winograd": 4 * REQUESTS, "winogradDataGrad": 2 * REQUESTS, "winogradFG": 2 * REQUESTS, "matmul": 0}
+    if training != expected:
+        fail("[nin] expected training launches %s, got %s" % (expected, training))
+
+    libLosses = []
+    run.train("torch", images, labels, libLosses)
+    _lossesAgainstLibrary("nin", losses, libLosses, TRAIN_BOUND)
+
+    runs = {"hopper": [], "torch": []}
+    for _ in range(5):
+        for algo in ("hopper", "torch"):
+            runs[algo].append(run.train(algo, images, labels))
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    for algo, label in (("hopper", "hand kernels"), ("torch", "library route (cuDNN)")):
+        print("[nin] training, %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+              (label, " ".join("%.4f" % t for t in runs[algo]), len(images) / float(np.median(runs[algo])), card))
+
+    del run, net
+    torch.cuda.empty_cache()
+    return serving, training, _ninKernels(torch, winograd)
 
 
 def phaseCheckinstall(torch, matmul, probe):
@@ -2059,6 +2504,10 @@ def main():
     torch.cuda.empty_cache()
     transformerTrain = phaseTransformerTrain(torch, card)
     torch.cuda.empty_cache()
+    lenet, gemmLeNet = phaseLeNet(torch, card)
+    ninCifar = phaseNiNCifar(torch, card)
+    torch.cuda.empty_cache()
+    ninServing, ninTraining, ninKernels = phaseNiN(torch, card)
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -2090,6 +2539,10 @@ def main():
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
              launches_wgmma=transformer["matmulWgmma"], **gemmTransformer),
+        dict(name="K1 tiled GEMM at LeNet's shapes (f32)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=lenet["train"],
+             validation_launches=lenet["validate"], bf16_launches=lenet["bf16"],
+             bf16_launches_wgmma=lenet["bf16Wgmma"], **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -2100,6 +2553,16 @@ def main():
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"],
              measurement_launches=measured["K3"], **filterGrad),
+        dict(name="K2 Winograd F(2x2,3x3) forward at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=ninTraining["winograd"] - ninTraining["winogradDataGrad"],
+             serving_launches=ninServing["winograd"], **ninKernels["K2"]),
+        dict(name="K2 Winograd F(2x2,3x3) as bwd-data at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=ninTraining["winogradDataGrad"], **ninKernels["K2-bwd"]),
+        dict(name="K3 Winograd F(2x2,3x3) bwd-filter at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
+             source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
+             launches=ninTraining["winogradFG"], **ninKernels["K3"]),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -2145,7 +2608,12 @@ def main():
           "launches_wgmma those on the wgmma kernel, mma_ms the first mma.sync kernel's time in the same call, "
           "library cuDNN on channels-last bf16; K0 and P3: medians of 5 alternating turns of 200 calls; P2: (1, "
           "64, 64, 256) at 4 rows a tile, library = plain, the permuted copy; P3: x + 1 on 64 Mi bf16 values, "
-          "library torch.add; max_abs_err: largest |kernel - plain| at those shapes")
+          "library torch.add; K1 at LeNet's shapes: its two f32 products at batch 128, launches those of [lenet]'s "
+          "8 training steps of 128 (validation_launches its validation of 1024 images, bf16_launches and "
+          "bf16_launches_wgmma its bf16 run's); K2, K2-bwd and K3 at the ImageNet NiN's conv3 and conv4-1024: the "
+          "two convs at batch 128 on channels-last operands, library cuDNN on the same, medians of 5 alternating "
+          "turns, launches [nin]'s 4 training steps of 128 (K2's serving_launches its 4 requests of 128); "
+          "max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -49,6 +49,9 @@ class ConvPerf:
 
 class PoolMode(Enum):
     max = "max"
+    avgWithPad = "avgWithPad"
+    avgNoPad = "avgNoPad"
+    maxDeterminism = "max"
 
 
 class SoftMaxMode(Enum):

@@ -3,7 +3,12 @@
 
 ``devErr`` (the last batch's error sum) and ``accumErr`` (the running sum)
 are 0-d f32 tensors on the device, so a training step reads nothing back
-unless an error is asked for (``getError``, ``getMeanError``)."""
+unless an error is asked for (``getError``, ``getMeanError``).
+
+Validation: ``validate`` returns a batch's validation error as a float (one
+readback), as the reference's does; ``validateDev`` returns it as a 0-d
+tensor on the device with no readback, for ``Validator``, which sums the
+batches on the device and reads the sum back once."""
 
 import torch
 
@@ -35,13 +40,17 @@ class Cost:
         self.numOfSamples = 0
 
         self.error = None
+        self.valError = None
         self.grad = None
         self.dirty = True
 
     # -- accumulator lifecycle -------------------------------------------------
 
-    def resetAccumulator(self):
+    def resetDeviceAccumulator(self):
         self.accumErr.zero_()
+
+    def resetAccumulator(self):
+        self.resetDeviceAccumulator()
         self.batchsize = self.numOfSamples = 0
 
     def updateState(self, samples):
@@ -49,7 +58,7 @@ class Cost:
         self.numOfSamples += samples
 
     def reset(self):
-        self.error = self.grad = None
+        self.error = self.valError = self.grad = None
 
     # -- error queries: the only readbacks ----------------------------------------
 
@@ -62,12 +71,18 @@ class Cost:
     def getMeanError(self):
         return self.accumErr.item() / self.numOfSamples
 
+    def getValError(self):
+        return self.valError
+
     # -- evaluation protocol ----------------------------------------------------
 
-    def __call__(self, pred, target, queryError=True):
+    @staticmethod
+    def _verifyBatch(pred, target):
         if pred.shape[0] != target.shape[0]:
             raise CostError("prediction/target batch mismatch: %d vs %d" % (pred.shape[0], target.shape[0]))
 
+    def __call__(self, pred, target, queryError=True):
+        self._verifyBatch(pred, target)
         self.checkDataShape(pred, target)
         self.reset()
 
@@ -82,6 +97,22 @@ class Cost:
         self.error = self.getError()
         return self.error, grad
 
+    def validate(self, pred, target):
+        """The batch's validation error, as a float."""
+        self._verifyBatch(pred, target)
+        self.checkValDataShape(pred, target)
+
+        self.valError = self.calcVal(pred, target)
+        return self.valError
+
+    def validateDev(self, pred, target):
+        """The batch's validation error as a 0-d f32 tensor on the device,
+        read back only where ``Config.verifyData`` checks the labels."""
+        self._verifyBatch(pred, target)
+        self.checkValDataShape(pred, target)
+
+        return self.calcValDev(pred, target)
+
     # -- subclass surface --------------------------------------------------------
 
     def calcGrad(self, pred, target):
@@ -91,5 +122,15 @@ class Cost:
         # calcGrad left the batch's error in devErr: fold it into the sum
         self.accumErr.add_(self.devErr)
 
+    def calcVal(self, pred, target):
+        return self.calcValDev(pred, target).item()
+
+    def calcValDev(self, pred, target):
+        """The batch's validation error as a 0-d f32 tensor on the device."""
+        raise NotImplementedError()
+
     def checkDataShape(self, pred, target):
+        pass
+
+    def checkValDataShape(self, pred, target):
         pass

@@ -1,0 +1,46 @@
+"""Validation handler (counterpart of ``puzzlelib_tpu/handlers/validator.py``).
+
+The module goes to eval mode, walks the data in batches in order, and the
+cost's validation error of each batch, weighted by the batch's size, is
+summed into one f64 scalar on the device (``Cost.validateDev``): one
+readback a call, where the reference reads each batch's error back.  Each
+batch's error is the f32 value the reference reads, and the weighted sum
+runs in f64 in the same order as the reference's sum of Python floats, so
+the error returned is the reference's to the bit.  Costs with a list of
+targets (the reference's ``Multi``) are not ported."""
+
+from puzzlelib_tpu_torch.handlers.handler import Handler
+
+
+class Validator(Handler):
+    def __init__(self, mod, cost, onBatchFinish=None, batchsize=128):
+        super().__init__(mod, onBatchFinish, batchsize)
+
+        self.error = 0.0
+        self.cost = cost
+
+    def validateFromHost(self, data, target, macroBatchSize=10000, onMacroBatchFinish=None):
+        state = {"error": None}
+
+        self.module.evalMode()
+        self.handleFromHost([data, target], state, macroBatchSize, onMacroBatchFinish, random=False)
+
+        return self._finish(state, target)
+
+    def validate(self, data, target):
+        state = {"error": None}
+
+        self.module.evalMode()
+        self.handle([data, target], state, random=False)
+
+        return self._finish(state, target)
+
+    def _finish(self, state, target):
+        self.error = state["error"].item() / self.getDataSize(target)
+        return self.error
+
+    def handleBatch(self, batch, idx, state):
+        data, target = batch
+
+        batchError = self.getDataSize(data) * self.cost.validateDev(self.module(data), target).double()
+        state["error"] = batchError if state["error"] is None else state["error"] + batchError

@@ -1,12 +1,12 @@
 """VGG-11/16/19 (counterpart of ``puzzlelib_tpu/models/nets/vgg.py``), with
-max pooling.  Weights come from the init scheme or, through
+max or average pooling.  Weights come from the init scheme or, through
 ``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
 loading a checkpoint file comes with the checkpoint port."""
 
 import numpy as np
 
 from puzzlelib_tpu_torch.containers import Sequential
-from puzzlelib_tpu_torch.modules import Conv2D, Activation, relu, MaxPool2D, Flatten, Linear, SoftMax
+from puzzlelib_tpu_torch.modules import Conv2D, Activation, relu, AvgPool2D, MaxPool2D, Flatten, Linear, SoftMax
 
 
 # per stage: (maps, convs-in-11, convs-in-16, convs-in-19)
@@ -24,8 +24,12 @@ def loadVGG(modelpath, layers, poolmode="max", initscheme="none", withLinear=Tru
         raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
                                   "load weights with convert.paramsFromNumpy")
 
-    if poolmode != "max":
-        raise ValueError("Unsupported pool mode %s (average pooling is not ported yet)" % poolmode)
+    if poolmode == "avg":
+        pool = AvgPool2D
+    elif poolmode == "max":
+        pool = MaxPool2D
+    else:
+        raise ValueError("Unsupported pool mode")
 
     if layers not in {"11", "16", "19"}:
         raise ValueError("Unsupported VGG layers mode")
@@ -46,7 +50,7 @@ def loadVGG(modelpath, layers, poolmode="max", initscheme="none", withLinear=Tru
             net.append(Activation(relu, inplace=actInplace, name="relu%d_%d" % (stage, i)))
             inmaps = maps
 
-        net.append(MaxPool2D(2, 2, name="pool%d" % stage))
+        net.append(pool(2, 2, name="pool%d" % stage))
 
     if withLinear:
         net.append(Flatten())

@@ -1,12 +1,15 @@
-"""Module exports: the layers of the VGG and transformer slices."""
+"""Module exports: the layers of the VGG, transformer and CNN training slices."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
 )
 from puzzlelib_tpu_torch.modules.add import Add
+from puzzlelib_tpu_torch.modules.avgpool2d import AvgPool2D
 from puzzlelib_tpu_torch.modules.attention import MultiHeadAttention
 from puzzlelib_tpu_torch.modules.conv2d import Conv2D
 from puzzlelib_tpu_torch.modules.convnd import ConvND
+from puzzlelib_tpu_torch.modules.dropout import Dropout
+from puzzlelib_tpu_torch.modules.dropout2d import Dropout2D
 from puzzlelib_tpu_torch.modules.embedder import Embedder
 from puzzlelib_tpu_torch.modules.flatten import Flatten
 from puzzlelib_tpu_torch.modules.gelu import Gelu

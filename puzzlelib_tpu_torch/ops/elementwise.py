@@ -1,6 +1,7 @@
 """Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
-relu and its derivative, gelu and its derivative, the affine ``linear``, the
-vector updates, the momentum-SGD step and the Adam step.
+relu and its derivative, gelu and its derivative, dropout, the affine
+``linear``, the vector updates, the optimizer hooks' weight decay and
+gradient clipping, the momentum-SGD step and the Adam step.
 
 The reference's ops return new arrays; the update ops here write in place,
 so that they reach parameters and gradients that are views of an optimizer's
@@ -45,6 +46,26 @@ def geluDer(grad, x):
     return (grad.float() * (0.5 * (1.0 + t) + 0.5 * x32 * dt)).to(grad.dtype)
 
 
+def dropout(x, b, v, p, slice=None):
+    """x where its draw b lies below v, else 0, divided by the keep share p
+    rounded to x's type, as the reference divides.  ``slice`` (of x's flat
+    view) drops out only the cells it selects and passes the rest through,
+    as the reference's kernel does."""
+    if slice is not None:
+        out = x.clone()
+        out.view(-1)[slice] = dropout(x.reshape(-1)[slice], b.reshape(-1)[slice], v, p)
+        return out
+
+    keep = (b < v).to(x.dtype)
+    return x * keep / torch.full((), p, dtype=x.dtype, device=x.device)
+
+
+def dropout2d(x, b, v, p):
+    """``dropout`` with one draw per (image, map): b (batch, maps) spans x's
+    spatial dims."""
+    return dropout(x, b.reshape(tuple(b.shape) + (1, ) * (x.dim() - b.dim())), v, p)
+
+
 def linear(x, a, b):
     """a * x + b, with a and b rounded to x's type first, as the reference
     rounds them."""
@@ -64,6 +85,20 @@ def toVectorAddVector_(y, x, alpha):
 def add_(out, a, alpha, b, beta):
     """out = alpha * a + beta * b, written into ``out`` (which may be b)."""
     return out.copy_(a * _scalar(alpha, a.dtype) + b * _scalar(beta, b.dtype))
+
+
+def weightDecay_(grad, param, rate):
+    """grad -= rate * param, in place (the gradient is the descent
+    direction, so the decay is subtracted)."""
+    return grad.sub_(param * _scalar(rate, grad.dtype))
+
+
+def gradClipNorm_(grad, maxnorm):
+    """grad *= min(1, maxnorm / |grad|), in place; the L2 norm and the
+    scale are taken in f32, the scale rounded to the gradient's type."""
+    norm = grad.float().square().sum().sqrt()
+    scale = torch.clamp(maxnorm / torch.clamp(norm, min=1e-12), max=1.0)
+    return grad.mul_(scale.to(grad.dtype))
 
 
 def classicMomSGD_(param, grad, mom, learnRate, momRate):

@@ -185,6 +185,34 @@ assert tapdot.conv2d(torch.randn(1, 16, 6, 5), torch.randn(16, 16, 3, 3), (1, 1)
 profiler.startTraceMalloc()
 assert convNdbenchmark((1, 4, 6, 6), (4, 4, 3, 3), (1, 1), (1, 1), (1, 1), 1)[0][0].time > 0
 profiler.stopTraceMalloc()
+from puzzlelib_tpu_torch import rng
+from puzzlelib_tpu_torch.cost import CrossEntropy
+from puzzlelib_tpu_torch.handlers import Trainer, Validator
+from puzzlelib_tpu_torch.models.nets import loadLeNet, loadNiNImageNet
+from puzzlelib_tpu_torch.optimizers import MomentumSGD, hooks
+from puzzlelib_tpu_torch.tools import cnnslice
+rng.globalRng.seed(1)
+lenet = loadLeNet(None, initscheme=None)
+opt = MomentumSGD(0.01, momRate=0.9)
+opt.addHook(hooks.WeightDecay(1e-4))
+opt.addHook(hooks.GradClip(1.0))
+opt.setupOn(lenet, useGlobalState=True)
+digits = np.random.randn(8, 1, 28, 28).astype(np.float32)
+digitLabels = np.random.randint(0, 10, size=8).astype(np.int32)
+Trainer(lenet, CrossEntropy(maxlabels=10), opt, batchsize=4).trainFromHost(digits, digitLabels)
+assert 0.0 <= Validator(lenet, CrossEntropy(), batchsize=4).validateFromHost(digits, digitLabels) <= 1.0
+drop = Sequential(name="drop")
+drop.append(T.Conv2D(3, 4, 3, pad=1, initscheme="he"))
+drop.append(T.Dropout(0.5))
+drop.append(T.AvgPool2D(3, 2, pad=1))
+drop.append(T.Dropout2D(0.5))
+dropped = drop(torch.randn(2, 3, 8, 8))
+drop.backward(torch.ones_like(dropped))
+assert dropped.shape == (2, 4, 4, 4)
+nin = loadNiNImageNet(None, poolmode="avg", initscheme="he")
+assert nin(torch.randn(1, 3, 224, 224)).shape == (1, 1000)
+cifar = cnnslice.buildRun("nin-cifar", batch=4)
+cifar.train("hopper", *cnnslice.data("nin-cifar", 4))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -195,8 +223,11 @@ def testPortRunsWithoutJax():
     narrow transformer (attnAlgo="flash"), builds and serves a narrow int8
     engine, runs ``checkinstall``, imports the measurement path (the
     benchmarks, the probe scripts, the profiler), runs the plain versions of
-    the probes P1-P3 and ``convNdbenchmark`` on the CPU imports no JAX and
-    nothing of the JAX package (``ml_dtypes`` neither)."""
+    the probes P1-P3 and ``convNdbenchmark`` on the CPU, trains and
+    validates LeNet with the hooks (``rng``, ``Validator``), runs dropout
+    and average pooling forward and backward, the ImageNet NiN forward and
+    a CIFAR-10 NIN training step of ``tools/cnnslice.py`` imports no JAX
+    and nothing of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 

@@ -233,10 +233,12 @@ def testKernelScheduleMatchesPallasInterpretBf16(n, c, h, w, co, p):
 # odd OH and OW at pad 0; pads 1 and 2; C != CO both ways; rows of 3 tiles,
 # 8 to a block, over 15 rows of 5 images (the last block 7 rows); rows of 28
 # tiles, 2 to a block, over 7 rows (the last block one); rows of 75 tiles in
-# runs of 38 and 37; VGG-16's conv5 shape at batch 3
+# runs of 38 and 37; VGG-16's conv5 shape at batch 3; the ImageNet NiN's
+# conv3 (12x12) and conv4-1024 (5x5: 3x3 tiles, the last row and column
+# ragged) at batch 2
 _CARD_CASES = [(2, 128, 9, 7, 128, 0), (1, 32, 12, 10, 128, 1), (2, 64, 11, 13, 256, 2), (1, 256, 10, 10, 128, 1),
                (2, 32, 12, 10, 256, 1), (5, 64, 6, 6, 128, 1), (1, 32, 14, 56, 128, 1), (1, 32, 6, 150, 128, 1),
-               (3, 512, 14, 14, 512, 1)]
+               (3, 512, 14, 14, 512, 1), (2, 256, 12, 12, 384, 1), (2, 384, 5, 5, 1024, 1)]
 
 
 @pytest.mark.cuda
@@ -270,7 +272,8 @@ def testKernelMatchesPlainOnCard(n, c, h, w, co, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 128, 9, 7, 64, 0), (1, 256, 12, 10, 32, 1), (2, 128, 8, 11, 128, 2)])
+@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 128, 9, 7, 64, 0), (1, 256, 12, 10, 32, 1), (2, 128, 8, 11, 128, 2),
+                                               (2, 256, 12, 12, 384, 1), (2, 384, 5, 5, 1024, 1)])
 def testKernelDataGradMatchesPlainOnCard(n, c, h, w, co, p):
     """bf16 bwd-data through ``winograd.dataGrad`` (the kernel on dy, C = co,
     CO = c, at pad 2 - p) against the plain version within 1e-2 of max|ref|,

@@ -248,9 +248,11 @@ def testWrappersRejectWhatTheKernelsDoNotTake():
 
 # the smallest case (4 tiles, one step of less than one k16 block); odd OH
 # and OW at pad 0; C != CO both ways; steps of 2 rows of 13 tiles, none full
-# (26 of 32); rows of 33 tiles in runs of 17 and 16; pad 2
+# (26 of 32); rows of 33 tiles in runs of 17 and 16; pad 2; the ImageNet
+# NiN's conv3 (12x12) and conv4-1024 (5x5, ragged tiles) at batch 2
 _FG_CARD_CASES = [(1, 128, 4, 4, 128, 1), (2, 128, 9, 7, 128, 0), (3, 256, 14, 14, 128, 1), (2, 128, 10, 12, 256, 1),
-                  (4, 128, 30, 26, 256, 1), (1, 128, 70, 66, 128, 1), (2, 128, 5, 6, 128, 2)]
+                  (4, 128, 30, 26, 256, 1), (1, 128, 70, 66, 128, 1), (2, 128, 5, 6, 128, 2),
+                  (2, 256, 12, 12, 384, 1), (2, 384, 5, 5, 1024, 1)]
 
 
 @pytest.mark.cuda
@@ -286,7 +288,8 @@ def testFilterGradKernelMatchesPlainOnCard(n, c, h, w, co, p):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 128, 9, 7, 128, 1), (3, 256, 14, 14, 128, 1), (2, 128, 6, 5, 256, 0)])
+@pytest.mark.parametrize("n, c, h, w, co, p", [(2, 128, 9, 7, 128, 1), (3, 256, 14, 14, 128, 1), (2, 128, 6, 5, 256, 0),
+                                               (2, 256, 12, 12, 384, 1), (2, 384, 5, 5, 1024, 1)])
 def testDataGradKernelMatchesPlainOnCard(n, c, h, w, co, p):
     """bf16 bwd-data through K2 against the plain version within 1e-2 of
     max|ref| (K2's bound), and the conv dispatch's bwd-data through it."""
