@@ -167,7 +167,35 @@ it fails:
    request, and one K2 forward, one K2 bwd-data and one K3 a step (counted
    inside each layer's own calls); then K2, K2-bwd and K3 at those two
    convs' shapes against their plain versions, and timed on channels-last
-   operands against cuDNN in 5 alternating turns.
+   operands against cuDNN in 5 alternating turns;
+22. the fused step (``puzzlelib_tpu_torch/fused.py``: the eager step
+   recorded once as a CUDA graph and replayed), [fused-transformer-train]:
+   the transformer training slice through ``FusedTrainer(batchsize=64,
+   stepsPerDispatch=4)``, 4 steps with the counters reset just before and
+   read just after (the eager route's launches), every variable a view of
+   the flat buffers and changed; with ``stepsPerDispatch=1`` the losses
+   within 5e-2 of the eager ``Trainer``'s from the same start and batch
+   order, and a second run bit-equal (losses and embed.W's last gradient);
+   one recording per shape and none in steady state; rows/s of the fused
+   and eager hand routes over 16 steps (1024 seeded rows) in 5 runs in
+   turns, and each one's idle share in one run under ``torch.profiler``,
+   whose device events by kernel name must count what the counters count;
+23. [fused-transformer-serve]: ``FusedCalculator(batchsize=64)`` over the
+   4 requests of [transformer], its launches as [transformer]'s and as the
+   profiler's device events, the logits within 5e-2 of the eager hand
+   route's, one recording; rows/s and idle shares fused and eager;
+24. [fused-cnn]: the three nets of phases 19-21 through ``FusedTrainer``
+   and ``FusedValidator``: LeNet (K1 as eager counts it, losses within 1e-4
+   of eager, equal validation errors), the CIFAR-10 NIN (at learning and
+   momentum rate 0, set between calls with no new recording, three steps
+   on one batch keep the weights and give three losses, one per dropout
+   mask, the same again from the same seed; the rates set back move the
+   weights; equal validation errors; whether a replay draws what the eager
+   step draws from the same generator state, printed), the ImageNet NiN
+   (one K2, K2-bwd and K3 a step on each of conv3 and conv4-1024, counted
+   inside each layer, losses within 5e-2 of eager); the profiler's device
+   events of LeNet's and the NiN's fused runs held to the counters; images/s
+   fused and eager in 5 runs in turns.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -190,6 +218,7 @@ import os
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -1027,17 +1056,17 @@ def _cnnTurns(tag, run, images, labels, valImages, valLabels, card):
                   (tag, label, what, " ".join("%.4f" % t for t in secs), count / float(np.median(secs)), card))
 
 
-def _lossesAgainstLibrary(tag, losses, libLosses, boundRel):
+def _lossesAgainst(tag, losses, refLosses, boundRel, ref="library route"):
     print("[%s] step losses: %s" % (tag, " ".join("%.6f" % loss for loss in losses)))
-    if len(losses) != len(libLosses) or not np.isfinite(losses).all():
-        fail("%s step losses %s against %s" % (tag, losses, libLosses))
+    if len(losses) != len(refLosses) or not np.isfinite(losses).all():
+        fail("%s step losses %s against %s" % (tag, losses, refLosses))
 
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, libLosses))
-    print("[%s] library route step losses: %s; largest relative difference %.3e (bound %.0e)" %
-          (tag, " ".join("%.6f" % loss for loss in libLosses), rel, boundRel))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, refLosses))
+    print("[%s] %s step losses: %s; largest relative difference %.3e (bound %.0e)" %
+          (tag, ref, " ".join("%.6f" % loss for loss in refLosses), rel, boundRel))
 
     if not rel <= boundRel:
-        fail("%s step losses differ from the library route's by %.3e" % (tag, rel))
+        fail("%s step losses differ from the %s's by %.3e" % (tag, ref, rel))
 
 
 def phaseLeNet(torch, card):
@@ -1092,7 +1121,7 @@ def phaseLeNet(torch, card):
     libLosses = []
     run.train("torch", images, labels, libLosses)
     libError, _ = run.validate("torch", valImages, valLabels)
-    _lossesAgainstLibrary("lenet", losses, libLosses, CNN_LOSS_BOUND)
+    _lossesAgainst("lenet", losses, libLosses, CNN_LOSS_BOUND)
 
     print("[lenet] validation error: hand route %r, library route %r" % (error, libError))
     if error != libError:
@@ -1158,7 +1187,7 @@ def phaseNiNCifar(torch, card):
     libLosses = []
     run.train("torch", images, labels, libLosses)
     libError, _ = run.validate("torch", valImages, valLabels)
-    _lossesAgainstLibrary("nin-cifar", losses, libLosses, CNN_LOSS_BOUND)
+    _lossesAgainst("nin-cifar", losses, libLosses, CNN_LOSS_BOUND)
 
     print("[nin-cifar] validation error: %r, a second validation %r (dropout is the identity in eval mode); "
           "library route %r" % (error, again, libError))
@@ -1172,43 +1201,53 @@ def phaseNiNCifar(torch, card):
 class _LayerLaunches:
     """K2 forward, K2 bwd-data and K3 launches counted inside each named
     conv's own calls (its ``updateData``, ``updateGrad`` and
-    ``accGradParams``, wrapped on the instance)."""
+    ``accGradParams``, wrapped on the instance).  ``replayed()`` names the
+    counts as (holder, attribute) pairs, for ``fused.COUNTERS``: a fused
+    step's replays then add to them what its recording counted."""
+
+    FIELDS = ("forward", "dataGrad", "filterGrad")
 
     def __init__(self, winograd, net, names):
         self.winograd = winograd
-        self.counts = {name: [0, 0, 0] for name in names}
+        self.counts = {name: types.SimpleNamespace(forward=0, dataGrad=0, filterGrad=0) for name in names}
 
         for name in names:
             mod = net[name]
             for method in ("updateData", "updateGrad", "accGradParams"):
-                setattr(mod, method, self._wrap(name, getattr(mod, method)))
+                setattr(mod, method, self._wrap(self.counts[name], getattr(mod, method)))
 
     def _now(self):
         w = self.winograd
         return w.launches - w.dataGradLaunches, w.dataGradLaunches, w.filterGradLaunches
 
-    def _wrap(self, name, fn):
+    def _wrap(self, counts, fn):
         def call(*args, **kwargs):
             before = self._now()
             result = fn(*args, **kwargs)
-            for i, (b, a) in enumerate(zip(before, self._now())):
-                self.counts[name][i] += a - b
+            for field, b, a in zip(self.FIELDS, before, self._now()):
+                setattr(counts, field, getattr(counts, field) + a - b)
             return result
 
         return call
 
+    def replayed(self):
+        return [(counts, field) for counts in self.counts.values() for field in self.FIELDS]
+
     def reset(self):
-        for counts in self.counts.values():
-            counts[:] = [0, 0, 0]
+        for counts, field in self.replayed():
+            setattr(counts, field, 0)
+
+    def _tuple(self, name):
+        return tuple(getattr(self.counts[name], field) for field in self.FIELDS)
 
     def check(self, tag, want):
         """Fail unless each conv shows ``want`` (forward, bwd-data, bwd-filter)."""
         print("[%s] launches by layer (K2 forward, K2 bwd-data, K3): %s" %
-              (tag, ", ".join("%s %s" % (name, tuple(c)) for name, c in self.counts.items())))
+              (tag, ", ".join("%s %s" % (name, self._tuple(name)) for name in self.counts)))
 
-        for name, counts in self.counts.items():
-            if tuple(counts) != want:
-                fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, tuple(counts)))
+        for name in self.counts:
+            if self._tuple(name) != want:
+                fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, self._tuple(name)))
 
 
 def _ninKernels(torch, winograd):
@@ -1378,7 +1417,7 @@ def phaseNiN(torch, card):
 
     libLosses = []
     run.train("torch", images, labels, libLosses)
-    _lossesAgainstLibrary("nin", losses, libLosses, TRAIN_BOUND)
+    _lossesAgainst("nin", losses, libLosses, TRAIN_BOUND)
 
     runs = {"hopper": [], "torch": []}
     for _ in range(5):
@@ -2477,6 +2516,409 @@ def phaseEngineFlash(torch, card, workdir):
     return launches
 
 
+# -- the fused step ----------------------------------------------------------------------------------------
+
+def _counters():
+    """Every launch counter a fused replay advances, by name."""
+    from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
+
+    return {"flash": (flash, "launches"), "flashWgmma": (flash, "launchesWgmma"), "flashDq": (flash, "launchesDq"),
+            "flashDkv": (flash, "launchesDkv"), "matmul": (matmul, "launches"),
+            "matmulWgmma": (matmul, "launchesWgmma"), "winograd": (winograd, "launches"),
+            "winogradDataGrad": (winograd, "dataGradLaunches"), "winogradFG": (winograd, "filterGradLaunches")}
+
+
+def _resetCounters():
+    for holder, name in _counters().values():
+        setattr(holder, name, 0)
+
+
+def _readCounters():
+    return {key: getattr(holder, name) for key, (holder, name) in _counters().items()}
+
+
+def _profiledLaunches(tag, run, attempts=3):
+    """Runs of ``run`` under the profiler, the counters reset just before
+    each: fails unless, in one of ``attempts`` runs, the hand kernels'
+    device events, by name, are exactly as many as the counters say.  The
+    profiler has been seen to lose activity records (4 of a LeNet run's 16
+    K1 events, once on an H100), never to invent them, so a run that shows
+    fewer is run again, and every run is printed.  Returns (seconds, idle
+    share) of the run that agreed."""
+    from puzzlelib_tpu_torch.tools.profiletransformer import idleShare, kernelLaunches, profiled
+
+    for attempt in range(1, attempts + 1):
+        _resetCounters()
+        secs, events = profiled(run)
+        counts, seen = _readCounters(), kernelLaunches(events)
+        want = {"K1": counts["matmul"], "K2": counts["winograd"], "K3": counts["winogradFG"], "K4": counts["flash"],
+                "K5a": counts["flashDq"], "K5b": counts["flashDkv"]}
+
+        print("[%s] profiled run %d: launches by the counters %s, device events by kernel name %s; %d device events, "
+              "idle %.1f %%" % (tag, attempt, want, seen, len(events), 100.0 * idleShare(secs, events)))
+        if seen == want:
+            return secs, idleShare(secs, events)
+
+    fail("[%s] in %d profiled runs the profiler's device events never matched the counters" % (tag, attempts))
+
+
+def _checkViews(tag, torch, optimizer, variables, snapshot):
+    """Fail unless every variable is still a view of the optimizer's flat
+    buffers and changed from ``snapshot``."""
+    packs = {dtype: (pack.ary.untyped_storage().data_ptr(), optimizer.shGrads[dtype].ary.untyped_storage()
+                     .data_ptr()) for dtype, pack in optimizer.shParams.items()}
+    for var, old in zip(variables, snapshot):
+        if (var.data.untyped_storage().data_ptr(), var.grad.untyped_storage().data_ptr()) != packs[var.data.dtype]:
+            fail("[%s] variable %s is no view of the optimizer's flat buffers" % (tag, var.name))
+
+        if torch.equal(var.data, old):
+            fail("[%s] variable %s did not change in training" % (tag, var.name))
+
+    print("[%s] all %d variables are views of the flat buffers (%s) and changed" %
+          (tag, len(variables), ", ".join(str(dtype) for dtype in packs)))
+
+
+def _turns(runs, fns, count=5):
+    """``count`` turns of each of ``fns`` (name -> callable returning
+    seconds), in turns; their seconds appended to ``runs``."""
+    for _ in range(count):
+        for name, fn in fns.items():
+            runs.setdefault(name, []).append(fn())
+    return runs
+
+
+def phaseFusedTransformerTrain(torch, card):
+    """The transformer training slice through ``FusedTrainer`` (the fused
+    step: a CUDA graph of the eager step, replayed), with
+    ``stepsPerDispatch=4``, as ``testlib/transformertrain.py`` trains, and
+    with ``stepsPerDispatch=1``.  The launches per step equal the eager
+    route's, and the profiler's device events say the same; the losses
+    with 1 step a dispatch within ``TRAIN_BOUND`` of the eager hand route's
+    from the same start and batch order; a second fused run repeats bit for
+    bit; every variable is a view of the flat buffers and changed; one
+    recording per shape and none in steady state.  Then rows/s of the fused
+    and eager hand routes over 16 steps in 5 runs in turns, and each one's
+    idle share from one profiled run.  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+
+    tag = "fused-transformer-train"
+    config = Slice.CONFIG
+    rows = Slice.STEPS * Slice.BATCH
+    routes, allTokens, allLabels = Slice.buildTraining(rows=16 * Slice.BATCH)
+    tokens, labels = allTokens[:rows], allLabels[:rows]
+    hand, fused, single = routes["hopper"], routes["fused"], routes["fused-1"]
+
+    for algo in ("hopper", "fused", "fused-1"):
+        Slice.train(routes, algo, tokens, labels)
+    captures = (fused.trainer.step.captures, single.trainer.step.captures)
+
+    variables = list(hand.net.getVarTable())
+    hand.restore()
+    snapshot = [var.data.clone() for var in variables]
+
+    _resetCounters()
+    secs = Slice.train(routes, "fused", tokens, labels)
+    launches = _readCounters()
+    meanLoss = fused.trainer.cost.getMeanError()
+
+    print("[%s] IMDB transformer bf16 (vocab %d, seq %d, emb %d, %d heads, %d layers), Adam, FusedTrainer(batchsize=%d, "
+          "stepsPerDispatch=%d): %d rows in %d steps, %.4f s, %.1f rows/s on %s; mean loss %.6f" %
+          (tag, config["vocabsize"], config["seqlen"], config["embsize"], config["nheads"], config["nlayers"],
+           Slice.BATCH, Slice.STEPS_PER_DISPATCH, rows, Slice.STEPS, secs, rows / secs, card, meanLoss))
+    print("[%s] launches in that run: flash forward %d (on wgmma %d), flash dq %d, flash dk/dv %d, matmul %d (on "
+          "wgmma %d), winograd %d" % (tag, launches["flash"], launches["flashWgmma"], launches["flashDq"],
+                                      launches["flashDkv"], launches["matmul"], launches["matmulWgmma"],
+                                      launches["winograd"]))
+
+    perLayer = config["nlayers"] * Slice.STEPS
+    expected = {"flash": perLayer, "flashWgmma": perLayer, "flashDq": perLayer, "flashDkv": perLayer,
+                "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.STEPS,
+                "matmulWgmma": _wgmmaGemms() * Slice.STEPS, "winograd": 0, "winogradDataGrad": 0, "winogradFG": 0}
+    if launches != expected:
+        fail("[%s] expected the eager route's launches %s, got %s" % (tag, expected, launches))
+
+    if not np.isfinite(meanLoss):
+        fail("[%s] mean loss %s" % (tag, meanLoss))
+
+    _checkViews(tag, torch, hand.optimizer, variables, snapshot)
+    del snapshot
+
+    # one step a dispatch against the eager Trainer, same start and batch order
+    eager, losses = [], []
+    Slice.train(routes, "hopper", tokens, labels, eager)
+    Slice.train(routes, "fused-1", tokens, labels, losses)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, eager))
+    print("[%s] stepsPerDispatch=1 step losses %s; eager Trainer %s; largest relative difference %.3e (bound %.0e); "
+          "first step bit-equal: %s" % (tag, " ".join("%.6f" % loss for loss in losses),
+                                        " ".join("%.6f" % loss for loss in eager), rel, TRAIN_BOUND,
+                                        losses[0] == eager[0]))
+    if len(losses) != Slice.STEPS or not rel <= TRAIN_BOUND:
+        fail("[%s] fused step losses %s against eager %s" % (tag, losses, eager))
+
+    embedGrad = _namedGrads(hand.net, ("embed.W", ))["embed.W"]
+    again = []
+    Slice.train(routes, "fused-1", tokens, labels, again)
+    repeats = again == losses and torch.equal(_namedGrads(hand.net, ("embed.W", ))["embed.W"], embedGrad)
+    print("[%s] a second fused run from the same start: losses %s; bit-equal to the first (losses and the last "
+          "step's embed.W gradient): %s" % (tag, " ".join("%.6f" % loss for loss in again), repeats))
+    if not repeats:
+        fail("[%s] the fused run does not repeat: losses %s, then %s" % (tag, losses, again))
+
+    # the speed of 16 steps of 64, fused and eager, in turns; then one
+    # profiled run of each, its device events held to the counters
+    runs = _turns({}, {"fused": lambda: Slice.train(routes, "fused", allTokens, allLabels),
+                       "hopper": lambda: Slice.train(routes, "hopper", allTokens, allLabels)})
+    _, fusedIdle = _profiledLaunches(tag, lambda: Slice.train(routes, "fused", allTokens, allLabels))
+    _, eagerIdle = _profiledLaunches(tag, lambda: Slice.train(routes, "hopper", allTokens, allLabels))
+    Config.gemmAlgo = "hopper"
+
+    after = (fused.trainer.step.captures, single.trainer.step.captures)
+    print("[%s] recordings (CUDA graph captures): stepsPerDispatch=%d %d, stepsPerDispatch=1 %d after the warm-up, "
+          "%s after every later run" % (tag, Slice.STEPS_PER_DISPATCH, captures[0], captures[1], after))
+    if captures != (1, 1) or after != captures:
+        fail("[%s] expected one recording per step and none in steady state, got %s then %s" % (tag, captures, after))
+
+    for algo, label, idle in (("fused", "fused (FusedTrainer, %d steps a dispatch)" % Slice.STEPS_PER_DISPATCH,
+                               fusedIdle), ("hopper", "eager hand route (Trainer)", eagerIdle)):
+        print("[%s] %s, %d rows in %d steps, 5 runs in turns: %s s, median %.1f rows/s; idle %.1f %% of one profiled "
+              "run, on %s" % (tag, label, len(allTokens), len(allTokens) // Slice.BATCH,
+                              " ".join("%.4f" % t for t in runs[algo]), len(allTokens) / float(np.median(runs[algo])),
+                              100.0 * idle, card))
+
+    return launches
+
+
+def phaseFusedTransformerServe(torch, card):
+    """The transformer serving slice through ``FusedCalculator(batchsize=
+    64)``: 4 requests of 64 rows with the counters reset just before and
+    read just after (K4 and K1 as [transformer] counts them, and as many
+    device events by name under the profiler), the logits within
+    ``SLICE_BOUND`` of the eager hand route's; rows/s fused and eager in 5
+    runs in turns and each one's idle share.  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+
+    tag = "fused-transformer-serve"
+    config = Slice.CONFIG
+    routes, tokens = Slice.build()
+    for net in routes.values():
+        net.calcMode(torch.bfloat16)
+    routes[Slice.FUSED] = Slice.fusedCalculator(routes)
+
+    for algo in ("hopper", Slice.FUSED):
+        Slice.serve(routes, algo, tokens)
+    captures = routes[Slice.FUSED]._program.captures
+
+    _resetCounters()
+    out, secs = Slice.serve(routes, Slice.FUSED, tokens)
+    launches = _readCounters()
+
+    print("[%s] IMDB transformer bf16, FusedCalculator(batchsize=%d): %d rows in %d requests, %.4f s, %.1f rows/s on "
+          "%s" % (tag, Slice.BATCH, len(tokens), Slice.REQUESTS, secs, len(tokens) / secs, card))
+    print("[%s] launches in that run: flash %d (on wgmma %d), matmul %d (on wgmma %d), winograd %d" %
+          (tag, launches["flash"], launches["flashWgmma"], launches["matmul"], launches["matmulWgmma"],
+           launches["winograd"]))
+
+    expected = {"flash": config["nlayers"] * Slice.REQUESTS, "flashWgmma": config["nlayers"] * Slice.REQUESTS,
+                "flashDq": 0, "flashDkv": 0, "matmul": sum(count for *_, count in Slice.GEMMS) * Slice.REQUESTS,
+                "matmulWgmma": _wgmmaGemms() * Slice.REQUESTS, "winograd": 0, "winogradDataGrad": 0, "winogradFG": 0}
+    if launches != expected:
+        fail("[%s] expected the eager route's launches %s, got %s" % (tag, expected, launches))
+
+    eager, _ = Slice.serve(routes, "hopper", tokens)
+    rel = _relL2(torch.from_numpy(out), torch.from_numpy(eager))
+    print("[%s] logits against the eager hand route's: relative L2 %.3e (bound %.0e), largest difference %.3e, "
+          "bit-equal %s" % (tag, rel, SLICE_BOUND, np.abs(out - eager).max(), np.array_equal(out, eager)))
+    if out.shape != eager.shape or not np.isfinite(out).all() or not rel <= SLICE_BOUND:
+        fail("[%s] logits of shape %s differ from the eager route's by %.3e" % (tag, out.shape, rel))
+
+    runs = _turns({}, {"fused": lambda: Slice.serve(routes, Slice.FUSED, tokens)[1],
+                       "hopper": lambda: Slice.serve(routes, "hopper", tokens)[1]})
+    _, fusedIdle = _profiledLaunches(tag, lambda: Slice.serve(routes, Slice.FUSED, tokens)[1])
+    _, eagerIdle = _profiledLaunches(tag, lambda: Slice.serve(routes, "hopper", tokens)[1])
+    Config.gemmAlgo = "hopper"
+
+    after = routes[Slice.FUSED]._program.captures
+    print("[%s] recordings: %d after the warm-up, %d after every later run" % (tag, captures, after))
+    if captures != 1 or after != 1:
+        fail("[%s] expected one recording and none in steady state, got %d then %d" % (tag, captures, after))
+
+    for algo, label, idle in (("fused", "fused (FusedCalculator)", fusedIdle),
+                              ("hopper", "eager hand route (Calculator)", eagerIdle)):
+        print("[%s] %s, 5 runs in turns: %s s, median %.1f rows/s; idle %.1f %% of one profiled run, on %s" %
+              (tag, label, " ".join("%.4f" % t for t in runs[algo]), len(tokens) / float(np.median(runs[algo])),
+               100.0 * idle, card))
+
+    return launches
+
+
+def _fusedCnnTurns(tag, run, images, labels, card, valImages=None, valLabels=None):
+    """5 runs of the fused and the eager hand route in turns (training, and
+    validation where images are given): the median images/s printed."""
+    fns = {"fused train": lambda: run.train("fused", images, labels),
+           "hopper train": lambda: run.train("hopper", images, labels)}
+    if valImages is not None:
+        fns.update({"fused validate": lambda: run.validate("fused", valImages, valLabels)[1],
+                    "hopper validate": lambda: run.validate("hopper", valImages, valLabels)[1]})
+
+    runs = _turns({}, fns)
+    for name, secs in runs.items():
+        count = len(images) if name.endswith("train") else len(valImages)
+        print("[%s] %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+              (tag, name.replace("hopper", "eager hand route,").replace("fused", "fused route,"),
+               " ".join("%.4f" % t for t in secs), count / float(np.median(secs)), card))
+
+
+def phaseFusedCnn(torch, card):
+    """The CNN slices of ``tools/cnnslice.py`` through ``FusedTrainer`` and
+    ``FusedValidator`` at [lenet]'s, [nin-cifar]'s and [nin]'s batch and step
+    counts.  LeNet f32: K1 replayed as eager counts it, losses within 1e-4 of
+    the eager hand route's, equal validation errors.  The CIFAR-10 NIN f32
+    with dropout and ``WeightDecay``: with the learning and momentum rates
+    set to 0 between calls (no new recording), three steps on one batch
+    leave the weights as they were and give three different losses
+    (different dropout masks), and repeat them bit for bit from the same
+    seed; the rates set back, the weights move, still with no new
+    recording; equal validation errors.  The ImageNet NiN bf16: K2, K2-bwd
+    and K3 replayed, one each a step on each of conv3 and conv4-1024
+    (counted inside each layer), losses within 5e-2 of the eager route's.
+    Images/s fused and eager in 5 runs in turns.  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch import fused as Fused
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+
+    Config.device = "cuda"
+    launches = {}
+
+    # LeNet
+    tag = "fused-cnn"
+    images, labels = Cnn.data("lenet", Cnn.BATCH * Cnn.STEPS)
+    valImages, valLabels = Cnn.data("lenet", Cnn.VALIDATION, seed=2)
+    run = Cnn.buildRun("lenet")
+    for algo in ("hopper", "fused"):
+        run.train(algo, images, labels)
+        run.validate(algo, valImages, valLabels)
+
+    losses, eager = [], []
+    _resetCounters()
+    run.train("fused", images, labels, losses)
+    launches["lenet"] = _readCounters()["matmul"]
+    _resetCounters()
+    error, _ = run.validate("fused", valImages, valLabels)
+    launches["lenetValidate"] = _readCounters()["matmul"]
+    run.train("hopper", images, labels, eager)
+    eagerError, _ = run.validate("hopper", valImages, valLabels)
+
+    print("[%s] LeNet f32 through FusedTrainer / FusedValidator: K1 launches %d in %d steps, %d in the validation of "
+          "%d (eager: %d, %d); recordings %d + %d" %
+          (tag, launches["lenet"], Cnn.STEPS, launches["lenetValidate"], Cnn.VALIDATION, 2 * Cnn.STEPS,
+           2 * Cnn.VALIDATION // Cnn.BATCH, run.fusedTrainer.step.captures, run.fusedValidator._program.captures))
+    if (launches["lenet"], launches["lenetValidate"]) != (2 * Cnn.STEPS, 2 * Cnn.VALIDATION // Cnn.BATCH):
+        fail("[%s] LeNet: K1 launches %s" % (tag, launches))
+
+    _lossesAgainst(tag, losses, eager, CNN_LOSS_BOUND, ref="LeNet, eager hand route")
+    _profiledLaunches(tag, lambda: run.train("fused", images, labels))
+    print("[%s] LeNet validation error: fused %r, eager %r" % (tag, error, eagerError))
+    if error != eagerError:
+        fail("[%s] LeNet validation errors differ: %r against %r" % (tag, error, eagerError))
+
+    _fusedCnnTurns(tag + "] [lenet", run, images, labels, card, valImages, valLabels)
+    del run
+
+    # the CIFAR-10 NIN: dropout under replay, a rate changed between calls
+    images, labels = Cnn.data("nin-cifar", Cnn.BATCH * Cnn.STEPS)
+    valImages, valLabels = Cnn.data("nin-cifar", Cnn.VALIDATION, seed=2)
+    run = Cnn.buildRun("nin-cifar")
+    for algo in ("hopper", "fused"):
+        run.train(algo, images, labels)
+        run.validate(algo, valImages, valLabels)
+
+    losses, eager = [], []
+    run.train("fused", images, labels, losses)
+    run.train("hopper", images, labels, eager)
+    print("[%s] CIFAR-10 NIN f32 step losses: fused %s; eager %s; the draws of a replay equal the eager step's from "
+          "the same generator state (first-step losses bit-equal): %s" %
+          (tag, " ".join("%.6f" % x for x in losses), " ".join("%.6f" % x for x in eager), losses[0] == eager[0]))
+
+    step, optimizer = run.fusedTrainer.step, run.optimizer
+    captures = step.captures
+    x = torch.from_numpy(images[:Cnn.BATCH]).cuda()
+    y = torch.from_numpy(labels[:Cnn.BATCH]).cuda()
+
+    def still():
+        run.restore()
+        optimizer.learnRate = optimizer.momRate = 0.0
+        stepped = []
+        for _ in range(3):
+            step(x, y)
+            stepped.append(step.cost.getError())
+        return stepped
+
+    first, second = still(), still()
+    unchanged = all(torch.equal(pack.ary, run.start[dtype]) for dtype, pack in optimizer.shParams.items())
+    optimizer.learnRate, optimizer.momRate = Cnn.LEARN_RATE, Cnn.MOM_RATE
+    step(x, y)
+    moved = not any(torch.equal(pack.ary, run.start[dtype]) for dtype, pack in optimizer.shParams.items())
+
+    print("[%s] CIFAR-10 NIN, one batch three times at learning and momentum rate 0: losses %s, again from the same "
+          "seed %s; weights unchanged %s; rates set back: weights moved %s; recordings %d before, %d after" %
+          (tag, " ".join("%.6f" % v for v in first), " ".join("%.6f" % v for v in second), unchanged, moved,
+           captures, step.captures))
+    if len(set(first)) != 3 or first != second or not unchanged or not moved or step.captures != captures:
+        fail("[%s] dropout under replay or the rate change: losses %s / %s, unchanged %s, moved %s, recordings %d "
+             "-> %d" % (tag, first, second, unchanged, moved, captures, step.captures))
+
+    error, _ = run.validate("fused", valImages, valLabels)
+    eagerError, _ = run.validate("hopper", valImages, valLabels)
+    print("[%s] CIFAR-10 NIN validation error: fused %r, eager %r" % (tag, error, eagerError))
+    if error != eagerError:
+        fail("[%s] CIFAR-10 NIN validation errors differ: %r against %r" % (tag, error, eagerError))
+
+    _fusedCnnTurns(tag + "] [nin-cifar", run, images, labels, card, valImages, valLabels)
+    del run, x, y
+    torch.cuda.empty_cache()
+
+    # the ImageNet NiN
+    convs = [name for name, _, _ in Cnn.NIN_KERNEL_CONVS]
+    images, labels = Cnn.data("nin", Cnn.BATCH * REQUESTS)
+    run = Cnn.buildRun("nin")
+    counter = _LayerLaunches(winograd, run.net, convs)
+    Fused.COUNTERS.extend(counter.replayed())
+
+    try:
+        for algo in ("hopper", "fused"):
+            run.train(algo, images, labels)
+
+        losses, eager = [], []
+        counter.reset()
+        _resetCounters()
+        run.train("fused", images, labels, losses)
+        counts = _readCounters()
+        launches["nin"] = {key: counts[key] for key in ("winograd", "winogradDataGrad", "winogradFG")}
+        print("[%s] ImageNet NiN bf16 through FusedTrainer, %d steps of %d: winograd %d (forward %d, bwd-data %d), "
+              "winogradFG %d; recordings %d" %
+              (tag, REQUESTS, Cnn.BATCH, counts["winograd"], counts["winograd"] - counts["winogradDataGrad"],
+               counts["winogradDataGrad"], counts["winogradFG"], run.fusedTrainer.step.captures))
+        counter.check(tag, (REQUESTS, REQUESTS, REQUESTS))
+
+        want = {"winograd": 4 * REQUESTS, "winogradDataGrad": 2 * REQUESTS, "winogradFG": 2 * REQUESTS}
+        if launches["nin"] != want:
+            fail("[%s] ImageNet NiN: expected launches %s, got %s" % (tag, want, launches["nin"]))
+
+        run.train("hopper", images, labels, eager)
+        _lossesAgainst(tag, losses, eager, TRAIN_BOUND, ref="ImageNet NiN, eager hand route")
+        _profiledLaunches(tag, lambda: run.train("fused", images, labels))
+        _fusedCnnTurns(tag + "] [nin", run, images, labels, card)
+
+    finally:
+        for entry in counter.replayed():
+            Fused.COUNTERS.remove(entry)
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2508,6 +2950,12 @@ def main():
     ninCifar = phaseNiNCifar(torch, card)
     torch.cuda.empty_cache()
     ninServing, ninTraining, ninKernels = phaseNiN(torch, card)
+    torch.cuda.empty_cache()
+    fusedTrain = phaseFusedTransformerTrain(torch, card)
+    torch.cuda.empty_cache()
+    fusedServe = phaseFusedTransformerServe(torch, card)
+    torch.cuda.empty_cache()
+    fusedCnn = phaseFusedCnn(torch, card)
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -2531,50 +2979,61 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
              launches_wgmma=training["matmulWgmma"], serving_launches=serving["matmul"],
              engine_launches=engineBf16["matmul"], measurement_launches=measured["K1"],
-             measurement_launches_wgmma=measured["K1-wgmma"], **gemm),
+             measurement_launches_wgmma=measured["K1-wgmma"],
+             fused_launches=fusedServe["matmul"] + fusedTrain["matmul"] + fusedCnn["lenet"] + fusedCnn["lenetValidate"],
+             fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
              launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
              measurement_launches_wgmma=measured["K1-int8-wgmma"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
-             launches_wgmma=transformer["matmulWgmma"], **gemmTransformer),
+             launches_wgmma=transformer["matmulWgmma"], fused_launches=fusedServe["matmul"],
+             fused_launches_wgmma=fusedServe["matmulWgmma"], fused_training_launches=fusedTrain["matmul"],
+             fused_training_launches_wgmma=fusedTrain["matmulWgmma"], **gemmTransformer),
         dict(name="K1 tiled GEMM at LeNet's shapes (f32)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=lenet["train"],
              validation_launches=lenet["validate"], bf16_launches=lenet["bf16"],
-             bf16_launches_wgmma=lenet["bf16Wgmma"], **gemmLeNet),
+             bf16_launches_wgmma=lenet["bf16Wgmma"], fused_launches=fusedCnn["lenet"],
+             fused_validation_launches=fusedCnn["lenetValidate"], **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
-             engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"], **wino),
+             engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"],
+             fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"], **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
-             launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"], **dataGrad),
+             launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"],
+             fused_launches=fusedCnn["nin"]["winogradDataGrad"], **dataGrad),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"],
-             measurement_launches=measured["K3"], **filterGrad),
+             measurement_launches=measured["K3"], fused_launches=fusedCnn["nin"]["winogradFG"], **filterGrad),
         dict(name="K2 Winograd F(2x2,3x3) forward at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=ninTraining["winograd"] - ninTraining["winogradDataGrad"],
-             serving_launches=ninServing["winograd"], **ninKernels["K2"]),
+             serving_launches=ninServing["winograd"],
+             fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"], **ninKernels["K2"]),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
-             launches=ninTraining["winogradDataGrad"], **ninKernels["K2-bwd"]),
+             launches=ninTraining["winogradDataGrad"], fused_launches=fusedCnn["nin"]["winogradDataGrad"],
+             **ninKernels["K2-bwd"]),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
              source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
-             launches=ninTraining["winogradFG"], **ninKernels["K3"]),
+             launches=ninTraining["winogradFG"], fused_launches=fusedCnn["nin"]["winogradFG"], **ninKernels["K3"]),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
              training_launches_wgmma=transformerTrain["flashWgmma"], engine_launches=engineFlash["flash"],
              engine_launches_wgmma=engineFlash["flashWgmma"], measurement_launches=measured["K4"],
-             measurement_launches_wgmma=measured["K4-wgmma"], **attention),
+             measurement_launches_wgmma=measured["K4-wgmma"], fused_launches=fusedServe["flash"],
+             fused_launches_wgmma=fusedServe["flashWgmma"], fused_training_launches=fusedTrain["flash"],
+             fused_training_launches_wgmma=fusedTrain["flashWgmma"], **attention),
         dict(name="K5a flash-attention dQ", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"],
-             measurement_launches=measured["K5a"], **attentionDq),
+             measurement_launches=measured["K5a"], fused_launches=fusedTrain["flashDq"], **attentionDq),
         dict(name="K5b flash-attention dK/dV", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
-             measurement_launches=measured["K5b"], **attentionDkv),
+             measurement_launches=measured["K5b"], fused_launches=fusedTrain["flashDkv"], **attentionDkv),
         dict(name="P1 tap-dot direct conv (probe)", route="cuda", source=source % "tapdot",
              replaces="tools/tapdot_probe.py:32", launches=measured["P1"], launches_wgmma=measured["P1-wgmma"],
              **tapdotConv),
@@ -2613,6 +3072,12 @@ def main():
           "bf16_launches_wgmma its bf16 run's); K2, K2-bwd and K3 at the ImageNet NiN's conv3 and conv4-1024: the "
           "two convs at batch 128 on channels-last operands, library cuDNN on the same, medians of 5 alternating "
           "turns, launches [nin]'s 4 training steps of 128 (K2's serving_launches its 4 requests of 128); "
+          "fused_launches (and fused_launches_wgmma) those of the fused paths, each kernel replayed from a CUDA "
+          "graph: on the first K1, K2, K2-bwd and K3 entries all the fused phases' launches of the kernel together, "
+          "K1 at the transformer's shapes and K4 [fused-transformer-serve]'s 4 requests of 64 "
+          "(fused_training_launches [fused-transformer-train]'s 4 steps of 64 at 4 steps a dispatch, as K5a's and "
+          "K5b's fused_launches), K1 at LeNet's shapes [fused-cnn]'s 8 steps of 128 (fused_validation_launches its "
+          "validation of 1024), K2, K2-bwd and K3 at the NiN's convs [fused-cnn]'s 4 steps of 128; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,10 @@ class Validator(Handler):
 
     def handleBatch(self, batch, idx, state):
         data, target = batch
+        self._addError(state, data, self.cost.validateDev(self.module(data), target))
 
-        batchError = self.getDataSize(data) * self.cost.validateDev(self.module(data), target).double()
+    def _addError(self, state, data, error):
+        """Add the batch's error (a 0-d tensor), weighted by its size, to
+        the sum in f64."""
+        batchError = self.getDataSize(data) * error.double()
         state["error"] = batchError if state["error"] is None else state["error"] + batchError

@@ -7,7 +7,8 @@ The reference's ops return new arrays; the update ops here write in place,
 so that they reach parameters and gradients that are views of an optimizer's
 flat buffers.  Scalars are rounded to the tensor's type first, as the
 reference's ``jnp.asarray(rate, dtype)`` rounds them, and every op runs in the
-tensor's type (no f32 master copy of bf16 parameters).
+tensor's type (no f32 master copy of bf16 parameters).  A scalar is a Python
+number, or, inside a fused step, a 0-d tensor on the device.
 """
 
 import torch
@@ -73,7 +74,12 @@ def linear(x, a, b):
 
 
 def _scalar(value, dtype):
-    """A Python scalar rounded to ``dtype``."""
+    """A Python scalar rounded to ``dtype``, or, for a 0-d tensor (a fused
+    step's hyper-parameter, ``fusedctx``), that tensor rounded to ``dtype``
+    on its device, with no readback."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype)
+
     return torch.tensor(value, dtype=dtype).item()
 
 

@@ -1,12 +1,17 @@
 """Adam (counterpart of ``puzzlelib_tpu/optimizers/adam.py``): per state the
 f32 moments ``mg`` and ``ms`` of the variable's shape (of a dtype's flat
 buffer under global state), and the step ``ops.elementwise.adam_`` in place
-with the bias correction folded into the rate, as in the reference."""
+with the bias correction folded into the rate, as in the reference.  Inside
+a fused step (``fusedctx``) the step count and the hyper-parameters are 0-d
+f32 tensors on the device and the rate is computed there in f32, as the
+reference's traced step computes it; the eager step computes it on the host
+in f64."""
 
 import math
 
 import torch
 
+from puzzlelib_tpu_torch import fusedctx
 from puzzlelib_tpu_torch.ops import elementwise as ew
 from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
@@ -32,8 +37,15 @@ class Adam(Optimizer):
         }
 
     def updateVar(self, var, state):
-        fix1, fix2 = 1.0 - self.beta1 ** self.t, 1.0 - self.beta2 ** self.t
-        self.learnRate = self.alpha * math.sqrt(fix2) / fix1
+        t = fusedctx.stepOr(self.t)
+        fix1, fix2 = 1.0 - self.beta1 ** t, 1.0 - self.beta2 ** t
+
+        if fusedctx.active():
+            # t and the hyper-parameters are 0-d f32 tensors on the device:
+            # the rate in f32 there, as the reference's traced step takes it
+            self.learnRate = self.alpha * torch.sqrt(fix2) / fix1
+        else:
+            self.learnRate = self.alpha * math.sqrt(fix2) / fix1
 
         ew.adam_(var.data, var.grad, state["mg"], state["ms"], self.learnRate * var.learnRate,
                  1.0 - self.beta1, 1.0 - self.beta2, self.epsilon)

@@ -4,7 +4,8 @@ and ``fillInteger`` write draws into existing tensors.
 
 Behind it sits one ``torch.Generator`` per device, made at the first draw
 on that device from the generator's seed, so that ``seed(s)`` makes every
-device's draws repeat.  The draws are torch's, not JAX's: a test that
+device's draws repeat.  ``seed`` reseeds the generators in place, so a CUDA
+graph that draws from one (a fused step's dropout) sees the new seed.  The draws are torch's, not JAX's: a test that
 holds the two packages to each other injects the same draws into both.
 """
 
@@ -17,10 +18,17 @@ class RandomNumberGenerator:
         if seed is None:
             seed = int(np.random.SeedSequence().entropy % (2 ** 63))
 
+        self._generators = {}
         self.seed(seed)
 
     def seed(self, seed):
-        self._seed, self._generators = seed, {}
+        """Start every device's draws again from ``seed``.  A generator made
+        already is seeded in place, not replaced: a CUDA graph of a fused
+        step that registered it (``fused.FusedStep``) goes on drawing from
+        it, from the new seed."""
+        self._seed = seed
+        for gen in self._generators.values():
+            gen.manual_seed(seed)
 
     def generator(self, device):
         """The generator of ``device`` (a tensor's), made on first use."""

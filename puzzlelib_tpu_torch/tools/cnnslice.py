@@ -25,7 +25,9 @@ A ``Run`` holds one net, its optimizer, trainer and validator, and the
 start values of the optimizer's flat buffers: every ``train`` starts from
 the same weights, a zero momentum and the same dropout draws, on the route
 that ``algo`` names (``Config.gemmAlgo`` / ``Config.convAlgo``: "hopper",
-the hand kernels, or "torch", the library).  The device is the caller's
+the hand kernels, or "torch", the library), or on route "fused": the hand
+kernels through the run's ``FusedTrainer`` and ``FusedValidator``, as
+``testlib/digitsnin.py`` trains and validates.  The device is the caller's
 ``Config.device``.
 """
 
@@ -121,11 +123,14 @@ class Run:
     values of the optimizer's flat parameter buffers."""
 
     def __init__(self, net, optimizer, cost, batch):
+        from puzzlelib_tpu_torch.fused import FusedTrainer, FusedValidator
         from puzzlelib_tpu_torch.handlers import Trainer, Validator
 
         self.net, self.optimizer, self.cost = net, optimizer, cost
         self.trainer = Trainer(net, cost, optimizer, batchsize=batch)
         self.validator = Validator(net, cost, batchsize=batch)
+        self.fusedTrainer = FusedTrainer(net, cost, optimizer, batchsize=batch)
+        self.fusedValidator = FusedValidator(net, cost, batchsize=batch)
         self.start = {dtype: pack.ary.clone() for dtype, pack in optimizer.shParams.items()}
 
     def restore(self):
@@ -150,14 +155,14 @@ class Run:
         ``losses`` when it is given."""
         from puzzlelib_tpu_torch.backend.device import synchronize
 
-        _route(algo)
+        trainer = self.fusedTrainer if _route(algo) else self.trainer
         self.restore()
-        self.trainer.onBatchFinish = None if losses is None else (lambda h: losses.append(h.cost.getError()))
+        trainer.onBatchFinish = None if losses is None else (lambda h: losses.append(h.cost.getError()))
 
         np.random.seed(4)
         synchronize()
         start = time.perf_counter()
-        self.trainer.trainFromHost(images, labels, macroBatchSize=len(images))
+        trainer.trainFromHost(images, labels, macroBatchSize=len(images))
         synchronize()
         return time.perf_counter() - start
 
@@ -166,17 +171,21 @@ class Run:
         holds: (error, seconds)."""
         from puzzlelib_tpu_torch.backend.device import synchronize
 
-        _route(algo)
+        validator = self.fusedValidator if _route(algo) else self.validator
         synchronize()
         start = time.perf_counter()
-        error = self.validator.validateFromHost(images, labels, macroBatchSize=len(images))
+        error = validator.validateFromHost(images, labels, macroBatchSize=len(images))
         return error, time.perf_counter() - start
 
 
 def _route(algo):
+    """Set the kernels of ``algo`` ("fused" takes the hand kernels); True
+    for the fused route."""
     from puzzlelib_tpu_torch import config as Config
 
-    Config.gemmAlgo = Config.convAlgo = algo
+    fused = algo == "fused"
+    Config.gemmAlgo = Config.convAlgo = "hopper" if fused else algo
+    return fused
 
 
 def buildRun(kind, dtype=None, batch=BATCH, net=None):

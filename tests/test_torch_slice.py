@@ -201,6 +201,10 @@ digits = np.random.randn(8, 1, 28, 28).astype(np.float32)
 digitLabels = np.random.randint(0, 10, size=8).astype(np.int32)
 Trainer(lenet, CrossEntropy(maxlabels=10), opt, batchsize=4).trainFromHost(digits, digitLabels)
 assert 0.0 <= Validator(lenet, CrossEntropy(), batchsize=4).validateFromHost(digits, digitLabels) <= 1.0
+from puzzlelib_tpu_torch import fused, fusedctx
+fusedCost = fused.FusedStep(lenet, CrossEntropy(maxlabels=10), opt)(torch.from_numpy(digits[:4]),
+                                                                   torch.from_numpy(digitLabels[:4]))
+assert np.isfinite(fusedCost.getError()) and not fusedctx.active()
 drop = Sequential(name="drop")
 drop.append(T.Conv2D(3, 4, 3, pad=1, initscheme="he"))
 drop.append(T.Dropout(0.5))
@@ -224,10 +228,11 @@ def testPortRunsWithoutJax():
     engine, runs ``checkinstall``, imports the measurement path (the
     benchmarks, the probe scripts, the profiler), runs the plain versions of
     the probes P1-P3 and ``convNdbenchmark`` on the CPU, trains and
-    validates LeNet with the hooks (``rng``, ``Validator``), runs dropout
-    and average pooling forward and backward, the ImageNet NiN forward and
-    a CIFAR-10 NIN training step of ``tools/cnnslice.py`` imports no JAX
-    and nothing of the JAX package (``ml_dtypes`` neither)."""
+    validates LeNet with the hooks (``rng``, ``Validator``), takes one
+    ``FusedStep`` of it (``fused``, ``fusedctx``), runs dropout and average
+    pooling forward and backward, the ImageNet NiN forward and a CIFAR-10
+    NIN training step of ``tools/cnnslice.py`` imports no JAX and nothing
+    of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
