@@ -195,7 +195,25 @@ it fails:
    (one K2, K2-bwd and K3 a step on each of conv3 and conv4-1024, counted
    inside each layer, losses within 5e-2 of eager); the profiler's device
    events of LeNet's and the NiN's fused runs held to the counters; images/s
-   fused and eager in 5 runs in turns.
+   fused and eager in 5 runs in turns;
+25. [resnet50]: ResNet-50 (``tools/resnetslice.py``) in bf16 at batch 32,
+   He weights from ``np.random.seed(0)``: 4 requests through ``Calculator``
+   and 12 steps through ``Trainer`` (``MomentumSGD(0.01, 0.9)`` in global
+   state) on the hand and library routes and through ``FusedTrainer`` /
+   ``FusedValidator`` / ``FusedCalculator``: one K2 a request and one K2,
+   K2-bwd and K3 a step on each of the 13 convs ``winograd.applicable``
+   takes (counted from the net, inside each conv), one K1 (fc1000); logits,
+   losses and the first step's running stats within 5e-2 of the library
+   route's; the first step's backward of one forward, every variable's
+   gradient, within 5e-2 of the library's or no farther than the library's
+   own from the loss gradient one bf16 ulp apart; the 12 steps' running
+   stats within 5e-2 or no farther than the library route's own from the
+   input one bf16 ulp apart; fused losses and running stats against
+   eager's (the first loss bit-equal), one recording, a
+   ``FusedCalculator`` replay after more training equal to the eager
+   ``Calculator``; images/s of each route in 5 runs in turns, idle shares
+   under the profiler, ``netspeed``, and K2, K2-bwd and K3 at its three
+   Winograd shapes against channels-last cuDNN.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -226,6 +244,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402  (the package beside this script)
 from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
+from puzzlelib_tpu_torch.tools import resnetslice as Res  # noqa: E402
 from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
     BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, cardName, deviceMs
@@ -373,6 +392,15 @@ LEARN_RATE = 1e-4
 # difference, the bf16 tier as for the serving slice
 TRAIN_BOUND = 5e-2
 GRAD_LAYERS = ("conv2_2", "conv3_1", "conv4_2", "conv5_3", "fc6", "fc8")
+
+# [resnet50]'s controls, the library route against itself: its backward of
+# one forward from the loss gradient one bf16 ulp apart (these seeds), and
+# its 12 steps from the input one bf16 ulp apart ((one pixel in every n,
+# seed)).  They read how far bf16's rounding alone moves each gradient, and
+# the running stats after 12 steps; the hand route is held within
+# TRAIN_BOUND or no farther than the farthest control
+RESNET_GRAD_SEEDS = (1, 2, 3)
+RESNET_INPUT_CONTROLS = ((1, 1), (1, 2), (16, 1), (16, 2))
 
 # [lenet]: LeNet's two products at batch 128, (name, M, K, N); K1 runs
 # both forward (f32 on the scalar-load kernel; in bf16 the first on wgmma,
@@ -843,6 +871,10 @@ def phaseSlice(torch, card):
 
 
 def _layerGrads(net, names=GRAD_LAYERS):
+    """{name: gradient in f32} of the weights of the layers ``names``, or of
+    every variable of ``net`` by its table name where ``names`` is None."""
+    if names is None:
+        return {varNames[0]: var.grad.float().clone() for var, varNames in net.getVarTable().items()}
     return {name: net[name].vars["W"].grad.float().clone() for name in names}
 
 
@@ -854,10 +886,12 @@ def _stepGrads(trainer, net, images, labels):
     return _layerGrads(net)
 
 
-def _backwardGrads(torch, Config, trainer, net, images, labels, names=GRAD_LAYERS, batch=BATCH):
+def _backwardGrads(torch, Config, trainer, net, images, labels, names=GRAD_LAYERS, batch=BATCH, seeds=()):
     """One forward pass of the first batch on the hand kernels, then the
     backward of that same forward on each route, as ``Trainer.handleBatch``
-    runs it: {route: the weight gradients of the layers ``names`` in f32}."""
+    runs it, and on the library route from the loss gradient one bf16 ulp
+    apart (``_ulpApart``) for each of ``seeds``: {route or seed: the
+    gradients of ``_layerGrads(net, names)``}."""
     from puzzlelib_tpu_torch.backend import gpuarray
 
     Config.gemmAlgo = Config.convAlgo = "hopper"
@@ -866,14 +900,28 @@ def _backwardGrads(torch, Config, trainer, net, images, labels, names=GRAD_LAYER
                         gpuarray.to_gpu(labels[:batch]), queryError=False)
 
     grads = {}
-    for algo in ("hopper", "torch"):
-        Config.gemmAlgo = Config.convAlgo = algo
+    runs = [("hopper", grad), ("torch", grad)] + [(seed, _ulpApart(torch, grad, seed)) for seed in seeds]
+    for key, lossGrad in runs:
+        Config.gemmAlgo = Config.convAlgo = "hopper" if key == "hopper" else "torch"
         trainer.optimizer.zeroGradParams()
-        net.backward(grad, updGrad=False)
-        grads[algo] = _layerGrads(net, names)
+        net.backward(lossGrad, updGrad=False)
+        grads[key] = _layerGrads(net, names)
 
     net.reset()
     return grads
+
+
+def _ulpApart(torch, x, seed, share=1.0):
+    """The bf16 tensor ``x`` with a ``share`` of its values, drawn from
+    ``seed``, each moved one bf16 ulp up or down in magnitude at random (a
+    zero that would go below stays): a disturbance at the size of bf16's
+    rounding, for the controls of [resnet50]."""
+    bits = x.contiguous().view(torch.int16).to(torch.int32)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    step = torch.randint(0, 2, bits.shape, generator=gen, device=x.device, dtype=torch.int32) * 2 - 1
+    step *= torch.rand(bits.shape, generator=gen, device=x.device) < share
+    magnitude = ((bits & 0x7FFF) + step).clamp(min=0)
+    return ((bits & ~0x7FFF) | magnitude).to(torch.int16).view(torch.bfloat16)
 
 
 def _relL2(got, ref):
@@ -1212,7 +1260,7 @@ class _LayerLaunches:
         self.counts = {name: types.SimpleNamespace(forward=0, dataGrad=0, filterGrad=0) for name in names}
 
         for name in names:
-            mod = net[name]
+            mod = next(m for m in net.modules() if m.name == name)
             for method in ("updateData", "updateGrad", "accGradParams"):
                 setattr(mod, method, self._wrap(self.counts[name], getattr(mod, method)))
 
@@ -1250,12 +1298,12 @@ class _LayerLaunches:
                 fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, self._tuple(name)))
 
 
-def _ninKernels(torch, winograd):
-    """K2, K2-bwd and K3 at the ImageNet NiN's conv3 and conv4-1024 at batch
-    128: each against its plain version, then kernel and cuDNN on
-    channels-last operands (as the training path hands them over) in 5
-    alternating turns of 10 calls.  Returns the JSON entries' numbers, the
-    two convs summed."""
+def _convKernels(torch, winograd, phase, convs, batch):
+    """K2, K2-bwd and K3 at ``convs`` ((name, x shape at batch 1, output
+    maps)) at ``batch``: each against its plain version, then kernel and
+    cuDNN on channels-last operands (as the training path hands them over)
+    in 5 alternating turns of 10 calls.  Returns the JSON entries' numbers,
+    the convs summed."""
     specs = _winogradSpecs(torch, winograd)
     entries = {}
 
@@ -1265,8 +1313,8 @@ def _ninKernels(torch, winograd):
         entry = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         binding = set()
 
-        for name, inshape, co in Cnn.NIN_KERNEL_CONVS:
-            xshape = (Cnn.BATCH, ) + inshape
+        for name, inshape, co in convs:
+            xshape = (batch, ) + inshape
             args = spec["operands"](gen, xshape, co)
             out, ref = spec["kernel"](*args), spec["plain"](*args)
             torch.cuda.synchronize()
@@ -1279,14 +1327,14 @@ def _ninKernels(torch, winograd):
             plainMs = deviceMs(lambda: spec["plain"](*args), 2)
             _, boundMs, boundBy = _winogradBound(xshape, co, spec["transformOps"], spec.get("weightBytes", 2))
 
-            print("[nin] %-6s %-10s x=%s co=%d: rel err %.3e vs plain (bound %.0e); channels-last operands, medians "
+            print("[%s] %-6s %-10s x=%s co=%d: rel err %.3e vs plain (bound %.0e); channels-last operands, medians "
                   "of 5 alternating turns: kernel %.4f ms (turns %s), cuDNN %.4f ms (turns %s), %.2fx cuDNN; plain "
                   "%.4f ms, bound %.4f ms (%s)" %
-                  (tag, name, xshape, co, err, spec["bounds"][0], ms, " ".join("%.4f" % t for t in turns[0]), libMs,
-                   " ".join("%.4f" % t for t in turns[1]), ms / libMs, plainMs, boundMs, boundBy))
+                  (phase, tag, name, xshape, co, err, spec["bounds"][0], ms, " ".join("%.4f" % t for t in turns[0]),
+                   libMs, " ".join("%.4f" % t for t in turns[1]), ms / libMs, plainMs, boundMs, boundBy))
 
             if not err <= spec["bounds"][0]:
-                fail("[nin] %s %s disagrees with its plain version: %.3e" % (tag, name, err))
+                fail("[%s] %s %s disagrees with its plain version: %.3e" % (phase, tag, name, err))
 
             entry["max_abs_err"] = max(entry["max_abs_err"], absErr)
             entry["ms"] += ms
@@ -1313,7 +1361,7 @@ def phaseNiN(torch, card):
     the library route's).  Each of conv3 and conv4-1024 must show one K2
     forward a request, and one K2 forward, one K2 bwd-data and one K3 a
     step.  Then K2, K2-bwd and K3 at those two convs' shapes
-    (``_ninKernels``).  Returns the launches and the kernels' numbers."""
+    (``_convKernels``).  Returns the launches and the kernels' numbers."""
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.backend.device import synchronize
     from puzzlelib_tpu_torch.handlers import Calculator
@@ -1431,7 +1479,7 @@ def phaseNiN(torch, card):
 
     del run, net
     torch.cuda.empty_cache()
-    return serving, training, _ninKernels(torch, winograd)
+    return serving, training, _convKernels(torch, winograd, "nin", Cnn.NIN_KERNEL_CONVS, Cnn.BATCH)
 
 
 def phaseCheckinstall(torch, matmul, probe):
@@ -2919,6 +2967,282 @@ def phaseFusedCnn(torch, card):
     return launches
 
 
+def _stats(stats, refStats):
+    """(means, variances) of the batch norms' running stats against
+    ``refStats``: the running variances as one vector in relative L2, the
+    running means as the RMS over every map of their difference in units of
+    the map's running standard deviation (``refStats``'s), the shift that
+    the difference makes in an eval-mode output.  A running mean sits near
+    zero against its spread, so its plain relative L2 measures the spread of
+    the batches more than the agreement of the two runs."""
+    names = sorted(name[:-len(".mean")] for name in refStats if name.endswith(".mean"))
+    mean, refMean, var, refVar = (np.concatenate([table[name + suffix].ravel() for name in names])
+                                  for table, suffix in ((stats, ".mean"), (refStats, ".mean"), (stats, ".var"),
+                                                        (refStats, ".var")))
+
+    shift = float(np.sqrt(np.mean(((mean - refMean) / np.sqrt(refVar)) ** 2)))
+    return shift, float(np.linalg.norm(var - refVar) / np.linalg.norm(refVar))
+
+
+def _statsAgainst(tag, stats, refStats, ref, meanBound=TRAIN_BOUND, varBound=TRAIN_BOUND):
+    """Fail unless the batch norms' running stats are within the bounds of
+    ``ref``'s (``_stats``)."""
+    shift, varRel = _stats(stats, refStats)
+    print("[%s] running stats of the %d batch norms against the %s's: means %.3e (RMS of the difference over the "
+          "running std; bound %.3e), variances %.3e relative L2 (bound %.3e)" %
+          (tag, sum(name.endswith(".mean") for name in refStats), ref, shift, meanBound, varRel, varBound))
+
+    if not (shift <= meanBound and varRel <= varBound):
+        fail("[%s] running stats differ from the %s's: means %.3e, variances %.3e" % (tag, ref, shift, varRel))
+
+
+def _resnetGradsAgainst(tag, backward, convs):
+    """Fail unless the gradient of every variable from the backward on the
+    hand kernels is within TRAIN_BOUND of the library's, or no farther from
+    it than the farthest of the library's own backwards from the loss
+    gradient one bf16 ulp apart (``_backwardGrads``'s seeds); prints the
+    readings of the Winograd convs ``convs`` and of the variables past
+    TRAIN_BOUND."""
+    seeds = [key for key in backward if key not in ("hopper", "torch")]
+    ref = backward["torch"]
+    readings = {name: (_relL2(backward["hopper"][name], ref[name]),
+                       max(_relL2(backward[seed][name], ref[name]) for seed in seeds)) for name in ref}
+
+    for name, (rel, control) in readings.items():
+        if name.split(".")[-2] in convs or rel > TRAIN_BOUND:
+            print("[%s] first-step gradient of %s: backward on the hand kernels vs the library's, same forward: "
+                  "relative L2 %.3e; the library's from the loss gradient one ulp apart %.3e (bound %.3e)" %
+                  (tag, name, rel, control, max(TRAIN_BOUND, control)))
+
+    worst = max(readings, key=lambda name: readings[name][0])
+    print("[%s] first-step gradients of all %d variables: largest %.3e (%s), median %.3e; the controls' median %.3e" %
+          (tag, len(readings), readings[worst][0], worst, float(np.median([r for r, _ in readings.values()])),
+           float(np.median([c for _, c in readings.values()]))))
+
+    for name, (rel, control) in readings.items():
+        if not rel <= max(TRAIN_BOUND, control):
+            fail("[%s] first-step gradient of %s on the hand kernels differs from the library's by %.3e (control "
+                 "%.3e)" % (tag, name, rel, control))
+
+
+def phaseResNet50(torch, card):
+    """ResNet-50 in bf16 at batch 32 (``tools/resnetslice.py``), He weights
+    from ``np.random.seed(0)``, without its SoftMax, ``MomentumSGD(0.01,
+    0.9)`` in global state.  Serving: 4 requests through ``Calculator`` on
+    the hand route and the library route, in turns; one K2 a request on
+    each of the convs ``winograd.applicable`` takes (counted from the net,
+    inside each conv) and one K1 (fc1000); the logits within 5e-2 of the
+    library route's.  Training: the backward of one forward on the hand
+    kernels and on the library, every variable's gradient within 5e-2 or
+    no farther than the library's own backward from the loss gradient one
+    bf16 ulp apart (``_resnetGradsAgainst``); one step on both routes from
+    the same weights, the running stats (that batch's) within 5e-2 of the
+    library route's; then 12 steps (the batch norms' factor meets its 0.1
+    floor at the tenth) on both routes; one K2, K2-bwd and K3 a step on
+    each of those convs and one K1; the losses within 5e-2 of the library
+    route's, the running stats within 5e-2 or no farther than the library
+    route's own 12 steps from the input one bf16 ulp apart
+    (``RESNET_INPUT_CONTROLS``: the routes' weights part in 12 steps, and
+    rounding alone carries the running means past 5e-2).  Fused: the same
+    12 steps through ``FusedTrainer``, the same launches replayed; the
+    first loss bit-equal to the eager hand route's, the rest and the
+    running stats within 5e-2; one recording; ``FusedValidator`` equal to
+    ``Validator``; a ``FusedCalculator`` replay after more eager training
+    equal to the eager ``Calculator`` on the new weights and running stats,
+    with no new recording.  Then images/s of each route (5 runs in turns), the idle
+    share of the fused and the eager hand route under the profiler (whose
+    device events must count what the counters count), ``netspeed --net
+    resnet50 --dtype bfloat16`` training and ``--infer``, and K2, K2-bwd
+    and K3 at ResNet-50's three Winograd shapes, and K1 at fc1000.
+    Returns the launches and the kernels' numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch import fused as Fused
+    from puzzlelib_tpu_torch.benchmarks import netspeed
+    from puzzlelib_tpu_torch.convert import attrsToNumpy
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    tag = "resnet50"
+    run = Res.buildRun()
+    net = run.net
+    convs = Res.winogradConvs(net, (Res.BATCH, ) + Res.SHAPE)
+    nconvs = len(convs)
+    print("[%s] ResNet-50 bf16 at batch %d, %d convs, of which K2 / K3 take %d: %s" %
+          (tag, Res.BATCH, len(Res.convInputs(net, (Res.BATCH, ) + Res.SHAPE)), nconvs, " ".join(convs)))
+
+    images, labels = Res.data(Res.BATCH * Res.STEPS)
+    requests = images[:Res.BATCH * REQUESTS]
+    valImages, valLabels = Res.data(Res.BATCH * REQUESTS, seed=2)
+
+    counter = _LayerLaunches(winograd, net, convs)
+    Fused.COUNTERS.extend(counter.replayed())
+    launches = {}
+
+    def counted(fn):
+        counter.reset()
+        _resetCounters()
+        result = fn()
+        counts = _readCounters()
+        return result, {key: counts[key] for key in ("winograd", "winogradDataGrad", "winogradFG", "matmul",
+                                                     "matmulWgmma")}
+
+    def expect(what, counts, steps, backward):
+        want = {"winograd": nconvs * steps * (2 if backward else 1), "winogradDataGrad": nconvs * steps * backward,
+                "winogradFG": nconvs * steps * backward, "matmul": steps, "matmulWgmma": steps}
+        print("[%s] %s launches: K2 %d (forward %d, bwd-data %d), K3 %d, K1 %d (on wgmma %d)" %
+              (tag, what, counts["winograd"], counts["winograd"] - counts["winogradDataGrad"],
+               counts["winogradDataGrad"], counts["winogradFG"], counts["matmul"], counts["matmulWgmma"]))
+        counter.check(tag, (steps, steps * backward, steps * backward))
+        if counts != want:
+            fail("[%s] %s: expected launches %s, got %s" % (tag, what, want, counts))
+
+    try:
+        # eager serving, hand and library routes
+        for algo in ("torch", "hopper"):
+            run.serve(algo, requests)
+
+        (out, secs), launches["serving"] = counted(lambda: run.serve("hopper", requests))
+        expect("serving, %d requests of %d" % (REQUESTS, Res.BATCH), launches["serving"], REQUESTS, 0)
+        libOut, _ = run.serve("torch", requests)
+
+        if out.shape != (len(requests), Res.CLASSES) or not np.isfinite(out).all():
+            fail("[%s] logits of shape %s, finite: %s" % (tag, out.shape, np.isfinite(out).all()))
+
+        rel = float(np.linalg.norm(out - libOut) / np.linalg.norm(libOut))
+        print("[%s] serving %d images: %.4f s; logits against the library route's: relative L2 %.3e (bound %.0e)" %
+              (tag, len(requests), secs, rel, SLICE_BOUND))
+        if not rel <= SLICE_BOUND:
+            fail("[%s] logits differ from the library route's by %.3e" % (tag, rel))
+
+        # the backward of one forward on the hand kernels against the
+        # library's, every variable, beside the library's own backward from
+        # the loss gradient one bf16 ulp apart
+        run.restore()
+        backward = _backwardGrads(torch, Config, run.trainer, net, images, labels, names=None, batch=Res.BATCH,
+                                  seeds=RESNET_GRAD_SEEDS)
+        _resnetGradsAgainst(tag, backward, convs)
+
+        # eager training, hand and library routes; first one step from the
+        # same weights, whose running stats are that batch's (the factor is
+        # 1): the forward's agreement through every batch norm
+        oneStep = {}
+        for algo in ("torch", "hopper"):
+            run.train(algo, images[:Res.BATCH], labels[:Res.BATCH])
+            oneStep[algo] = attrsToNumpy(net)
+        _statsAgainst(tag + "] [one step", oneStep["hopper"], oneStep["torch"], "library route")
+
+        for algo in ("torch", "hopper"):
+            run.train(algo, images, labels)
+
+        losses, libLosses = [], []
+        secs, launches["training"] = counted(lambda: run.train("hopper", images, labels, losses))
+        expect("training, %d steps of %d" % (Res.STEPS, Res.BATCH), launches["training"], Res.STEPS, 1)
+        print("[%s] training, MomentumSGD(%g, %g): %d images in %d steps, %.4f s" %
+              (tag, Res.LEARN_RATE, Res.MOM_RATE, len(images), Res.STEPS, secs))
+        stats = attrsToNumpy(net)
+
+        run.train("torch", images, labels, libLosses)
+        libStats = attrsToNumpy(net)
+        _lossesAgainst(tag, losses, libLosses, TRAIN_BOUND)
+
+        # after 12 steps the routes' weights have parted: the running stats
+        # are held to how far the library route parts from itself when its
+        # input moves by one bf16 ulp
+        meanBound, varBound = TRAIN_BOUND, TRAIN_BOUND
+        for every, seed in RESNET_INPUT_CONTROLS:
+            moved = _ulpApart(torch, torch.from_numpy(images).to("cuda", torch.bfloat16), seed, 1 / every)
+            moved = moved.float().cpu().numpy()
+            run.train("torch", moved[:Res.BATCH], labels[:Res.BATCH])
+            one = _stats(attrsToNumpy(net), oneStep["torch"])
+            controlLosses = []
+            run.train("torch", moved, labels, controlLosses)
+            twelve = _stats(attrsToNumpy(net), libStats)
+            lossRel = max(abs(a - b) / abs(b) for a, b in zip(controlLosses, libLosses))
+            print("[%s] control, the library route from the input one bf16 ulp apart (%s, seed %d): one step: means "
+                  "%.3e, variances %.3e; %d steps: losses %.3e, means %.3e, variances %.3e" %
+                  (tag, "every pixel" if every == 1 else "one pixel in %d" % every, seed, one[0], one[1], Res.STEPS,
+                   lossRel, twelve[0], twelve[1]))
+            meanBound, varBound = max(meanBound, twelve[0]), max(varBound, twelve[1])
+
+        _statsAgainst(tag, stats, libStats, "library route", meanBound, varBound)
+
+        # the fused forms
+        run.train("fused", images, labels)
+        fusedLosses = []
+        _, launches["fused"] = counted(lambda: run.train("fused", images, labels, fusedLosses))
+        expect("FusedTrainer, %d steps of %d" % (Res.STEPS, Res.BATCH), launches["fused"], Res.STEPS, 1)
+        print("[%s] first-step loss fused %r, eager %r: bit-equal %s; recordings %d" %
+              (tag, fusedLosses[0], losses[0], fusedLosses[0] == losses[0], run.fusedTrainer.step.captures))
+        if fusedLosses[0] != losses[0] or run.fusedTrainer.step.captures != 1:
+            fail("[%s] fused first-step loss %r against %r, recordings %d" %
+                 (tag, fusedLosses[0], losses[0], run.fusedTrainer.step.captures))
+
+        _lossesAgainst(tag, fusedLosses, losses, TRAIN_BOUND, ref="eager hand route")
+        _statsAgainst(tag, attrsToNumpy(net), stats, "eager hand route")
+
+        error, _ = run.validate("fused", valImages, valLabels)
+        eagerError, _ = run.validate("hopper", valImages, valLabels)
+        print("[%s] validation error of %d images: fused %r, eager %r; recordings %d" %
+              (tag, len(valImages), error, eagerError, run.fusedValidator._program.captures))
+        if error != eagerError:
+            fail("[%s] validation errors differ: %r against %r" % (tag, error, eagerError))
+
+        run.serve("fused", requests)
+        (before, _), launches["fusedServing"] = counted(lambda: run.serve("fused", requests))
+        expect("FusedCalculator, %d requests of %d" % (REQUESTS, Res.BATCH), launches["fusedServing"], REQUESTS, 0)
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        run.trainer.trainFromHost(images[:2 * Res.BATCH], labels[:2 * Res.BATCH])
+        after, _ = run.serve("fused", requests)
+        eagerAfter, _ = run.serve("hopper", requests)
+        moved = float(np.linalg.norm(after - before) / np.linalg.norm(before))
+        print("[%s] FusedCalculator after 2 more eager steps: equal to the eager Calculator %s; moved %.3e "
+              "relative L2 from its replay before them; recordings %d" %
+              (tag, np.array_equal(after, eagerAfter), moved, run.fusedCalculator._program.captures))
+        if not np.array_equal(after, eagerAfter) or moved == 0.0 or run.fusedCalculator._program.captures != 1:
+            fail("[%s] the FusedCalculator replay does not read the new weights and running stats" % tag)
+
+        # rates and idle shares
+        routes = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
+        fns = {}
+        for algo in routes:
+            fns[algo + " train"] = lambda algo=algo: run.train(algo, images, labels)
+            fns[algo + " serve"] = lambda algo=algo: run.serve(algo, requests)[1]
+
+        for name, secs in _turns({}, fns).items():
+            algo, what = name.split()
+            count = len(images) if what == "train" else len(requests)
+            print("[%s] %s, %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+                  (tag, routes[algo], "training" if what == "train" else "serving",
+                   " ".join("%.4f" % t for t in secs), count / float(np.median(secs)), card))
+
+        short, shortLabels = images[:2 * Res.BATCH], labels[:2 * Res.BATCH]
+        idle = {algo: _profiledLaunches(tag, lambda algo=algo: run.train(algo, short, shortLabels))[1]
+                for algo in ("fused", "hopper")}
+        print("[%s] idle share of the card, 2 training steps under the profiler: fused %.1f %%, eager hand route "
+              "%.1f %%" % (tag, 100 * idle["fused"], 100 * idle["hopper"]))
+
+    finally:
+        for entry in counter.replayed():
+            Fused.COUNTERS.remove(entry)
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    del run, net
+    torch.cuda.empty_cache()
+
+    for extra in (["--infer"], []):
+        result = netspeed.main(["--net", "resnet50", "--dtype", "bfloat16", "--iters", "5"] + extra)
+        print("[%s] netspeed %s: %.2f ms a step, %.1f images/s on %s" %
+              (tag, result["mode"], result["secs"] * 1e3, result["batch"] / result["secs"], card))
+    torch.cuda.empty_cache()
+
+    kernels = _convKernels(torch, winograd, tag, Res.KERNEL_CONVS, Res.BATCH)
+    gemm = _gemmCase(torch, matmul, torch.Generator(device="cuda").manual_seed(5), "fc1000", "bf16", Res.BATCH,
+                     2048, Res.CLASSES)
+    kernels["K1"] = {"max_abs_err": gemm["abs_err"], "ms": gemm["ms"], "plain_ms": gemm["plain_ms"],
+                     "bound_ms": gemm["bound_ms"], "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]}
+    return launches, kernels
+
+
 def main():
     import torch
 
@@ -2956,6 +3280,8 @@ def main():
     fusedServe = phaseFusedTransformerServe(torch, card)
     torch.cuda.empty_cache()
     fusedCnn = phaseFusedCnn(torch, card)
+    torch.cuda.empty_cache()
+    resnet, resnetKernels = phaseResNet50(torch, card)
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -3020,6 +3346,25 @@ def main():
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
              source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
              launches=ninTraining["winogradFG"], fused_launches=fusedCnn["nin"]["winogradFG"], **ninKernels["K3"]),
+        dict(name="K1 tiled GEMM at ResNet-50's fc1000 (bf16)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=resnet["training"]["matmul"],
+             launches_wgmma=resnet["training"]["matmulWgmma"], serving_launches=resnet["serving"]["matmul"],
+             fused_launches=resnet["fused"]["matmul"], fused_serving_launches=resnet["fusedServing"]["matmul"],
+             **resnetKernels["K1"]),
+        dict(name="K2 Winograd F(2x2,3x3) forward at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=resnet["training"]["winograd"] - resnet["training"]["winogradDataGrad"],
+             serving_launches=resnet["serving"]["winograd"],
+             fused_launches=resnet["fused"]["winograd"] - resnet["fused"]["winogradDataGrad"],
+             fused_serving_launches=resnet["fusedServing"]["winograd"], **resnetKernels["K2"]),
+        dict(name="K2 Winograd F(2x2,3x3) as bwd-data at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=resnet["training"]["winogradDataGrad"], fused_launches=resnet["fused"]["winogradDataGrad"],
+             **resnetKernels["K2-bwd"]),
+        dict(name="K3 Winograd F(2x2,3x3) bwd-filter at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
+             source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
+             launches=resnet["training"]["winogradFG"], fused_launches=resnet["fused"]["winogradFG"],
+             **resnetKernels["K3"]),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -3078,6 +3423,11 @@ def main():
           "(fused_training_launches [fused-transformer-train]'s 4 steps of 64 at 4 steps a dispatch, as K5a's and "
           "K5b's fused_launches), K1 at LeNet's shapes [fused-cnn]'s 8 steps of 128 (fused_validation_launches its "
           "validation of 1024), K2, K2-bwd and K3 at the NiN's convs [fused-cnn]'s 4 steps of 128; "
+          "K1 at ResNet-50's fc1000: (32, 2048) x (2048, 1000) bf16, launches [resnet50]'s 12 training steps of 32 "
+          "(serving_launches its 4 requests of 32, fused_ the FusedTrainer's and FusedCalculator's); K2, K2-bwd and "
+          "K3 at ResNet-50's conv3_x, conv4_x and conv5_x: one conv of each of the three shapes at batch 32 on "
+          "channels-last operands, library cuDNN on the same, medians of 5 alternating turns, launches [resnet50]'s "
+          "12 training steps of 32 on its 13 Winograd convs (serving_launches its 4 requests); "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """DNN primitive dispatch (counterpart of ``puzzlelib_tpu/backend/dnn.py``):
-the conv, pool and softmax slots of the VGG slices, forward and backward, and
-``convNdbenchmark``, which times a conv's three directions.
+the conv, pool, softmax, batch-norm and instance-norm slots, forward and
+backward, and ``convNdbenchmark``, which times a conv's three directions.
 
 The parameter gradients are written in place into the variables' gradient
 buffers (``_accumulateParamGrads``), which under an optimizer's global state
@@ -14,6 +14,7 @@ import torch
 from puzzlelib_tpu_torch.backend import gpuarray
 from puzzlelib_tpu_torch.backend.device import getDevice, timeKernel
 from puzzlelib_tpu_torch.ops import conv as _conv
+from puzzlelib_tpu_torch.ops import norm as _norm
 from puzzlelib_tpu_torch.ops import pool as _pool
 from puzzlelib_tpu_torch.ops import softmax as _softmax
 
@@ -52,6 +53,11 @@ class PoolMode(Enum):
     avgWithPad = "avgWithPad"
     avgNoPad = "avgNoPad"
     maxDeterminism = "max"
+
+
+class BatchNormMode(Enum):
+    perActivation = "perActivation"
+    spatial = "spatial"
 
 
 class SoftMaxMode(Enum):
@@ -161,3 +167,36 @@ def softmaxNd(data, mode=SoftMaxMode.spatial):
 
 def softmaxNdBackward(outdata, grad):
     return _softmax.softmaxNdBackward(outdata, grad)
+
+
+def batchNormNd(data, scale, bias, mean, var, epsilon, factor, test, mode=BatchNormMode.spatial, out=None):
+    """Test: the output normalized by the running stats (written into
+    ``out`` when given).  Train: (output, saved mean, saved invstd), the
+    saved stats shaped as ``scale``; ``mean`` and ``var`` are blended with
+    ``factor`` (a number or a 0-d device tensor) in place."""
+    if test:
+        result = _norm.batchNormTest(data, scale, bias, mean, var, epsilon, mode=mode.value)
+
+        if out is None:
+            return result
+
+        return out.copy_(result)
+
+    outdata, savemean, saveinvvar = _norm.batchNormTrain(data, scale, bias, mean, var, epsilon, factor,
+                                                         mode=mode.value)
+    return outdata, savemean.reshape(scale.shape), saveinvvar.reshape(scale.shape)
+
+
+def batchNormNdBackward(data, grad, scale, savemean, saveinvvar, epsilon, mode=BatchNormMode.spatial):
+    ingrad, scalegrad, bgrad = _norm.batchNormBackward(grad, data, scale, savemean, saveinvvar, epsilon,
+                                                       mode=mode.value)
+    return ingrad, scalegrad.reshape(scale.shape), bgrad.reshape(scale.shape)
+
+
+def instanceNorm2d(data, scale, bias, epsilon=1e-5):
+    """(output, saved mean, saved invstd, the scale tiled over the batch)."""
+    return _norm.instanceNorm2d(data, scale, bias, epsilon)
+
+
+def instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=True):
+    return _norm.instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=affine)

@@ -106,6 +106,17 @@ class Container(Module):
 
         return vartable
 
+    def getAttrTable(self, attrtable=None, name=None, root=True):
+        prefix = "" if root else name
+
+        if attrtable is None:
+            attrtable = {}
+
+        for child in self._modules.values():
+            child.getAttrTable(attrtable, "%s%s." % (prefix, child.name), root=False)
+
+        return attrtable
+
     # -- aggregate module protocol ------------------------------------------------------
 
     def zeroGradParams(self):

@@ -7,6 +7,12 @@ named ``c1``), to arrays.  The names are those of the JAX package's nets, so
 a table filled from a JAX net (``var.data.get()``) loads into the same net
 built here.
 
+An attribute table maps module attributes (a batch norm's running
+``mean`` and ``var``) to arrays, under the names the reference's ``save``
+gives them, ``"<module>.<attr>"`` with the module's path as
+``getVarTable`` names it (``"bn_conv1.mean"``, ``"1.0.bn2a_branch2a.var"``
+in a ResNet); ``getAttrTable`` lists them.
+
 An optimizer-state table maps ``"<state>.<entity>"`` to arrays, as the
 reference's ``Optimizer.save`` names its datasets: ``<state>`` is a
 variable's first name under local state (``"conv1_1.W.mom"``) and the numpy
@@ -31,22 +37,40 @@ def paramsFromNumpy(net, table):
     table and every name of the table in the net, with the same shape.
     Arrays of a type numpy cannot hand to torch (bfloat16 from ``ml_dtypes``)
     go through float32."""
-    variables = _names(net)
+    _copyTable({name: var.data for name, var in _names(net).items()}, table, "parameter")
 
-    missing, unknown = set(variables) - set(table), set(table) - set(variables)
+
+def _copyTable(tensors, table, what):
+    """Copy ``table``'s arrays into the tensors of the same names, in place,
+    cast to each tensor's type: the names must match both ways and the
+    shapes be equal."""
+    missing, unknown = set(tensors) - set(table), set(table) - set(tensors)
     if missing or unknown:
-        raise KeyError("parameter table does not match the net: missing %s, unknown %s" %
-                       (sorted(missing), sorted(unknown)))
+        raise KeyError("%s table does not match the net: missing %s, unknown %s" %
+                       (what, sorted(missing), sorted(unknown)))
 
     for name, ary in table.items():
-        var = variables[name]
+        tensor = tensors[name]
         host = np.asarray(ary)
 
-        if tuple(host.shape) != tuple(var.data.shape):
-            raise ValueError("%s: table shape %s, net shape %s" % (name, host.shape, tuple(var.data.shape)))
+        if tuple(host.shape) != tuple(tensor.shape):
+            raise ValueError("%s: table shape %s, net shape %s" % (name, host.shape, tuple(tensor.shape)))
 
         with torch.no_grad():
-            var.data.copy_(_fromHost(ary))
+            tensor.copy_(_fromHost(ary))
+
+
+def attrsFromNumpy(net, table):
+    """Copy ``table``'s arrays into ``net``'s module attributes in place,
+    strictly as ``paramsFromNumpy`` does: every attribute of the net in the
+    table and every name of the table in the net, with the same shape."""
+    _copyTable(net.getAttrTable(), table, "attribute")
+
+
+def attrsToNumpy(net):
+    """``net``'s module attributes as a table of host arrays, copies also on
+    the CPU (the attributes change in place)."""
+    return {name: gpuarray.get(attr).copy() for name, attr in net.getAttrTable().items()}
 
 
 def _fromHost(ary):

@@ -9,9 +9,10 @@ library calls one at a time from Python.  The whole train step
     optimizer.update()
 
 writes only into buffers that live across steps (the variables, their
-gradients, the optimizer's state, the cost's error) and reads only those and
-its inputs.  So on CUDA tensors ``FusedStep`` records it once per input
-signature with ``torch.cuda.graph`` over static input tensors, and every
+gradients, the modules' attributes such as a batch norm's running stats, the
+optimizer's state, the cost's error) and reads only those and its inputs.
+So on CUDA tensors ``FusedStep`` records it once per input signature with
+``torch.cuda.graph`` over static input tensors, and every
 later call copies its batch into those tensors and replays the recording:
 one graph launch a step, holding every hand kernel and library call of the
 eager step.  The module tree is the program, as in the reference; no module
@@ -25,7 +26,8 @@ How the recording stays true to the eager step:
   numeric attributes (its hyper-parameters) reach the body as 0-d f32
   tensors on the device (``fusedctx``), written before a replay when their
   value changed, so a learning rate changed between calls acts without a
-  new recording.
+  new recording, and a batch norm blends its running stats with the factor
+  of the step replayed (``initFactor / t``).
 - Addresses: the batch is copied into static tensors, the step's
   intermediates live in the graph's private memory pool, and the state stays
   where it is.  The hand kernels' TMA descriptors, encoded on the host at
@@ -71,23 +73,42 @@ COUNTERS = [
 ]
 
 
-def _variables(module):
-    """The module tree's variables, depth first, in the reference's order."""
-    yield from module.vars.values()
+def _moduleTree(module):
+    """The module tree, depth first, in the reference's order."""
+    yield module
 
     if isinstance(module, Container):
         for child in module.modules.values():
-            yield from _variables(child)
+            yield from _moduleTree(child)
+
+
+def _variables(module):
+    for mod in _moduleTree(module):
+        yield from mod.vars.values()
+
+
+def _evalTensors(module):
+    """Every tensor an eval-mode forward reads across calls: the variables'
+    data and the modules' attributes (a batch norm's running stats)."""
+    for mod in _moduleTree(module):
+        for var in mod.vars.values():
+            yield var.data
+
+        yield from mod.attrs.values()
 
 
 def _stateTensors(module, cost=None, optimizer=None):
     """Every tensor the train step writes, in a fixed order, with repeats:
-    the variables' data and gradients, the optimizer's state and flat
-    variables, the cost's errors."""
-    for var in _variables(module):
-        yield var.data
-        if var.grad is not None:
-            yield var.grad
+    the variables' data and gradients and the modules' attributes (a batch
+    norm's running stats), the optimizer's state and flat variables, the
+    cost's errors."""
+    for mod in _moduleTree(module):
+        for var in mod.vars.values():
+            yield var.data
+            if var.grad is not None:
+                yield var.grad
+
+        yield from mod.attrs.values()
 
     if optimizer is not None:
         for state in optimizer.states.values():
@@ -132,9 +153,10 @@ def collectParamBuffers(module):
 
 
 def collectEvalBuffers(module):
-    """The unique root buffers an eval-mode forward reads: the weights (the
-    port's modules keep no other state yet)."""
-    return collectParamBuffers(module)
+    """The unique root buffers an eval-mode forward reads: the weights and
+    the modules' attributes (a batch norm's running stats), so that a
+    program recorded over them reads their values at each replay."""
+    return _roots(_evalTensors(module))
 
 
 def _refuseVerifyData():
@@ -446,7 +468,7 @@ class _FusedEvalProgram:
 
         args = [data] if self.cost is None else [data, target]
         key = (tuple(_signature(arg) for arg in args), device) + _routeKey()
-        addresses = tuple(var.data.data_ptr() for var in _variables(self.module))
+        addresses = tuple(tensor.data_ptr() for tensor in _evalTensors(self.module))
 
         recording = self._recordings.get(key, addresses,
                                          lambda: _record(self._body, args, _generators(self.module, device)))

@@ -5,7 +5,8 @@ eager path keeps as Python scalars and that change from step to step are
 0-d f32 tensors on the step's device instead, so that a CUDA graph recorded
 once reads their new values at every replay:
 
-  * the step counter (Adam's bias correction),
+  * the step counter (Adam's bias correction, a batch norm's blend factor
+    of its running stats),
   * the optimizer's hyper-parameters (a learning rate changed between
     epochs).
 

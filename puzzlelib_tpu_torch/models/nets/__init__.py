@@ -2,5 +2,6 @@
 
 from puzzlelib_tpu_torch.models.nets.lenet import loadLeNet
 from puzzlelib_tpu_torch.models.nets.nin import loadNiNImageNet
+from puzzlelib_tpu_torch.models.nets.resnet import loadResNet, residBlock, residMiniBlock
 from puzzlelib_tpu_torch.models.nets.transformer import buildTransformerClassifier
 from puzzlelib_tpu_torch.models.nets.vgg import loadVGG

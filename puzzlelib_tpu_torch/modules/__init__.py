@@ -1,4 +1,4 @@
-"""Module exports: the layers of the VGG, transformer and CNN training slices."""
+"""Module exports: the layers of the VGG, transformer, CNN training and ResNet slices."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
@@ -6,6 +6,11 @@ from puzzlelib_tpu_torch.modules.activation import (
 from puzzlelib_tpu_torch.modules.add import Add
 from puzzlelib_tpu_torch.modules.avgpool2d import AvgPool2D
 from puzzlelib_tpu_torch.modules.attention import MultiHeadAttention
+from puzzlelib_tpu_torch.modules.batchnorm import BatchNorm
+from puzzlelib_tpu_torch.modules.batchnorm1d import BatchNorm1D
+from puzzlelib_tpu_torch.modules.batchnorm2d import BatchNorm2D
+from puzzlelib_tpu_torch.modules.batchnorm3d import BatchNorm3D
+from puzzlelib_tpu_torch.modules.batchnormnd import BatchNormND
 from puzzlelib_tpu_torch.modules.conv2d import Conv2D
 from puzzlelib_tpu_torch.modules.convnd import ConvND
 from puzzlelib_tpu_torch.modules.dropout import Dropout
@@ -13,12 +18,15 @@ from puzzlelib_tpu_torch.modules.dropout2d import Dropout2D
 from puzzlelib_tpu_torch.modules.embedder import Embedder
 from puzzlelib_tpu_torch.modules.flatten import Flatten
 from puzzlelib_tpu_torch.modules.gelu import Gelu
+from puzzlelib_tpu_torch.modules.identity import Identity
+from puzzlelib_tpu_torch.modules.instancenorm2d import InstanceNorm2D
 from puzzlelib_tpu_torch.modules.layernorm import LayerNorm
 from puzzlelib_tpu_torch.modules.linear import Linear
 from puzzlelib_tpu_torch.modules.maxpool2d import MaxPool2D
 from puzzlelib_tpu_torch.modules.module import InitScheme, Module, ModuleError
 from puzzlelib_tpu_torch.modules.muladdconst import MulAddConst
 from puzzlelib_tpu_torch.modules.pool2d import Pool2D
+from puzzlelib_tpu_torch.modules.replicate import Replicate
 from puzzlelib_tpu_torch.modules.reshape import Reshape
 from puzzlelib_tpu_torch.modules.softmax import SoftMax
 from puzzlelib_tpu_torch.modules.sum import Sum

@@ -7,6 +7,13 @@ train/eval/calc modes.  Being an ``nn.Module``, it registers each variable's
 tensor as a parameter, so ``parameters()``, ``state_dict()`` and ``.to()``
 work as usual.
 
+``self.attrs`` holds the module's attributes: device tensors that are no
+variable and that the module writes in place (a batch norm's running mean
+and variance).  ``setAttr`` registers each as a buffer, so ``state_dict()``
+and ``.to()`` see them too; the fused step walks them as state
+(``fused.collectStateBuffers``) and ``convert`` moves them to and from
+numpy.
+
 Where the two protocols clash:
 
 - The reference's ``Module.train`` is a bool attribute; ``nn.Module.train()``
@@ -76,6 +83,7 @@ class Module(torch.nn.Module):
         self.name = name
 
         self.vars = {}
+        self.attrs = {}
 
         # dataflow hints consumed by containers
         self.gradUsesOutData = False
@@ -107,6 +115,31 @@ class Module(torch.nn.Module):
             vartable.setdefault(var, []).append("%s%s" % (name, paramName))
 
         return vartable
+
+    def setAttr(self, name, attr):
+        """Register the tensor ``attr`` as the attribute ``name``: a buffer
+        of the ``nn.Module``, which the module writes in place only."""
+        self.__dict__.pop(name, None)
+        self.register_buffer(name, attr)
+        self.attrs[name] = attr
+
+    def hasAttr(self, name):
+        return name in self.attrs
+
+    def getAttrTable(self, attrtable=None, name=None, root=True):
+        """The attributes of the tree by name, as ``getVarTable`` names a
+        variable: ``"<module path>.<attr>"`` inside a container, the
+        reference's checkpoint names."""
+        if root and name is None:
+            name = self.name or ""
+
+        if attrtable is None:
+            attrtable = {}
+
+        for attrName, attr in self.attrs.items():
+            attrtable["%s%s" % (name, attrName)] = attr
+
+        return attrtable
 
     def node(self, *nodes):
         """A ``containers.Node`` of this module, wired after ``nodes``, for a

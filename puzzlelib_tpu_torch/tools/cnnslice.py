@@ -120,7 +120,8 @@ def build(kind):
 
 class Run:
     """One net with its optimizer, trainer and validator, and the start
-    values of the optimizer's flat parameter buffers."""
+    values of the optimizer's flat parameter buffers and of the modules'
+    attributes (a batch norm's running stats)."""
 
     def __init__(self, net, optimizer, cost, batch):
         from puzzlelib_tpu_torch.fused import FusedTrainer, FusedValidator
@@ -132,14 +133,23 @@ class Run:
         self.fusedTrainer = FusedTrainer(net, cost, optimizer, batchsize=batch)
         self.fusedValidator = FusedValidator(net, cost, batchsize=batch)
         self.start = {dtype: pack.ary.clone() for dtype, pack in optimizer.shParams.items()}
+        self.startAttrs = {name: attr.clone() for name, attr in net.getAttrTable().items()}
 
     def restore(self):
-        """The start weights, a zero momentum and step count, and the
-        dropout draws from their start."""
+        """The start weights and attributes, a zero momentum and step count
+        (the batch norms' counts of train forwards too), and the dropout
+        draws from their start."""
         from puzzlelib_tpu_torch.rng import globalRng
 
         for dtype, pack in self.optimizer.shParams.items():
             pack.ary.copy_(self.start[dtype])
+
+        for name, attr in self.net.getAttrTable().items():
+            attr.copy_(self.startAttrs[name])
+
+        for mod in self.net.modules():
+            if hasattr(mod, "numOfProps"):
+                mod.numOfProps = 0
 
         for state in self.optimizer.states.values():
             for tensor in state.values():

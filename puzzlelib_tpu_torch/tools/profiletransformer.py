@@ -72,6 +72,7 @@ def kernelLaunches(events):
 
 
 def _profile(run, label, top=25):
+    """One profiled call of ``run``, printed; returns its device events."""
     secs, events = profiled(run)
     busy, wall = busyUs(events), secs * 1e6
 
@@ -85,6 +86,8 @@ def _profile(run, label, top=25):
 
     for name, (total, count) in sorted(byName.items(), key=lambda item: -item[1][0])[:top]:
         print("[profile] %s: %9.1f us %4d x  %s" % (label, total, count, name[:150]))
+
+    return events
 
 
 def main():

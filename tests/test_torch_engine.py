@@ -2,13 +2,14 @@
 ``DataCalibrator``), the engine slice's helpers (``tools/engineslice.py``)
 and ``checkinstall``, against the JAX package where it has a counterpart.
 
-Twins of ``tests/test_converters.py``'s engine tests (the small net without
-its BatchNorm, which the port does not have yet), a narrow VGG-shaped net
+Twins of ``tests/test_converters.py``'s engine tests (its small net whole,
+its BatchNorm2D's running stats carried across), a narrow VGG-shaped net
 through both packages' int8 engines and ``Calculator``s, and the engine's
 own protocol: ``many``, ``manyRepeat``, a load in a fresh process, the
 device check.  The CUDA cases run only where a card is present.
 """
 
+import copy
 import os
 import re
 import subprocess
@@ -21,7 +22,7 @@ import torch
 from puzzlelib_tpu_torch import config as TConfig
 from puzzlelib_tpu_torch import containers as TC
 from puzzlelib_tpu_torch import modules as T
-from puzzlelib_tpu_torch.convert import paramsFromNumpy
+from puzzlelib_tpu_torch.convert import attrsFromNumpy, paramsFromNumpy
 from puzzlelib_tpu_torch.converter.engine import DataCalibrator, Engine, buildEngine
 from puzzlelib_tpu_torch.handlers import Calculator
 
@@ -64,15 +65,28 @@ def _table(net):
 
 
 def _smallNet(M, C, initscheme=None):
-    """``tests/test_converters.py`` ``buildSmallNet`` less its BatchNorm2D."""
+    """``tests/test_converters.py`` ``buildSmallNet``."""
     net = C.Sequential(name="convnet")
     net.append(M.Conv2D(3, 4, 3, pad=1, initscheme=initscheme, name="conv1"))
+    net.append(M.BatchNorm2D(4, name="bn1"))
     net.append(M.Activation(M.relu, name="relu1"))
     net.append(M.MaxPool2D(name="pool1"))
     net.append(M.Flatten(name="flatten"))
     net.append(M.Linear(4 * 4 * 4, 10, initscheme=initscheme, name="fc"))
     net.append(M.SoftMax(name="probs"))
     return net
+
+
+def _runningStats(jnet, seed=21):
+    """Running stats off (0, 1) for the JAX net's ``bn1``, as a table of the
+    port's attribute names: an eval-mode BatchNorm2D that is no identity."""
+    rng = np.random.RandomState(seed)
+    table = {"bn1.mean": rng.randn(1, 4, 1, 1).astype(np.float32),
+             "bn1.var": rng.uniform(0.5, 2.0, (1, 4, 1, 1)).astype(np.float32)}
+
+    jnet["bn1"].mean.set(table["bn1.mean"])
+    jnet["bn1"].var.set(table["bn1.var"])
+    return table
 
 
 def _qnet(M, C):
@@ -116,6 +130,7 @@ def testEngineBuildAndRunTwin(tmp_path):
     jnet = _smallNet(J, JC)
     tnet = _smallNet(T, TC, initscheme="none")
     paramsFromNumpy(tnet, _table(jnet))
+    attrsFromNumpy(tnet, _runningStats(jnet))
 
     data = np.random.randn(1, 3, 8, 8).astype(np.float32)
     tnet.evalMode()
@@ -137,6 +152,36 @@ def testEngineBuildAndRunTwin(tmp_path):
     assert (tmp_path / "convnet.float32.graph.txt").exists()
     spec = (tmp_path / "convnet.float32.spec.json").read_text()
     assert '"outshape": [\n    1,\n    10\n  ]' in spec and '"dtype": "float32"' in spec
+
+
+def testBf16EngineKeepsTheRunningStats(tmp_path):
+    """The bf16 engine of the small net: its ``torch.export`` program holds
+    the BatchNorm2D's running stats as they were at the build, in f32 (the
+    batch norm keeps its state in f32 in a bf16 net), and serves what the
+    eager bf16 net serves on them; the user's net keeps its own stats."""
+    J, JC, _, _ = _jax()
+
+    np.random.seed(1)
+    jnet = _smallNet(J, JC)
+    tnet = _smallNet(T, TC, initscheme="none")
+    paramsFromNumpy(tnet, _table(jnet))
+    stats = _runningStats(jnet)
+    attrsFromNumpy(tnet, stats)
+
+    path = buildEngine(tnet, (2, 3, 8, 8), str(tmp_path), dtype="bfloat16", returnEngine=False)
+    program = torch.export.load(path)
+    held = list(program.constants.values()) + list(program.state_dict.values())
+    for name, ary in stats.items():
+        want = torch.from_numpy(ary)
+        assert any(t.dtype == torch.float32 and t.shape == want.shape and torch.equal(t, want) for t in held), name
+
+    x = np.random.RandomState(22).randn(2, 3, 8, 8).astype(np.float32)
+    eager = copy.deepcopy(tnet)
+    eager.calcMode(torch.bfloat16)
+    eager.evalMode()
+    want = eager(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    assert np.array_equal(Engine(path)(torch.from_numpy(x)).numpy(), want)
+    assert torch.equal(tnet["bn1"].mean, torch.from_numpy(stats["bn1.mean"]))
 
 
 def testInt8EngineTwin(tmp_path):

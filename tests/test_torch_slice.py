@@ -217,6 +217,25 @@ nin = loadNiNImageNet(None, poolmode="avg", initscheme="he")
 assert nin(torch.randn(1, 3, 224, 224)).shape == (1, 1000)
 cifar = cnnslice.buildRun("nin-cifar", batch=4)
 cifar.train("hopper", *cnnslice.data("nin-cifar", 4))
+from puzzlelib_tpu_torch.benchmarks import netspeed
+from puzzlelib_tpu_torch.containers import Parallel
+from puzzlelib_tpu_torch.convert import attrsFromNumpy, attrsToNumpy
+from puzzlelib_tpu_torch.models.nets import loadResNet, residBlock
+from puzzlelib_tpu_torch.ops import norm
+from puzzlelib_tpu_torch.tools import profileresnet, resnetslice
+block = Sequential(name="block")
+block.extend(residBlock(8, 4, 1, "2a", True, False, False, "he"))
+block.append(T.InstanceNorm2D(16))
+block.append(T.Flatten())
+block.append(T.BatchNorm(16 * 4 * 4))
+blockOut = block(torch.randn(2, 8, 4, 4))
+block.backward(torch.ones_like(blockOut))
+attrsFromNumpy(block, attrsToNumpy(block))
+assert isinstance(block[1], Parallel) and T.BatchNorm1D(3)(torch.randn(2, 3, 5)).shape == (2, 3, 5)
+assert T.BatchNorm3D(3)(torch.randn(2, 3, 2, 2, 2)).shape == (2, 3, 2, 2, 2) and norm.MODE_SPATIAL == "spatial"
+assert profileresnet.REQUESTS == 4
+assert len(resnetslice.winogradConvs(loadResNet(None, "50"), (32, 3, 224, 224))) == 13
+netspeed.main(["--net", "lenet", "--infer", "--iters", "1", "--batch", "2"])
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -231,8 +250,10 @@ def testPortRunsWithoutJax():
     validates LeNet with the hooks (``rng``, ``Validator``), takes one
     ``FusedStep`` of it (``fused``, ``fusedctx``), runs dropout and average
     pooling forward and backward, the ImageNet NiN forward and a CIFAR-10
-    NIN training step of ``tools/cnnslice.py`` imports no JAX and nothing
-    of the JAX package (``ml_dtypes`` neither)."""
+    NIN training step of ``tools/cnnslice.py``, a residual block with the
+    batch-norm family forward and backward, ResNet-50's Winograd convs
+    (``tools/resnetslice.py``, ``profileresnet``) and ``netspeed`` imports
+    no JAX and nothing of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
