@@ -209,11 +209,38 @@ it fails:
    own from the loss gradient one bf16 ulp apart; the 12 steps' running
    stats within 5e-2 or no farther than the library route's own from the
    input one bf16 ulp apart; fused losses and running stats against
-   eager's (the first loss bit-equal), one recording, a
-   ``FusedCalculator`` replay after more training equal to the eager
+   eager's (the first loss bit-equal), one recording, a second fused run
+   the same bits, a ``FusedCalculator`` replay after more training equal to the eager
    ``Calculator``; images/s of each route in 5 runs in turns, idle shares
    under the profiler, ``netspeed``, and K2, K2-bwd and K3 at its three
-   Winograd shapes against channels-last cuDNN.
+   Winograd shapes against channels-last cuDNN;
+26. [unet]: U-Net (``tools/unetslice.py``) in bf16 at batch 4 on 1 x 512 x
+   512 inputs, He weights from ``np.random.seed(0)``: 4 requests served
+   with the sigmoid, 8 steps trained without it (``BCE``,
+   ``MomentumSGD(1e-3, 0.99)`` in global state) and 16 images validated,
+   on the hand, library and fused routes; one K2 a request or validated
+   batch and one K2, K2-bwd and K3 a step on each of the 15 convs
+   ``winograd.applicable`` takes (counted from the net, inside each conv,
+   and by the profiler in fused runs), no K1; the first request's logits
+   and sigmoid outputs each within 5e-2 of the same f32 weights on the
+   library route; every variable's first-step gradient within 5e-2 or its
+   control; the losses within 5e-2 of the library route's and growing on
+   neither route; the hand and fused runs twice the same bits, the fused
+   first loss that of eager; on the library route's trained weights, the
+   validation error no farther from the library route's than the library
+   route's own from those weights in f32 or from its input one bf16 ulp
+   apart; images/s of each route in 5 runs in turns, idle shares, the peak
+   of device memory, and K2, K2-bwd and K3 at each of the 15 convs against
+   channels-last cuDNN;
+27. [inception]: Inception-BN and Inception-v3 (``tools/inceptionslice.py``)
+   in bf16 with f32 batch norms at batch 32: 4 requests each through
+   ``Calculator`` on the hand and library routes and ``FusedCalculator``;
+   one K1 a request on each net and one K2 a request on each of
+   Inception-BN's two Winograd convs; logits within 5e-2 of the same f32
+   weights on the library route; images/s in 5 runs in turns; K1 at both
+   ``fc1`` shapes and K2 at Inception-BN's 14 x 14 shape against cuBLAS and
+   cuDNN.  The seconds of phases 26 and 27 and of the whole script are
+   printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -452,6 +479,9 @@ TAPDOT_BOUND_F32 = 5e-2
 # [engine-flash]: a float-input attention net (LayerNorm, MultiHeadAttention)
 # whose "auto" core is flash in bf16 on the card at seq >= 1024; 4 requests
 ATTN_NET = dict(batch=8, seq=1024, emb=256, heads=4)
+
+# the routes of the ResNet-50, U-Net and Inception phases
+SLICE_ROUTES = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
 
 
 def fail(message):
@@ -1298,22 +1328,24 @@ class _LayerLaunches:
                 fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, self._tuple(name)))
 
 
-def _convKernels(torch, winograd, phase, convs, batch):
-    """K2, K2-bwd and K3 at ``convs`` ((name, x shape at batch 1, output
-    maps)) at ``batch``: each against its plain version, then kernel and
-    cuDNN on channels-last operands (as the training path hands them over)
-    in 5 alternating turns of 10 calls.  Returns the JSON entries' numbers,
-    the convs summed."""
+def _convKernels(torch, winograd, phase, convs, batch, tags=("K2", "K2-bwd", "K3")):
+    """The kernels ``tags`` (of K2, K2-bwd and K3) at ``convs`` ((names, x
+    shape at batch 1, output maps)) at ``batch``, for each of a shape's
+    space-separated names on operands of its own: each against its plain
+    version, then kernel and cuDNN on channels-last operands (as the
+    training path hands them over) in 5 alternating turns of 10 calls.
+    Returns the JSON entries' numbers, summed over the convs; ``bound_by``
+    names the bound of the convs whose bounds make up most of the sum."""
     specs = _winogradSpecs(torch, winograd)
     entries = {}
 
-    for tag in ("K2", "K2-bwd", "K3"):
+    for tag in tags:
         spec = specs[tag]
         gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
         entry = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        binding = set()
+        binding = {}
 
-        for name, inshape, co in convs:
+        for name, inshape, co in ((name, inshape, co) for names, inshape, co in convs for name in names.split()):
             xshape = (batch, ) + inshape
             args = spec["operands"](gen, xshape, co)
             out, ref = spec["kernel"](*args), spec["plain"](*args)
@@ -1341,10 +1373,11 @@ def _convKernels(torch, winograd, phase, convs, batch):
             entry["plain_ms"] += plainMs
             entry["library_ms"] += libMs
             entry["bound_ms"] += boundMs
-            binding.add(boundBy)
+            binding[boundBy] = binding.get(boundBy, 0.0) + boundMs
             del args, last
 
-        entry["bound_by"] = "/".join(sorted(binding))
+        # the sum's bound is that of the shapes that make up most of it
+        entry["bound_by"] = max(binding, key=binding.get)
         entries[tag] = entry
 
     torch.cuda.empty_cache()
@@ -3025,6 +3058,117 @@ def _resnetGradsAgainst(tag, backward, convs):
                  "%.3e)" % (tag, name, rel, control))
 
 
+class _SliceLaunches:
+    """A slice phase's launch counts.  ``counted(fn)`` runs ``fn`` with every
+    counter at 0 and returns (its result, the K2, K2 bwd-data, K3 and K1
+    counts); ``expect`` fails unless those are ``steps`` batches through
+    each of the Winograd convs ``convs`` (counted inside each conv too) and
+    ``gemms`` K1 a batch, on wgmma.  Inside ``with``, the per-conv counts sit
+    in ``fused.COUNTERS``, so that a fused replay adds to them."""
+
+    KEYS = ("winograd", "winogradDataGrad", "winogradFG", "matmul", "matmulWgmma")
+
+    def __init__(self, tag, winograd, net, convs, gemms):
+        self.tag, self.nconvs, self.gemms = tag, len(convs), gemms
+        self.layers = _LayerLaunches(winograd, net, convs)
+
+    def __enter__(self):
+        from puzzlelib_tpu_torch import fused as Fused
+
+        Fused.COUNTERS.extend(self.layers.replayed())
+        return self
+
+    def __exit__(self, *exc):
+        from puzzlelib_tpu_torch import fused as Fused
+
+        for entry in self.layers.replayed():
+            Fused.COUNTERS.remove(entry)
+
+    def counted(self, fn):
+        self.layers.reset()
+        _resetCounters()
+        result = fn()
+        counts = _readCounters()
+        return result, {key: counts[key] for key in self.KEYS}
+
+    def expect(self, what, counts, steps, backward):
+        forward = self.nconvs * steps
+        want = {"winograd": forward * (1 + backward), "winogradDataGrad": forward * backward,
+                "winogradFG": forward * backward, "matmul": self.gemms * steps, "matmulWgmma": self.gemms * steps}
+        print("[%s] %s launches: K2 %d (forward %d, bwd-data %d), K3 %d, K1 %d (on wgmma %d)" %
+              (self.tag, what, counts["winograd"], counts["winograd"] - counts["winogradDataGrad"],
+               counts["winogradDataGrad"], counts["winogradFG"], counts["matmul"], counts["matmulWgmma"]))
+        self.layers.check(self.tag, (steps, steps * backward, steps * backward))
+        if counts != want:
+            fail("[%s] %s: expected launches %s, got %s" % (self.tag, what, want, counts))
+
+
+def _sameBitsAgain(tag, torch, run, algo, images, labels, losses, what):
+    """Train ``algo`` once more from the same start; fail unless its losses
+    are ``losses`` and the flat buffers those the run before left, bit for
+    bit."""
+    weights = {dtype: pack.ary.clone() for dtype, pack in run.optimizer.shParams.items()}
+    again = []
+    run.train(algo, images, labels, again)
+    same = again == losses and all(torch.equal(run.optimizer.shParams[dtype].ary, ary)
+                                   for dtype, ary in weights.items())
+    print("[%s] %s again from the same start: losses and weights bit-equal %s" % (tag, what, same))
+    if not same:
+        fail("[%s] a second run of the %s gave other bits" % (tag, what))
+
+
+def _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, valImages, valLabels):
+    """The steps of ``images`` through ``FusedTrainer`` against the eager
+    hand route's ``losses``: the same launches replayed (``counter``, into
+    ``launches["fused"]``), the first loss bit-equal (a replayed dropout
+    draws what the eager step draws), the rest within TRAIN_BOUND, one
+    recording, a second run the same bits; then ``FusedValidator`` equal to
+    ``Validator`` on the fused weights."""
+    steps = len(losses)
+    run.train("fused", images, labels)
+    fusedLosses = []
+    _, launches["fused"] = counter.counted(lambda: run.train("fused", images, labels, fusedLosses))
+    counter.expect("FusedTrainer, %d steps of %d" % (steps, len(images) // steps), launches["fused"], steps, 1)
+    print("[%s] first-step loss fused %r, eager %r: bit-equal %s; recordings %d" %
+          (tag, fusedLosses[0], losses[0], fusedLosses[0] == losses[0], run.fusedTrainer.step.captures))
+    if fusedLosses[0] != losses[0] or run.fusedTrainer.step.captures != 1:
+        fail("[%s] fused first-step loss %r against %r, recordings %d" %
+             (tag, fusedLosses[0], losses[0], run.fusedTrainer.step.captures))
+
+    _lossesAgainst(tag, fusedLosses, losses, TRAIN_BOUND, ref="eager hand route")
+    _sameBitsAgain(tag, torch, run, "fused", images, labels, fusedLosses, "FusedTrainer")
+
+    error, _ = run.validate("fused", valImages, valLabels)
+    eagerError, _ = run.validate("hopper", valImages, valLabels)
+    print("[%s] validation error of %d images: fused %r, eager %r; recordings %d" %
+          (tag, len(valImages), error, eagerError, run.fusedValidator._program.captures))
+    if error != eagerError:
+        fail("[%s] validation errors differ: %r against %r" % (tag, error, eagerError))
+
+
+def _routeRates(tag, card, work):
+    """Images/s of each of SLICE_ROUTES on each of ``work`` (what -> (images,
+    fn(algo) returning seconds)), 5 runs in turns."""
+    fns = {"%s %s" % (algo, what): (lambda algo=algo, fn=fn: fn(algo)) for algo in SLICE_ROUTES
+           for what, (_, fn) in work.items()}
+
+    for name, secs in _turns({}, fns).items():
+        algo, what = name.split()
+        print("[%s] %s, %s, 5 runs in turns: %s s, median %.2f images/s on %s" %
+              (tag, SLICE_ROUTES[algo], what, " ".join("%.4f" % t for t in secs),
+               work[what][0] / float(np.median(secs)), card))
+
+
+def _idleShares(tag, run, images, labels):
+    """The idle share of the card in a profiled training run of ``images``
+    on the fused and the eager hand route, the launches held to the
+    profiler's device events (``_profiledLaunches``)."""
+    idle = {algo: _profiledLaunches(tag, lambda algo=algo: run.train(algo, images, labels))[1]
+            for algo in ("fused", "hopper")}
+    print("[%s] idle share of the card, %d training images under the profiler: fused %.1f %%, eager hand route "
+          "%.1f %%" % (tag, len(images), 100 * idle["fused"], 100 * idle["hopper"]))
+
+
 def phaseResNet50(torch, card):
     """ResNet-50 in bf16 at batch 32 (``tools/resnetslice.py``), He weights
     from ``np.random.seed(0)``, without its SoftMax, ``MomentumSGD(0.01,
@@ -3046,8 +3190,8 @@ def phaseResNet50(torch, card):
     rounding alone carries the running means past 5e-2).  Fused: the same
     12 steps through ``FusedTrainer``, the same launches replayed; the
     first loss bit-equal to the eager hand route's, the rest and the
-    running stats within 5e-2; one recording; ``FusedValidator`` equal to
-    ``Validator``; a ``FusedCalculator`` replay after more eager training
+    running stats within 5e-2; one recording; a second fused run the same
+    bits; ``FusedValidator`` equal to ``Validator``; a ``FusedCalculator`` replay after more eager training
     equal to the eager ``Calculator`` on the new weights and running stats,
     with no new recording.  Then images/s of each route (5 runs in turns), the idle
     share of the fused and the eager hand route under the profiler (whose
@@ -3056,7 +3200,6 @@ def phaseResNet50(torch, card):
     and K3 at ResNet-50's three Winograd shapes, and K1 at fc1000.
     Returns the launches and the kernels' numbers."""
     from puzzlelib_tpu_torch import config as Config
-    from puzzlelib_tpu_torch import fused as Fused
     from puzzlelib_tpu_torch.benchmarks import netspeed
     from puzzlelib_tpu_torch.convert import attrsToNumpy
     from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
@@ -3066,43 +3209,21 @@ def phaseResNet50(torch, card):
     run = Res.buildRun()
     net = run.net
     convs = Res.winogradConvs(net, (Res.BATCH, ) + Res.SHAPE)
-    nconvs = len(convs)
     print("[%s] ResNet-50 bf16 at batch %d, %d convs, of which K2 / K3 take %d: %s" %
-          (tag, Res.BATCH, len(Res.convInputs(net, (Res.BATCH, ) + Res.SHAPE)), nconvs, " ".join(convs)))
+          (tag, Res.BATCH, len(Res.convInputs(net, (Res.BATCH, ) + Res.SHAPE)), len(convs), " ".join(convs)))
 
     images, labels = Res.data(Res.BATCH * Res.STEPS)
     requests = images[:Res.BATCH * REQUESTS]
     valImages, valLabels = Res.data(Res.BATCH * REQUESTS, seed=2)
 
-    counter = _LayerLaunches(winograd, net, convs)
-    Fused.COUNTERS.extend(counter.replayed())
     launches = {}
-
-    def counted(fn):
-        counter.reset()
-        _resetCounters()
-        result = fn()
-        counts = _readCounters()
-        return result, {key: counts[key] for key in ("winograd", "winogradDataGrad", "winogradFG", "matmul",
-                                                     "matmulWgmma")}
-
-    def expect(what, counts, steps, backward):
-        want = {"winograd": nconvs * steps * (2 if backward else 1), "winogradDataGrad": nconvs * steps * backward,
-                "winogradFG": nconvs * steps * backward, "matmul": steps, "matmulWgmma": steps}
-        print("[%s] %s launches: K2 %d (forward %d, bwd-data %d), K3 %d, K1 %d (on wgmma %d)" %
-              (tag, what, counts["winograd"], counts["winograd"] - counts["winogradDataGrad"],
-               counts["winogradDataGrad"], counts["winogradFG"], counts["matmul"], counts["matmulWgmma"]))
-        counter.check(tag, (steps, steps * backward, steps * backward))
-        if counts != want:
-            fail("[%s] %s: expected launches %s, got %s" % (tag, what, want, counts))
-
-    try:
+    with _SliceLaunches(tag, winograd, net, convs, 1) as counter:
         # eager serving, hand and library routes
         for algo in ("torch", "hopper"):
             run.serve(algo, requests)
 
-        (out, secs), launches["serving"] = counted(lambda: run.serve("hopper", requests))
-        expect("serving, %d requests of %d" % (REQUESTS, Res.BATCH), launches["serving"], REQUESTS, 0)
+        (out, secs), launches["serving"] = counter.counted(lambda: run.serve("hopper", requests))
+        counter.expect("serving, %d requests of %d" % (REQUESTS, Res.BATCH), launches["serving"], REQUESTS, 0)
         libOut, _ = run.serve("torch", requests)
 
         if out.shape != (len(requests), Res.CLASSES) or not np.isfinite(out).all():
@@ -3135,8 +3256,8 @@ def phaseResNet50(torch, card):
             run.train(algo, images, labels)
 
         losses, libLosses = [], []
-        secs, launches["training"] = counted(lambda: run.train("hopper", images, labels, losses))
-        expect("training, %d steps of %d" % (Res.STEPS, Res.BATCH), launches["training"], Res.STEPS, 1)
+        secs, launches["training"] = counter.counted(lambda: run.train("hopper", images, labels, losses))
+        counter.expect("training, %d steps of %d" % (Res.STEPS, Res.BATCH), launches["training"], Res.STEPS, 1)
         print("[%s] training, MomentumSGD(%g, %g): %d images in %d steps, %.4f s" %
               (tag, Res.LEARN_RATE, Res.MOM_RATE, len(images), Res.STEPS, secs))
         stats = attrsToNumpy(net)
@@ -3167,29 +3288,13 @@ def phaseResNet50(torch, card):
         _statsAgainst(tag, stats, libStats, "library route", meanBound, varBound)
 
         # the fused forms
-        run.train("fused", images, labels)
-        fusedLosses = []
-        _, launches["fused"] = counted(lambda: run.train("fused", images, labels, fusedLosses))
-        expect("FusedTrainer, %d steps of %d" % (Res.STEPS, Res.BATCH), launches["fused"], Res.STEPS, 1)
-        print("[%s] first-step loss fused %r, eager %r: bit-equal %s; recordings %d" %
-              (tag, fusedLosses[0], losses[0], fusedLosses[0] == losses[0], run.fusedTrainer.step.captures))
-        if fusedLosses[0] != losses[0] or run.fusedTrainer.step.captures != 1:
-            fail("[%s] fused first-step loss %r against %r, recordings %d" %
-                 (tag, fusedLosses[0], losses[0], run.fusedTrainer.step.captures))
-
-        _lossesAgainst(tag, fusedLosses, losses, TRAIN_BOUND, ref="eager hand route")
+        _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, valImages, valLabels)
         _statsAgainst(tag, attrsToNumpy(net), stats, "eager hand route")
 
-        error, _ = run.validate("fused", valImages, valLabels)
-        eagerError, _ = run.validate("hopper", valImages, valLabels)
-        print("[%s] validation error of %d images: fused %r, eager %r; recordings %d" %
-              (tag, len(valImages), error, eagerError, run.fusedValidator._program.captures))
-        if error != eagerError:
-            fail("[%s] validation errors differ: %r against %r" % (tag, error, eagerError))
-
         run.serve("fused", requests)
-        (before, _), launches["fusedServing"] = counted(lambda: run.serve("fused", requests))
-        expect("FusedCalculator, %d requests of %d" % (REQUESTS, Res.BATCH), launches["fusedServing"], REQUESTS, 0)
+        (before, _), launches["fusedServing"] = counter.counted(lambda: run.serve("fused", requests))
+        counter.expect("FusedCalculator, %d requests of %d" % (REQUESTS, Res.BATCH), launches["fusedServing"],
+                       REQUESTS, 0)
         Config.gemmAlgo = Config.convAlgo = "hopper"
         run.trainer.trainFromHost(images[:2 * Res.BATCH], labels[:2 * Res.BATCH])
         after, _ = run.serve("fused", requests)
@@ -3202,28 +3307,9 @@ def phaseResNet50(torch, card):
             fail("[%s] the FusedCalculator replay does not read the new weights and running stats" % tag)
 
         # rates and idle shares
-        routes = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
-        fns = {}
-        for algo in routes:
-            fns[algo + " train"] = lambda algo=algo: run.train(algo, images, labels)
-            fns[algo + " serve"] = lambda algo=algo: run.serve(algo, requests)[1]
-
-        for name, secs in _turns({}, fns).items():
-            algo, what = name.split()
-            count = len(images) if what == "train" else len(requests)
-            print("[%s] %s, %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
-                  (tag, routes[algo], "training" if what == "train" else "serving",
-                   " ".join("%.4f" % t for t in secs), count / float(np.median(secs)), card))
-
-        short, shortLabels = images[:2 * Res.BATCH], labels[:2 * Res.BATCH]
-        idle = {algo: _profiledLaunches(tag, lambda algo=algo: run.train(algo, short, shortLabels))[1]
-                for algo in ("fused", "hopper")}
-        print("[%s] idle share of the card, 2 training steps under the profiler: fused %.1f %%, eager hand route "
-              "%.1f %%" % (tag, 100 * idle["fused"], 100 * idle["hopper"]))
-
-    finally:
-        for entry in counter.replayed():
-            Fused.COUNTERS.remove(entry)
+        _routeRates(tag, card, {"training": (len(images), lambda algo: run.train(algo, images, labels)),
+                                "serving": (len(requests), lambda algo: run.serve(algo, requests)[1])})
+        _idleShares(tag, run, images[:2 * Res.BATCH], labels[:2 * Res.BATCH])
 
     Config.gemmAlgo = Config.convAlgo = "hopper"
     del run, net
@@ -3243,11 +3329,294 @@ def phaseResNet50(torch, card):
     return launches, kernels
 
 
+# -- U-Net and Inception ----------------------------------------------------------------------------------
+
+def phaseUNet(torch, card):
+    """U-Net in bf16 at batch 4 on 1 x 512 x 512 inputs
+    (``tools/unetslice.py``), He weights from ``np.random.seed(0)``.
+    Serving: 4 requests through ``Calculator`` with the sigmoid, the first
+    request's logits and sigmoid outputs each within 5e-2 relative L2 of
+    the same f32 weights on the library route.  Training without the
+    sigmoid, ``BCE`` and ``MomentumSGD(LEARN_RATE, 0.99)`` in global state:
+    the backward of one forward on the hand kernels, every variable's
+    gradient within 5e-2 or no farther than the library's own backward from
+    the loss gradient one bf16 ulp apart (``_resnetGradsAgainst``); 8 steps
+    on the hand and the library routes, the losses within 5e-2 of the
+    library's and on neither route growing from a step to the next; the
+    hand route twice, the same bits.  Validation of 16 images with ``BCE``
+    (the share of pixels whose logit's sign misses the mask) on the weights
+    the library route trained: the hand route's error no farther from the
+    library route's than the library route's own from those weights in f32
+    (``_f32Validation``) or from the input one bf16 ulp apart.  Fused: the
+    same 8 steps through ``FusedTrainer`` (``_fusedAgainstEager``: its
+    dropout replayed, the first loss bit-equal to the eager one's, the rest
+    within 5e-2, twice the same bits, one recording); ``FusedValidator``
+    equal to ``Validator``; ``FusedCalculator`` within 5e-2 of
+    ``Calculator``.  Launches, counted from the net (``winogradConvs``) and
+    inside each conv: one K2 a request or validated batch and one K2, K2-bwd
+    and K3 a step on each of its 15 Winograd convs, and no K1; the fused
+    ones also by the profiler.  Then images/s of each route (5 runs in
+    turns), the idle share of 2 profiled steps, the peak of device memory,
+    and K2, K2-bwd and K3 at each of the 15 convs against channels-last
+    cuDNN.  Returns the launches and the kernels' numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.modules import Dropout
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+    from puzzlelib_tpu_torch.tools import unetslice as Unet
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    tag = "unet"
+    torch.cuda.reset_peak_memory_stats()
+
+    net = Unet.build()
+    images, masks = Unet.data(Unet.BATCH * Unet.STEPS)
+    requests = images[:Unet.BATCH * REQUESTS]
+    valImages, valMasks = Unet.data(Unet.BATCH * REQUESTS, seed=2)
+    first = torch.from_numpy(requests[:Unet.BATCH]).cuda()
+
+    # the f32 reference of serving: the same weights on the library route
+    # (TF32 off)
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    net.evalMode()
+    refOut = net(first).float().clone()
+    refLogits = net.graph[-2].data.float().clone()
+    net.reset()
+
+    run = Unet.buildRun(net)
+    convs = Res.winogradConvs(net, (Unet.BATCH, ) + Unet.SHAPE)
+    drops = ["%s (p %g)" % (mod.name, mod.p) for mod in net.getAllByType(Dropout)]
+    print("[%s] U-Net bf16 at batch %d on %s inputs, %d parameters, %d convs, of which K2 / K3 take %d: %s; "
+          "dropouts %s; MomentumSGD(%g, %g), BCE" %
+          (tag, Unet.BATCH, "x".join(map(str, Unet.SHAPE)), net.numOfParams(),
+           len(Res.convInputs(net, (Unet.BATCH, ) + Unet.SHAPE)), len(convs), " ".join(convs), ", ".join(drops),
+           Unet.LEARN_RATE, Unet.MOM_RATE))
+    if len(drops) != 2:
+        fail("[%s] expected U-Net's two dropouts, found %s" % (tag, drops))
+
+    launches = {}
+    with _SliceLaunches(tag, winograd, net, convs, 0) as counter:
+        # serving, with the sigmoid: the logits and the sigmoid's outputs
+        # against the f32 reference
+        for algo in ("torch", "hopper"):
+            run.serve(algo, requests)
+
+        (out, secs), launches["serving"] = counter.counted(lambda: run.serve("hopper", requests))
+        counter.expect("serving, %d requests of %d" % (REQUESTS, Unet.BATCH), launches["serving"], REQUESTS, 0)
+        if out.shape != (len(requests), ) + Unet.SHAPE or not np.isfinite(out).all():
+            fail("[%s] outputs of shape %s, finite: %s" % (tag, out.shape, np.isfinite(out).all()))
+
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        logitsRel = _relL2(run.net(first.to(torch.bfloat16)).float(), refLogits)
+        run.net.reset()
+        rel = _relL2(torch.from_numpy(out[:Unet.BATCH]).cuda(), refOut)
+        print("[%s] serving %d images: %.4f s; the first request against the same f32 weights on the library route, "
+              "relative L2: logits %.3e, sigmoid outputs %.3e (bound %.0e each)" %
+              (tag, len(requests), secs, logitsRel, rel, SLICE_BOUND))
+        if not (logitsRel <= SLICE_BOUND and rel <= SLICE_BOUND):
+            fail("[%s] served logits %.3e, sigmoid outputs %.3e from the f32 library run" % (tag, logitsRel, rel))
+        del refOut, refLogits
+
+        # the backward of one forward, every variable
+        run.restore()
+        backward = _backwardGrads(torch, Config, run.trainer, net, images, masks, names=None, batch=Unet.BATCH,
+                                  seeds=RESNET_GRAD_SEEDS)
+        _resnetGradsAgainst(tag, backward, convs)
+        del backward
+
+        # eager training, hand and library routes
+        for algo in ("torch", "hopper"):
+            run.train(algo, images, masks)
+
+        losses, libLosses = [], []
+        secs, launches["training"] = counter.counted(lambda: run.train("hopper", images, masks, losses))
+        counter.expect("training, %d steps of %d" % (Unet.STEPS, Unet.BATCH), launches["training"], Unet.STEPS, 1)
+        print("[%s] training: %d images in %d steps, %.4f s" % (tag, len(images), Unet.STEPS, secs))
+        _sameBitsAgain(tag, torch, run, "hopper", images, masks, losses, "eager hand route")
+
+        run.train("torch", images, masks, libLosses)
+        _lossesAgainst(tag, losses, libLosses, TRAIN_BOUND)
+        for route, seen in (("hand", losses), ("library", libLosses)):
+            if any(later > earlier for earlier, later in zip(seen, seen[1:])):
+                fail("[%s] the %s route's loss grew from a step to the next at a learning rate of %g: %s" %
+                     (tag, route, Unet.LEARN_RATE, seen))
+
+        # validation on the library route's trained weights, with its
+        # controls: those weights in f32 on the library route, and the input
+        # one bf16 ulp apart
+        errors = {algo: run.validate(algo, valImages, valMasks)[0] for algo in ("hopper", "torch")}
+        _, launches["validation"] = counter.counted(lambda: run.validate("hopper", valImages, valMasks))
+        counter.expect("validation of %d images" % len(valImages), launches["validation"],
+                       len(valImages) // Unet.BATCH, 0)
+
+        f32Error = _f32Validation(Unet, net, valImages, valMasks)
+        controls = [abs(f32Error - errors["torch"])]
+        for seed in RESNET_GRAD_SEEDS:
+            moved = _ulpApart(torch, torch.from_numpy(valImages).to("cuda", torch.bfloat16), seed)
+            controls.append(abs(run.validate("torch", moved.float().cpu().numpy(), valMasks)[0] - errors["torch"]))
+        gap = abs(errors["hopper"] - errors["torch"])
+        print("[%s] validation error of %d images on the library route's trained weights (share of pixels whose "
+              "logit's sign misses the mask): hand %r, library %r, apart by %.3e; the library's own from those "
+              "weights in f32 %.3e (f32 %r), from the input one bf16 ulp apart %s" %
+              (tag, len(valImages), errors["hopper"], errors["torch"], gap, controls[0], f32Error,
+               " ".join("%.3e" % c for c in controls[1:])))
+        if not gap <= max(controls):
+            fail("[%s] the hand route's validation error is %.3e from the library's, past its control %.3e" %
+                 (tag, gap, max(controls)))
+
+        # the fused forms
+        _fusedAgainstEager(tag, torch, run, counter, launches, images, masks, losses, valImages, valMasks)
+
+        eagerOut, _ = run.serve("hopper", requests)
+        run.serve("fused", requests)
+        (fusedOut, _), launches["fusedServing"] = counter.counted(lambda: run.serve("fused", requests))
+        counter.expect("FusedCalculator, %d requests of %d" % (REQUESTS, Unet.BATCH), launches["fusedServing"],
+                       REQUESTS, 0)
+        rel = float(np.linalg.norm(fusedOut - eagerOut) / np.linalg.norm(eagerOut))
+        print("[%s] FusedCalculator against Calculator: relative L2 %.3e (bound %.0e), bit-equal %s; recordings %d" %
+              (tag, rel, SLICE_BOUND, np.array_equal(fusedOut, eagerOut), run.fusedCalculator._program.captures))
+        if not rel <= SLICE_BOUND or run.fusedCalculator._program.captures != 1:
+            fail("[%s] FusedCalculator outputs %.3e from Calculator's" % (tag, rel))
+
+        # rates and idle shares
+        _routeRates(tag, card, {"training": (len(images), lambda algo: run.train(algo, images, masks)),
+                                "serving": (len(requests), lambda algo: run.serve(algo, requests)[1]),
+                                "validation": (len(valImages), lambda algo: run.validate(algo, valImages,
+                                                                                         valMasks)[1])})
+        _idleShares(tag, run, images[:2 * Unet.BATCH], masks[:2 * Unet.BATCH])
+        print("[%s] peak device memory of the phase %.2f GB" % (tag, torch.cuda.max_memory_allocated() / 1e9))
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    del run, net
+    torch.cuda.empty_cache()
+    return launches, _convKernels(torch, winograd, tag, Unet.KERNEL_CONVS, Unet.BATCH)
+
+
+def _f32Validation(Unet, net, images, masks):
+    """The validation error of ``net``'s weights (bf16, as training left
+    them) in an f32 U-Net on the library route (TF32 off): how far the bf16
+    library route's rounding alone moves the error on those weights."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.convert import paramsFromNumpy, paramsToNumpy
+    from puzzlelib_tpu_torch.cost import BCE
+    from puzzlelib_tpu_torch.handlers import Validator
+
+    evalMode, Config.globalEvalMode = Config.globalEvalMode, True
+    try:
+        ref = Unet.build(initscheme="none")
+    finally:
+        Config.globalEvalMode = evalMode
+
+    ref.pop()   # the sigmoid: BCE takes the logits
+    paramsFromNumpy(ref, paramsToNumpy(net))
+
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    try:
+        return Validator(ref, BCE(), batchsize=Unet.BATCH).validateFromHost(images, masks, macroBatchSize=len(images))
+    finally:
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+
+
+def phaseInception(torch, card):
+    """Inception-BN (224 x 224) and Inception-v3 (299 x 299) in bf16 with
+    f32 batch norms at batch 32 (``tools/inceptionslice.py``), He weights
+    from ``np.random.seed(0)``: 4 requests each through ``Calculator`` on
+    the hand and library routes and through ``FusedCalculator``; one K1 a
+    request (``fc1``, on wgmma) on each net and one K2 a request on each of
+    Inception-BN's two Winograd convs (counted from the net), none on
+    Inception-v3's; the first request's logits on the hand route within
+    5e-2 relative L2 of the same f32 weights on the library route, the
+    fused probabilities within 5e-2 of the eager ones; images/s of each
+    route (5 runs in turns).  Then K1 at both ``fc1`` shapes and K2 at
+    Inception-BN's 14 x 14 shape against cuBLAS and channels-last cuDNN.
+    Returns the launches and the kernels' numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+    from puzzlelib_tpu_torch.tools import inceptionslice as Inc
+
+    Config.device = "cuda"
+    tag = "inception"
+    launches = {}
+
+    for kind in ("bn", "v3"):
+        name = Inc.NAMES[kind]
+        net = Inc.build(kind)
+        images = Inc.data(kind, Inc.BATCH * REQUESTS)
+        first = torch.from_numpy(images[:Inc.BATCH]).cuda()
+
+        # the f32 reference: the same weights on the library route (TF32 off)
+        Config.gemmAlgo = Config.convAlgo = "torch"
+        net(first)
+        refLogits = net.graph[-2].data.float().clone()
+        net.reset()
+
+        run = Inc.buildRun(kind, net=net)
+        convs = Res.winogradConvs(net, (Inc.BATCH, ) + Inc.SHAPES[kind])
+        print("[%s] %s bf16 (batch norms f32) at batch %d, %d parameters, %d convs, of which K2 takes %d: %s" %
+              (tag, name, Inc.BATCH, net.numOfParams(), len(Res.convInputs(net, (Inc.BATCH, ) + Inc.SHAPES[kind])),
+               len(convs), " ".join(convs) or "none"))
+
+        outs = {}
+        for algo in ("torch", "hopper", "fused"):
+            run.serve(algo, images)
+            _resetCounters()
+            outs[algo], _ = run.serve(algo, images)
+            counts = _readCounters()
+            launches[kind, algo] = {key: counts[key] for key in ("winograd", "matmul", "matmulWgmma")}
+
+        want = {"winograd": len(convs) * REQUESTS, "matmul": REQUESTS, "matmulWgmma": REQUESTS}
+        print("[%s] %s, %d requests of %d: launches on the hand route %s, fused %s, library %s" %
+              (tag, name, REQUESTS, Inc.BATCH, launches[kind, "hopper"], launches[kind, "fused"],
+               launches[kind, "torch"]))
+        if launches[kind, "hopper"] != want or launches[kind, "fused"] != want or \
+                launches[kind, "torch"] != dict.fromkeys(want, 0):
+            fail("[%s] %s: expected launches %s on the hand and fused routes, none on the library's" %
+                 (tag, name, want))
+
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        net(first.to(torch.bfloat16))
+        rel = _relL2(net.graph[-2].data.float(), refLogits)
+        net.reset()
+        fusedRel = float(np.linalg.norm(outs["fused"] - outs["hopper"]) / np.linalg.norm(outs["hopper"]))
+        libRel = float(np.linalg.norm(outs["torch"] - outs["hopper"]) / np.linalg.norm(outs["torch"]))
+        print("[%s] %s: the first request's logits against the same f32 weights on the library route: relative L2 "
+              "%.3e (bound %.0e); probabilities fused against eager %.3e, bit-equal %s; eager against the bf16 "
+              "library route %.3e" % (tag, name, rel, SLICE_BOUND, fusedRel,
+                                      np.array_equal(outs["fused"], outs["hopper"]), libRel))
+        if not (rel <= SLICE_BOUND and fusedRel <= SLICE_BOUND) or not np.isfinite(outs["hopper"]).all():
+            fail("[%s] %s logits %.3e from the f32 library run, fused %.3e from eager" % (tag, name, rel, fusedRel))
+
+        routes = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
+        fns = {algo: (lambda algo=algo: run.serve(algo, images)[1]) for algo in routes}
+        for algo, secs in _turns({}, fns).items():
+            print("[%s] %s, %s, serving, 5 runs in turns: %s s, median %.1f images/s on %s" %
+                  (tag, name, routes[algo], " ".join("%.4f" % t for t in secs), len(images) / float(np.median(secs)),
+                   card))
+
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        del run, net, first, refLogits
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kernels = {}
+    for kind in ("bn", "v3"):
+        label, k, n = Inc.FC1[kind]
+        gemm = _gemmCase(torch, matmul, gen, "%s-%s" % (label, kind), "bf16", Inc.BATCH, k, n)
+        kernels["K1", kind] = {"max_abs_err": gemm["abs_err"], "ms": gemm["ms"], "plain_ms": gemm["plain_ms"],
+                               "bound_ms": gemm["bound_ms"], "bound_by": gemm["bound_by"],
+                               "library_ms": gemm["library_ms"]}
+
+    kernels["K2"] = _convKernels(torch, winograd, tag, Inc.KERNEL_CONVS, Inc.BATCH, tags=("K2", ))["K2"]
+    return launches, kernels
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke test needs an NVIDIA GPU")
+
+    started = time.perf_counter()
 
     from puzzlelib_tpu_torch.backend.device import ensureInit
     from puzzlelib_tpu_torch.ops.hopper import build, flash, matmul, phasesplit, probe, streamcopy, tapdot, winograd
@@ -3282,6 +3651,15 @@ def main():
     fusedCnn = phaseFusedCnn(torch, card)
     torch.cuda.empty_cache()
     resnet, resnetKernels = phaseResNet50(torch, card)
+    torch.cuda.empty_cache()
+    phaseStart = time.perf_counter()
+    unet, unetKernels = phaseUNet(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [unet] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    inception, inceptionKernels = phaseInception(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [inception] %.1f s" % (time.perf_counter() - phaseStart))
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -3365,6 +3743,32 @@ def main():
              source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
              launches=resnet["training"]["winogradFG"], fused_launches=resnet["fused"]["winogradFG"],
              **resnetKernels["K3"]),
+        dict(name="K2 Winograd F(2x2,3x3) forward at U-Net's 15 Winograd convs", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=unet["training"]["winograd"] - unet["training"]["winogradDataGrad"],
+             serving_launches=unet["serving"]["winograd"], validation_launches=unet["validation"]["winograd"],
+             fused_launches=unet["fused"]["winograd"] - unet["fused"]["winogradDataGrad"],
+             fused_serving_launches=unet["fusedServing"]["winograd"], **unetKernels["K2"]),
+        dict(name="K2 Winograd F(2x2,3x3) as bwd-data at U-Net's 15 Winograd convs", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=unet["training"]["winogradDataGrad"], fused_launches=unet["fused"]["winogradDataGrad"],
+             **unetKernels["K2-bwd"]),
+        dict(name="K3 Winograd F(2x2,3x3) bwd-filter at U-Net's 15 Winograd convs", route="cuda",
+             source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
+             launches=unet["training"]["winogradFG"], fused_launches=unet["fused"]["winogradFG"],
+             **unetKernels["K3"]),
+        dict(name="K2 Winograd F(2x2,3x3) forward at Inception-BN's two Winograd convs", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=inception["bn", "hopper"]["winograd"], fused_launches=inception["bn", "fused"]["winograd"],
+             **inceptionKernels["K2"]),
+        dict(name="K1 tiled GEMM at Inception-BN's fc1 (bf16)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=inception["bn", "hopper"]["matmul"],
+             launches_wgmma=inception["bn", "hopper"]["matmulWgmma"],
+             fused_launches=inception["bn", "fused"]["matmul"], **inceptionKernels["K1", "bn"]),
+        dict(name="K1 tiled GEMM at Inception-v3's fc1 (bf16)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=inception["v3", "hopper"]["matmul"],
+             launches_wgmma=inception["v3", "hopper"]["matmulWgmma"],
+             fused_launches=inception["v3", "fused"]["matmul"], **inceptionKernels["K1", "v3"]),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -3428,7 +3832,15 @@ def main():
           "K3 at ResNet-50's conv3_x, conv4_x and conv5_x: one conv of each of the three shapes at batch 32 on "
           "channels-last operands, library cuDNN on the same, medians of 5 alternating turns, launches [resnet50]'s "
           "12 training steps of 32 on its 13 Winograd convs (serving_launches its 4 requests); "
+          "K2, K2-bwd and K3 at U-Net's 15 Winograd convs: the 15 convs of one batch of 4 at 512 x 512, each "
+          "timed on operands of its own, on channels-last operands, library "
+          "cuDNN on the same, medians of 5 alternating turns, launches [unet]'s 8 training steps of 4 "
+          "(serving_launches its 4 requests of 4, validation_launches its validation of 16 images, fused_ the "
+          "FusedTrainer's and FusedCalculator's); K2 at Inception-BN: its two Winograd convs at batch 32, launches "
+          "[inception]'s 4 requests of 32; K1 at Inception-BN's and Inception-v3's fc1: (32, 1024) x (1024, 1000) "
+          "and (32, 2048) x (2048, 1008) bf16, launches [inception]'s 4 requests of 32 on each net; "
           "max_abs_err: largest |kernel - plain| at those shapes")
+    print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """DNN primitive dispatch (counterpart of ``puzzlelib_tpu/backend/dnn.py``):
-the conv, pool, softmax, batch-norm and instance-norm slots, forward and
-backward, and ``convNdbenchmark``, which times a conv's three directions.
+the conv, deconv, pool, softmax, batch-norm and instance-norm slots, forward
+and backward, and ``convNdbenchmark``, which times a conv's or a deconv's
+three directions.
 
 The parameter gradients are written in place into the variables' gradient
 buffers (``_accumulateParamGrads``), which under an optimizer's global state
@@ -32,6 +33,26 @@ class ConvFwdAlgo(Enum):
     fftTiling = 6
     winograd = 7
     winogradNonfused = 8
+
+
+class ConvBwdDataAlgo(Enum):
+    auto = -1
+    algo0 = 0
+    algo1 = 1
+    fft = 2
+    fftTiling = 3
+    winograd = 4
+    winogradNonfused = 5
+
+
+class ConvBwdFilterAlgo(Enum):
+    auto = -1
+    algo0 = 0
+    algo1 = 1
+    fft = 2
+    algo3 = 3
+    winogradNonfused = 5
+    fftTiling = 6
 
 
 class ConvPerf:
@@ -108,19 +129,35 @@ def _accumulateParamGrads(dw, db, bias, wgrad, bgrad, scale, momentum):
     return outw, _fold(db, bgrad, scale, momentum)
 
 
+def deconvNd(data, W, bias, stride, pad, dilation, postpad, groups):
+    return _conv.deconvNd(data, W, bias, _t(stride), _t(pad), _t(dilation), _t(postpad), int(groups))
+
+
+def deconvNdBackwardData(grad, W, data, stride, pad, dilation, groups):
+    return _conv.deconvNdBackwardData(grad, W, _t(stride), _t(pad), _t(dilation), int(groups))
+
+
+def deconvNdBackwardParams(data, grad, W, bias, stride, pad, dilation, groups,
+                           wgrad=None, bgrad=None, scale=1.0, momentum=0.0):
+    dw, db = _conv.deconvNdBackwardParams(data, grad, W, _t(stride), _t(pad), _t(dilation), int(groups),
+                                          hasBias=bias is not None)
+
+    return _accumulateParamGrads(dw, db, bias, wgrad, bgrad, scale, momentum)
+
+
 def convNdbenchmark(datashape, Wshape, stride, pad, dilation, groups, transpose=False, dtype=np.float32):
     """Time a conv's forward, bwd-filter and bwd-data on the configured
     device, each on the route ``Config.convAlgo`` selects (K2 and K3 where
     they take the conv, the library's call elsewhere): ``(fwd, bwdFilter,
     bwdData)``, one ``ConvPerf`` list each, seconds of one call by
     ``timeKernel`` (25 calls after a warm-up), as the reference returns them.
-    ``dtype`` is a numpy or torch type ("bfloat16" by name).  The
-    reference's race of its kernels against XLA (``measureAlgoChoice``)
-    waits for the port's per-shape race; deconvolutions are not ported."""
+    With ``transpose`` the three are the deconvolution's, whose output has
+    ``datashape`` and whose weights ``Wshape`` (inmaps, outmaps // groups,
+    *size), as ``DeconvND.optimizeForShape`` passes them.  ``dtype`` is a
+    numpy or torch type ("bfloat16" by name).  The reference's race of its
+    kernels against XLA (``measureAlgoChoice``) waits for the port's
+    per-shape race."""
     from puzzlelib_tpu_torch.ops.hopper import winograd
-
-    if transpose:
-        raise NotImplementedError("convNdbenchmark of a deconvolution: the port has no deconv yet")
 
     stride, pad, dilation, groups = _t(stride), _t(pad), _t(dilation), int(groups)
     dtype = torch.bfloat16 if isinstance(dtype, str) and dtype == "bfloat16" else gpuarray.toTorchDtype(dtype)
@@ -128,21 +165,37 @@ def convNdbenchmark(datashape, Wshape, stride, pad, dilation, groups, transpose=
 
     x = torch.zeros(tuple(datashape), dtype=dtype, device=device)
     w = torch.zeros(tuple(Wshape), dtype=dtype, device=device)
-    x = _conv.kernelLayout(x, tuple(w.shape), stride, pad, dilation, groups)
 
-    def fwd():
-        return _conv.convNd(x, w, None, stride, pad, dilation, groups)
+    if transpose:
+        # x is the deconv's output, y = conv(x) its input
+        y = _conv.deconvNdBackwardData(x, w, stride, pad, dilation, groups)
+        postpad = _conv._strideAdjust(tuple(datashape[2:]), tuple(w.shape[2:]), stride, pad, dilation)
 
-    grad = fwd()
+        def fwd():
+            return _conv.deconvNd(y, w, None, stride, pad, dilation, postpad, groups)
 
-    def bwdParams():
-        return _conv.convNdBackwardParams(x, grad, w, stride, pad, dilation, groups)
+        def bwdParams():
+            return _conv.deconvNdBackwardParams(y, x, w, stride, pad, dilation, groups)
 
-    def bwdData():
-        return _conv.convNdBackwardData(grad, w, tuple(x.shape), stride, pad, dilation, groups)
+        def bwdData():
+            return _conv.deconvNdBackwardData(x, w, stride, pad, dilation, groups)
+
+    else:
+        x = _conv.kernelLayout(x, tuple(w.shape), stride, pad, dilation, groups)
+
+        def fwd():
+            return _conv.convNd(x, w, None, stride, pad, dilation, groups)
+
+        grad = fwd()
+
+        def bwdParams():
+            return _conv.convNdBackwardParams(x, grad, w, stride, pad, dilation, groups)
+
+        def bwdData():
+            return _conv.convNdBackwardData(grad, w, tuple(x.shape), stride, pad, dilation, groups)
 
     results = []
-    for fn, counter in ((fwd, "launches"), (bwdParams, "filterGradLaunches"), (bwdData, "dataGradLaunches")):
+    for fn, counter in ((fwd, "launches"), (bwdParams, "filterGradLaunches"), (bwdData, "launches")):
         before = getattr(winograd, counter)
         secs = timeKernel(fn, looplength=25, log=False, normalize=True)
         algo = ConvFwdAlgo.winograd if getattr(winograd, counter) > before else ConvFwdAlgo.auto

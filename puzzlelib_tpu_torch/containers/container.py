@@ -76,6 +76,34 @@ class Container(Module):
 
         return self._modules[item]
 
+    def getByName(self, name):
+        """The module of the tree named ``name``: a child of this container,
+        else the first found in a child container, depth first; None if
+        there is none."""
+        found = self._modules.get(name)
+
+        if found is None:
+            for child in self._modules.values():
+                if isinstance(child, Container):
+                    found = child.getByName(name)
+                    if found is not None:
+                        break
+
+        return found
+
+    def getAllByType(self, typ):
+        """Every module of the tree that is a ``typ``, depth first; a
+        container that is one is not searched further."""
+        matches = []
+
+        for child in self._modules.values():
+            if isinstance(child, typ):
+                matches.append(child)
+            elif isinstance(child, Container):
+                matches.extend(child.getAllByType(typ))
+
+        return matches
+
     # -- variable routing ------------------------------------------------------------
 
     def _route(self, name):

@@ -5,8 +5,8 @@ order of ``append``; ``backward`` walks it in reverse.
 The reference's inplace-compatibility check is kept: an inplace module may
 not consume the output of a producer whose backward re-reads its own output
 (``gradUsesOutData``), looking through modules that only move data.
-Slicing, ``insert`` and the lookups by type come with the slices that need
-them."""
+Slicing and ``insert`` come with the slices that need them; the lookups
+``getByName`` / ``getAllByType`` are the base ``Container``'s."""
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.modules.module import ModuleError

@@ -1,4 +1,5 @@
-"""Module exports: the layers of the VGG, transformer, CNN training and ResNet slices."""
+"""Module exports: the layers of the VGG, transformer, CNN training, ResNet, U-Net and Inception
+slices."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
@@ -11,8 +12,11 @@ from puzzlelib_tpu_torch.modules.batchnorm1d import BatchNorm1D
 from puzzlelib_tpu_torch.modules.batchnorm2d import BatchNorm2D
 from puzzlelib_tpu_torch.modules.batchnorm3d import BatchNorm3D
 from puzzlelib_tpu_torch.modules.batchnormnd import BatchNormND
+from puzzlelib_tpu_torch.modules.concat import Concat
 from puzzlelib_tpu_torch.modules.conv2d import Conv2D
 from puzzlelib_tpu_torch.modules.convnd import ConvND
+from puzzlelib_tpu_torch.modules.deconv2d import Deconv2D
+from puzzlelib_tpu_torch.modules.deconvnd import DeconvND
 from puzzlelib_tpu_torch.modules.dropout import Dropout
 from puzzlelib_tpu_torch.modules.dropout2d import Dropout2D
 from puzzlelib_tpu_torch.modules.embedder import Embedder
@@ -30,3 +34,4 @@ from puzzlelib_tpu_torch.modules.replicate import Replicate
 from puzzlelib_tpu_torch.modules.reshape import Reshape
 from puzzlelib_tpu_torch.modules.softmax import SoftMax
 from puzzlelib_tpu_torch.modules.sum import Sum
+from puzzlelib_tpu_torch.modules.tolist import ToList

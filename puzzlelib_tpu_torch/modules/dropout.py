@@ -8,7 +8,8 @@ is the identity.  The draws come from ``rng`` (``rng.globalRng`` by
 default) as int64 values in [0, 2**32), torch having no uint32 draw;
 ``_drawRands`` is the one place that draws them.  ``slicing`` (a slice of
 the flat view) drops out only the cells it selects.  With ``inplace`` the
-output is written over the input.
+output is written over the input and the gradient over the incoming one,
+unless that tensor is a view of another.
 """
 
 import numpy as np
@@ -50,10 +51,6 @@ class Dropout(Module):
         p = 1.0 - self.p
         return int(p * np.iinfo(np.uint32).max), p
 
-    def _write(self, target, result):
-        """``result``, written over ``target`` where the module is inplace."""
-        return target.copy_(result) if self.inplace else result
-
     def updateData(self, data):
         if not self.training:
             self.data = data
@@ -61,7 +58,7 @@ class Dropout(Module):
 
         self.rands = self._drawRands(data.numel()).reshape(data.shape)
         self.partition, p = self._keep()
-        self.data = self._write(data, ew.dropout(data, self.rands, self.partition, p, slice=self.slice))
+        self.data = self.writeOver(data, ew.dropout(data, self.rands, self.partition, p, slice=self.slice))
 
     def updateGrad(self, grad):
         if not self.training:
@@ -69,7 +66,7 @@ class Dropout(Module):
             return
 
         out = ew.dropout(grad, self.rands, self.partition, 1.0 - self.p, slice=self.slice)
-        self.grad = self._write(grad, out)
+        self.grad = self.writeOver(grad, out)
 
     def dataShapeFrom(self, shape):
         return shape

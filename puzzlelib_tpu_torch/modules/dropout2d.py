@@ -15,11 +15,11 @@ class Dropout2D(Dropout):
         batchsize, maps = data.shape[:2]
         self.rands = self._drawRands(batchsize * maps).reshape(batchsize, maps)
         self.partition, p = self._keep()
-        self.data = self._write(data, ew.dropout2d(data, self.rands, self.partition, p))
+        self.data = self.writeOver(data, ew.dropout2d(data, self.rands, self.partition, p))
 
     def updateGrad(self, grad):
         if not self.training:
             self.grad = grad
             return
 
-        self.grad = self._write(grad, ew.dropout2d(grad, self.rands, self.partition, 1.0 - self.p))
+        self.grad = self.writeOver(grad, ew.dropout2d(grad, self.rands, self.partition, 1.0 - self.p))

@@ -184,6 +184,13 @@ class Module(torch.nn.Module):
     def accGradParams(self, grad, scale=1.0, momentum=0.0):
         pass
 
+    def writeOver(self, target, result):
+        """``result``, written over ``target`` where the module is inplace and
+        ``target`` is no view of another tensor (a ``Concat`` backward's
+        split, a slice): an inplace module never writes through a view it
+        does not own."""
+        return target.copy_(result) if self.inplace and target._base is None else result
+
     def foldParamGrad(self, name, newGrad, scale=1.0, momentum=0.0):
         """vars[name].grad = scale * newGrad + momentum * vars[name].grad, in
         place."""

@@ -15,6 +15,15 @@ call, the counterpart of the reference's ``lax`` convs:
   takes to K3 (``winograd.filterGrad``), the rest to the library's
   bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``).
 
+The deconvolution (transposed conv, cuDNN-style: its forward is the conv's
+bwd-data) reuses the three: ``deconvNd`` is ``_transposedConv`` with
+``postpad`` as the stride adjustment, so a stride-1 3x3 deconv whose
+channels are multiples of 128 goes to K2 through ``winograd.dataGrad``; its
+bwd-data is ``_convCore`` (K2 where it takes the conv); its bwd-filter is
+``_filterGrad`` with the roles of input and gradient swapped (K3 where it
+takes it).  U-Net's 2x2 stride-2 deconvs go to
+``torch.nn.functional.conv_transpose2d`` and the library's bwd-filter.
+
 The bias gradient is a sum in f32 cast back to the gradient's type, as in
 the reference.
 """
@@ -127,3 +136,30 @@ def _strideAdjust(inspatial, size, stride, pad, dilation):
 def convNdBackwardData(grad, w, xshape, stride, pad, dilation, groups):
     adj = _strideAdjust(xshape[2:], tuple(w.shape[2:]), stride, pad, dilation)
     return _transposedConv(grad, w, stride, pad, dilation, adj, groups).to(grad.dtype)
+
+
+# -- deconvolution ---------------------------------------------------------------
+
+def deconvNd(x, w, b, stride, pad, dilation, postpad, groups):
+    """The transposed conv of x (N, inmaps, *spatial) with w (inmaps, outmaps
+    // groups, *size), the forward conv kernel of the reverse direction, plus
+    the bias."""
+    out = _transposedConv(x, w, stride, pad, dilation, postpad, groups).to(x.dtype)
+
+    if b is not None:
+        out = out + b.reshape((1, b.numel()) + (1, ) * (x.dim() - 2)).to(out.dtype)
+
+    return out
+
+
+def deconvNdBackwardData(grad, w, stride, pad, dilation, groups):
+    """The deconv's input gradient: the plain forward conv of grad with w,
+    which is (O = inmaps, I = outmaps // groups) for that direction."""
+    return _convCore(grad, w, stride, pad, dilation, groups)
+
+
+def deconvNdBackwardParams(x, grad, w, stride, pad, dilation, groups, hasBias=False):
+    """(dW in w's type, db in grad's type or None): the deconv is the conv
+    that maps grad's space to x's, so dW is that conv's filter gradient."""
+    dw = _filterGrad(grad, x, tuple(w.shape), stride, pad, dilation, groups).to(w.dtype)
+    return dw, _biasGrad(grad) if hasBias else None

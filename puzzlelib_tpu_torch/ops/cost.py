@@ -35,3 +35,30 @@ def accuracy(pred, labels):
     """The number of predictions that miss their labels, as a 0-d f32
     tensor (the reference's name for it)."""
     return (pred != labels).sum().float()
+
+
+def bce(scores, labels):
+    """Binary cross-entropy of logit scores (any shape, batch first) against
+    {0, 1} labels paired with them cell by cell in flat order -> (err, grad):
+    the sigmoid fused in, err = sum(-log p or -log(1 - p)) / size per sample
+    in f32 (a 0-d tensor), grad = (label - p) / batch / size in f32, cast to
+    the scores' type."""
+    batch = scores.shape[0]
+    spatial = int(np.prod(scores.shape[1:])) if scores.dim() > 1 else 1
+
+    prob = torch.sigmoid(scores.float().reshape(-1))
+    isOne = labels.reshape(-1) == 1
+
+    err = torch.where(isOne, -torch.log(torch.clamp(prob, min=1e-38)),
+                      -torch.log(torch.clamp(1.0 - prob, min=1e-38))).sum() / spatial
+    grad = (isOne.float() - prob) / batch / spatial
+
+    return err, grad.reshape(scores.shape).to(scores.dtype)
+
+
+def signMisses(scores, labels):
+    """The number of logit scores whose sign misses their {0, 1} label
+    (label 1 with a score <= 0, label 0 with a score > 0), as a 0-d f32
+    tensor."""
+    x, y = scores.reshape(-1), labels.reshape(-1)
+    return torch.where(y == 1, x <= 0, x > 0).sum().float()

@@ -1,5 +1,6 @@
 """Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
-relu and its derivative, gelu and its derivative, dropout, the affine
+the seven activations (sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip)
+and their derivatives taken from the output, gelu and its derivative, dropout, the affine
 ``linear``, the vector updates, the optimizer hooks' weight decay and
 gradient clipping, the momentum-SGD step and the Adam step.
 
@@ -14,18 +15,65 @@ number, or, inside a fused step, a 0-d tensor on the device.
 import torch
 
 
+# -- activations: fwd(x, *args) and der(outgrad, outdata, *args), each in the
+# tensor's type, its scalars rounded to that type first, as the reference's
+# ``jnp.asarray(a, x.dtype)`` rounds them
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def sigmoidDer(grad, out):
+    return grad * out * (1 - out)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def tanhDer(grad, out):
+    return grad * (1 - out * out)
+
+
 def relu(x):
     return torch.relu(x)
-
-
-def relu_(x):
-    """relu in place, for ``Activation(inplace=True)``."""
-    return torch.relu_(x)
 
 
 def reluDer(grad, out):
     """The input gradient of relu from its output: grad where out > 0."""
     return grad * (out > 0).to(grad.dtype)
+
+
+def leakyRelu(x, a):
+    return torch.where(x > 0, x, x * _scalar(a, x.dtype))
+
+
+def leakyReluDer(grad, out, a):
+    return grad * torch.where(out > 0, 1.0, _scalar(a, out.dtype)).to(grad.dtype)
+
+
+def elu(x, a):
+    return torch.where(x > 0, x, _scalar(a, x.dtype) * torch.expm1(x))
+
+
+def eluDer(grad, out, a):
+    return grad * torch.where(out > 0, torch.ones_like(out), out + _scalar(a, out.dtype))
+
+
+def softPlus(x):
+    return torch.log1p(torch.exp(x))
+
+
+def softPlusDer(grad, out):
+    return grad * (1 - torch.exp(-out))
+
+
+def clip(x, a, b):
+    return torch.clamp(x, _scalar(a, x.dtype), _scalar(b, x.dtype))
+
+
+def clipDer(grad, out, a, b):
+    return grad * ((out > _scalar(a, out.dtype)) & (out < _scalar(b, out.dtype))).to(grad.dtype)
 
 
 def gelu(x):

@@ -52,6 +52,25 @@ def _run(run, label):
           "copies) %.1f us" % (label, hand, ops, rest))
 
 
+def profileRoutes(run, images, labels, name, batch):
+    """REQUESTS requests served and a step trained on each batch of
+    ``images`` (STEPS of them) on each route of ``run`` (a
+    ``resnetslice.Run``), each once to warm up and once profiled
+    (``_run``)."""
+    served = images[:batch * REQUESTS]
+    routes = (("hopper", "hand kernels"), ("fused", "fused"), ("torch", "library route"))
+    for algo, _ in routes:
+        run.serve(algo, served)
+        run.train(algo, images, labels)
+
+    for algo, label in routes:
+        _run(lambda: run.serve(algo, served)[1], "%s serving %d requests of %d, %s" % (name, REQUESTS, batch, label))
+
+    for algo, label in routes:
+        _run(lambda: run.train(algo, images, labels), "%s training %d steps of %d, %s" %
+             (name, len(images) // batch, batch, label))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile needs an NVIDIA GPU")
@@ -60,23 +79,7 @@ def main():
 
     print(cardName())
     Config.device = "cuda"
-
-    run = Res.buildRun()
-    images, labels = Res.data(Res.BATCH * STEPS)
-    requests = images[:Res.BATCH * REQUESTS]
-
-    routes = (("hopper", "hand kernels"), ("fused", "fused"), ("torch", "library route"))
-    for algo, _ in routes:
-        run.serve(algo, requests)
-        run.train(algo, images, labels)
-
-    for algo, label in routes:
-        _run(lambda: run.serve(algo, requests)[1], "ResNet-50 serving %d requests of %d, %s" %
-             (REQUESTS, Res.BATCH, label))
-
-    for algo, label in routes:
-        _run(lambda: run.train(algo, images, labels), "ResNet-50 training %d steps of %d, %s" %
-             (STEPS, Res.BATCH, label))
+    profileRoutes(Res.buildRun(), *Res.data(Res.BATCH * STEPS), "ResNet-50", Res.BATCH)
 
 
 if __name__ == "__main__":

@@ -95,16 +95,15 @@ def winogradConvs(net, inshape):
             if winograd.applicable(shape, tuple(conv.W.shape), conv.stride, conv.pad, conv.dilation, conv.groups)]
 
 
-class Run(Cnn.Run):
-    """``cnnslice.Run`` with a ``Calculator`` and a ``FusedCalculator``."""
+class Served:
+    """A ``Calculator`` and a ``FusedCalculator`` of ``served``."""
 
-    def __init__(self, net, optimizer, cost, batch):
+    def __init__(self, served, batch):
         from puzzlelib_tpu_torch.fused import FusedCalculator
         from puzzlelib_tpu_torch.handlers import Calculator
 
-        super().__init__(net, optimizer, cost, batch)
-        self.calculator = Calculator(net, batchsize=batch)
-        self.fusedCalculator = FusedCalculator(net, batchsize=batch)
+        self.calculator = Calculator(served, batchsize=batch)
+        self.fusedCalculator = FusedCalculator(served, batchsize=batch)
 
     def serve(self, algo, images):
         """One timed ``calcFromHost`` of the images on a route from the
@@ -117,6 +116,15 @@ class Run(Cnn.Run):
         out = calculator.calcFromHost(images, macroBatchSize=len(images))
         synchronize()
         return out, time.perf_counter() - start
+
+
+class Run(Cnn.Run, Served):
+    """``cnnslice.Run`` with ``Served``'s calculators of ``served`` (the
+    trained net by default)."""
+
+    def __init__(self, net, optimizer, cost, batch, served=None):
+        Cnn.Run.__init__(self, net, optimizer, cost, batch)
+        Served.__init__(self, net if served is None else served, batch)
 
 
 def buildRun(net=None, dtype=None, batch=BATCH, classes=CLASSES):

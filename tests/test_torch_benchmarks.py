@@ -90,7 +90,8 @@ def testCliRefusesWithoutCard(module):
 
 def testConvNdbenchmarkAndTimeKernel():
     """``convNdbenchmark`` returns one ``ConvPerf`` per direction with a
-    positive time (the library route on the CPU); ``timeKernel`` returns
+    positive time (the library route on the CPU), for a conv and for a
+    deconvolution (``transpose``); ``timeKernel`` returns
     positive seconds, the mean of one call with ``normalize``."""
     from puzzlelib_tpu_torch.backend import dnn
     from puzzlelib_tpu_torch.backend.device import timeKernel
@@ -106,8 +107,12 @@ def testConvNdbenchmarkAndTimeKernel():
     mean = timeKernel(lambda: calls.append(1), looplength=5, log=False, normalize=True, hotpass=False)
     assert total > 0 and mean > 0 and len(calls) == 11
 
-    with pytest.raises(NotImplementedError, match="deconv"):
-        dnn.convNdbenchmark((2, 8, 10, 10), (8, 16, 3, 3), (1, 1), (1, 1), (1, 1), 1, transpose=True)
+    # a deconvolution's three directions: (2, 16, 10, 10) is its output,
+    # (8, 16, 3, 3) its (inmaps, outmaps, 3, 3) weights
+    results = dnn.convNdbenchmark((2, 16, 10, 10), (8, 16, 3, 3), (1, 1), (1, 1), (1, 1), 1, transpose=True)
+    assert len(results) == 3
+    for perfs in results:
+        assert len(perfs) == 1 and perfs[0].time > 0 and perfs[0].algo == dnn.ConvFwdAlgo.auto
 
 
 def _traceScenario(profiler, gpuarray):

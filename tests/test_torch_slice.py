@@ -236,6 +236,31 @@ assert T.BatchNorm3D(3)(torch.randn(2, 3, 2, 2, 2)).shape == (2, 3, 2, 2, 2) and
 assert profileresnet.REQUESTS == 4
 assert len(resnetslice.winogradConvs(loadResNet(None, "50"), (32, 3, 224, 224))) == 13
 netspeed.main(["--net", "lenet", "--infer", "--iters", "1", "--batch", "2"])
+from puzzlelib_tpu_torch.cost import BCE
+from puzzlelib_tpu_torch.models.nets import loadInceptionBN, loadInceptionV3, loadUNet
+from puzzlelib_tpu_torch.tools import inceptionslice, profileunet, unetslice
+glue = Sequential(name="glue")
+glue.append(T.Deconv2D(4, 6, 2, stride=2, useBias=False))
+glue.append(T.Replicate(2))
+fork = Sequential()
+fork.append(T.Activation(T.leakyRelu, slc=slice(2, 50), args=(0.2, )))
+fork.append(T.Replicate(2))
+fork.append(Parallel().append(T.Activation(T.tanh)).append(T.Activation(T.elu)))
+glue.append(Parallel().append(T.Activation(T.sigmoid)).append(fork))
+glue.append(T.ToList())
+glue.append(T.Concat(axis=1))
+glue.append(T.Activation(T.clip, args=(-1.0, 1.0)))
+glue.append(T.Activation(T.softPlus))
+glue.append(T.Conv2D(18, 1, 1))
+bceOpt = MomentumSGD(0.01, momRate=0.99)
+bceOpt.setupOn(glue, useGlobalState=True)
+Trainer(glue, BCE(), bceOpt, batchsize=2).trainFromHost(np.random.randn(4, 4, 3, 3).astype(np.float32),
+                                                        np.random.randint(0, 2, size=(4, 6, 6)).astype(np.int32))
+unet = loadUNet(None, initscheme="he")
+assert unet(torch.randn(1, 1, 32, 32)).shape == (1, 1, 32, 32) and len(resnetslice.winogradConvs(unet, (unetslice.BATCH, ) + unetslice.SHAPE)) == 15
+assert profileunet.Unet is unetslice
+assert loadInceptionBN(None).dataShapeFrom((1, 3, 224, 224)) == (1, 1000)
+assert loadInceptionV3(None).dataShapeFrom((1, 3, 299, 299)) == (1, 1008) and inceptionslice.BATCH == 32
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -252,7 +277,10 @@ def testPortRunsWithoutJax():
     pooling forward and backward, the ImageNet NiN forward and a CIFAR-10
     NIN training step of ``tools/cnnslice.py``, a residual block with the
     batch-norm family forward and backward, ResNet-50's Winograd convs
-    (``tools/resnetslice.py``, ``profileresnet``) and ``netspeed`` imports
+    (``tools/resnetslice.py``, ``profileresnet``), ``netspeed``, a training
+    step with ``BCE`` through ``Deconv2D``, ``Concat``, ``ToList`` and the
+    six other activations, the U-Net forward on (1, 1, 32, 32) and the
+    Inception nets by shape (``tools/{unet,inception}slice.py``) imports
     no JAX and nothing of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
