@@ -239,8 +239,26 @@ it fails:
    Inception-BN's two Winograd convs; logits within 5e-2 of the same f32
    weights on the library route; images/s in 5 runs in turns; K1 at both
    ``fc1`` shapes and K2 at Inception-BN's 14 x 14 shape against cuBLAS and
-   cuDNN.  The seconds of phases 26 and 27 and of the whole script are
-   printed.
+   cuDNN;
+28. [imdb-rnn]: the three IMDB sentiment nets (``tools/sequenceslice.py``:
+   LSTM, BiLSTM, 1-d CNN) at full width in f32, ``Adam(1e-3)`` in global
+   state and ``BCE``: 4 steps of 32 on the hand, library and fused routes,
+   one K1 a step on each ``Linear`` head (none on the library route); the
+   losses within 5e-2 of the library route's, fused within 5e-2 of eager's,
+   the hand route twice the same bits; ``Validator`` and ``FusedValidator``
+   over 128 rows, one readback a call, the errors equal; rows/s of each
+   route in 5 runs in turns, the idle share of a profiled fused and eager
+   run with K1's launches held to the profiler's device events; K1 at the
+   four head products against cuBLAS;
+29. [w2l]: Wave2Letter at full width (161 features, 29 labels, 106.8 M
+   parameters) on 8 x 161 x 1600 frames a batch: f32 and bf16, 4 requests
+   served and 4 steps trained with CTC on the loop of
+   ``testlib/ctctrain.py``; the bf16 scores within 5e-2 relative L2 of
+   f32's; the bf16 losses within 5e-2 of f32's and falling at every step;
+   CTC on the card within 1e-4 of ``hostCTCLoss`` in f64; a second run the
+   same bits (or the op that does not repeat named and the runs held within
+   5e-2); images/s served and trained.  The seconds of phases 26 to 29 and
+   of the whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -272,6 +290,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402  (the package beside this script)
 from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
 from puzzlelib_tpu_torch.tools import resnetslice as Res  # noqa: E402
+from puzzlelib_tpu_torch.tools import sequenceslice as Seq  # noqa: E402
 from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
     BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, cardName, deviceMs
@@ -480,7 +499,13 @@ TAPDOT_BOUND_F32 = 5e-2
 # whose "auto" core is flash in bf16 on the card at seq >= 1024; 4 requests
 ATTN_NET = dict(batch=8, seq=1024, emb=256, heads=4)
 
-# the routes of the ResNet-50, U-Net and Inception phases
+# [w2l]: CTC on the card against hostCTCLoss in f64 at the slice's shape,
+# relative error of the summed NLL and max |diff| / max |host| of the
+# gradient: the recursions run in f64 (ops/ctc.py), the softmax and its log
+# in f32, whose rounding moves the NLL by some 1e-7 of itself
+CTC_HOST_BOUND = 1e-4
+
+# the routes of the ResNet-50, U-Net and Inception phases (and of [imdb-rnn])
 SLICE_ROUTES = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
 
 
@@ -3610,6 +3635,265 @@ def phaseInception(torch, card):
     return launches, kernels
 
 
+# -- the sequence slice --------------------------------------------------------------------------------
+
+def _itemReads(torch, fn):
+    """(fn(), the number of ``Tensor.item`` readbacks it made)."""
+    item, reads = torch.Tensor.item, [0]
+
+    def counted(tensor):
+        reads[0] += 1
+        return item(tensor)
+
+    torch.Tensor.item = counted
+    try:
+        return fn(), reads[0]
+    finally:
+        torch.Tensor.item = item
+
+
+def phaseImdbRnn(torch, card):
+    """The three IMDB sentiment nets of ``tools/sequenceslice.py`` (LSTM,
+    BiLSTM, 1-d CNN) at full width in f32, weights from
+    ``np.random.seed(0)``, ``Adam(1e-3)`` in global state and ``BCE``: 4
+    steps of 32 seeded token rows through ``Trainer`` on the hand route, the
+    library route and ``FusedTrainer`` (once each to warm up, then counted):
+    the hand and fused losses within 5e-2 of the library route's and fused
+    within 5e-2 of eager's, the hand route twice the same bits; K1 takes
+    each ``Linear`` head forward, one launch a step per head, none on the
+    library route; ``Validator`` and ``FusedValidator`` over 128 rows, each
+    call one readback, the fused error equal to eager's and K1's launches
+    counted; rows/s of each route in 5 runs in turns, and the idle share of
+    a profiled run, fused and eager, its K1 launches held to the profiler's
+    device events.  Then K1 at the four head products against its plain
+    version, cuBLAS and the bound.  Returns the launches and the JSON
+    entry's numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    Config.device = "cuda"
+    tag = "imdb-rnn"
+    launches = dict.fromkeys(("hopper", "torch", "fused", "validate", "fusedValidate"), 0)
+
+    for kind in Seq.NETS:
+        run = Seq.buildRun(kind)
+        images, labels = Seq.data(kind, Seq.BATCH * Seq.STEPS)
+        valImages, valLabels = Seq.data(kind, Seq.VALIDATION, seed=2)
+        heads = len(Seq.GEMMS[kind])
+        print("[%s] %s f32 at batch %d, %d parameters, %d tokens a row" %
+              (tag, kind, Seq.BATCH, run.net.numOfParams(), images.shape[1]))
+
+        for algo in SLICE_ROUTES:
+            run.train(algo, images, labels)
+            run.validate(algo, valImages, valLabels)
+
+        # the hand route last: _sameBitsAgain holds a second run to the
+        # weights the run before it left
+        losses, counts = {}, {}
+        for algo in ("torch", "fused", "hopper"):
+            losses[algo] = []
+            _resetCounters()
+            run.train(algo, images, labels, losses[algo])
+            counts[algo] = matmul.launches
+            launches[algo] += counts[algo]
+
+        want = {"hopper": heads * Seq.STEPS, "torch": 0, "fused": heads * Seq.STEPS}
+        print("[%s] %s, %d steps of %d: K1 launches %s (expected %s); recordings %d" %
+              (tag, kind, Seq.STEPS, Seq.BATCH, counts, want, run.fusedTrainer.step.captures))
+        if counts != want or run.fusedTrainer.step.captures != 1:
+            fail("[%s] %s: K1 launches %s, expected %s; recordings %d" %
+                 (tag, kind, counts, want, run.fusedTrainer.step.captures))
+
+        _lossesAgainst("%s] [%s" % (tag, kind), losses["hopper"], losses["torch"], TRAIN_BOUND)
+        _lossesAgainst("%s] [%s" % (tag, kind), losses["fused"], losses["hopper"], TRAIN_BOUND,
+                       ref="eager hand route")
+        _sameBitsAgain("%s] [%s" % (tag, kind), torch, run, "hopper", images, labels, losses["hopper"],
+                       "hand route")
+
+        errors = {}
+        for algo in SLICE_ROUTES:
+            _resetCounters()
+            (errors[algo], _), reads = _itemReads(torch, lambda: run.validate(algo, valImages, valLabels))
+            if algo != "torch":
+                launches["validate" if algo == "hopper" else "fusedValidate"] += matmul.launches
+            print("[%s] %s, %s: validation error of %d rows %r, %d readback(s), K1 launches %d" %
+                  (tag, kind, SLICE_ROUTES[algo], len(valImages), errors[algo], reads, matmul.launches))
+            if reads != 1 or not np.isfinite(errors[algo]):
+                fail("[%s] %s: the %s's validation read back %d times, error %r" %
+                     (tag, kind, SLICE_ROUTES[algo], reads, errors[algo]))
+        if errors["fused"] != errors["hopper"]:
+            fail("[%s] %s: fused validation error %r against eager %r" % (tag, kind, errors["fused"],
+                                                                          errors["hopper"]))
+
+        fns = {algo: (lambda algo=algo: run.train(algo, images, labels)) for algo in SLICE_ROUTES}
+        for algo, secs in _turns({}, fns).items():
+            print("[%s] %s, %s, training, 5 runs in turns: %s s, median %.1f rows/s on %s" %
+                  (tag, kind, SLICE_ROUTES[algo], " ".join("%.4f" % t for t in secs),
+                   len(images) / float(np.median(secs)), card))
+
+        _idleShares("%s] [%s" % (tag, kind), run, images, labels)
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        del run
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    for kind in Seq.NETS:
+        for name, m, k, n in Seq.GEMMS[kind]:
+            _addCase(main, binding, _gemmCase(torch, matmul, gen, name, "f32", m, k, n))
+    main["bound_by"] = "/".join(sorted(binding))
+    del main["wmma_ms"]
+    return launches, main
+
+
+def _w2lRepeats(torch, run, frames, labels, lengths):
+    """{op: bit-equal} of the ops of a Wave2Letter step called twice on the
+    same inputs on the card: CTC, and the backward of the first two blocks'
+    reflect pads, 1-d convs (data and filter) and the first batch norm."""
+    from puzzlelib_tpu_torch.backend import gpuarray
+    from puzzlelib_tpu_torch.ops import conv as convOps
+    from puzzlelib_tpu_torch.ops import ctc
+    from puzzlelib_tpu_torch.ops import pad as padOps
+
+    run.net.trainMode()
+    out = run.net(gpuarray.to_gpu(frames[:run.batch], dtype=run.net.calctype))
+    scores = out.float().permute(2, 0, 1).contiguous()
+    lens = lengths[:run.batch]
+    datalen = np.full(run.batch, scores.shape[0], dtype=np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    checks = {"CTC": lambda: ctc.ctcLoss(scores, datalen, labels[:int(lens.sum())], lens, Seq.W2L_BLANK)}
+    graph = run.net.graph
+    bn = graph[2]
+    bnGrad = torch.randn(bn.data.shape, device="cuda", generator=gen).to(bn.data.dtype)
+    checks["batch-norm backward"] = lambda: (bn.updateGrad(bnGrad), bn.grad)[1:]
+
+    for block, (pad, conv) in enumerate(((graph[0], graph[1]), (graph[5], graph[6]))):
+        grad = torch.randn(conv.data.shape, device="cuda", generator=gen).to(conv.data.dtype)
+        args = (conv.stride, conv.pad, conv.dilation, conv.groups)
+        checks["block %d conv1d backward (data)" % block] = \
+            lambda conv=conv, grad=grad, args=args: [convOps.convNdBackwardData(grad, conv.W, tuple(conv.inData.shape),
+                                                                                 *args)]
+        checks["block %d conv1d backward (filter)" % block] = \
+            lambda conv=conv, grad=grad, args=args: convOps.convNdBackwardParams(conv.inData, grad, conv.W, *args,
+                                                                                 hasBias=True)
+        checks["block %d reflect-pad backward" % block] = \
+            lambda pad=pad, conv=conv: [padOps.reflectpadBackward(conv.inData, (tuple(pad.pad), ))]
+
+    repeats = {}
+    for name, fn in checks.items():
+        first, second = fn(), fn()
+        repeats[name] = all(torch.equal(a, b) for a, b in zip(first, second))
+
+    run.net.reset()
+    return repeats
+
+
+def phaseW2L(torch, card):
+    """Wave2Letter (``tools/sequenceslice.py``) at full width, 161 input
+    features and 29 labels, 8 x 161 x 1600 frames a batch, weights from
+    ``np.random.seed(0)``, ``Adam(W2L_ALPHA)`` in global state: in f32, 1
+    request served and 4 steps trained on the loop of
+    ``testlib/ctctrain.py``; in bf16 (batch norms f32), 4 requests served
+    through ``Calculator`` (dropout off) and 4 steps trained: the first
+    request's scores within 5e-2 relative L2 of the f32 run's, the losses
+    finite, falling at every step and within 5e-2 of the f32 run's; CTC on
+    the card at the first batch's scores within 1e-4 relative of
+    ``hostCTCLoss`` in f64, error and gradient; a second bf16 run from the
+    same start the same bits, or else the op that does not repeat named and
+    the two held within 5e-2; images/s served and trained, 5 runs each in
+    turns.  No hand kernel runs on this path (the 1-d convs go to cuDNN, as
+    to XLA in the JAX package)."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops import ctc
+
+    Config.device = "cuda"
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    tag = "w2l"
+    batch = Seq.W2L_BATCH
+    frames, labels, lengths = Seq.w2lData(batch * Seq.W2L_STEPS)
+
+    run32 = Seq.W2LRun(Seq.buildW2L(torch.float32))
+    out32, _ = run32.serve(frames[:batch])
+    losses32 = []
+    run32.train(frames, labels, lengths, losses32)
+    del run32
+    torch.cuda.empty_cache()
+
+    run = Seq.W2LRun(Seq.buildW2L())
+    print("[%s] Wave2Letter bf16 (batch norms f32), %d parameters, batch %d of %d x %d frames, %d to %d labels a "
+          "sample, Adam(%g) in global state" % (tag, run.net.numOfParams(), batch, Seq.W2L_INMAPS, Seq.W2L_FRAMES,
+                                                 Seq.W2L_LABEL_RANGE[0], Seq.W2L_LABEL_RANGE[1], Seq.W2L_ALPHA))
+
+    run.serve(frames)
+    _resetCounters()
+    out, secs = run.serve(frames)
+    counts = _readCounters()
+    rel = float(np.linalg.norm(out[:batch] - out32) / np.linalg.norm(out32))
+    print("[%s] %d requests of %d: scores %s, finite %s, %.4f s; the first request's against f32: relative L2 %.3e "
+          "(bound %.0e); hand-kernel launches %s" %
+          (tag, Seq.W2L_REQUESTS, batch, out.shape, np.isfinite(out).all(), secs, rel, SLICE_BOUND,
+           {key: n for key, n in counts.items() if n}))
+    if out.shape != (len(frames), Seq.W2L_LABELS, Seq.W2L_FRAMES // 2) or not np.isfinite(out).all() \
+            or not rel <= SLICE_BOUND:
+        fail("[%s] served scores %s, relative L2 %.3e from f32" % (tag, out.shape, rel))
+
+    scores = torch.from_numpy(out[:batch]).cuda().permute(2, 0, 1).contiguous()
+    lens = lengths[:batch]
+    datalen = np.full(batch, scores.shape[0], dtype=np.int32)
+    err, grad = ctc.ctcLoss(scores, datalen, labels[:int(lens.sum())], lens, Seq.W2L_BLANK)
+    hostErr, hostGrad, _ = ctc.hostCTCLoss(out[:batch].transpose(2, 0, 1), datalen, labels[:int(lens.sum())], lens,
+                                           Seq.W2L_BLANK)
+    errRel = abs(err.item() - float(hostErr)) / abs(float(hostErr))
+    gradRel = float(np.abs(-grad.cpu().numpy() - hostGrad).max() / np.abs(hostGrad).max())
+    print("[%s] CTC on the card at (T, B, V) = %s against hostCTCLoss in f64: error %.6f against %.6f, relative %.3e; "
+          "gradient max |diff| / max |host| %.3e (bound %.0e)" %
+          (tag, tuple(scores.shape), err.item(), float(hostErr), errRel, gradRel, CTC_HOST_BOUND))
+    if not (errRel <= CTC_HOST_BOUND and gradRel <= CTC_HOST_BOUND):
+        fail("[%s] CTC against hostCTCLoss: error %.3e, gradient %.3e" % (tag, errRel, gradRel))
+
+    run.train(frames, labels, lengths)
+    losses = []
+    _resetCounters()
+    run.train(frames, labels, lengths, losses)
+    counts = _readCounters()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses32))
+    falling = all(b < a for a, b in zip(losses, losses[1:]))
+    print("[%s] %d steps of %d, bf16: losses %s; f32: %s; largest relative difference %.3e (bound %.0e); falling at "
+          "every step %s; hand-kernel launches %s" %
+          (tag, Seq.W2L_STEPS, batch, " ".join("%.4f" % v for v in losses), " ".join("%.4f" % v for v in losses32),
+           rel, TRAIN_BOUND, falling, {key: n for key, n in counts.items() if n}))
+    if not (np.isfinite(losses).all() and falling and rel <= TRAIN_BOUND and len(losses) == Seq.W2L_STEPS):
+        fail("[%s] bf16 losses %s against f32 %s" % (tag, losses, losses32))
+
+    weights = {dtype: pack.ary.clone() for dtype, pack in run.optimizer.shParams.items()}
+    again = []
+    run.train(frames, labels, lengths, again)
+    same = again == losses and all(torch.equal(run.optimizer.shParams[dtype].ary, ary)
+                                   for dtype, ary in weights.items())
+    print("[%s] a second bf16 run from the same start: losses and weights bit-equal %s" % (tag, same))
+    repeats = _w2lRepeats(torch, run, frames, labels, lengths)
+    print("[%s] ops called twice on the same inputs, bit-equal: %s" %
+          (tag, ", ".join("%s %s" % (name, ok) for name, ok in repeats.items())))
+    if not same:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(again, losses))
+        print("[%s] the runs differ: ops that do not repeat: %s; losses %s against %s, largest relative difference "
+              "%.3e (bound %.0e)" % (tag, ", ".join(name for name, ok in repeats.items() if not ok) or "none found",
+                                     again, losses, rel, TRAIN_BOUND))
+        if not rel <= TRAIN_BOUND:
+            fail("[%s] a second run's losses %s against %s" % (tag, again, losses))
+
+    fns = {"serve": lambda: run.serve(frames)[1], "train": lambda: run.train(frames, labels, lengths)}
+    for what, secs in _turns({}, fns).items():
+        print("[%s] %s, 5 runs in turns: %s s, median %.2f images/s on %s" %
+              (tag, "serving" if what == "serve" else "training", " ".join("%.4f" % t for t in secs),
+               len(frames) / float(np.median(secs)), card))
+
+    del run
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3660,6 +3944,14 @@ def main():
     inception, inceptionKernels = phaseInception(torch, card)
     torch.cuda.empty_cache()
     print("[time] [inception] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    sequence, sequenceKernels = phaseImdbRnn(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [imdb-rnn] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    phaseW2L(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [w2l] %.1f s" % (time.perf_counter() - phaseStart))
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -3769,6 +4061,11 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=inception["v3", "hopper"]["matmul"],
              launches_wgmma=inception["v3", "hopper"]["matmulWgmma"],
              fused_launches=inception["v3", "fused"]["matmul"], **inceptionKernels["K1", "v3"]),
+        dict(name="K1 tiled GEMM at the IMDB sentiment nets' heads (f32)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=sequence["hopper"],
+             sequence_launches=sequence["hopper"], fused_sequence_launches=sequence["fused"],
+             validation_launches=sequence["validate"], fused_validation_launches=sequence["fusedValidate"],
+             **sequenceKernels),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -3839,6 +4136,10 @@ def main():
           "FusedTrainer's and FusedCalculator's); K2 at Inception-BN: its two Winograd convs at batch 32, launches "
           "[inception]'s 4 requests of 32; K1 at Inception-BN's and Inception-v3's fc1: (32, 1024) x (1024, 1000) "
           "and (32, 2048) x (2048, 1008) bf16, launches [inception]'s 4 requests of 32 on each net; "
+          "K1 at the IMDB sentiment nets' heads: (32, 128) x (128, 1) of the LSTM and of the BiLSTM, (32, 50) x (50, "
+          "250) and (32, 250) x (250, 1) of the 1-d CNN, f32, together, launches (sequence_launches) [imdb-rnn]'s 4 "
+          "training steps of 32 of each of the three nets on the hand route, fused_sequence_launches the "
+          "FusedTrainer's, validation_launches and fused_validation_launches their validations of 128 rows; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

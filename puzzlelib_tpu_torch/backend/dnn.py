@@ -1,7 +1,10 @@
 """DNN primitive dispatch (counterpart of ``puzzlelib_tpu/backend/dnn.py``):
 the conv, deconv, pool, softmax, batch-norm and instance-norm slots, forward
-and backward, and ``convNdbenchmark``, which times a conv's or a deconv's
-three directions.
+and backward, ``convNdbenchmark``, which times a conv's or a deconv's three
+directions, and the RNN entries over ``backend/rnn.py``.  The RNN's backward
+is one entry, ``backwardRnn``, which gives the input's and the weights'
+gradients of one recompute together, where the reference has two entries
+that share the output gradient through a side channel.
 
 The parameter gradients are written in place into the variables' gradient
 buffers (``_accumulateParamGrads``), which under an optimizer's global state
@@ -253,3 +256,48 @@ def instanceNorm2d(data, scale, bias, epsilon=1e-5):
 
 def instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=True):
     return _norm.instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=affine)
+
+
+class RNNMode(Enum):
+    relu = "relu"
+    tanh = "tanh"
+    lstm = "lstm"
+    gru = "gru"
+
+
+class DirectionMode(Enum):
+    uni = "uni"
+    bi = "bi"
+
+
+def deviceSupportsBatchHint():
+    """The reference's persistent-kernel batch hint: the port has none."""
+    return False
+
+
+def createRnn(insize, hsize, layers, mode, direction, dropout=0.0, seed=0, batchsize=None):
+    """(desc, flat weight W, {pseudo-layer: {name: view of W}})."""
+    from puzzlelib_tpu_torch.backend import rnn as _rnn
+
+    desc, W, params = _rnn.createRnn(insize, hsize, layers, mode, direction, dropout, seed, batchsize)
+    return desc, W, dict(enumerate(params))
+
+
+def acquireRnnParams(descRnn, w):
+    from puzzlelib_tpu_torch.backend import rnn as _rnn
+    return w, dict(enumerate(_rnn.acquireRnnParams(descRnn, w)))
+
+
+def updateRnnParams(descRnn, w, params):
+    """Nothing to copy: the params are views of w."""
+
+
+def forwardRnn(data, W, descRnn, test=False):
+    """The output; in train mode (output, reserve)."""
+    return descRnn.forward(data, W, test=test)
+
+
+def backwardRnn(grad, descRnn, withData=True):
+    """(input gradient, or None without ``withData``; flat weight gradient)
+    of the last train forward for the output gradient ``grad``."""
+    return descRnn.backward(grad, withData=withData)

@@ -1,4 +1,5 @@
 """Converters (counterpart of ``puzzlelib_tpu/converter``).  Ported so far:
 the deployment engine (``converter.engine``: ``buildEngine``, ``Engine``,
-``DataCalibrator``).  The ONNX exporter and the Caffe and MXNet importers
-come later."""
+``DataCalibrator``) and the RNN weight layouts (``converter.rnnweights``:
+``cudnnRnnLayout``, ``convertRnnWeights``).  The ONNX exporter, the Caffe
+and MXNet importers and ``convertRnnCheckpoint`` come later."""

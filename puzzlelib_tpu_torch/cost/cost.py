@@ -78,7 +78,10 @@ class Cost:
 
     @staticmethod
     def _verifyBatch(pred, target):
-        if pred.shape[0] != target.shape[0]:
+        """Tensor pairs only: a cost whose prediction and target are tuples
+        (``CTC``) checks them itself."""
+        bothTensors = isinstance(pred, torch.Tensor) and isinstance(target, torch.Tensor)
+        if bothTensors and pred.shape[0] != target.shape[0]:
             raise CostError("prediction/target batch mismatch: %d vs %d" % (pred.shape[0], target.shape[0]))
 
     def __call__(self, pred, target, queryError=True):
@@ -89,7 +92,7 @@ class Cost:
         self.grad = grad = self.calcGrad(pred, target)
         self.calcError(pred, target)
         self.dirty = True
-        self.updateState(pred.shape[0])
+        self.updateState(self.getBatchsize(pred))
 
         if not queryError:
             return grad
@@ -114,6 +117,9 @@ class Cost:
         return self.calcValDev(pred, target)
 
     # -- subclass surface --------------------------------------------------------
+
+    def getBatchsize(self, pred):
+        return pred.shape[0]
 
     def calcGrad(self, pred, target):
         raise NotImplementedError()

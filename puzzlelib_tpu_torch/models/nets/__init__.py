@@ -7,3 +7,4 @@ from puzzlelib_tpu_torch.models.nets.resnet import loadResNet, residBlock, resid
 from puzzlelib_tpu_torch.models.nets.transformer import buildTransformerClassifier
 from puzzlelib_tpu_torch.models.nets.unet import loadUNet
 from puzzlelib_tpu_torch.models.nets.vgg import loadVGG
+from puzzlelib_tpu_torch.models.nets.wavetoletter import loadW2L

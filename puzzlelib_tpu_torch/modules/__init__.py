@@ -1,10 +1,11 @@
-"""Module exports: the layers of the VGG, transformer, CNN training, ResNet, U-Net and Inception
-slices."""
+"""Module exports: the layers of the VGG, transformer, CNN training, ResNet, U-Net, Inception
+and sequence slices."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
 )
 from puzzlelib_tpu_torch.modules.add import Add
+from puzzlelib_tpu_torch.modules.avgpool1d import AvgPool1D
 from puzzlelib_tpu_torch.modules.avgpool2d import AvgPool2D
 from puzzlelib_tpu_torch.modules.attention import MultiHeadAttention
 from puzzlelib_tpu_torch.modules.batchnorm import BatchNorm
@@ -13,6 +14,7 @@ from puzzlelib_tpu_torch.modules.batchnorm2d import BatchNorm2D
 from puzzlelib_tpu_torch.modules.batchnorm3d import BatchNorm3D
 from puzzlelib_tpu_torch.modules.batchnormnd import BatchNormND
 from puzzlelib_tpu_torch.modules.concat import Concat
+from puzzlelib_tpu_torch.modules.conv1d import Conv1D
 from puzzlelib_tpu_torch.modules.conv2d import Conv2D
 from puzzlelib_tpu_torch.modules.convnd import ConvND
 from puzzlelib_tpu_torch.modules.deconv2d import Deconv2D
@@ -26,12 +28,17 @@ from puzzlelib_tpu_torch.modules.identity import Identity
 from puzzlelib_tpu_torch.modules.instancenorm2d import InstanceNorm2D
 from puzzlelib_tpu_torch.modules.layernorm import LayerNorm
 from puzzlelib_tpu_torch.modules.linear import Linear
+from puzzlelib_tpu_torch.modules.maxpool1d import MaxPool1D
 from puzzlelib_tpu_torch.modules.maxpool2d import MaxPool2D
 from puzzlelib_tpu_torch.modules.module import InitScheme, Module, ModuleError
 from puzzlelib_tpu_torch.modules.muladdconst import MulAddConst
+from puzzlelib_tpu_torch.modules.pad1d import Pad1D
+from puzzlelib_tpu_torch.modules.pool1d import Pool1D
 from puzzlelib_tpu_torch.modules.pool2d import Pool2D
 from puzzlelib_tpu_torch.modules.replicate import Replicate
 from puzzlelib_tpu_torch.modules.reshape import Reshape
+from puzzlelib_tpu_torch.modules.rnn import RNN
 from puzzlelib_tpu_torch.modules.softmax import SoftMax
 from puzzlelib_tpu_torch.modules.sum import Sum
+from puzzlelib_tpu_torch.modules.swapaxes import SwapAxes
 from puzzlelib_tpu_torch.modules.tolist import ToList

@@ -13,7 +13,8 @@ call, the counterpart of the reference's ``lax`` convs:
   dilated remainder goes to ``torch.nn.functional.conv_transpose{1,2,3}d``;
 - bwd-filter: ``_filterGrad`` sends what ``winograd.filterGradApplicable``
   takes to K3 (``winograd.filterGrad``), the rest to the library's
-  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``).
+  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``; a 1-d one with
+  cuDNN's deterministic algorithms, so that it repeats bit for bit).
 
 The deconvolution (transposed conv, cuDNN-style: its forward is the conv's
 bwd-data) reuses the three: ``deconvNd`` is ``_transposedConv`` with
@@ -27,6 +28,8 @@ takes it).  U-Net's 2x2 stride-2 deconvs go to
 The bias gradient is a sum in f32 cast back to the gradient's type, as in
 the reference.
 """
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -77,14 +80,28 @@ def convNd(x, w, b, stride, pad, dilation, groups):
 
 # -- bwd-filter ------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _cudnnDeterministic():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def _filterGrad(x, grad, wshape, stride, pad, dilation, groups):
-    """dW (outmaps, inmaps // groups, *size) of the forward conv."""
+    """dW (outmaps, inmaps // groups, *size) of the forward conv.  A 1-d
+    conv's library bwd-filter takes cuDNN's deterministic algorithms: the
+    one its heuristic picks for the IMDB CNN's f32 conv adds with atomics
+    and gave other bits at each call on an H100."""
     if _onHopper(x, grad) and winograd.filterGradApplicable(tuple(x.shape), tuple(grad.shape), stride, pad,
                                                             dilation, groups):
         return winograd.filterGrad(x, grad, pad)
 
-    return _CONV_WEIGHT[x.dim() - 2](x, wshape, grad, stride=stride, padding=pad, dilation=dilation,
-                                     groups=groups)
+    nd = x.dim() - 2
+    with _cudnnDeterministic() if nd == 1 else contextlib.nullcontext():
+        return _CONV_WEIGHT[nd](x, wshape, grad, stride=stride, padding=pad, dilation=dilation, groups=groups)
 
 
 def _biasGrad(grad):

@@ -261,6 +261,37 @@ assert unet(torch.randn(1, 1, 32, 32)).shape == (1, 1, 32, 32) and len(resnetsli
 assert profileunet.Unet is unetslice
 assert loadInceptionBN(None).dataShapeFrom((1, 3, 224, 224)) == (1, 1000)
 assert loadInceptionV3(None).dataShapeFrom((1, 3, 299, 299)) == (1, 1008) and inceptionslice.BATCH == 32
+from puzzlelib_tpu_torch.backend import memory
+from puzzlelib_tpu_torch.converter.rnnweights import convertRnnWeights, cudnnRnnLayout
+from puzzlelib_tpu_torch.cost import CTC, MSE
+from puzzlelib_tpu_torch.models.nets import loadW2L
+from puzzlelib_tpu_torch.models.nets.wavetoletter import convBlock
+from puzzlelib_tpu_torch.tools import profilesequence, sequenceslice
+assert profilesequence.ROUTES[0][0] == "hopper"
+for kind, widths in (("bilstm", dict(numwords=30, maxlen=5)), ("cnn", dict(numwords=30, maxlen=6, embsize=4))):
+    seqRun = sequenceslice.buildRun(kind, net=sequenceslice.build(kind, **widths), batch=2)
+    seqRun.train("fused", *sequenceslice.data(kind, 4, **widths))
+gru = Sequential(name="gru")
+gru.append(T.SwapAxes(0, 1))
+gru.append(T.RNN(3, 4, layers=2, mode="gru", dropout=0.5, getSequences=True))
+gru.append(T.SwapAxes(0, 1))
+gru.append(T.SwapAxes(2, 1))
+gru.append(T.Pad1D(1))
+gru.append(T.AvgPool1D(2, 1))
+gru.append(T.Flatten())
+rnnOpt = MomentumSGD(0.01, momRate=0.9)
+rnnOpt.setupOn(gru, useGlobalState=True)
+Trainer(gru, MSE(), rnnOpt, batchsize=2).trainFromHost(np.random.randn(4, 5, 3).astype(np.float32),
+                                                       np.random.randn(4, 24).astype(np.float32))
+_, wsize = cudnnRnnLayout("gru", 3, 4, 2)
+assert convertRnnWeights(np.arange(wsize, dtype=np.float32), "gru", 3, 4, 2).shape == (wsize, )
+w2l = Sequential(name="w2l")
+w2l.extend(convBlock(5, 8, 11, 2, 5, 0.2, None, name="c0"))
+w2l.extend(convBlock(8, 29, 1, 1, 0, 0.0, None, bnAct=False, name="c1"))
+w2lRun = sequenceslice.W2LRun(w2l, batch=2)
+w2lRun.train(*sequenceslice.w2lData(2, frames=40, inmaps=5, labelRange=(2, 4)))
+assert memory.moveaxis(torch.zeros(2, 3, 4), 2, 0).shape == (4, 2, 3) and isinstance(w2lRun.cost, CTC)
+assert loadW2L(None, 161, 29, initscheme="none").dataShapeFrom((1, 161, 200)) == (1, 29, 100)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -280,8 +311,12 @@ def testPortRunsWithoutJax():
     (``tools/resnetslice.py``, ``profileresnet``), ``netspeed``, a training
     step with ``BCE`` through ``Deconv2D``, ``Concat``, ``ToList`` and the
     six other activations, the U-Net forward on (1, 1, 32, 32) and the
-    Inception nets by shape (``tools/{unet,inception}slice.py``) imports
-    no JAX and nothing of the JAX package (``ml_dtypes`` neither)."""
+    Inception nets by shape (``tools/{unet,inception}slice.py``), the
+    sequence slice (``tools/sequenceslice.py``: a fused BiLSTM and 1-d CNN
+    step, a two-level GRU with ``SwapAxes``, ``Pad1D`` and ``AvgPool1D``
+    trained with ``MSE``, ``converter/rnnweights``, a narrow Wave2Letter
+    step with ``CTC`` and ``loadW2L`` by shape) imports no JAX and nothing
+    of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
