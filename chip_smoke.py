@@ -257,8 +257,36 @@ it fails:
    f32's; the bf16 losses within 5e-2 of f32's and falling at every step;
    CTC on the card within 1e-4 of ``hostCTCLoss`` in f64; a second run the
    same bits (or the op that does not repeat named and the runs held within
-   5e-2); images/s served and trained.  The seconds of phases 26 to 29 and
-   of the whole script are printed.
+   5e-2); images/s served and trained;
+30. [zoo-vision]: MiniYolo (448 x 448, batch 16), OpenPose COCO and OpenPose
+   MPI (368 x 368, batch 8) at full width in bf16 (``tools/zooslice.py``),
+   He weights from ``np.random.seed(0)``: 4 requests each through
+   ``Calculator`` on the hand and library routes and ``FusedCalculator``;
+   one K2 a request on each of the 12, 15 and 12 convs
+   ``winograd.applicable`` takes (counted from the net and inside each
+   conv) and on MiniYolo one K1 a request inside each of fc25, fc26 (on
+   wgmma) and fc27 (on WMMA), the same fused and in the profiler's device
+   events; the first request's outputs within 5e-2 relative L2 of the same
+   f32 weights on the library route, the fused outputs equal to the eager
+   ones; images/s of each route in 5 runs in turns; K2 at each net's
+   Winograd convs against channels-last cuDNN and K1 at fc25-fc27 against
+   cuBLAS;
+31. [sentinet]: SentiNet at its preset's widths (vocabulary 20000,
+   sentences of 100 + 2 x 4, embeddings of 300, branches 3, 4, 5 of 100
+   maps) in f32 on 2048 seeded sentences: ``presets.sentinet.train(...,
+   saving=False)`` on the hand and library routes (3 epochs, ``AdaDelta``,
+   ``CrossEntropy``), K1 on the head once a step and a validated batch,
+   the epochs' training errors within 1e-4 of the library route's and
+   falling, equal validation errors; each of the six new optimizers in
+   global state, 4 steps of 64 on the hand, library and fused routes, the
+   hand losses within 1e-4 of the library's, the fused ones equal to
+   eager's and the same bits again, one recording; rows/s; K1 at the
+   head's product against cuBLAS;
+32. [costs]: the seven new costs on the card against the same call on the
+   CPU within 1e-5, in f32; ``Multi`` through ``FusedValidator`` (the eager
+   path) and ``SVM`` through a recorded one, ``mostProb`` equal to the eager
+   Validator's.  The seconds of phases 26 to 32 and of the whole script are
+   printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -292,6 +320,7 @@ from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
 from puzzlelib_tpu_torch.tools import resnetslice as Res  # noqa: E402
 from puzzlelib_tpu_torch.tools import sequenceslice as Seq  # noqa: E402
 from puzzlelib_tpu_torch.tools import transformerslice as Slice  # noqa: E402
+from puzzlelib_tpu_torch.tools import zooslice as Zoo  # noqa: E402
 from puzzlelib_tpu_torch.tools.timing import (  # noqa: E402
     BF16_FLOP_PER_S, F32_FLOP_PER_S, INT8_OP_PER_S, bound, cardName, deviceMs
 )
@@ -504,6 +533,9 @@ ATTN_NET = dict(batch=8, seq=1024, emb=256, heads=4)
 # gradient: the recursions run in f64 (ops/ctc.py), the softmax and its log
 # in f32, whose rounding moves the NLL by some 1e-7 of itself
 CTC_HOST_BOUND = 1e-4
+
+# [costs]: each cost on the card against the same call on the CPU, in f32
+COST_BOUND = 1e-5
 
 # the routes of the ResNet-50, U-Net and Inception phases (and of [imdb-rnn])
 SLICE_ROUTES = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
@@ -1304,24 +1336,39 @@ def phaseNiNCifar(torch, card):
 class _LayerLaunches:
     """K2 forward, K2 bwd-data and K3 launches counted inside each named
     conv's own calls (its ``updateData``, ``updateGrad`` and
-    ``accGradParams``, wrapped on the instance).  ``replayed()`` names the
-    counts as (holder, attribute) pairs, for ``fused.COUNTERS``: a fused
-    step's replays then add to them what its recording counted."""
+    ``accGradParams``, wrapped on the instance); ``kernels`` is the
+    kernels' wrapper module.  ``replayed()`` names the counts as (holder,
+    attribute) pairs, for ``fused.COUNTERS``: a fused step's replays then
+    add to them what its recording counted (inside ``with``, they sit
+    there)."""
 
     FIELDS = ("forward", "dataGrad", "filterGrad")
+    METHODS = ("updateData", "updateGrad", "accGradParams")
 
-    def __init__(self, winograd, net, names):
-        self.winograd = winograd
-        self.counts = {name: types.SimpleNamespace(forward=0, dataGrad=0, filterGrad=0) for name in names}
+    def __init__(self, kernels, net, names):
+        self.kernels = kernels
+        self.counts = {name: types.SimpleNamespace(**dict.fromkeys(self.FIELDS, 0)) for name in names}
 
         for name in names:
             mod = next(m for m in net.modules() if m.name == name)
-            for method in ("updateData", "updateGrad", "accGradParams"):
+            for method in self.METHODS:
                 setattr(mod, method, self._wrap(self.counts[name], getattr(mod, method)))
 
     def _now(self):
-        w = self.winograd
+        w = self.kernels
         return w.launches - w.dataGradLaunches, w.dataGradLaunches, w.filterGradLaunches
+
+    def __enter__(self):
+        from puzzlelib_tpu_torch import fused as Fused
+
+        Fused.COUNTERS.extend(self.replayed())
+        return self
+
+    def __exit__(self, *exc):
+        from puzzlelib_tpu_torch import fused as Fused
+
+        for entry in self.replayed():
+            Fused.COUNTERS.remove(entry)
 
     def _wrap(self, counts, fn):
         def call(*args, **kwargs):
@@ -3098,16 +3145,11 @@ class _SliceLaunches:
         self.layers = _LayerLaunches(winograd, net, convs)
 
     def __enter__(self):
-        from puzzlelib_tpu_torch import fused as Fused
-
-        Fused.COUNTERS.extend(self.layers.replayed())
+        self.layers.__enter__()
         return self
 
     def __exit__(self, *exc):
-        from puzzlelib_tpu_torch import fused as Fused
-
-        for entry in self.layers.replayed():
-            Fused.COUNTERS.remove(entry)
+        self.layers.__exit__(*exc)
 
     def counted(self, fn):
         self.layers.reset()
@@ -3894,6 +3936,337 @@ def phaseW2L(torch, card):
     torch.cuda.empty_cache()
 
 
+# -- the zoo slice -----------------------------------------------------------------------------------
+
+class _LinearLaunches(_LayerLaunches):
+    """K1 launches, all of them and those on wgmma, counted inside each
+    named Linear's forward (its ``updateData``, wrapped on the instance)."""
+
+    FIELDS = ("launches", "wgmma")
+    METHODS = ("updateData", )
+
+    def _now(self):
+        return self.kernels.launches, self.kernels.launchesWgmma
+
+    def table(self):
+        return {name: self._tuple(name) for name in self.counts}
+
+
+def phaseZooVision(torch, card):
+    """MiniYolo (448 x 448, 1470 outputs, batch 16), OpenPose COCO and
+    OpenPose MPI (368 x 368, batch 8) at full width in bf16
+    (``tools/zooslice.py``), He weights from ``np.random.seed(0)``: 4
+    requests each through ``Calculator`` on the hand and library routes
+    and through ``FusedCalculator``, the counters reset just before and read
+    just after each counted run.  One K2 a request on each of the convs
+    ``winograd.applicable`` takes (12, 15 and 12, counted from the net and
+    inside each conv), and on MiniYolo one K1 a request inside each of
+    fc25, fc26 (on wgmma) and fc27 (N = 1470: WMMA); the same on the fused
+    route and in the profiler's device events, none on the library route.
+    The first request's outputs (MiniYolo's fc27 logits) on the hand route
+    within 5e-2 relative L2 of the same weights in f32 on the library
+    route; the fused outputs equal to the eager ones; images/s of each route
+    in 5 runs in turns.  Then K2 at each of the three nets' Winograd convs
+    against channels-last cuDNN, and K1 at fc25-fc27 against cuBLAS.
+    Returns the launches and the kernels' numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul, winograd
+
+    Config.device = "cuda"
+    tag = "zoo-vision"
+    launches, kernels = {}, {}
+
+    for kind in Zoo.NETS:
+        name, batch = Zoo.NAMES[kind], Zoo.BATCH[kind]
+        net = Zoo.build(kind)
+        images = Zoo.data(kind, batch * REQUESTS)
+        first = torch.from_numpy(images[:batch]).cuda()
+        fcs = [fc for fc, _, _ in Zoo.YOLO_FC] if kind == "miniyolo" else []
+
+        def output():
+            return (net.graph[-2].data if fcs else net.data).float()
+
+        # the f32 reference: the same weights on the library route (TF32 off)
+        Config.gemmAlgo = Config.convAlgo = "torch"
+        net(first)
+        ref = output().clone()
+        net.reset()
+
+        run = Zoo.buildRun(kind, net=net)
+        convs = Zoo.winogradConvs(net, kind)
+        kernelConvs = Zoo.kernelConvs(net, kind)
+        print("[%s] %s bf16 at batch %d on %s, %d parameters, %d convs, of which K2 takes %d: %s" %
+              (tag, name, batch, "x".join(map(str, Zoo.SHAPES[kind])), net.numOfParams(),
+               len(Res.convInputs(net, (batch, ) + Zoo.SHAPES[kind])), len(convs), " ".join(convs)))
+
+        outs = {}
+        wantLinears = {fc: (REQUESTS, REQUESTS if fc != "fc27" else 0) for fc in fcs}
+        want = {"winograd": len(convs) * REQUESTS, "winogradDataGrad": 0, "winogradFG": 0,
+                "matmul": len(fcs) * REQUESTS, "matmulWgmma": sum(w for _, w in wantLinears.values())}
+
+        with _SliceLaunches(tag, winograd, net, convs, 0) as counter, _LinearLaunches(matmul, net, fcs) as linears:
+            for algo in ("torch", "hopper", "fused"):
+                run.serve(algo, images)
+                linears.reset()
+                (outs[algo], _), counts = counter.counted(lambda: run.serve(algo, images))
+                launches[kind, algo] = counts
+                hand = algo != "torch"
+
+                print("[%s] %s, %s, %d requests of %d: launches %s; K1 by layer (all, on wgmma) %s" %
+                      (tag, name, SLICE_ROUTES[algo], REQUESTS, batch, counts, linears.table()))
+                counter.layers.check("%s] [%s" % (tag, kind), (REQUESTS if hand else 0, 0, 0))
+                if counts != (want if hand else dict.fromkeys(want, 0)) or \
+                        linears.table() != (wantLinears if hand else dict.fromkeys(fcs, (0, 0))):
+                    fail("[%s] %s on the %s: launches %s, K1 by layer %s; expected %s, %s" %
+                         (tag, name, SLICE_ROUTES[algo], counts, linears.table(), want, wantLinears))
+
+        idle = {algo: _profiledLaunches("%s] [%s" % (tag, kind), lambda algo=algo: run.serve(algo, images)[1])[1]
+                for algo in ("fused", "hopper")}
+
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+        net(first.to(torch.bfloat16))
+        rel = _relL2(output(), ref)
+        net.reset()
+        same = np.array_equal(outs["fused"], outs["hopper"])
+        libRel = float(np.linalg.norm(outs["torch"] - outs["hopper"]) / np.linalg.norm(outs["torch"]))
+        print("[%s] %s: the first request's %s against the same f32 weights on the library route: relative L2 %.3e "
+              "(bound %.0e); fused outputs equal to eager's %s; eager against the bf16 library route %.3e; idle "
+              "share under the profiler fused %.1f %%, eager %.1f %%" %
+              (tag, name, "fc27 logits" if fcs else "output maps", rel, SLICE_BOUND, same, libRel,
+               100 * idle["fused"], 100 * idle["hopper"]))
+        if not (rel <= SLICE_BOUND and same and np.isfinite(outs["hopper"]).all()):
+            fail("[%s] %s: relative L2 %.3e from the f32 library run, fused equal to eager %s" % (tag, name, rel, same))
+
+        fns = {algo: (lambda algo=algo: run.serve(algo, images)[1]) for algo in SLICE_ROUTES}
+        for algo, secs in _turns({}, fns).items():
+            print("[%s] %s, %s, serving, 5 runs in turns: %s s, median %.1f images/s on %s" %
+                  (tag, name, SLICE_ROUTES[algo], " ".join("%.4f" % t for t in secs),
+                   len(images) / float(np.median(secs)), card))
+
+        del run, net, first, ref, outs
+        torch.cuda.empty_cache()
+        kernels["K2", kind] = _convKernels(torch, winograd, "%s] [%s" % (tag, kind), kernelConvs, batch,
+                                           tags=("K2", ))["K2"]
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    for fc, k, n in Zoo.YOLO_FC:
+        _addCase(main, binding, _gemmCase(torch, matmul, gen, "yolo-%s" % fc, "bf16", Zoo.BATCH["miniyolo"], k, n))
+    main["bound_by"] = "/".join(sorted(binding))
+    del main["wmma_ms"]
+    kernels["K1"] = main
+    return launches, kernels
+
+
+def phaseSentiNet(torch, card):
+    """SentiNet at its preset's widths (``tools/zooslice.py``: a vocabulary
+    of 20000 words, sentences of 100 words padded by 4 on each side,
+    embeddings of 300, branches 3, 4 and 5 of 100 maps, 2 classes) in f32,
+    weights from ``np.random.seed(0)``, on 2048 seeded sentences.  The
+    preset (``presets.sentinet.train(..., saving=False)``: ``AdaDelta``,
+    ``CrossEntropy``, ``Trainer`` at batch 64, ``Validator``, 3 epochs) on
+    the hand and library routes from the same start: K1 one launch a step
+    and a validated batch (the head), none on the library route; the
+    epochs' mean training errors within 1e-4 relative of the library
+    route's and falling; the validation errors equal; then 256 sentences
+    served through ``Calculator`` on both routes.  Then each of the six new
+    optimizers in global state, 4 steps of 64 on the eager hand route, the
+    eager library route and ``FusedTrainer``: the hand losses within 1e-4
+    of the library's, the fused losses equal to eager's (the fused form
+    rounds its scalars as the eager one: no split), a second fused run the
+    same bits, one recording, K1 one a step on the hand and fused routes;
+    rows/s of each route in 5 runs in turns.  Then K1 at the head's product
+    against cuBLAS.  Returns the launches and the kernel's numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    Config.device = "cuda"
+    tag = "sentinet"
+    run = Zoo.SentiRun()
+    tokens, labels = Zoo.sentiData()
+    launches = {}
+    print("[%s] SentiNet f32, %d parameters, %d sentences of %d tokens (vocabulary %d, embeddings %d, branches %s "
+          "of %d maps)" % (tag, run.net.numOfParams(), len(tokens), tokens.shape[1], Zoo.SENTI_VOCAB,
+                           Zoo.SENTI_EMBSIZE, Zoo.SENTI_BRANCHES, Zoo.SENTI_MAPS))
+
+    presets = {}
+    for algo in ("torch", "hopper"):
+        _resetCounters()
+        presets[algo] = run.preset(algo, tokens, labels)
+        launches["preset", algo] = matmul.launches
+
+    hand, lib = presets["hopper"], presets["torch"]
+    batches = -(-hand.trainRows // Zoo.SENTI_BATCH) + -(-hand.valRows // 128)
+    print("[%s] the preset, %d epochs of %d training and %d validation rows: K1 launches hand %d (expected %d), "
+          "library %d; best accuracy hand %r, library %r; %.3f s and %.3f s" %
+          (tag, Zoo.SENTI_EPOCHS, hand.trainRows, hand.valRows, launches["preset", "hopper"],
+           Zoo.SENTI_EPOCHS * batches, launches["preset", "torch"], hand.accuracy, lib.accuracy, hand.seconds,
+           lib.seconds))
+    _lossesAgainst(tag, hand.trainErrors, lib.trainErrors, CNN_LOSS_BOUND)
+    print("[%s] validation errors hand %s, library %s" % (tag, hand.valErrors, lib.valErrors))
+    if launches["preset", "hopper"] != Zoo.SENTI_EPOCHS * batches or launches["preset", "torch"] != 0:
+        fail("[%s] preset K1 launches %s" % (tag, launches))
+    if len(hand.trainErrors) != Zoo.SENTI_EPOCHS or not hand.trainErrors[-1] < hand.trainErrors[0]:
+        fail("[%s] the preset's training errors %s do not fall" % (tag, hand.trainErrors))
+    if hand.valErrors != lib.valErrors:
+        fail("[%s] validation errors %s against the library route's %s" % (tag, hand.valErrors, lib.valErrors))
+
+    served = {}
+    for algo in ("torch", "hopper"):
+        Cnn._route(algo)
+        served[algo], _ = run.serve(tokens[:256])
+    rel = float(np.linalg.norm(served["hopper"] - served["torch"]) / np.linalg.norm(served["torch"]))
+    print("[%s] 256 sentences served: scores %s, hand against library relative L2 %.3e (bound %.0e)" %
+          (tag, served["hopper"].shape, rel, CNN_LOSS_BOUND))
+    if served["hopper"].shape != (256, Zoo.SENTI_CLASSES) or not rel <= CNN_LOSS_BOUND:
+        fail("[%s] served scores %s, %.3e from the library route's" % (tag, served["hopper"].shape, rel))
+
+    rows, rowLabels = tokens[:Zoo.SENTI_BATCH * Zoo.SENTI_STEPS], labels[:Zoo.SENTI_BATCH * Zoo.SENTI_STEPS]
+    launches["optimizers"] = {"hopper": 0, "fused": 0}
+    for name in Zoo.OPTIMIZERS:
+        optRun = run.optimizer(name)
+        losses = {}
+        for algo in SLICE_ROUTES:
+            optRun.train(algo, rows, rowLabels)
+
+        for algo in ("torch", "fused", "hopper"):
+            losses[algo] = []
+            _resetCounters()
+            optRun.train(algo, rows, rowLabels, losses[algo])
+            if algo != "torch":
+                launches["optimizers"][algo] += matmul.launches
+            if matmul.launches != (0 if algo == "torch" else Zoo.SENTI_STEPS):
+                fail("[%s] %s on the %s: %d K1 launches" % (tag, name, SLICE_ROUTES[algo], matmul.launches))
+
+        _lossesAgainst("%s] [%s" % (tag, name), losses["hopper"], losses["torch"], CNN_LOSS_BOUND)
+        print("[%s] [%s] fused losses %s, equal to eager's %s; recordings %d" %
+              (tag, name, " ".join("%.6f" % v for v in losses["fused"]), losses["fused"] == losses["hopper"],
+               optRun.fusedTrainer.step.captures))
+        if losses["fused"] != losses["hopper"] or optRun.fusedTrainer.step.captures != 1:
+            fail("[%s] %s: fused losses %s against eager %s, recordings %d" %
+                 (tag, name, losses["fused"], losses["hopper"], optRun.fusedTrainer.step.captures))
+        _sameBitsAgain("%s] [%s" % (tag, name), torch, optRun, "fused", rows, rowLabels, losses["fused"],
+                       "FusedTrainer")
+
+        fns = {algo: (lambda algo=algo: optRun.train(algo, rows, rowLabels)) for algo in SLICE_ROUTES}
+        for algo, secs in _turns({}, fns).items():
+            print("[%s] [%s] %s, training, 5 runs in turns: %s s, median %.1f rows/s on %s" %
+                  (tag, name, SLICE_ROUTES[algo], " ".join("%.4f" % t for t in secs),
+                   len(rows) / float(np.median(secs)), card))
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    del run
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    case = _gemmCase(torch, matmul, gen, "senti-head", "f32", Zoo.SENTI_BATCH,
+                     len(Zoo.SENTI_BRANCHES) * Zoo.SENTI_MAPS, Zoo.SENTI_CLASSES)
+    return launches, {"max_abs_err": case["abs_err"], "ms": case["ms"], "plain_ms": case["plain_ms"],
+                      "bound_ms": case["bound_ms"], "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
+
+def _costCases(np):
+    """(cost name, constructor arguments, prediction, target) of the seven
+    costs at a classifier's width, from a numpy seed, in f32."""
+    rng = np.random.RandomState(12)
+    batch, classes = 256, 1000
+    scores = rng.randn(batch, classes).astype(np.float32)
+    labels = rng.randint(0, classes, size=batch).astype(np.int32)
+    dist = np.abs(rng.randn(batch, classes)).astype(np.float32)
+    return [
+        ("Abs", {}, scores, rng.randn(batch, classes).astype(np.float32)),
+        ("Hinge", {}, scores, (rng.randint(0, 2, size=(batch, classes)) * 2 - 1).astype(np.int32)),
+        ("SmoothL1", {}, scores, rng.randn(batch, classes).astype(np.float32)),
+        ("SVM", {"mode": "l1"}, scores, labels),
+        ("SVM", {"mode": "l2"}, scores, labels),
+        ("L1Hinge", {}, [scores[:, :128].copy(), rng.randn(batch, 128).astype(np.float32)],
+         rng.randint(0, 2, size=batch).astype(np.int32)),
+        ("KLDivergence", {"normTarget": False}, scores, dist / dist.sum(axis=1, keepdims=True)),
+        ("KLDivergence", {"normTarget": True}, scores, dist),
+    ]
+
+
+def phaseCosts(torch):
+    """The seven new costs (``cost/``): each one's error, gradient and
+    validation error on the card within 1e-5 relative of the same call on
+    the CPU, in f32 (``Multi`` of ``MSE`` and ``CrossEntropy``, its list of
+    errors and gradients too); ``Multi`` through a ``FusedValidator`` (the
+    eager path: no ``calcValDev``) equal to the ``Validator``'s, and
+    ``SVM`` through a recorded ``FusedValidator``: one recording, the error
+    and ``mostProb`` (the last batch's predictions) equal to the eager
+    Validator's."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch import cost as Costs
+    from puzzlelib_tpu_torch import fused as Fused
+    from puzzlelib_tpu_torch.containers import Parallel, Sequential
+    from puzzlelib_tpu_torch.handlers import Validator
+    from puzzlelib_tpu_torch.modules import Linear, Replicate
+
+    tag = "costs"
+
+    def tree(fn, value):
+        return [fn(v) for v in value] if isinstance(value, list) else fn(value)
+
+    def call(device, name, kwargs, pred, target):
+        Config.device = device
+        cost = Costs.Multi().append(Costs.MSE()).append(Costs.CrossEntropy()) if name == "Multi" else \
+            getattr(Costs, name)(**kwargs)
+        pred, target = (tree(lambda a: torch.from_numpy(a).to(device), value) for value in (pred, target))
+        err, grad = cost(pred, target)
+        return tree(float, err), tree(lambda g: g.float().cpu(), grad), cost.validate(pred, target)
+
+    cases = _costCases(np)
+    rng = np.random.RandomState(13)
+    cases.append(("Multi", {}, [rng.randn(64, 10).astype(np.float32), rng.randn(64, 5).astype(np.float32)],
+                  [rng.randn(64, 10).astype(np.float32), rng.randint(0, 5, size=64).astype(np.int32)]))
+
+    for name, kwargs, pred, target in cases:
+        got, want = call("cuda", name, kwargs, pred, target), call("cpu", name, kwargs, pred, target)
+        errs = []
+        for g, w in zip(got, want):
+            for a, b in zip(g if isinstance(g, list) else [g], w if isinstance(w, list) else [w]):
+                a, b = (a.numpy(), b.numpy()) if isinstance(a, torch.Tensor) else (np.float64(a), np.float64(b))
+                errs.append(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+        print("[%s] %s %s: error, gradient and validation on the card against the CPU, largest relative difference "
+              "%.3e (bound %.0e)" % (tag, name, kwargs or "", max(errs), COST_BOUND))
+        if not max(errs) <= COST_BOUND:
+            fail("[%s] %s %s on the card differs from the CPU by %.3e" % (tag, name, kwargs, max(errs)))
+
+    Config.device = "cuda"
+    np.random.seed(14)
+    heads = Sequential(name="heads")
+    heads.append(Linear(64, 128, name="trunk"))
+    heads.append(Replicate(2))
+    heads.append(Parallel().append(Linear(128, 10, name="head1")).append(Linear(128, 5, name="head2")))
+    x = rng.randn(300, 64).astype(np.float32)
+    targets = [rng.randn(300, 10).astype(np.float32), rng.randint(0, 5, size=300).astype(np.int32)]
+    validator = Fused.FusedValidator(heads, Costs.Multi().append(Costs.MSE()).append(Costs.CrossEntropy()),
+                                     batchsize=128)
+    got = validator.validateFromHost(x, targets)
+    want = Validator(heads, Costs.Multi().append(Costs.MSE()).append(Costs.CrossEntropy()),
+                     batchsize=128).validateFromHost(x, targets)
+    print("[%s] Multi through FusedValidator (eager path %s): %s; Validator: %s" %
+          (tag, validator._fallback, got, want))
+    if got != want or not validator._fallback:
+        fail("[%s] Multi's FusedValidator errors %s against the Validator's %s" % (tag, got, want))
+
+    svm = Sequential(name="svm")
+    svm.append(Linear(64, 1000, name="fc"))
+    scores = rng.randint(0, 1000, size=300).astype(np.int32)
+    eagerCost, fusedCost = Costs.SVM(), Costs.SVM()
+    want = Validator(svm, eagerCost, batchsize=128).validateFromHost(x, scores)
+    validator = Fused.FusedValidator(svm, fusedCost, batchsize=128)
+    got = validator.validateFromHost(x, scores)
+    same = fusedCost.mostProb is not None and torch.equal(fusedCost.mostProb, eagerCost.mostProb)
+    print("[%s] SVM through a recorded FusedValidator: error %r, Validator's %r; recordings %d; mostProb %s equal "
+          "to eager's %s" % (tag, got, want, validator._program.captures,
+                             None if fusedCost.mostProb is None else tuple(fusedCost.mostProb.shape), same))
+    if got != want or validator._program.captures != 2 or not same:
+        fail("[%s] SVM under FusedValidator: error %r against %r, recordings %d, mostProb equal %s" %
+             (tag, got, want, validator._program.captures, same))
+
+
 def main():
     import torch
 
@@ -3952,6 +4325,18 @@ def main():
     phaseW2L(torch, card)
     torch.cuda.empty_cache()
     print("[time] [w2l] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    zoo, zooKernels = phaseZooVision(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [zoo-vision] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    senti, sentiKernel = phaseSentiNet(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [sentinet] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    phaseCosts(torch)
+    torch.cuda.empty_cache()
+    print("[time] [costs] %.1f s" % (time.perf_counter() - phaseStart))
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -4066,6 +4451,18 @@ def main():
              sequence_launches=sequence["hopper"], fused_sequence_launches=sequence["fused"],
              validation_launches=sequence["validate"], fused_validation_launches=sequence["fusedValidate"],
              **sequenceKernels),
+        *[dict(name="K2 Winograd F(2x2,3x3) forward at %s's convs" % Zoo.NAMES[kind], route="cuda",
+               source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+               launches=zoo[kind, "hopper"]["winograd"], fused_launches=zoo[kind, "fused"]["winograd"],
+               **zooKernels["K2", kind]) for kind in Zoo.NETS],
+        dict(name="K1 tiled GEMM at MiniYolo's fc25-fc27 (bf16)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=zoo["miniyolo", "hopper"]["matmul"],
+             launches_wgmma=zoo["miniyolo", "hopper"]["matmulWgmma"],
+             fused_launches=zoo["miniyolo", "fused"]["matmul"], **zooKernels["K1"]),
+        dict(name="K1 tiled GEMM at SentiNet's head (f32)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=senti["preset", "hopper"],
+             optimizer_launches=senti["optimizers"]["hopper"], fused_optimizer_launches=senti["optimizers"]["fused"],
+             **sentiKernel),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -4140,6 +4537,15 @@ def main():
           "250) and (32, 250) x (250, 1) of the 1-d CNN, f32, together, launches (sequence_launches) [imdb-rnn]'s 4 "
           "training steps of 32 of each of the three nets on the hand route, fused_sequence_launches the "
           "FusedTrainer's, validation_launches and fused_validation_launches their validations of 128 rows; "
+          "K2 at MiniYolo's, OpenPose COCO's and OpenPose MPI's convs: each net's Winograd convs (12, 15 and 12) at "
+          "its batch (16 at 448 x 448, 8 at 368 x 368), each timed on operands of its own, on channels-last "
+          "operands, library cuDNN on the same, medians of 5 alternating turns, launches [zoo-vision]'s 4 requests "
+          "(fused_launches the FusedCalculator's); K1 at MiniYolo's fc25-fc27: (16, 50176) x (50176, 512), (16, "
+          "512) x (512, 4096) and (16, 4096) x (4096, 1470) bf16 together, launches [zoo-vision]'s 4 requests of "
+          "16 (launches_wgmma those on wgmma: fc27 takes WMMA); K1 at SentiNet's head: (64, 300) x (300, 2) f32, "
+          "launches [sentinet]'s preset run on the hand route (3 epochs of training and validation), "
+          "optimizer_launches the six optimizers' 4 steps of 64 each on the eager hand route, "
+          "fused_optimizer_launches on FusedTrainer; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

@@ -115,6 +115,9 @@ class Graph(Container):
     def dataShapeFrom(self, shape):
         return self.graphDataShape(shape, None)
 
+    def optimizeForShape(self, shape, memlimit=None):
+        self.graphDataShape(shape, lambda module, sh: module.optimizeForShape(sh, memlimit))
+
     def gradShapeFrom(self, shape):
         outshapes = {node.name: sh for node, sh in zip(self.outputs, _aslist(shape))}
         shapes = {}

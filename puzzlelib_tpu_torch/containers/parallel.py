@@ -85,6 +85,11 @@ class Parallel(Container):
     def dataShapeFrom(self, shapes):
         return [branch.dataShapeFrom(shape) for branch, shape in zip(self.graph, shapes)]
 
+    def optimizeForShape(self, shapes, memlimit=None):
+        """Each branch at its own input's shape."""
+        for branch, shape in zip(self.graph, shapes):
+            branch.optimizeForShape(shape, memlimit)
+
     def gradShapeFrom(self, shapes):
         return [branch.gradShapeFrom(shape) for branch, shape in zip(self.graph, shapes)]
 

@@ -151,6 +151,11 @@ class Sequential(Container):
 
         return shape
 
+    def optimizeForShape(self, shape, memlimit=None):
+        for mod in self.graph:
+            mod.optimizeForShape(shape, memlimit)
+            shape = mod.dataShapeFrom(shape)
+
     def gradShapeFrom(self, shape):
         for mod in reversed(self.graph):
             shape = mod.gradShapeFrom(shape)

@@ -31,6 +31,14 @@ def requireLabelRange(tag, labels, low, high):
         raise CostError("%s labels verification failed, found index %s (> %s)" % (tag, hi, high))
 
 
+def requireSampleShape(tag, pred, target):
+    """Raise CostError unless the prediction and the target have one sample
+    shape."""
+    if tuple(pred.shape[1:]) != tuple(target.shape[1:]):
+        raise CostError("%s takes a prediction and a target of one sample shape, got %s and %s" %
+                        (tag, tuple(pred.shape), tuple(target.shape)))
+
+
 class Cost:
     def __init__(self):
         self.devErr = torch.zeros((), dtype=torch.float32, device=getDevice())

@@ -459,7 +459,12 @@ class _FusedEvalProgram:
 
     def _body(self, data, target=None):
         out = self.module(data)
-        return out if self.cost is None else self.cost.validateDev(out, target)
+        if self.cost is None:
+            return out
+
+        # the cost's predictions (``mostProb``), where it keeps them, leave
+        # the program beside its error
+        return self.cost.validateDev(out, target), getattr(self.cost, "mostProb", None)
 
     def _run(self, data, target):
         device = _leaves(data)[0].device
@@ -475,14 +480,26 @@ class _FusedEvalProgram:
         return recording.replay(*args)
 
     def __call__(self, data, target=None):
+        """The output; with a cost, its validation error, the cost's
+        ``mostProb`` (where it keeps one) set to a copy of this batch's, as
+        the eager ``validateDev`` leaves it."""
         _refuseVerifyData()
 
         try:
-            return self._run(_asTensor(data), None if target is None else _asTensor(target))
+            result = self._run(_asTensor(data), None if target is None else _asTensor(target))
         finally:
             self.module.reset()
             if self.cost is not None:
                 self.cost.reset()
+
+        if self.cost is None:
+            return result
+
+        error, mostProb = result
+        if mostProb is not None:
+            self.cost.mostProb = mostProb.clone()   # the next replay writes over the recording's
+
+        return error
 
 
 class FusedTrainer(Trainer):
@@ -549,8 +566,10 @@ class FusedValidator(Validator):
     batch (``_FusedEvalProgram``), the errors summed on the device and read
     back once a call, as the Validator's.
 
-    A cost without ``calcValDev`` takes the reference's eager path, one
-    readback of ``cost.validate`` per batch, as the reference's does."""
+    A cost without ``calcValDev`` (``Multi``) takes the reference's eager
+    path, one readback of ``cost.validate`` per batch, as the reference's
+    does.  A cost that keeps its predictions (``mostProb``) holds the last
+    batch's after a call, as after the Validator's."""
 
     def __init__(self, mod, cost, onBatchFinish=None, batchsize=128):
         super().__init__(mod, cost, onBatchFinish, batchsize)
@@ -571,8 +590,7 @@ class FusedValidator(Validator):
             except NotImplementedError:
                 self._fallback, self._program = True, None
 
-        error = self.cost.validate(self.module(data), target)
-        self._addError(state, data, torch.tensor(error, dtype=torch.float64))
+        self._addHostError(state, data, self.cost.validate(self.module(data), target))
 
 
 class FusedCalculator(Calculator):

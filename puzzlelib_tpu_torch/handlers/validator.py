@@ -6,8 +6,12 @@ summed into one f64 scalar on the device (``Cost.validateDev``): one
 readback a call, where the reference reads each batch's error back.  Each
 batch's error is the f32 value the reference reads, and the weighted sum
 runs in f64 in the same order as the reference's sum of Python floats, so
-the error returned is the reference's to the bit.  Costs with a list of
-targets (the reference's ``Multi``) are not ported."""
+the error returned is the reference's to the bit.  A list of targets
+(``Multi``, which has no device error) takes the reference's way: the
+costs' errors read back each batch (``cost.validate``), summed on the host,
+and the validation error is a list, one per cost."""
+
+import torch
 
 from puzzlelib_tpu_torch.handlers.handler import Handler
 
@@ -36,12 +40,30 @@ class Validator(Handler):
         return self._finish(state, target)
 
     def _finish(self, state, target):
-        self.error = state["error"].item() / self.getDataSize(target)
+        error, size = state["error"], self.getDataSize(target)
+        self.error = [e / size for e in error] if isinstance(error, list) else error.item() / size
         return self.error
 
     def handleBatch(self, batch, idx, state):
         data, target = batch
+
+        if isinstance(target, list):
+            self._addHostError(state, data, self.cost.validate(self.module(data), target))
+            return
+
         self._addError(state, data, self.cost.validateDev(self.module(data), target))
+
+    def _addHostError(self, state, data, error):
+        """Add a batch's error read back by ``cost.validate`` (a float, or a
+        list of them, one per cost), weighted by the batch's size."""
+        if not isinstance(error, list):
+            self._addError(state, data, torch.tensor(error, dtype=torch.float64))
+            return
+
+        batchErrors = [self.getDataSize(data) * e for e in error]
+        state["error"] = batchErrors if state["error"] is None else [
+            acc + e for acc, e in zip(state["error"], batchErrors)
+        ]
 
     def _addError(self, state, data, error):
         """Add the batch's error (a 0-d tensor), weighted by its size, to

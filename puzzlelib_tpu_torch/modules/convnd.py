@@ -3,7 +3,9 @@
 are not carried: ``Config.convAlgo`` chooses between the hand kernel and the
 library."""
 
-from puzzlelib_tpu_torch.backend.dnn import convKernelLayout, convNd, convNdBackwardData, convNdBackwardParams
+from puzzlelib_tpu_torch.backend.dnn import (
+    convKernelLayout, convNd, convNdBackwardData, convNdBackwardParams, convNdbenchmark
+)
 from puzzlelib_tpu_torch.variable import Variable
 from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 
@@ -36,6 +38,12 @@ class ConvND(Module):
 
         if self.useBias:
             self.setVar("b", Variable(self.paramTensor(None, (1, outmaps) + (1, ) * nd).zero_()))
+
+    def optimizeForShape(self, shape, memlimit=None):
+        """Time the conv's forward, bwd-filter and bwd-data at ``shape`` on
+        the configured route, as the reference's does."""
+        convNdbenchmark(shape, self.W.shape, self.stride, self.pad, self.dilation, self.groups, transpose=False,
+                        dtype=self.calctype)
 
     def updateData(self, data):
         # kept as inData in the kernels' layout: the backward reads it again

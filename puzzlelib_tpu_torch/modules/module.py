@@ -84,6 +84,7 @@ class Module(torch.nn.Module):
 
         self.vars = {}
         self.attrs = {}
+        self.hostAttrs = {}
 
         # dataflow hints consumed by containers
         self.gradUsesOutData = False
@@ -118,13 +119,20 @@ class Module(torch.nn.Module):
 
     def setAttr(self, name, attr):
         """Register the tensor ``attr`` as the attribute ``name``: a buffer
-        of the ``nn.Module``, which the module writes in place only."""
+        of the ``nn.Module``, which the module writes in place only.  A host
+        value (a net's timestamp, a preset's sentence length) is kept as a
+        plain attribute in ``hostAttrs``, as the reference keeps it."""
+        if not isinstance(attr, torch.Tensor):
+            setattr(self, name, attr)
+            self.hostAttrs[name] = attr
+            return
+
         self.__dict__.pop(name, None)
         self.register_buffer(name, attr)
         self.attrs[name] = attr
 
     def hasAttr(self, name):
-        return name in self.attrs
+        return name in self.attrs or name in self.hostAttrs
 
     def getAttrTable(self, attrtable=None, name=None, root=True):
         """The attributes of the tree by name, as ``getVarTable`` names a
@@ -205,6 +213,10 @@ class Module(torch.nn.Module):
     def updateParams(self, learnRate):
         for var in self.vars.values():
             Blas.toVectorAddVector(var.data.view(-1), var.grad.view(-1), alpha=learnRate)
+
+    def optimizeForShape(self, shape, memlimit=None):
+        """The reference's per-shape algorithm search: nothing to search
+        for a module without one (``ConvND`` times its convs)."""
 
     # -- modes -------------------------------------------------------------------------
 

@@ -10,11 +10,18 @@ call, the counterpart of the reference's ``lax`` convs:
 - bwd-data: the stride-1 transposed conv is a plain conv of the gradient
   with the rotated, io-swapped filter, so ``_transposedConv`` sends what
   ``_convCore``'s rule takes to K2 (``winograd.dataGrad``); the strided or
-  dilated remainder goes to ``torch.nn.functional.conv_transpose{1,2,3}d``;
+  dilated remainder goes to ``torch.nn.functional.conv_transpose{1,2,3}d``,
+  and so does a gradient narrower than the kernel along an axis
+  (``_narrowerThanKernel``), which the plain conv would pad by nearly the
+  kernel's width on both sides (SentiNet's filters span the embedding, so
+  its gradient has one column: 608 ms a call against 0.56 on an H100);
 - bwd-filter: ``_filterGrad`` sends what ``winograd.filterGradApplicable``
   takes to K3 (``winograd.filterGrad``), the rest to the library's
-  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``; a 1-d one with
-  cuDNN's deterministic algorithms, so that it repeats bit for bit).
+  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``).  A 1-d one, and one
+  whose output is narrower than its kernel (a 1-d conv in effect), takes
+  cuDNN's deterministic algorithms, as does the transposed conv of such a
+  gradient, so that each repeats bit for bit: the heuristic's picks for
+  them add with atomics.
 
 The deconvolution (transposed conv, cuDNN-style: its forward is the conv's
 bwd-data) reuses the three: ``deconvNd`` is ``_transposedConv`` with
@@ -59,6 +66,12 @@ def _convCore(x, w, stride, pad, dilation, groups):
     return _CONV[x.dim() - 2](x, w, stride=stride, padding=pad, dilation=dilation, groups=groups)
 
 
+def _narrowerThanKernel(spatial, size, dilation):
+    """True where ``spatial`` (a conv's output extent) has fewer cells
+    along an axis than the dilated kernel spans."""
+    return any(n < d * (k - 1) + 1 for n, k, d in zip(spatial, size, dilation))
+
+
 def kernelLayout(x, wshape, stride, pad, dilation, groups):
     """x in the memory layout that the conv's kernels read: channels-last
     where K2 takes the conv, so that its forward and K3 on the same input copy
@@ -92,15 +105,17 @@ def _cudnnDeterministic():
 
 def _filterGrad(x, grad, wshape, stride, pad, dilation, groups):
     """dW (outmaps, inmaps // groups, *size) of the forward conv.  A 1-d
-    conv's library bwd-filter takes cuDNN's deterministic algorithms: the
-    one its heuristic picks for the IMDB CNN's f32 conv adds with atomics
-    and gave other bits at each call on an H100."""
+    conv's library bwd-filter, and that of a conv whose output is narrower
+    than its kernel, takes cuDNN's deterministic algorithms: the ones its
+    heuristic picks for the IMDB CNN's and SentiNet's f32 convs add with
+    atomics and gave other bits at each call on an H100."""
     if _onHopper(x, grad) and winograd.filterGradApplicable(tuple(x.shape), tuple(grad.shape), stride, pad,
                                                             dilation, groups):
         return winograd.filterGrad(x, grad, pad)
 
     nd = x.dim() - 2
-    with _cudnnDeterministic() if nd == 1 else contextlib.nullcontext():
+    deterministic = nd == 1 or _narrowerThanKernel(tuple(grad.shape[2:]), wshape[2:], dilation)
+    with _cudnnDeterministic() if deterministic else contextlib.nullcontext():
         return _CONV_WEIGHT[nd](x, wshape, grad, stride=stride, padding=pad, dilation=dilation, groups=groups)
 
 
@@ -126,7 +141,8 @@ def _transposedConv(y, w, stride, pad, dilation, adj, groups):
 
     # the stride-1 transposed conv IS a plain conv of y with the flipped,
     # io-swapped kernel: K2 where _convCore's rule takes that conv, else the
-    # library's plain conv
+    # library's plain conv, unless y is narrower than the kernel
+    narrow = _narrowerThanKernel(tuple(y.shape[2:]), size, dilation)
     if (all(s == 1 for s in stride) and all(a == 0 for a in adj) and groups == 1
             and all(dilation[i] * (size[i] - 1) >= pad[i] for i in range(nd))):
         padT = tuple(dilation[i] * (size[i] - 1) - pad[i] for i in range(nd))
@@ -134,11 +150,13 @@ def _transposedConv(y, w, stride, pad, dilation, adj, groups):
         if w.dtype == y.dtype and _useWinograd(y, (w.shape[1], w.shape[0]) + size, (1, ) * nd, padT, dilation, 1):
             return winograd.dataGrad(y, w, pad)
 
-        wT = torch.flip(w, tuple(range(2, 2 + nd))).transpose(0, 1)
-        return _CONV[nd](y, wT, padding=padT, dilation=dilation)
+        if not narrow:
+            wT = torch.flip(w, tuple(range(2, 2 + nd))).transpose(0, 1)
+            return _CONV[nd](y, wT, padding=padT, dilation=dilation)
 
-    return _CONV_TRANSPOSE[nd](y, w, stride=stride, padding=pad, output_padding=adj, groups=groups,
-                               dilation=dilation)
+    with _cudnnDeterministic() if narrow else contextlib.nullcontext():
+        return _CONV_TRANSPOSE[nd](y, w, stride=stride, padding=pad, output_padding=adj, groups=groups,
+                                   dilation=dilation)
 
 
 def _strideAdjust(inspatial, size, stride, pad, dilation):

@@ -178,3 +178,90 @@ def adam_(param, grad, mg, ms, learnRate, fix1, fix2, epsilon):
     mg.add_(f1 * (g - mg))
     ms.add_(f2 * (g * g - ms))
     param.copy_(param.float() + lr * mg / (ms.sqrt() + eps))
+
+
+
+# The steps below round every product or sum of two scalars to the tensor's
+# type, as the reference's traced scalars of that type are rounded: the same
+# values come out whether the scalars are Python numbers (the eager step) or
+# 0-d f32 tensors on the device (a fused step), so the two steps agree.
+
+def nesterovMomSGD_(param, grad, mom, learnRate, momRate):
+    """One Nesterov momentum step in place, in the parameter's type: param
+    += momRate^2 * mom + (1 + momRate) * learnRate * grad with the old
+    momentum, then mom = momRate * mom + learnRate * grad."""
+    lr, mr = _scalar(learnRate, grad.dtype), _scalar(momRate, mom.dtype)
+    mr2 = _scalar(mr * mr, mom.dtype)
+    coef = _scalar(_scalar(1 + mr, mom.dtype) * lr, grad.dtype)
+
+    newmom = mr * mom + lr * grad
+    param.copy_(param + mr2 * mom + coef * grad)
+    mom.copy_(newmom)
+
+
+def adagrad_(param, grad, h, learnRate, epsilon):
+    """One AdaGrad step in place: h += grad^2; param += learnRate * grad /
+    (sqrt(h) + epsilon), in the parameter's type."""
+    lr, eps = _scalar(learnRate, grad.dtype), _scalar(epsilon, grad.dtype)
+
+    h.add_(grad * grad)
+    param.add_(lr * grad / (h.sqrt() + eps))
+
+
+def adadelta_(param, grad, msg, msdx, rho, epsilon):
+    """One AdaDelta step in place: msg += (1 - rho) * (grad^2 - msg); dx =
+    sqrt((msdx + epsilon) / (msg + epsilon)) * grad; msdx += (1 - rho) *
+    (dx^2 - msdx); param += dx, in the parameter's type.  No learning rate
+    enters it."""
+    rho, eps = _scalar(rho, grad.dtype), _scalar(epsilon, grad.dtype)
+    keep = _scalar(1 - rho, grad.dtype)
+
+    msg.add_(keep * (grad * grad - msg))
+    dx = torch.sqrt((msdx + eps) / (msg + eps)) * grad
+    msdx.add_(keep * (dx * dx - msdx))
+    param.add_(dx)
+
+
+def rmsprop_(param, grad, ms, learnRate, factor, epsilon):
+    """One RMSProp step in place: ms = factor * ms + (1 - factor) * grad^2;
+    param += learnRate * grad / (sqrt(ms) + epsilon), in the parameter's
+    type."""
+    lr, f, eps = (_scalar(value, grad.dtype) for value in (learnRate, factor, epsilon))
+    rest = _scalar(1 - f, grad.dtype)
+
+    ms.copy_(f * ms + rest * grad * grad)
+    param.add_(lr * grad / (ms.sqrt() + eps))
+
+
+def rmspropGraves_(param, grad, mg, ms, delta, learnRate, alpha, momRate, epsilon):
+    """One step of Graves' RMSProp in place: ms = alpha * ms + (1 - alpha) *
+    grad^2; mg = alpha * mg + (1 - alpha) * grad; delta = momRate * delta +
+    learnRate * grad / sqrt(ms - mg^2 + epsilon); param += delta, in the
+    parameter's type."""
+    lr, a, mr, eps = (_scalar(value, grad.dtype) for value in (learnRate, alpha, momRate, epsilon))
+    rest = _scalar(1 - a, grad.dtype)
+
+    ms.copy_(a * ms + rest * grad * grad)
+    mg.copy_(a * mg + rest * grad)
+    delta.copy_(mr * delta + lr * grad / torch.sqrt(ms - mg * mg + eps))
+    param.add_(delta)
+
+
+def smorms3_(param, grad, mem, mg, ms, learnRate, epsilon):
+    """One SMORMS3 step in place: r = 1 / (mem + 1); mg = (1 - r) * mg + r *
+    grad; ms = (1 - r) * ms + r * grad^2; x = mg^2 / (ms + epsilon); mem = 1
+    + mem * (1 - x); param += grad * min(learnRate, x) / (sqrt(ms) +
+    epsilon).  mem, mg and ms are f32; the scalars are rounded to the
+    gradient's type first, the rest is taken in f32 and the update rounded
+    once to the parameter's type."""
+    lr, eps = _scalar(learnRate, grad.dtype), _scalar(epsilon, grad.dtype)
+    g = grad.float()
+
+    r = 1 / (mem + 1)
+    mg.copy_((1 - r) * mg + r * g)
+    ms.copy_((1 - r) * ms + r * g * g)
+    x = mg * mg / (ms + eps)
+
+    mem.copy_(1 + mem * (1 - x))
+    rate = torch.minimum(x, lr.float()) if isinstance(lr, torch.Tensor) else x.clamp(max=lr)
+    param.copy_(param.float() + g * rate / (ms.sqrt() + eps))

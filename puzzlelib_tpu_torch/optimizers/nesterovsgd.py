@@ -1,0 +1,24 @@
+"""SGD with Nesterov momentum (counterpart of
+``puzzlelib_tpu/optimizers/nesterovsgd.py``): per state a momentum buffer
+``mom`` of the variable's shape and type, and the step
+``ops.elementwise.nesterovMomSGD_`` in place."""
+
+import torch
+
+from puzzlelib_tpu_torch.ops import elementwise as ew
+from puzzlelib_tpu_torch.optimizers.sgd import SGD
+
+
+class NesterovSGD(SGD):
+    def __init__(self, learnRate=1e-3, momRate=0.9):
+        super().__init__(learnRate)
+
+        self.momRate = None
+        self.setAttr("momRate", momRate)
+
+    def setupState(self, var):
+        return {"mom": torch.zeros_like(var.data)}
+
+    def updateVar(self, var, state):
+        ew.nesterovMomSGD_(var.data, var.grad, state["mom"], self.learnRate * var.learnRate,
+                           self.momRate * var.momRate)

@@ -134,11 +134,13 @@ class Run:
         self.fusedValidator = FusedValidator(net, cost, batchsize=batch)
         self.start = {dtype: pack.ary.clone() for dtype, pack in optimizer.shParams.items()}
         self.startAttrs = {name: attr.clone() for name, attr in net.getAttrTable().items()}
+        self.startStates = _stateValues(optimizer)
 
     def restore(self):
-        """The start weights and attributes, a zero momentum and step count
-        (the batch norms' counts of train forwards too), and the dropout
-        draws from their start."""
+        """The start weights and attributes, the optimizer's start state
+        (zero moments; SMORMS3's memory of ones) and a zero step count (the
+        batch norms' counts of train forwards too), and the dropout draws
+        from their start."""
         from puzzlelib_tpu_torch.rng import globalRng
 
         for dtype, pack in self.optimizer.shParams.items():
@@ -151,9 +153,8 @@ class Run:
             if hasattr(mod, "numOfProps"):
                 mod.numOfProps = 0
 
-        for state in self.optimizer.states.values():
-            for tensor in state.values():
-                tensor.zero_()
+        for tensor, value in self.startStates:
+            tensor.copy_(value)
 
         self.optimizer.t = 0
         globalRng.seed(DROPOUT_SEED)
@@ -186,6 +187,12 @@ class Run:
         start = time.perf_counter()
         error = validator.validateFromHost(images, labels, macroBatchSize=len(images))
         return error, time.perf_counter() - start
+
+
+def _stateValues(optimizer):
+    """[(state tensor, a copy of its value)] of every state of
+    ``optimizer``."""
+    return [(tensor, tensor.clone()) for state in optimizer.states.values() for tensor in state.values()]
 
 
 def _route(algo):

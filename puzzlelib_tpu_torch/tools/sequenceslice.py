@@ -200,6 +200,7 @@ class W2LRun:
 
         self.start = {dtype: pack.ary.clone() for dtype, pack in self.optimizer.shParams.items()}
         self.startAttrs = {name: attr.clone() for name, attr in net.getAttrTable().items()}
+        self.startStates = Cnn._stateValues(self.optimizer)
 
     def restore(self):
         Cnn.Run.restore(self)

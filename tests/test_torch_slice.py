@@ -292,6 +292,27 @@ w2lRun = sequenceslice.W2LRun(w2l, batch=2)
 w2lRun.train(*sequenceslice.w2lData(2, frames=40, inmaps=5, labelRange=(2, 4)))
 assert memory.moveaxis(torch.zeros(2, 3, 4), 2, 0).shape == (4, 2, 3) and isinstance(w2lRun.cost, CTC)
 assert loadW2L(None, 161, 29, initscheme="none").dataShapeFrom((1, 161, 200)) == (1, 29, 100)
+from puzzlelib_tpu_torch import cost as zooCosts, optimizers as zooOpts, statistics
+from puzzlelib_tpu_torch.backend.kernels import costs as costKernels
+from puzzlelib_tpu_torch.datasets import utils as datasetUtils
+from puzzlelib_tpu_torch.models.nets import loadCOCO, loadMiniYolo, loadMPI, loadSentiNet
+from puzzlelib_tpu_torch.models.nets.presets import sentinet as sentiPreset
+from puzzlelib_tpu_torch.tools import zooslice
+assert loadMiniYolo(None, 1470).dataShapeFrom((1, 3, 448, 448)) == (1, 1470)
+assert loadCOCO(None).dataShapeFrom((1, 3, 64, 64)) == (1, 57, 8, 8) and loadMPI(None).dataShapeFrom((1, 3, 64, 64)) == (1, 71, 8, 8)
+senti = loadSentiNet(None, vocabulary=30, branches=[2, 3], sentlength=8, embsize=4, branchMaps=3)
+sentiTokens, sentiLabels = zooslice.sentiData(40, vocab=30, length=4, padding=2, lexicon=(5, 2))
+sentiPreset.train(senti, sentiTokens, sentiLabels, sentiTokens[:8], sentiLabels[:8], 2, epochs=1, saving=False, printing=False)
+sentiRun = zooslice.SentiRun(senti, batch=8)
+for name in zooslice.OPTIMIZERS:
+    sentiRun.optimizer(name).train("fused", sentiTokens[:16], sentiLabels[:16])
+assert 0.0 <= datasetUtils.validate(senti, sentiTokens, sentiLabels)[2] <= 1.0
+assert statistics.accuracy([[1, 0], [0, 1]], log=False) == 1.0
+scores, ints = torch.randn(6, 4), torch.randint(0, 4, (6, ), dtype=torch.int32)
+for costName in ("Abs", "Hinge", "KLDivergence", "L1Hinge", "Multi", "SmoothL1", "SVM"):
+    assert hasattr(zooCosts, costName)
+assert zooCosts.SVM(mode="l2")(scores, ints)[1].shape == (6, 4) and costKernels.getAccuracyKernel("calcAccuracy")(ints, ints) == 0
+assert len(zooCosts.Multi().append(zooCosts.Abs()).append(zooCosts.SVM())([scores, scores], [scores, ints])[0]) == 2
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -315,8 +336,13 @@ def testPortRunsWithoutJax():
     sequence slice (``tools/sequenceslice.py``: a fused BiLSTM and 1-d CNN
     step, a two-level GRU with ``SwapAxes``, ``Pad1D`` and ``AvgPool1D``
     trained with ``MSE``, ``converter/rnnweights``, a narrow Wave2Letter
-    step with ``CTC`` and ``loadW2L`` by shape) imports no JAX and nothing
-    of the JAX package (``ml_dtypes`` neither)."""
+    step with ``CTC`` and ``loadW2L`` by shape), the zoo slice (MiniYolo
+    and OpenPose COCO / MPI by shape, a narrow SentiNet through
+    ``presets.sentinet`` and ``datasets.utils.validate`` with ``statistics``,
+    and through a fused step under each of the six new optimizers of
+    ``tools/zooslice.py``, the seven new costs with ``Multi`` and the cost
+    kernels' wrappers) imports no JAX and nothing of the JAX package
+    (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
