@@ -285,8 +285,33 @@ it fails:
 32. [costs]: the seven new costs on the card against the same call on the
    CPU within 1e-5, in f32; ``Multi`` through ``FusedValidator`` (the eager
    path) and ``SVM`` through a recorded one, ``mostProb`` equal to the eager
-   Validator's.  The seconds of phases 26 to 32 and of the whole script are
-   printed.
+   Validator's;
+33. [segnet]: SegNet (``tools/segslice.py``: VGG-16's encoder, its mirrored
+   decoder through ``MaxUnpool2D`` and the encoder's pooling masks, 12
+   classes, a trailing ``Cast`` to f32) in bf16 with f32 batch norms at
+   batch 4 on 3 x 360 x 480, He weights from ``np.random.seed(0)``: 4
+   requests through ``Calculator`` and 4 steps through ``Trainer``
+   (``CrossEntropy``, ``MomentumSGD(LEARN_RATE, 0.9)`` in global state) on
+   the hand and library routes and through ``FusedCalculator`` /
+   ``FusedTrainer``: one K2 a request and one K2, K2-bwd and K3 a step on
+   each of the 20 convs ``winograd.applicable`` takes (counted from the
+   net, inside each conv, and by the profiler in fused runs); on the first
+   request, the encoder's output within 5e-2 relative L2 of the same f32
+   weights on the library route and the scores within 5e-2 of the library
+   route's bf16 forward on the hand route's pooling masks (the scores'
+   distance from f32, which bf16's flipped masks set, printed with its
+   controls); the hand route's losses within 5e-2 of the library
+   route's and falling on both; the hand run twice the same bits; fused
+   outputs equal to eager's, the fused first loss eager's and the rest
+   within 5e-2; images/s of each route in 5 runs in turns, idle shares, and
+   K2, K2-bwd and K3 at each of SegNet's 8 conv shapes against
+   channels-last cuDNN, counted for each of the 20 convs;
+34. [layers]: the fifteen glue, upsampling and unpooling modules one by one
+   (``tools/layerslice.py``, at SegNet-sized and 16 MiB shapes), forward
+   and backward on the card and on the CPU on the same inputs, f32 and
+   bf16: the modules that only move data give the CPU's bits, the others
+   fall within the twins' tiers; a second card run gives the same bits.
+   The seconds of phases 26 to 34 and of the whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -1400,14 +1425,16 @@ class _LayerLaunches:
                 fail("[%s] %s: expected launches %s, got %s" % (tag, name, want, self._tuple(name)))
 
 
-def _convKernels(torch, winograd, phase, convs, batch, tags=("K2", "K2-bwd", "K3")):
+def _convKernels(torch, winograd, phase, convs, batch, tags=("K2", "K2-bwd", "K3"), perShape=False):
     """The kernels ``tags`` (of K2, K2-bwd and K3) at ``convs`` ((names, x
     shape at batch 1, output maps)) at ``batch``, for each of a shape's
-    space-separated names on operands of its own: each against its plain
-    version, then kernel and cuDNN on channels-last operands (as the
-    training path hands them over) in 5 alternating turns of 10 calls.
-    Returns the JSON entries' numbers, summed over the convs; ``bound_by``
-    names the bound of the convs whose bounds make up most of the sum."""
+    space-separated names on operands of its own (with ``perShape``, for
+    the first name of each shape, its numbers counted once for each name):
+    each against its plain version, then kernel and cuDNN on channels-last
+    operands (as the training path hands them over) in 5 alternating turns
+    of 10 calls.  Returns the JSON entries' numbers, summed over the convs;
+    ``bound_by`` names the bound of the convs whose bounds make up most of
+    the sum."""
     specs = _winogradSpecs(torch, winograd)
     entries = {}
 
@@ -1417,7 +1444,12 @@ def _convKernels(torch, winograd, phase, convs, batch, tags=("K2", "K2-bwd", "K3
         entry = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         binding = {}
 
-        for name, inshape, co in ((name, inshape, co) for names, inshape, co in convs for name in names.split()):
+        if perShape:
+            timed = [(names.split()[0], len(names.split()), inshape, co) for names, inshape, co in convs]
+        else:
+            timed = [(name, 1, inshape, co) for names, inshape, co in convs for name in names.split()]
+
+        for name, count, inshape, co in timed:
             xshape = (batch, ) + inshape
             args = spec["operands"](gen, xshape, co)
             out, ref = spec["kernel"](*args), spec["plain"](*args)
@@ -1431,21 +1463,22 @@ def _convKernels(torch, winograd, phase, convs, batch, tags=("K2", "K2-bwd", "K3
             plainMs = deviceMs(lambda: spec["plain"](*args), 2)
             _, boundMs, boundBy = _winogradBound(xshape, co, spec["transformOps"], spec.get("weightBytes", 2))
 
-            print("[%s] %-6s %-10s x=%s co=%d: rel err %.3e vs plain (bound %.0e); channels-last operands, medians "
-                  "of 5 alternating turns: kernel %.4f ms (turns %s), cuDNN %.4f ms (turns %s), %.2fx cuDNN; plain "
-                  "%.4f ms, bound %.4f ms (%s)" %
-                  (phase, tag, name, xshape, co, err, spec["bounds"][0], ms, " ".join("%.4f" % t for t in turns[0]),
-                   libMs, " ".join("%.4f" % t for t in turns[1]), ms / libMs, plainMs, boundMs, boundBy))
+            print("[%s] %-6s %-10s x=%s co=%d%s: rel err %.3e vs plain (bound %.0e); channels-last operands, "
+                  "medians of 5 alternating turns: kernel %.4f ms (turns %s), cuDNN %.4f ms (turns %s), %.2fx "
+                  "cuDNN; plain %.4f ms, bound %.4f ms (%s)" %
+                  (phase, tag, name, xshape, co, " (x %d convs)" % count if perShape else "", err, spec["bounds"][0],
+                   ms, " ".join("%.4f" % t for t in turns[0]), libMs, " ".join("%.4f" % t for t in turns[1]),
+                   ms / libMs, plainMs, boundMs, boundBy))
 
             if not err <= spec["bounds"][0]:
                 fail("[%s] %s %s disagrees with its plain version: %.3e" % (phase, tag, name, err))
 
             entry["max_abs_err"] = max(entry["max_abs_err"], absErr)
-            entry["ms"] += ms
-            entry["plain_ms"] += plainMs
-            entry["library_ms"] += libMs
-            entry["bound_ms"] += boundMs
-            binding[boundBy] = binding.get(boundBy, 0.0) + boundMs
+            entry["ms"] += count * ms
+            entry["plain_ms"] += count * plainMs
+            entry["library_ms"] += count * libMs
+            entry["bound_ms"] += count * boundMs
+            binding[boundBy] = binding.get(boundBy, 0.0) + count * boundMs
             del args, last
 
         # the sum's bound is that of the shapes that make up most of it
@@ -4267,6 +4300,192 @@ def phaseCosts(torch):
              (tag, got, want, validator._program.captures, same))
 
 
+def phaseSegNet(torch, card):
+    """SegNet in bf16 with f32 batch norms at batch 4 on 3 x 360 x 480
+    (``tools/segslice.py``), He weights from ``np.random.seed(0)``.
+    Serving: 4 requests through ``Calculator``; on the first, the encoder's
+    output within 5e-2 relative L2 of the same f32 weights on the library
+    route, and the scores within 5e-2 of the library route's bf16 forward
+    on the hand route's pooling masks (bf16 rounding flips ~0.4-2 % of the
+    masks against f32, and the unpools carry each flip to other cells, so
+    the scores' distance from f32, printed with its controls, is no
+    kernel's).  Training: ``CrossEntropy`` and ``MomentumSGD(LEARN_RATE, 0.9)``
+    in global state, 4 steps on the hand and the library routes, the losses
+    within 5e-2 of the library's and falling from each step to the next on
+    both; the hand route twice, the same bits.  Fused: the same 4 steps
+    through ``FusedTrainer`` (``_fusedAgainstEager``: the first loss
+    bit-equal to eager's, the rest within 5e-2, twice the same bits, one
+    recording), ``FusedValidator`` equal to ``Validator``,
+    ``FusedCalculator`` equal to ``Calculator``.  Launches, counted from
+    the net (``winogradConvs``) and inside each conv: one K2 a request and
+    one K2, K2-bwd and K3 a step on each of its 20 Winograd convs, no K1;
+    the fused ones also by the profiler.  Then images/s of each route (5
+    runs in turns), the idle share of 2 profiled steps, and K2, K2-bwd and
+    K3 at each of the 8 conv shapes against channels-last cuDNN, counted
+    for each of the 20 convs.  Returns the launches and the kernels'
+    numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+    from puzzlelib_tpu_torch.tools import segslice as Seg
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    tag = "segnet"
+    torch.cuda.reset_peak_memory_stats()
+
+    net = Seg.build(torch.float32)
+    images, labels = Seg.data(Seg.BATCH * Seg.STEPS)
+    requests = images[:Seg.BATCH * REQUESTS]
+    first = torch.from_numpy(requests[:Seg.BATCH]).cuda()
+
+    # the f32 reference of serving: the same weights on the library route
+    # (TF32 off), its scores, the encoder's output (pool5's) and the masks
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    net.evalMode()
+    refOut = net(first).float().clone()
+    refFeatures = net.getByName("pool5").data.float().clone()
+    refMasks = {name: mask.clone() for name, mask in Seg.masksOf(net).items()}
+    net.reset()
+
+    run = Seg.buildRun(Seg.setType(net, torch.bfloat16))
+    convs = Seg.winogradConvs(net)
+    kernelConvs = Seg.kernelConvs(net)
+    print("[%s] SegNet bf16 at batch %d on %s inputs, %d parameters, %d convs, of which K2 / K3 take %d: %s; "
+          "MomentumSGD(%g, %g), CrossEntropy" %
+          (tag, Seg.BATCH, "x".join(map(str, Seg.SHAPE)), net.numOfParams(),
+           len(Seg.convInputs(net, (Seg.BATCH, ) + Seg.SHAPE)), len(convs), " ".join(convs), Seg.LEARN_RATE,
+           Seg.MOM_RATE))
+    if len(convs) != 20:
+        fail("[%s] expected 20 Winograd convs, found %d" % (tag, len(convs)))
+
+    launches = {}
+    with _SliceLaunches(tag, winograd, net, convs, 0) as counter:
+        for algo in ("torch", "hopper"):
+            run.serve(algo, requests)
+
+        (out, secs), launches["serving"] = counter.counted(lambda: run.serve("hopper", requests))
+        counter.expect("serving, %d requests of %d" % (REQUESTS, Seg.BATCH), launches["serving"], REQUESTS, 0)
+        if out.shape != (len(requests), Seg.CLASSES) + Seg.SHAPE[1:] or out.dtype != np.float32 or \
+                not np.isfinite(out).all():
+            fail("[%s] outputs of shape %s, type %s, finite: %s" % (tag, out.shape, out.dtype, np.isfinite(out).all()))
+
+        # bf16 rounding flips some of the pools' argmax masks, and the
+        # decoder's unpools carry each flip to other cells, so the scores
+        # are held on the hand route's own masks: the library route's bf16
+        # forward with every pool taking its maxima where the hand route's
+        # did; the encoder's output (before any unpool) against f32
+        def forward(algo, x, masks=None):
+            Config.gemmAlgo = Config.convAlgo = algo
+            run.net.evalMode()
+            with Seg.pinnedMasks(run.net, masks):
+                result = run.net(x).float().clone()
+            features = run.net.getByName("pool5").data.float().clone()
+            taken = {name: mask.clone() for name, mask in Seg.masksOf(run.net).items()}
+            run.net.reset()
+            return result, features, taken
+
+        x = first.to(torch.bfloat16)
+        handOut, handFeatures, handMasks = forward("hopper", x)
+        pinnedOut = forward("torch", x, handMasks)[0]
+        libOut, libFeatures, _ = forward("torch", x)
+        controls = [_relL2(forward("torch", _ulpApart(torch, x, seed))[0], libOut) for seed in RESNET_GRAD_SEEDS]
+        Config.gemmAlgo = Config.convAlgo = "hopper"
+
+        flips = {name: (mask != refMasks[name]).float().mean().item() for name, mask in handMasks.items()}
+        relPinned, relFeatures = _relL2(handOut, pinnedOut), _relL2(handFeatures, refFeatures)
+        print("[%s] serving %d images: %.4f s; the first request, relative L2: the encoder's output (pool5) "
+              "against the same f32 weights on the library route, hand %.3e, library %.3e (bound %.0e); the "
+              "scores against the library route's bf16 forward on the hand route's masks %.3e (bound %.0e); "
+              "not held: the scores against f32 hand %.3e, library %.3e, the library's from its input one "
+              "bf16 ulp apart %s; the share of the hand route's masks that differ from f32's %s" %
+              (tag, len(requests), secs, relFeatures, _relL2(libFeatures, refFeatures), SLICE_BOUND, relPinned,
+               SLICE_BOUND, _relL2(handOut, refOut), _relL2(libOut, refOut), " ".join("%.3e" % c for c in controls),
+               ", ".join("%s %.4f" % item for item in flips.items())))
+        if not (relFeatures <= SLICE_BOUND and relPinned <= SLICE_BOUND):
+            fail("[%s] the encoder's output %.3e from the f32 library run, the scores %.3e from the library's on "
+                 "the same masks" % (tag, relFeatures, relPinned))
+        del refOut, refFeatures, refMasks, handMasks
+
+        # eager training, hand and library routes
+        for algo in ("torch", "hopper"):
+            run.train(algo, images, labels)
+
+        losses, libLosses = [], []
+        secs, launches["training"] = counter.counted(lambda: run.train("hopper", images, labels, losses))
+        counter.expect("training, %d steps of %d" % (Seg.STEPS, Seg.BATCH), launches["training"], Seg.STEPS, 1)
+        print("[%s] training: %d images in %d steps, %.4f s" % (tag, len(images), Seg.STEPS, secs))
+        _sameBitsAgain(tag, torch, run, "hopper", images, labels, losses, "eager hand route")
+
+        run.train("torch", images, labels, libLosses)
+        _lossesAgainst(tag, losses, libLosses, TRAIN_BOUND)
+        for route, seen in (("hand", losses), ("library", libLosses)):
+            if not all(later < earlier for earlier, later in zip(seen, seen[1:])):
+                fail("[%s] the %s route's loss did not fall at every step at a learning rate of %g: %s" %
+                     (tag, route, Seg.LEARN_RATE, seen))
+
+        # the fused forms
+        _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, requests,
+                           labels[:len(requests)])
+
+        eagerOut, _ = run.serve("hopper", requests)
+        run.serve("fused", requests)
+        (fusedOut, _), launches["fusedServing"] = counter.counted(lambda: run.serve("fused", requests))
+        counter.expect("FusedCalculator, %d requests of %d" % (REQUESTS, Seg.BATCH), launches["fusedServing"],
+                       REQUESTS, 0)
+        same = np.array_equal(fusedOut, eagerOut)
+        print("[%s] FusedCalculator against Calculator: bit-equal %s; recordings %d" %
+              (tag, same, run.fusedCalculator._program.captures))
+        if not same or run.fusedCalculator._program.captures != 1:
+            fail("[%s] FusedCalculator's scores are not Calculator's" % tag)
+
+        # rates and idle shares
+        _routeRates(tag, card, {"training": (len(images), lambda algo: run.train(algo, images, labels)),
+                                "serving": (len(requests), lambda algo: run.serve(algo, requests)[1])})
+        _idleShares(tag, run, images[:2 * Seg.BATCH], labels[:2 * Seg.BATCH])
+        print("[%s] peak device memory of the phase %.2f GB" % (tag, torch.cuda.max_memory_allocated() / 1e9))
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    del run, net
+    torch.cuda.empty_cache()
+    return launches, _convKernels(torch, winograd, tag, kernelConvs, Seg.BATCH, perShape=True)
+
+
+def phaseLayers(torch):
+    """The fifteen glue, upsampling and unpooling modules one by one
+    (``tools/layerslice.py``) at [layers]' shapes, in f32 and bf16: each
+    forward and backward on the card and on the CPU on the same inputs,
+    then once more on the card.  A module that only moves data must give
+    the CPU's bits, the others the twins' tiers (1e-5 of max(1, max |CPU|)
+    in f32, 5e-2 in bf16); the second card run the first's bits."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.tools import layerslice as Layers
+
+    tag = "layers"
+    for name, case in Layers.CASES.items():
+        shapes, feed = Layers.FULL[name], {}
+        for dtype in ("f32", "bf16"):
+            start = time.perf_counter()
+            cpu = Layers.run(name, shapes, dtype, "cpu", feed=feed)
+            card = Layers.run(name, shapes, dtype, "cuda", feed=feed)
+            rows, ok = Layers.held(name, card, cpu, dtype)
+            again = Layers.run(name, shapes, dtype, "cuda", feed=feed)
+            repeats = all(same for _, same, _ in Layers.held(name, again, card, dtype)[0])
+
+            print("[%s] %-28s %-4s at %s: %s against the CPU: %s; again the same bits %s; %.1f s" %
+                  (tag, name, dtype, " ".join("x".join(map(str, shape)) for shape in shapes),
+                   "bit-equal" if case.exact else "within %.0e" % Layers.BOUNDS[dtype],
+                   ", ".join("%s %s %.2e" % (what, "equal" if same else "differs", err) for what, same, err in rows),
+                   repeats, time.perf_counter() - start))
+            if not ok or not repeats:
+                fail("[%s] %s in %s: card against CPU %s, repeat %s" % (tag, name, dtype, rows, repeats))
+
+            del cpu, card, again
+        del feed
+        torch.cuda.empty_cache()
+
+    Config.device = "cuda"
+
+
 def main():
     import torch
 
@@ -4337,6 +4556,14 @@ def main():
     phaseCosts(torch)
     torch.cuda.empty_cache()
     print("[time] [costs] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    segnet, segnetKernels = phaseSegNet(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [segnet] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    phaseLayers(torch)
+    torch.cuda.empty_cache()
+    print("[time] [layers] %.1f s" % (time.perf_counter() - phaseStart))
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
@@ -4463,6 +4690,20 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=senti["preset", "hopper"],
              optimizer_launches=senti["optimizers"]["hopper"], fused_optimizer_launches=senti["optimizers"]["fused"],
              **sentiKernel),
+        dict(name="K2 Winograd F(2x2,3x3) forward at SegNet's 20 Winograd convs", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=segnet["training"]["winograd"] - segnet["training"]["winogradDataGrad"],
+             serving_launches=segnet["serving"]["winograd"],
+             fused_launches=segnet["fused"]["winograd"] - segnet["fused"]["winogradDataGrad"],
+             fused_serving_launches=segnet["fusedServing"]["winograd"], **segnetKernels["K2"]),
+        dict(name="K2 Winograd F(2x2,3x3) as bwd-data at SegNet's 20 Winograd convs", route="cuda",
+             source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
+             launches=segnet["training"]["winogradDataGrad"], fused_launches=segnet["fused"]["winogradDataGrad"],
+             **segnetKernels["K2-bwd"]),
+        dict(name="K3 Winograd F(2x2,3x3) bwd-filter at SegNet's 20 Winograd convs", route="cuda",
+             source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
+             launches=segnet["training"]["winogradFG"], fused_launches=segnet["fused"]["winogradFG"],
+             **segnetKernels["K3"]),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -4546,6 +4787,10 @@ def main():
           "launches [sentinet]'s preset run on the hand route (3 epochs of training and validation), "
           "optimizer_launches the six optimizers' 4 steps of 64 each on the eager hand route, "
           "fused_optimizer_launches on FusedTrainer; "
+          "K2, K2-bwd and K3 at SegNet's 20 Winograd convs: the 20 convs of one batch of 4 at 360 x 480, each "
+          "timed on operands of its own at the extent the forward gives it, on channels-last operands, library "
+          "cuDNN on the same, medians of 5 alternating turns, launches [segnet]'s 4 training steps of 4 "
+          "(serving_launches its 4 requests of 4, fused_ the FusedTrainer's and FusedCalculator's); "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

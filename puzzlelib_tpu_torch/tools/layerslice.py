@@ -1,0 +1,215 @@
+"""The fifteen glue, upsampling and unpooling layers one by one, as
+``chip_smoke.py`` [layers] and the tests run them.
+
+Each case of ``CASES`` builds a module of the port (or of any package with
+the same module API: the tests build the JAX package's from the same
+builders), feeds it seeded inputs and a seeded output gradient, and keeps
+its output, its input gradient and every parameter gradient (``run``).
+``FULL`` gives the shapes at which [layers] runs each case on the card and
+on the CPU; ``exact`` marks the cases that only move data (and whose
+backward adds, if it adds, elementwise in a fixed order), whose card run
+must give the CPU's bits (``held``); the others are held to the twins'
+tiers, 1e-5 of max(1, max |CPU|) in f32 and 5e-2 in bf16.
+
+The pool and k-max cases read relu outputs, so that whole windows and
+lines tie at 0.  In bf16 the inputs are rounded to bf16 first, so that
+both runs (and an f32 reference) see the same values.
+"""
+
+import numpy as np
+
+
+BOUNDS = {"f32": 1e-5, "bf16": 5e-2}
+
+GLUE_SIZE = 1024
+
+
+class Case:
+    """``build(modules, containers, dtype)`` -> the module; ``relu``: the
+    inputs are relu outputs; ``many``: the module takes a list; ``exact``:
+    the module only moves data; ``calcMode``: the module takes the net's
+    type (a ``Cast`` has its own)."""
+
+    def __init__(self, build, relu=False, many=False, exact=True, calcMode=True):
+        self.build, self.relu, self.many, self.exact, self.calcMode = build, relu, many, exact, calcMode
+
+
+def _poolUnpool(M, C, size, stride):
+    net = C.Sequential(name="poolunpool")
+    pool = M.MaxPool2D(size, stride, useMask=True, name="pool")
+    net.append(pool)
+    net.append(M.MaxUnpool2D(pool, name="unpool"))
+    return net
+
+
+def _glue(M):
+    def bwdGlue(grad, modules):
+        modules["lin"].backward(grad)
+        return modules["lin"].grad
+
+    return M.Glue(modules={"lin": M.Linear(GLUE_SIZE, GLUE_SIZE, name="lin")},
+                  fwdGlue=lambda data, modules: modules["lin"](data), bwdGlue=bwdGlue,
+                  fwdShapeGlue=lambda shape: shape, bwdShapeGlue=lambda shape: shape)
+
+
+def _cast(M, dtype):
+    return M.Cast("float32", "bfloat16") if dtype == "f32" else M.Cast("bfloat16", "float32")
+
+
+CASES = {
+    "DepthConcat": Case(lambda M, C, dt: M.DepthConcat(), many=True),
+    "Split": Case(lambda M, C, dt: M.Split(axis=0, sections=(16, 32, 16))),
+    "Slice": Case(lambda M, C, dt: M.Slice()[:, 2:-2, 1:-1]),
+    "Tile": Case(lambda M, C, dt: M.Tile(axis=1, times=3)),
+    "Transpose": Case(lambda M, C, dt: M.Transpose((0, 2, 1))),
+    "MoveAxis": Case(lambda M, C, dt: M.MoveAxis(0, 2)),
+    "Mul": Case(lambda M, C, dt: M.Mul(), many=True, exact=False),
+    "Glue": Case(lambda M, C, dt: _glue(M), exact=False),
+    "Cast": Case(lambda M, C, dt: _cast(M, dt), calcMode=False),
+    "Pad2D reflect": Case(lambda M, C, dt: M.Pad2D(1, mode="reflect")),
+    "Pad2D constant": Case(lambda M, C, dt: M.Pad2D(1, mode="constant", fillValue=0.5)),
+    "PRelu": Case(lambda M, C, dt: M.PRelu(64), exact=False),
+    "PRelu shared": Case(lambda M, C, dt: M.PRelu(64, sharedMaps=True), exact=False),
+    "Upsample2D nearest": Case(lambda M, C, dt: M.Upsample2D(2, mode="nearest")),
+    "Upsample2D linear": Case(lambda M, C, dt: M.Upsample2D(2, mode="linear"), exact=False),
+    "Upsample3D nearest": Case(lambda M, C, dt: M.Upsample3D(2, mode="nearest")),
+    "Upsample3D linear": Case(lambda M, C, dt: M.Upsample3D(2, mode="linear"), exact=False),
+    "MaxPool2D-MaxUnpool2D 2x2/2": Case(lambda M, C, dt: _poolUnpool(M, C, 2, 2), relu=True),
+    "MaxPool2D-MaxUnpool2D 3x3/2": Case(lambda M, C, dt: _poolUnpool(M, C, 3, 2), relu=True),
+    "KMaxPool": Case(lambda M, C, dt: M.KMaxPool(topk=5, axis=2), relu=True),
+}
+
+_SEGNET_MAPS = (4, 64, 360, 480)
+_BIG = (64, 256, 256)   # 16 MiB in f32
+
+# [layers]' shapes: a list of input shapes a case
+FULL = {
+    "DepthConcat": [(32, 64, 28, 28), (32, 128, 26, 26), (32, 32, 24, 24)],
+    "Split": [_BIG], "Slice": [_BIG], "Tile": [_BIG], "Transpose": [_BIG], "MoveAxis": [_BIG],
+    "Mul": [_BIG] * 3, "Glue": [(4096, GLUE_SIZE)], "Cast": [(4, 12, 360, 480)],
+    "Pad2D reflect": [_SEGNET_MAPS], "Pad2D constant": [_SEGNET_MAPS],
+    "PRelu": [_SEGNET_MAPS], "PRelu shared": [_SEGNET_MAPS],
+    "Upsample2D nearest": [(4, 256, 90, 120)], "Upsample2D linear": [(4, 256, 90, 120)],
+    "Upsample3D nearest": [(2, 64, 16, 56, 56)], "Upsample3D linear": [(2, 64, 16, 56, 56)],
+    "MaxPool2D-MaxUnpool2D 2x2/2": [_SEGNET_MAPS], "MaxPool2D-MaxUnpool2D 3x3/2": [_SEGNET_MAPS],
+    "KMaxPool": [(64, 300, 100)],
+}
+
+
+def bf16Values(ary):
+    """``ary`` rounded to bf16 and back to f32 (through torch: the port does
+    not import ``ml_dtypes``)."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(ary)).to(torch.bfloat16).float().numpy()
+
+
+def _normals(shapes, seed):
+    """Seeded f32 unit normals of ``shapes``, from torch's CPU generator
+    (several times faster than numpy's at [layers]' sizes)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).numpy() for shape in shapes]
+
+
+def _typed(arrays, dtype):
+    return [bf16Values(ary) for ary in arrays] if dtype == "bf16" else arrays
+
+
+def _relued(name, arrays):
+    return [np.maximum(ary, 0) for ary in arrays] if CASES[name].relu else arrays
+
+
+def inputs(name, shapes, dtype, seed=1):
+    """The case's seeded f32 inputs (relu outputs for ``relu`` cases), bf16
+    values for "bf16"."""
+    return _typed(_relued(name, _normals(shapes, seed)), dtype)
+
+
+def outGrads(shapes, dtype, seed=9):
+    """Seeded f32 output gradients of ``shapes`` (bf16 values for "bf16")."""
+    return _typed(_normals(shapes, seed), dtype)
+
+
+def _paramGrads(mod):
+    """The gradient buffers of the module's variables and of a Glue's
+    inner modules', by name."""
+    grads = {name: var.grad for name, var in mod.vars.items()}
+
+    for inner, child in (getattr(mod, "glueModules", None) or {}).items():
+        grads.update({"%s.%s" % (inner, name): var.grad for name, var in child.vars.items()})
+
+    return grads
+
+
+def run(name, shapes, dtype, device=None, seed=1, feed=None):
+    """The case on the port at ``shapes`` in ``dtype`` ("f32" or "bf16") on
+    ``device`` (the caller's ``Config.device`` by default): {"out": [the
+    outputs], "grad": [the input gradients], "params": {name: gradient}},
+    tensors on the device.  ``feed``, a dict, keeps the host inputs and
+    output gradients of the first run for the next runs of the case, in
+    either type.
+    Clears ``Config.globalEvalMode``: the parameter gradients need their
+    buffers."""
+    import torch
+
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch import containers, modules
+    from puzzlelib_tpu_torch.backend.device import getDevice
+
+    case, ttype = CASES[name], {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    Config.globalEvalMode = False
+    if device is not None:
+        Config.device = device
+    device = getDevice()
+
+    np.random.seed(seed)
+    mod = case.build(modules, containers, dtype)
+    if dtype != "f32" and case.calcMode:
+        mod.calcMode(ttype)
+
+    feed = {} if feed is None else feed
+    if "normals" not in feed:
+        feed["normals"] = _relued(name, _normals(shapes, seed))
+    if ("inputs", dtype) not in feed:
+        feed["inputs", dtype] = _typed(feed["normals"], dtype)
+
+    xs = [torch.from_numpy(ary).to(device, ttype) for ary in feed["inputs", dtype]]
+    out = mod(xs if case.many else xs[0])
+    outs = out if isinstance(out, list) else [out]
+
+    if "gradNormals" not in feed:
+        feed["gradNormals"] = _normals([tuple(o.shape) for o in outs], 9)
+    if ("grads", dtype) not in feed:
+        feed["grads", dtype] = _typed(feed["gradNormals"], dtype)
+
+    grads = [torch.from_numpy(g).to(device, outs[0].dtype) for g in feed["grads", dtype]]
+    mod.backward(grads if isinstance(out, list) else grads[0])
+
+    ingrads = mod.grad if isinstance(mod.grad, list) else [mod.grad]
+    return {"out": list(outs), "grad": list(ingrads), "params": _paramGrads(mod)}
+
+
+def _pairs(got, want):
+    return ([("out %d" % i, g, w) for i, (g, w) in enumerate(zip(got["out"], want["out"]))] +
+            [("grad %d" % i, g, w) for i, (g, w) in enumerate(zip(got["grad"], want["grad"]))] +
+            [(name, got["params"][name], want["params"][name]) for name in sorted(want["params"])])
+
+
+def held(name, got, want, dtype):
+    """[(what, bit-equal, error against max(1, max |want|))] of ``got``
+    against ``want`` (``run``'s results on two devices), and whether the
+    case holds: bit-equal for an ``exact`` case, within BOUNDS otherwise.
+    The comparison runs on ``got``'s device."""
+    import torch
+
+    rows = []
+    for what, g, w in _pairs(got, want):
+        g, w = g.detach(), w.detach().to(g.device)
+        same = tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype and torch.equal(g, w)
+        err = (g.float() - w.float()).abs().max().item() / max(1.0, w.float().abs().max().item())
+        rows.append((what, same, err))
+
+    ok = all(same if CASES[name].exact else err <= BOUNDS[dtype] for _, same, err in rows)
+    return rows, ok

@@ -313,6 +313,15 @@ for costName in ("Abs", "Hinge", "KLDivergence", "L1Hinge", "Multi", "SmoothL1",
     assert hasattr(zooCosts, costName)
 assert zooCosts.SVM(mode="l2")(scores, ints)[1].shape == (6, 4) and costKernels.getAccuracyKernel("calcAccuracy")(ints, ints) == 0
 assert len(zooCosts.Multi().append(zooCosts.Abs()).append(zooCosts.SVM())([scores, scores], [scores, ints])[0]) == 2
+from puzzlelib_tpu_torch.tools import layerslice, segslice
+for layerName in layerslice.CASES:
+    layerShapes = {"DepthConcat": [(2, 3, 5, 5), (2, 2, 3, 3)], "Split": [(64, 3)], "Mul": [(3, 4)] * 2,
+                   "Glue": [(2, layerslice.GLUE_SIZE)], "Upsample3D": [(1, 2, 2, 3, 2)], "Upsample2D": [(1, 2, 3, 4)],
+                   "Pad2D": [(2, 64, 5, 6)], "PRelu": [(2, 64, 5, 6)], "MaxPool2D-MaxUnpool2D": [(2, 64, 5, 6)]}
+    layerslice.run(layerName, layerShapes.get(layerName.split()[0], [(2, 6, 5)]), "bf16", "cpu")
+segRun = segslice.buildRun(segslice.build(torch.bfloat16, encoder=((1, 8), (1, 8))), batch=2)
+segRun.train("fused", *segslice.data(2, shape=(3, 20, 24), block=4))
+assert segRun.serve("hopper", segslice.data(2, shape=(3, 20, 24))[0])[0].shape == (2, 12, 20, 24)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -341,8 +350,10 @@ def testPortRunsWithoutJax():
     ``presets.sentinet`` and ``datasets.utils.validate`` with ``statistics``,
     and through a fused step under each of the six new optimizers of
     ``tools/zooslice.py``, the seven new costs with ``Multi`` and the cost
-    kernels' wrappers) imports no JAX and nothing of the JAX package
-    (``ml_dtypes`` neither)."""
+    kernels' wrappers), the fifteen glue, upsampling and unpooling modules
+    in bf16 (``tools/layerslice.py``) and a narrow SegNet trained fused and
+    served (``tools/segslice.py``) imports no JAX and nothing of the JAX
+    package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
