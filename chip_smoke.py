@@ -306,12 +306,34 @@ it fails:
    within 5e-2; images/s of each route in 5 runs in turns, idle shares, and
    K2, K2-bwd and K3 at each of SegNet's 8 conv shapes against
    channels-last cuDNN, counted for each of the 20 convs;
-34. [layers]: the fifteen glue, upsampling and unpooling modules one by one
-   (``tools/layerslice.py``, at SegNet-sized and 16 MiB shapes), forward
-   and backward on the card and on the CPU on the same inputs, f32 and
-   bf16: the modules that only move data give the CPU's bits, the others
-   fall within the twins' tiers; a second card run gives the same bits.
-   The seconds of phases 26 to 34 and of the whole script are printed.
+34. [alexnet]: AlexNet (``tools/alexnetslice.py``: Caffe's
+   ``bvlc_alexnet``, two ``CrossMapLRN`` and grouped convs) in f32 at
+   batch 128 on 3 x 227 x 227, and [c3d]: C3D (``tools/c3dslice.py``: eight
+   ``Conv3D`` and five ``MaxPool3D``) in bf16 at batch 16 on 3 x 16 x 112 x
+   112 clips, He weights from ``np.random.seed(0)``: 4 requests through
+   ``Calculator`` and 4 steps through ``Trainer`` (``CrossEntropy``,
+   ``MomentumSGD(LEARN_RATE, 0.9)`` in global state) on the hand and
+   library routes and through ``FusedCalculator`` / ``FusedTrainer``: one
+   K1 a request and a step on each Linear (AlexNet: ``gemmF32``; C3D: fc6
+   and fc7 on wgmma, fc8 on WMMA), counted from the net, inside each Linear
+   and by the profiler in fused and eager runs, none on the library route;
+   the first request's scores within 1e-4 (AlexNet, TF32 off) of the
+   library route or within 5e-2 (C3D) of the same weights in f32 on the
+   library route; the hand route's losses within the same bound of the
+   library route's and falling on both; the hand run twice the same bits;
+   fused outputs equal to eager's, the fused first loss eager's and the
+   rest within 5e-2; images (clips) / s of each route in 5 runs in turns,
+   idle shares, and K1 at the three Linears' shapes against cuBLAS;
+35. [layers]: the glue, upsampling and unpooling modules, the LRN family,
+   ``SubtractMean``, ``LCN``, ``SpatialTf``, ``GroupLinear``, ``Penalty``,
+   ``NoiseInjector``, ``Deconv1D`` / ``Deconv3D``, the 3-d pools and the
+   1-d pools' backward one by one (``tools/layerslice.py``, at SegNet-,
+   AlexNet- and C3D-sized and 16 MiB shapes), forward and backward on the
+   card and on the CPU on the same inputs, in each type the module takes:
+   the modules that only move data give the CPU's bits, the others fall
+   within the twins' tiers; a second card run gives the same bits.
+   The seconds of phases 26 to 35, of [layers]' cases by module and of the
+   whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
 keeps the host's launch overhead out (``puzzlelib_tpu_torch/tools/timing.py``).
@@ -340,7 +362,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import alexnetslice as Alex  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.tools import c3dslice as C3D  # noqa: E402
+from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402
 from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
 from puzzlelib_tpu_torch.tools import resnetslice as Res  # noqa: E402
 from puzzlelib_tpu_torch.tools import sequenceslice as Seq  # noqa: E402
@@ -4450,39 +4474,218 @@ def phaseSegNet(torch, card):
     return launches, _convKernels(torch, winograd, tag, kernelConvs, Seg.BATCH, perShape=True)
 
 
+class _NetGemms:
+    """The launch counts of a net whose one hand kernel is K1: ``counted(fn)``
+    runs ``fn`` with every counter at 0 and returns (its result, the K2, K2
+    bwd-data, K3 and K1 counts); ``expect`` fails unless those are ``steps``
+    forwards through each Linear of ``linears`` ({name: (K1 launches, of
+    them on wgmma) a forward}, ``alexnetslice.linearLaunches``), counted
+    from the net and inside each Linear, and no other hand kernel.  Inside
+    ``with``, the per-Linear counts sit in ``fused.COUNTERS``, so that a
+    fused replay adds to them."""
+
+    def __init__(self, tag, matmul, net, linears):
+        self.tag, self.linears = tag, linears
+        self.layers = _LinearLaunches(matmul, net, list(linears))
+
+    def __enter__(self):
+        self.layers.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.__exit__(*exc)
+
+    def counted(self, fn):
+        self.layers.reset()
+        _resetCounters()
+        result = fn()
+        counts = _readCounters()
+        return result, {key: counts[key] for key in _SliceLaunches.KEYS}
+
+    def expect(self, what, counts, steps, backward=0):
+        want = dict.fromkeys(_SliceLaunches.KEYS, 0)
+        want.update(matmul=steps * sum(n for n, _ in self.linears.values()),
+                    matmulWgmma=steps * sum(w for _, w in self.linears.values()))
+        wantTable = {name: (steps * n, steps * w) for name, (n, w) in self.linears.items()}
+
+        print("[%s] %s launches: %s; K1 by Linear (all, on wgmma) %s" % (self.tag, what, counts, self.layers.table()))
+        if counts != want or self.layers.table() != wantTable:
+            fail("[%s] %s: expected launches %s, K1 by Linear %s; got %s, %s" %
+                 (self.tag, what, want, wantTable, counts, self.layers.table()))
+
+
+def phaseClassifier(torch, card, tag, NetSlice, dtype, bound):
+    """AlexNet ([alexnet], ``tools/alexnetslice.py``, f32) or C3D ([c3d],
+    ``tools/c3dslice.py``, bf16) at full width, He weights from
+    ``np.random.seed(0)``.  Serving: 4 requests through ``Calculator``; on
+    the first, the scores on the hand route within ``bound`` relative L2 of
+    the same f32 weights on the library route (TF32 off).  Training:
+    ``CrossEntropy`` and ``MomentumSGD(LEARN_RATE, 0.9)`` in global state, 4
+    steps on the hand and the library routes, the losses within ``bound``
+    of the library's and falling at each step on both; the hand route twice,
+    the same bits.  Fused: ``_fusedAgainstEager`` (the first loss bit-equal
+    to eager's, the rest within 5e-2, twice the same bits, one recording),
+    ``FusedValidator`` equal to ``Validator``, ``FusedCalculator`` equal to
+    ``Calculator``.  Launches, counted from the net
+    (``alexnetslice.linearLaunches``) and inside each Linear: one K1 a
+    request and a step on each of the three Linears, none on the library
+    route; the eager and fused training ones also by the profiler.  Then
+    images/s of each route (5 runs in turns), the idle share of 2 profiled
+    steps and K1 at the three Linears' shapes against cuBLAS.  Returns the
+    launches and the JSON entry's numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    torch.cuda.reset_peak_memory_stats()
+    parts, start = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal start
+        parts[name] = time.perf_counter() - start
+        start = time.perf_counter()
+
+    net = NetSlice.build(torch.float32)
+    images, labels = NetSlice.data(NetSlice.BATCH * NetSlice.STEPS)
+    requests = images[:NetSlice.BATCH * REQUESTS]
+    first = torch.from_numpy(requests[:NetSlice.BATCH]).cuda()
+
+    # the f32 reference of serving: the same weights on the library route
+    # (TF32 off)
+    Config.gemmAlgo = Config.convAlgo = "torch"
+    net.evalMode()
+    ref = net(first).float().clone()
+    net.reset()
+    net.trainMode()
+
+    if dtype != torch.float32:
+        net.calcMode(dtype)
+    run = NetSlice.buildRun(net)
+    linears = Alex.linearLaunches(net, NetSlice.BATCH, torch.cuda.get_device_properties(0).multi_processor_count)
+    part("build and the f32 reference")
+    print("[%s] %s %s at batch %d on %s inputs, %d parameters; K1 a forward on %s (all, on wgmma); "
+          "MomentumSGD(%g, %g), CrossEntropy" %
+          (tag, net.name, str(dtype).split(".")[-1], NetSlice.BATCH, "x".join(map(str, NetSlice.SHAPE)),
+           net.numOfParams(), linears, NetSlice.LEARN_RATE, NetSlice.MOM_RATE))
+
+    launches = {}
+    with _NetGemms(tag, matmul, net, linears) as counter:
+        for algo in ("torch", "hopper", "fused"):
+            run.serve(algo, requests)
+            (out, secs), counts = counter.counted(lambda: run.serve(algo, requests))
+            launches["serving", algo] = counts
+            counter.expect("serving on the %s, %d requests of %d" % (SLICE_ROUTES[algo], REQUESTS, NetSlice.BATCH),
+                           counts, REQUESTS if algo != "torch" else 0)
+            if out.shape != (len(requests), NetSlice.CLASSES) or not np.isfinite(out).all():
+                fail("[%s] outputs of shape %s, finite: %s" % (tag, out.shape, np.isfinite(out).all()))
+            launches["out", algo] = out
+
+        same = np.array_equal(launches["out", "fused"], launches["out", "hopper"])
+        handRel = _relL2(torch.from_numpy(launches["out", "hopper"][:NetSlice.BATCH]).cuda(), ref)
+        libRel = _relL2(torch.from_numpy(launches["out", "torch"][:NetSlice.BATCH]).cuda(), ref)
+        print("[%s] serving %d images: the first request's scores against the same f32 weights on the library "
+              "route, relative L2: hand %.3e, library %.3e (bound %.0e); FusedCalculator bit-equal to Calculator %s; "
+              "recordings %d" % (tag, len(requests), handRel, libRel, bound, same, run.fusedCalculator._program.captures))
+        if not (handRel <= bound and same and run.fusedCalculator._program.captures == 1):
+            fail("[%s] the scores %.3e from the f32 library run, fused equal to eager %s" % (tag, handRel, same))
+        for key in [key for key in launches if key[0] == "out"]:
+            del launches[key]
+        del ref
+        part("serving")
+
+        # eager training, hand and library routes
+        for algo in ("torch", "hopper"):
+            run.train(algo, images, labels)
+
+        losses, libLosses = [], []
+        secs, launches["training"] = counter.counted(lambda: run.train("hopper", images, labels, losses))
+        counter.expect("training, %d steps of %d" % (NetSlice.STEPS, NetSlice.BATCH), launches["training"], NetSlice.STEPS)
+        print("[%s] training: %d images in %d steps, %.4f s" % (tag, len(images), NetSlice.STEPS, secs))
+        _sameBitsAgain(tag, torch, run, "hopper", images, labels, losses, "eager hand route")
+
+        run.train("torch", images, labels, libLosses)
+        _lossesAgainst(tag, losses, libLosses, bound)
+        for route, seen in (("hand", losses), ("library", libLosses)):
+            if not all(later < earlier for earlier, later in zip(seen, seen[1:])):
+                fail("[%s] the %s route's loss did not fall at every step at a learning rate of %g: %s" %
+                     (tag, route, NetSlice.LEARN_RATE, seen))
+
+        part("training")
+
+        # the fused forms
+        _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, requests,
+                           labels[:len(requests)])
+        part("fused")
+
+        # rates and idle shares
+        _routeRates(tag, card, {"training": (len(images), lambda algo: run.train(algo, images, labels)),
+                                "serving": (len(requests), lambda algo: run.serve(algo, requests)[1])})
+        part("rates")
+        _idleShares(tag, run, images[:2 * NetSlice.BATCH], labels[:2 * NetSlice.BATCH])
+        part("idle shares")
+        print("[%s] peak device memory of the phase %.2f GB" % (tag, torch.cuda.max_memory_allocated() / 1e9))
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    shapes = [(name, mod.W.shape[0], mod.W.shape[1]) for name in linears for mod in net.modules()
+              if mod.name == name]
+    del run, net
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    dtName = "f32" if dtype == torch.float32 else "bf16"
+    for name, k, n in shapes:
+        _addCase(main, binding, _gemmCase(torch, matmul, gen, "%s-%s" % (tag, name), dtName, NetSlice.BATCH, k, n))
+    main["bound_by"] = "/".join(sorted(binding))
+    del main["wmma_ms"]
+    part("K1 against cuBLAS")
+    print("[time] [%s] by part: %s" % (tag, ", ".join("%s %.1f s" % item for item in parts.items())))
+    return launches, main
+
+
 def phaseLayers(torch):
-    """The fifteen glue, upsampling and unpooling modules one by one
-    (``tools/layerslice.py``) at [layers]' shapes, in f32 and bf16: each
-    forward and backward on the card and on the CPU on the same inputs,
-    then once more on the card.  A module that only moves data must give
-    the CPU's bits, the others the twins' tiers (1e-5 of max(1, max |CPU|)
-    in f32, 5e-2 in bf16); the second card run the first's bits."""
+    """The modules of ``tools/layerslice.py`` one by one at [layers]' shapes,
+    in each type the module takes: each forward and backward on the card and
+    on the CPU on the same inputs, then once more on the card.  A module
+    that only moves data must give the CPU's bits, the others the twins'
+    tiers (1e-5 of max(1, max |CPU|) in f32, 5e-2 in bf16); the second card
+    run the first's bits.  Prints the seconds of the cases by module."""
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.tools import layerslice as Layers
 
     tag = "layers"
+    seconds, feed, feedKey = {}, None, None
     for name, case in Layers.CASES.items():
-        shapes, feed = Layers.FULL[name], {}
-        for dtype in ("f32", "bf16"):
+        # cases of the same inputs sit side by side in CASES: they share
+        # their host inputs and output gradients
+        shapes = Layers.FULL[name]
+        if Layers.feedKey(name, shapes) != feedKey:
+            feed, feedKey = {}, Layers.feedKey(name, shapes)
+        for dtype in case.dtypes:
             start = time.perf_counter()
             cpu = Layers.run(name, shapes, dtype, "cpu", feed=feed)
             card = Layers.run(name, shapes, dtype, "cuda", feed=feed)
             rows, ok = Layers.held(name, card, cpu, dtype)
             again = Layers.run(name, shapes, dtype, "cuda", feed=feed)
             repeats = all(same for _, same, _ in Layers.held(name, again, card, dtype)[0])
+            secs = time.perf_counter() - start
+            module = name.split()[0]
+            seconds[module] = seconds.get(module, 0.0) + secs
 
             print("[%s] %-28s %-4s at %s: %s against the CPU: %s; again the same bits %s; %.1f s" %
                   (tag, name, dtype, " ".join("x".join(map(str, shape)) for shape in shapes),
                    "bit-equal" if case.exact else "within %.0e" % Layers.BOUNDS[dtype],
                    ", ".join("%s %s %.2e" % (what, "equal" if same else "differs", err) for what, same, err in rows),
-                   repeats, time.perf_counter() - start))
+                   repeats, secs))
             if not ok or not repeats:
                 fail("[%s] %s in %s: card against CPU %s, repeat %s" % (tag, name, dtype, rows, repeats))
 
             del cpu, card, again
-        del feed
         torch.cuda.empty_cache()
 
+    print("[time] [layers] by module: %s" % ", ".join("%s %.1f s" % item for item in seconds.items()))
     Config.device = "cuda"
 
 
@@ -4560,6 +4763,14 @@ def main():
     segnet, segnetKernels = phaseSegNet(torch, card)
     torch.cuda.empty_cache()
     print("[time] [segnet] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    alexnet, alexnetGemm = phaseClassifier(torch, card, "alexnet", Alex, torch.float32, CNN_LOSS_BOUND)
+    torch.cuda.empty_cache()
+    print("[time] [alexnet] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    c3d, c3dGemm = phaseClassifier(torch, card, "c3d", C3D, torch.bfloat16, SLICE_BOUND)
+    torch.cuda.empty_cache()
+    print("[time] [c3d] %.1f s" % (time.perf_counter() - phaseStart))
     phaseStart = time.perf_counter()
     phaseLayers(torch)
     torch.cuda.empty_cache()
@@ -4704,6 +4915,12 @@ def main():
              source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
              launches=segnet["training"]["winogradFG"], fused_launches=segnet["fused"]["winogradFG"],
              **segnetKernels["K3"]),
+        *[dict(name="K1 tiled GEMM at %s's fc6-fc8 (%s)" % (net, dtName), route="cuda", source=source % "matmul",
+               replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=seen["training"]["matmul"],
+               launches_wgmma=seen["training"]["matmulWgmma"], serving_launches=seen["serving", "hopper"]["matmul"],
+               fused_launches=seen["fused"]["matmul"], fused_serving_launches=seen["serving", "fused"]["matmul"],
+               **gemms) for net, dtName, seen, gemms in (("AlexNet", "f32", alexnet, alexnetGemm),
+                                                         ("C3D", "bf16", c3d, c3dGemm))],
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -4791,6 +5008,11 @@ def main():
           "timed on operands of its own at the extent the forward gives it, on channels-last operands, library "
           "cuDNN on the same, medians of 5 alternating turns, launches [segnet]'s 4 training steps of 4 "
           "(serving_launches its 4 requests of 4, fused_ the FusedTrainer's and FusedCalculator's); "
+          "K1 at AlexNet's fc6-fc8: (128, 9216) x (9216, 4096), (128, 4096) x (4096, 4096) and (128, 4096) x "
+          "(4096, 1000) f32 together (gemmF32), launches [alexnet]'s 4 training steps of 128 (serving_launches its 4 "
+          "requests of 128, fused_ the FusedTrainer's and FusedCalculator's); K1 at C3D's fc6-fc8: (16, 8192) x "
+          "(8192, 4096), (16, 4096) x (4096, 4096) and (16, 4096) x (4096, 487) bf16 together, launches [c3d]'s 4 "
+          "training steps of 16 (launches_wgmma those on wgmma: fc8 takes WMMA); "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ reference's static conditions for its Pallas GEMM: both operands 2-D, no
 transposes, alpha 1 and no beta accumulation, while ``Config.gemmAlgo`` is
 "hopper".  Every other product goes to ``ops.blas.gemm`` (``torch.matmul``),
 the counterpart of the reference's XLA dot: so do the transposed products
-and the ``beta`` accumulation of ``Linear``'s backward, as in the reference.
+and the ``beta`` accumulation of ``Linear``'s backward, as in the reference;
+so does ``mulTensorBatch``, the grouped product (``torch.matmul``), which
+the reference computes outside its Pallas kernel too.
 A result with ``out`` is written into it in place, so it reaches gradient
 buffers that are views of an optimizer's flat buffer.
 """
@@ -47,6 +49,12 @@ def sumOnMatrix(A, out=None, cols=True, alpha=1.0, beta=0.0):
     result = _ops.matsum(A, 0 if cols else 1, out if hasOut else None, alpha, beta)
 
     return _write(result, out)
+
+
+def mulTensorBatch(A, B, formatA="bgp", formatB="bgp", formatOut="bgp", transpA=False, transpB=False):
+    """The product of each group's matrices (``ops.blas.gemmBatched``)."""
+    return _ops.gemmBatched(A, B, formatA=formatA, formatB=formatB, formatOut=formatOut, transpA=transpA,
+                            transpB=transpB)
 
 
 def toVectorAddVector(y, x, alpha=1.0):

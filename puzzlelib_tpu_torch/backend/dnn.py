@@ -1,6 +1,6 @@
 """DNN primitive dispatch (counterpart of ``puzzlelib_tpu/backend/dnn.py``):
-the conv, deconv, pool, softmax, batch-norm and instance-norm slots, forward
-and backward, ``convNdbenchmark``, which times a conv's or a deconv's three
+the conv, deconv, pool, softmax, batch-norm, instance-norm, LRN and
+spatial-transformer slots, forward and backward, ``convNdbenchmark``, which times a conv's or a deconv's three
 directions, and the RNN entries over ``backend/rnn.py``.  The RNN's backward
 is one entry, ``backwardRnn``, which gives the input's and the weights'
 gradients of one recompute together, where the reference has two entries
@@ -21,6 +21,7 @@ from puzzlelib_tpu_torch.ops import conv as _conv
 from puzzlelib_tpu_torch.ops import norm as _norm
 from puzzlelib_tpu_torch.ops import pool as _pool
 from puzzlelib_tpu_torch.ops import softmax as _softmax
+from puzzlelib_tpu_torch.ops import spatialtf as _spatialtf
 
 
 class ConvFwdAlgo(Enum):
@@ -256,6 +257,51 @@ def instanceNorm2d(data, scale, bias, epsilon=1e-5):
 
 def instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=True):
     return _norm.instanceNorm2dBackward(grad, data, extscale, savemean, saveinvvar, epsilon, affine=affine)
+
+
+# -- LRN -----------------------------------------------------------------------
+# The workspace is the denominator d (f32) that the backward reads again; in
+# test mode there is none, as in the reference.
+
+def mapLRN(data, means, N, alpha, beta, K, test=False):
+    """(output, workspace): the LRN over each map's N x N windows, or, with
+    ``means``, the divisive normalization of data - means."""
+    if means is None:
+        outdata, denom = _norm.mapLRN(data, int(N), alpha, beta, K)
+    else:
+        outdata, denom = _norm.divNorm(data, means, int(N), alpha, beta, K)
+
+    return outdata, None if test else denom
+
+
+def mapLRNBackward(data, outdata, grad, means, workspace, N, alpha, beta, K):
+    """The data gradient; with ``means``, (data gradient, means gradient)."""
+    if means is None:
+        return _norm.mapLRNBackward(data, grad, workspace, int(N), alpha, beta)
+
+    return _norm.divNormBackward(data, means, grad, workspace, int(N), alpha, beta)
+
+
+def crossMapLRN(data, N, alpha, beta, K, test=False):
+    outdata, denom = _norm.crossMapLRN(data, int(N), alpha, beta, K)
+    return outdata, None if test else denom
+
+
+def crossMapLRNBackward(data, outdata, grad, workspace, N, alpha, beta, K):
+    return _norm.crossMapLRNBackward(data, grad, workspace, int(N), alpha, beta)
+
+
+# -- spatial transformer ---------------------------------------------------------
+
+def spatialTf(data, transform, outshape, getGrid):
+    """The sampled output, and with ``getGrid`` its grid as well."""
+    outdata, grid = _spatialtf.spatialTf(data, transform, outshape)
+    return (outdata, grid) if getGrid else outdata
+
+
+def spatialTfBackward(grad, data, grid):
+    """(data gradient, transform gradient)."""
+    return _spatialtf.spatialTfBackward(grad, data, grid)
 
 
 class RNNMode(Enum):

@@ -17,11 +17,13 @@ call, the counterpart of the reference's ``lax`` convs:
   its gradient has one column: 608 ms a call against 0.56 on an H100);
 - bwd-filter: ``_filterGrad`` sends what ``winograd.filterGradApplicable``
   takes to K3 (``winograd.filterGrad``), the rest to the library's
-  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``).  A 1-d one, and one
-  whose output is narrower than its kernel (a 1-d conv in effect), takes
-  cuDNN's deterministic algorithms, as does the transposed conv of such a
-  gradient, so that each repeats bit for bit: the heuristic's picks for
-  them add with atomics.
+  bwd-filter (``torch.nn.grad.conv{1,2,3}d_weight``).  A 1-d one, an f32
+  one, and one whose output is narrower than its kernel (a 1-d conv in
+  effect), takes cuDNN's deterministic algorithms, as does the transposed
+  conv of such a gradient and of any f32 gradient, so that each repeats
+  bit for bit: the heuristic's picks for them add with atomics (AlexNet's
+  f32 convs' bwd-data at every conv, and conv1's bwd-filter, gave other
+  bits at each call on an H100; its bf16 and 3-d convs repeat).
 
 The deconvolution (transposed conv, cuDNN-style: its forward is the conv's
 bwd-data) reuses the three: ``deconvNd`` is ``_transposedConv`` with
@@ -105,16 +107,18 @@ def _cudnnDeterministic():
 
 def _filterGrad(x, grad, wshape, stride, pad, dilation, groups):
     """dW (outmaps, inmaps // groups, *size) of the forward conv.  A 1-d
-    conv's library bwd-filter, and that of a conv whose output is narrower
-    than its kernel, takes cuDNN's deterministic algorithms: the ones its
-    heuristic picks for the IMDB CNN's and SentiNet's f32 convs add with
-    atomics and gave other bits at each call on an H100."""
+    conv's library bwd-filter, an f32 one, and that of a conv whose output
+    is narrower than its kernel, takes cuDNN's deterministic algorithms: the
+    ones its heuristic picks for the IMDB CNN's and SentiNet's f32 convs and
+    AlexNet's conv1 add with atomics and gave other bits at each call on an
+    H100."""
     if _onHopper(x, grad) and winograd.filterGradApplicable(tuple(x.shape), tuple(grad.shape), stride, pad,
                                                             dilation, groups):
         return winograd.filterGrad(x, grad, pad)
 
     nd = x.dim() - 2
-    deterministic = nd == 1 or _narrowerThanKernel(tuple(grad.shape[2:]), wshape[2:], dilation)
+    deterministic = (nd == 1 or x.dtype == torch.float32
+                     or _narrowerThanKernel(tuple(grad.shape[2:]), wshape[2:], dilation))
     with _cudnnDeterministic() if deterministic else contextlib.nullcontext():
         return _CONV_WEIGHT[nd](x, wshape, grad, stride=stride, padding=pad, dilation=dilation, groups=groups)
 
@@ -154,7 +158,9 @@ def _transposedConv(y, w, stride, pad, dilation, adj, groups):
             wT = torch.flip(w, tuple(range(2, 2 + nd))).transpose(0, 1)
             return _CONV[nd](y, wT, padding=padT, dilation=dilation)
 
-    with _cudnnDeterministic() if narrow else contextlib.nullcontext():
+    # the heuristic's bwd-data algorithms add with atomics for every f32 conv
+    # of AlexNet that reaches here (strided or grouped) on an H100
+    with _cudnnDeterministic() if narrow or y.dtype == torch.float32 else contextlib.nullcontext():
         return _CONV_TRANSPOSE[nd](y, w, stride=stride, padding=pad, output_padding=adj, groups=groups,
                                    dilation=dilation)
 

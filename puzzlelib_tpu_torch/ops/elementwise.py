@@ -1,7 +1,7 @@
 """Elementwise ops (counterpart of ``puzzlelib_tpu/ops/elementwise.py``):
 the seven activations (sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip)
 and their derivatives taken from the output, gelu and its derivative, dropout, the affine
-``linear``, the vector updates, the optimizer hooks' weight decay and
+``linear``, the L1 and L2 penalties' gradients, the vector updates, the optimizer hooks' weight decay and
 gradient clipping, the momentum-SGD step and the Adam step.
 
 The reference's ops return new arrays; the update ops here write in place,
@@ -119,6 +119,18 @@ def linear(x, a, b):
     """a * x + b, with a and b rounded to x's type first, as the reference
     rounds them."""
     return x * _scalar(a, x.dtype) + _scalar(b, x.dtype)
+
+
+def l1penalty(grad, data, a):
+    """grad - a * sign(data), with sign(0) = +1, as the reference's
+    ``where(data >= 0, 1, -1)``; a rounded to data's type first."""
+    one = torch.ones((), dtype=data.dtype, device=data.device)
+    return grad - _scalar(a, data.dtype) * torch.where(data >= 0, one, -one)
+
+
+def l2penalty(grad, data, a):
+    """grad - a * data, a rounded to data's type first."""
+    return grad - _scalar(a, data.dtype) * data
 
 
 def _scalar(value, dtype):

@@ -18,11 +18,23 @@ are torch ops, computed in f32 as the reference computes them:
   factor's value at each replay.
 - instance norm: batch norm of the (1, N * C, H, W) view with the scale and
   bias tiled N times, as the reference builds it.
-
-LRN and ``divNorm`` are not ported yet.
+- local response norms: y = x / d^beta with d = K + alpha / n * S(x^2),
+  where S sums a window of N cells around each cell, across the maps
+  (``crossMapLRN``, n = N) or over the spatial axes (``mapLRN``, n =
+  N^(dims)); ``divNorm`` normalizes u = x - means so.  A window reaches
+  N // 2 cells back and N - 1 - N // 2 forward, zeros outside, as the
+  reference pads it (asymmetric for an even N).  The sums run in f32 as
+  N shifted adds an axis.  The backward is written in closed form, where
+  the reference takes the VJP:
+  dx_j = g_j d_j^-beta - (2 alpha beta / n) x_j S'(g x d^(-beta-1))_j,
+  with S' the sum over the mirrored window (the cells whose windows hold
+  j).  It is elementwise work and shifted adds, so it gives the same bits
+  at each call on the card, where ``local_response_norm``'s backward runs
+  ``avg_pool3d``'s, which adds with atomics.
 """
 
 import torch
+import torch.nn.functional as F
 
 
 MODE_SPATIAL = "spatial"
@@ -147,3 +159,81 @@ def instanceNorm2dBackward(grad, x, extscale, savemean, saveinvvar, epsilon, aff
         return dx
 
     return dx, dscale.reshape(n, c).sum(dim=0), dbias.reshape(n, c).sum(dim=0)
+
+
+# -- local response norms -----------------------------------------------------
+
+def _windowSum(t, N, dims, mirrored=False):
+    """Each cell of t summed with its window's cells along each axis of
+    ``dims``: N // 2 cells back and N - 1 - N // 2 forward (``mirrored``:
+    the other way round), zeros outside; N shifted adds an axis, in t's
+    type."""
+    back = N // 2
+    back, forward = (N - 1 - back, back) if mirrored else (back, N - 1 - back)
+
+    for dim in dims:
+        n = t.shape[dim]
+        padded = F.pad(t, [0, 0] * (t.dim() - dim - 1) + [back, forward])
+
+        acc = padded.narrow(dim, 0, n)
+        for shift in range(1, N):
+            acc = acc + padded.narrow(dim, shift, n)
+        t = acc
+
+    return t
+
+
+def _lrnDims(x, crossMap):
+    return (1, ) if crossMap else tuple(range(2, x.dim()))
+
+
+def _lrnForward(u, N, alpha, beta, K, crossMap):
+    """(u / d^beta in f32, d in f32) of the f32 tensor u."""
+    dims = _lrnDims(u, crossMap)
+    denom = K + alpha / N ** len(dims) * _windowSum(u * u, N, dims)
+    return u / denom ** beta, denom
+
+
+def _lrnBackward(u, grad, denom, N, alpha, beta, crossMap):
+    """The gradient in u (f32) of ``_lrnForward``'s output, from the saved d."""
+    dims = _lrnDims(u, crossMap)
+    g = grad.float()
+
+    scaled = denom ** -beta
+    spread = _windowSum(g * u * scaled / denom, N, dims, mirrored=True)
+    return g * scaled - (2.0 * alpha * beta / N ** len(dims)) * u * spread
+
+
+def crossMapLRN(x, N, alpha, beta, K):
+    """(y in x's type, d in f32): the LRN across the maps of x (N, C, ...)."""
+    out, denom = _lrnForward(x.float(), N, alpha, beta, K, crossMap=True)
+    return out.to(x.dtype), denom
+
+
+def crossMapLRNBackward(x, grad, denom, N, alpha, beta):
+    return _lrnBackward(x.float(), grad, denom, N, alpha, beta, crossMap=True).to(grad.dtype)
+
+
+def mapLRN(x, N, alpha, beta, K):
+    """(y in x's type, d in f32): the LRN over an N x N (x N) window of each
+    map of x."""
+    out, denom = _lrnForward(x.float(), N, alpha, beta, K, crossMap=False)
+    return out.to(x.dtype), denom
+
+
+def mapLRNBackward(x, grad, denom, N, alpha, beta):
+    return _lrnBackward(x.float(), grad, denom, N, alpha, beta, crossMap=False).to(grad.dtype)
+
+
+def divNorm(x, means, N, alpha, beta, K):
+    """(y in x's type, d in f32): ``mapLRN`` of u = x - means (local
+    contrast normalization's divisive step, cuDNN's DivisiveNormalization
+    with precomputed means)."""
+    out, denom = _lrnForward(x.float() - means.float(), N, alpha, beta, K, crossMap=False)
+    return out.to(x.dtype), denom
+
+
+def divNormBackward(x, means, grad, denom, N, alpha, beta):
+    """(dx, dmeans) of ``divNorm``: the gradient in u and its negative."""
+    du = _lrnBackward(x.float() - means.float(), grad, denom, N, alpha, beta, crossMap=False)
+    return du.to(grad.dtype), (-du).to(grad.dtype)

@@ -1,5 +1,7 @@
-"""The fifteen glue, upsampling and unpooling layers one by one, as
-``chip_smoke.py`` [layers] and the tests run them.
+"""The glue, upsampling and unpooling layers, the LRN family, the spatial
+transformer, ``GroupLinear``, the noise and penalty layers and the 1-d and
+3-d modules one by one, as ``chip_smoke.py`` [layers] and the tests run
+them.
 
 Each case of ``CASES`` builds a module of the port (or of any package with
 the same module API: the tests build the JAX package's from the same
@@ -13,7 +15,15 @@ tiers, 1e-5 of max(1, max |CPU|) in f32 and 5e-2 in bf16.
 
 The pool and k-max cases read relu outputs, so that whole windows and
 lines tie at 0.  In bf16 the inputs are rounded to bf16 first, so that
-both runs (and an f32 reference) see the same values.
+both runs (and an f32 reference) see the same values.  A case runs in the
+types its module takes (``dtypes``: the LRN family, ``SubtractMean``,
+``LCN``, ``SpatialTf``, ``GroupLinear`` and ``Penalty`` take f32 only, as
+in the JAX package).  The LRN cases take alpha = 1, so that the window's
+term weighs in the gradient.  ``SpatialTf``'s transforms are the identity
+plus small seeded shifts for the first half of the batch and large ones,
+which reach outside the image, for the second.  ``NoiseInjector`` draws
+from a seeded numpy stream (``SeededRng``), the same on every device and in
+both packages.
 """
 
 import numpy as np
@@ -28,10 +38,13 @@ class Case:
     """``build(modules, containers, dtype)`` -> the module; ``relu``: the
     inputs are relu outputs; ``many``: the module takes a list; ``exact``:
     the module only moves data; ``calcMode``: the module takes the net's
-    type (a ``Cast`` has its own)."""
+    type (a ``Cast`` has its own); ``dtypes``: the types it takes;
+    ``shape(arrays)``: the inputs made from the seeded normals."""
 
-    def __init__(self, build, relu=False, many=False, exact=True, calcMode=True):
+    def __init__(self, build, relu=False, many=False, exact=True, calcMode=True, dtypes=("f32", "bf16"),
+                 shape=None):
         self.build, self.relu, self.many, self.exact, self.calcMode = build, relu, many, exact, calcMode
+        self.dtypes, self.shape = dtypes, shape
 
 
 def _poolUnpool(M, C, size, stride):
@@ -56,6 +69,57 @@ def _cast(M, dtype):
     return M.Cast("float32", "bfloat16") if dtype == "f32" else M.Cast("bfloat16", "float32")
 
 
+class SeededRng:
+    """A stand-in for either package's ``rng``: its fills write draws of a
+    numpy stream seeded by ``seed`` and the call count, uniform over [a, b)
+    or normal, in f32, into a torch tensor or a JAX package's array."""
+
+    def __init__(self, seed=7):
+        self.seed, self.calls = seed, 0
+
+    def _draws(self, shape, kind, p, q):
+        self.calls += 1
+        rng = np.random.RandomState([self.seed, self.calls])
+        draws = rng.uniform(p, q, size=shape) if kind == "uniform" else rng.normal(p, q, size=shape)
+        return draws.astype(np.float32)
+
+    @staticmethod
+    def _write(data, ary):
+        import torch
+
+        if isinstance(data, torch.Tensor):
+            data.copy_(torch.from_numpy(ary))
+        else:
+            data.set(ary)
+
+    def fillUniform(self, data, minval=0.0, maxval=1.0):
+        self._write(data, self._draws(tuple(data.shape), "uniform", minval, maxval))
+
+    def fillNormal(self, data, mean=0.0, sigma=1.0):
+        self._write(data, self._draws(tuple(data.shape), "normal", mean, sigma))
+
+
+def _transforms(arrays):
+    """(images, transforms): the identity plus 0.05 times the normals for
+    the first half of the batch, plus 0.6 times them (reaching outside the
+    image) for the second."""
+    images, noise = arrays
+    scale = np.where(np.arange(len(noise)) < len(noise) // 2, 0.05, 0.6).astype(np.float32)[:, None, None]
+    return [images, (np.array([[1, 0, 0], [0, 1, 0]], np.float32) + scale * noise[:, :2, :3]).astype(np.float32)]
+
+
+def _groupLinear(M, batchDim, wmode, groups=None, size=None):
+    groups, size = groups or GROUPS, size or GROUP_SIZE
+    return M.GroupLinear(groups, size, size, wmode=wmode, batchDim=batchDim, initscheme="he")
+
+
+def _lrn(M, cls, N, K):
+    return getattr(M, cls)(N=N, alpha=1.0, beta=0.75, K=K)
+
+
+F32 = ("f32", )
+GROUPS, GROUP_SIZE = 16, 512
+
 CASES = {
     "DepthConcat": Case(lambda M, C, dt: M.DepthConcat(), many=True),
     "Split": Case(lambda M, C, dt: M.Split(axis=0, sections=(16, 32, 16))),
@@ -77,10 +141,47 @@ CASES = {
     "MaxPool2D-MaxUnpool2D 2x2/2": Case(lambda M, C, dt: _poolUnpool(M, C, 2, 2), relu=True),
     "MaxPool2D-MaxUnpool2D 3x3/2": Case(lambda M, C, dt: _poolUnpool(M, C, 3, 2), relu=True),
     "KMaxPool": Case(lambda M, C, dt: M.KMaxPool(topk=5, axis=2), relu=True),
+    "CrossMapLRN N=5": Case(lambda M, C, dt: _lrn(M, "CrossMapLRN", 5, 2.0), exact=False, dtypes=F32),
+    "CrossMapLRN N=4": Case(lambda M, C, dt: _lrn(M, "CrossMapLRN", 4, 1.0), exact=False, dtypes=F32),
+    "MapLRN": Case(lambda M, C, dt: _lrn(M, "MapLRN", 5, 2.0), exact=False, dtypes=F32),
+    "SubtractMean": Case(lambda M, C, dt: M.SubtractMean(7), exact=False, dtypes=F32),
+    "SubtractMean no pad": Case(lambda M, C, dt: M.SubtractMean(7, includePad=False), exact=False, dtypes=F32),
+    "LCN": Case(lambda M, C, dt: M.LCN(N=7, alpha=1.0), exact=False, dtypes=F32),
+    "LCN no pad": Case(lambda M, C, dt: M.LCN(N=7, alpha=1.0, includePad=False), exact=False, dtypes=F32),
+    "SpatialTf": Case(lambda M, C, dt: M.SpatialTf(), many=True, exact=False, dtypes=F32, shape=_transforms),
+    "SpatialTf 112": Case(lambda M, C, dt: M.SpatialTf(shape=(3, 112, 112)), many=True, exact=False, dtypes=F32,
+                          shape=_transforms),
+    "GroupLinear batchDim 0": Case(lambda M, C, dt: _groupLinear(M, 0, "full"), exact=False, dtypes=F32),
+    "GroupLinear batchDim 1": Case(lambda M, C, dt: _groupLinear(M, 1, "full"), exact=False, dtypes=F32),
+    "GroupLinear wmode one": Case(lambda M, C, dt: _groupLinear(M, 0, "one"), exact=False, dtypes=F32),
+    "GroupLinear wmode one batchDim 1": Case(lambda M, C, dt: _groupLinear(M, 1, "one"), exact=False, dtypes=F32),
+    "Penalty l1": Case(lambda M, C, dt: M.Penalty("l1", weight=0.5), relu=True, exact=False, dtypes=F32),
+    "Penalty l2": Case(lambda M, C, dt: M.Penalty("l2", weight=0.5), relu=True, exact=False, dtypes=F32),
+    "NoiseInjector add uniform": Case(lambda M, C, dt: M.NoiseInjector("add", "uniform", (-0.5, 0.5),
+                                                                         rng=SeededRng()), exact=False),
+    "NoiseInjector add normal": Case(lambda M, C, dt: M.NoiseInjector("add", "gaussian", (0.0, 0.5),
+                                                                        rng=SeededRng()), exact=False),
+    "NoiseInjector mul uniform": Case(lambda M, C, dt: M.NoiseInjector("mul", "uniform", (0.5, 1.5),
+                                                                         rng=SeededRng()), exact=False),
+    "NoiseInjector mul normal": Case(lambda M, C, dt: M.NoiseInjector("mul", "gaussian", (1.0, 0.1),
+                                                                        rng=SeededRng()), exact=False),
+    "Deconv1D": Case(lambda M, C, dt: M.Deconv1D(256, 128, 4, stride=2, pad=1, initscheme="he"), exact=False),
+    "Deconv3D": Case(lambda M, C, dt: M.Deconv3D(256, 128, 3, stride=2, pad=1, postpad=1, initscheme="he"),
+                     exact=False),
+    "MaxPool3D 2x2x2/2": Case(lambda M, C, dt: M.MaxPool3D(2, 2), relu=True),
+    "MaxPool3D 3x3x3/2": Case(lambda M, C, dt: M.MaxPool3D(3, 2, pad=1), relu=True, exact=False),
+    "MaxPool3D C3D pool5": Case(lambda M, C, dt: M.MaxPool3D(2, 2, pad=(0, 1, 1)), relu=True),
+    "AvgPool3D 2x2x2/2": Case(lambda M, C, dt: M.AvgPool3D(2, 2), exact=False),
+    "AvgPool3D 3x3x3/2": Case(lambda M, C, dt: M.AvgPool3D(3, 2, pad=1, includePad=False), exact=False),
+    "MaxPool1D 5/2": Case(lambda M, C, dt: M.MaxPool1D(5, 2, pad=2), relu=True, exact=False),
+    "AvgPool1D 5/2": Case(lambda M, C, dt: M.AvgPool1D(5, 2, pad=2, includePad=False), exact=False),
 }
 
 _SEGNET_MAPS = (4, 64, 360, 480)
 _BIG = (64, 256, 256)   # 16 MiB in f32
+_ALEXNET_MAPS = (128, 96, 55, 55)   # AlexNet's conv1 output at batch 128
+_IMAGES = (32, 3, 224, 224)
+_CLIPS = (16, 64, 16, 112, 112)   # C3D's conv1a output at batch 16
 
 # [layers]' shapes: a list of input shapes a case
 FULL = {
@@ -93,6 +194,19 @@ FULL = {
     "Upsample3D nearest": [(2, 64, 16, 56, 56)], "Upsample3D linear": [(2, 64, 16, 56, 56)],
     "MaxPool2D-MaxUnpool2D 2x2/2": [_SEGNET_MAPS], "MaxPool2D-MaxUnpool2D 3x3/2": [_SEGNET_MAPS],
     "KMaxPool": [(64, 300, 100)],
+    "CrossMapLRN N=5": [_ALEXNET_MAPS], "CrossMapLRN N=4": [_ALEXNET_MAPS], "MapLRN": [_ALEXNET_MAPS],
+    "SubtractMean": [_IMAGES], "SubtractMean no pad": [_IMAGES], "LCN": [_IMAGES], "LCN no pad": [_IMAGES],
+    "SpatialTf": [(64, 3, 224, 224), (64, 2, 3)], "SpatialTf 112": [(64, 3, 224, 224), (64, 2, 3)],
+    "GroupLinear batchDim 0": [(64, GROUPS, GROUP_SIZE)], "GroupLinear batchDim 1": [(GROUPS, 64, GROUP_SIZE)],
+    "GroupLinear wmode one": [(64, GROUPS, GROUP_SIZE)],
+    "GroupLinear wmode one batchDim 1": [(GROUPS, 64, GROUP_SIZE)],
+    "Penalty l1": [(128, 4096)], "Penalty l2": [(128, 4096)],
+    "NoiseInjector add uniform": [(128, 4096)], "NoiseInjector add normal": [(128, 4096)],
+    "NoiseInjector mul uniform": [(128, 4096)], "NoiseInjector mul normal": [(128, 4096)],
+    "Deconv1D": [(16, 256, 800)], "Deconv3D": [(4, 256, 8, 28, 28)],
+    "MaxPool3D 2x2x2/2": [_CLIPS], "MaxPool3D 3x3x3/2": [_CLIPS], "MaxPool3D C3D pool5": [(16, 512, 2, 7, 7)],
+    "AvgPool3D 2x2x2/2": [_CLIPS], "AvgPool3D 3x3x3/2": [_CLIPS],
+    "MaxPool1D 5/2": [(8, 250, 800)], "AvgPool1D 5/2": [(8, 250, 800)],
 }
 
 
@@ -118,7 +232,9 @@ def _typed(arrays, dtype):
 
 
 def _relued(name, arrays):
-    return [np.maximum(ary, 0) for ary in arrays] if CASES[name].relu else arrays
+    case = CASES[name]
+    arrays = [np.maximum(ary, 0) for ary in arrays] if case.relu else arrays
+    return case.shape(arrays) if case.shape is not None else arrays
 
 
 def inputs(name, shapes, dtype, seed=1):
@@ -149,7 +265,8 @@ def run(name, shapes, dtype, device=None, seed=1, feed=None):
     outputs], "grad": [the input gradients], "params": {name: gradient}},
     tensors on the device.  ``feed``, a dict, keeps the host inputs and
     output gradients of the first run for the next runs of the case, in
-    either type.
+    either type, and for other cases of the same inputs (``feedKey``), the
+    output gradients by their shapes.
     Clears ``Config.globalEvalMode``: the parameter gradients need their
     buffers."""
     import torch
@@ -179,16 +296,24 @@ def run(name, shapes, dtype, device=None, seed=1, feed=None):
     out = mod(xs if case.many else xs[0])
     outs = out if isinstance(out, list) else [out]
 
-    if "gradNormals" not in feed:
-        feed["gradNormals"] = _normals([tuple(o.shape) for o in outs], 9)
-    if ("grads", dtype) not in feed:
-        feed["grads", dtype] = _typed(feed["gradNormals"], dtype)
+    outShapes = tuple(tuple(o.shape) for o in outs)
+    if ("gradNormals", outShapes) not in feed:
+        feed["gradNormals", outShapes] = _normals(outShapes, 9)
+    if ("grads", outShapes, dtype) not in feed:
+        feed["grads", outShapes, dtype] = _typed(feed["gradNormals", outShapes], dtype)
 
-    grads = [torch.from_numpy(g).to(device, outs[0].dtype) for g in feed["grads", dtype]]
+    grads = [torch.from_numpy(g).to(device, outs[0].dtype) for g in feed["grads", outShapes, dtype]]
     mod.backward(grads if isinstance(out, list) else grads[0])
 
     ingrads = mod.grad if isinstance(mod.grad, list) else [mod.grad]
     return {"out": list(outs), "grad": list(ingrads), "params": _paramGrads(mod)}
+
+
+def feedKey(name, shapes):
+    """The cases whose ``run`` may share a feed have the same key: the same
+    input shapes, made from the normals the same way."""
+    case = CASES[name]
+    return tuple(map(tuple, shapes)), case.relu, case.shape
 
 
 def _pairs(got, want):

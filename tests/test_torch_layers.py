@@ -27,13 +27,17 @@ from puzzlelib_tpu_torch import containers as TC
 from puzzlelib_tpu_torch import modules as T
 from puzzlelib_tpu_torch.tools import layerslice
 
+import layertwins as LT
+
 
 BOUNDS = layerslice.BOUNDS
 
 # the cases whose JAX module runs in bf16
 JAX_BF16 = {"Split", "Tile", "Transpose", "MoveAxis", "Mul", "Pad2D reflect", "Cast"}
 
-# the twins' shapes: the reference tests' where they have one
+# the twins' shapes, the reference tests' where they have one, of this
+# file's cases (the LRN, numeric and volume cases of ``layerslice`` have
+# their twins in ``tests/test_torch_{lrn,numeric,volume}.py``)
 SMALL = {
     "DepthConcat": [(2, 3, 5, 5), (2, 2, 3, 3), (2, 4, 4, 2)],
     "Split": [(64, 3, 5)], "Slice": [(2, 6, 5)], "Tile": [(2, 3, 4)], "Transpose": [(2, 3, 4)],
@@ -47,17 +51,6 @@ SMALL = {
 }
 
 
-def _jax():
-    """The JAX package's pieces; the twins skip where it does not import, as
-    on the card's machine."""
-    pytest.importorskip("puzzlelib_tpu.modules", reason="the twins need the JAX package")
-    import ml_dtypes
-    from puzzlelib_tpu import containers, modules
-    from puzzlelib_tpu.backend import gpuarray
-
-    return modules, containers, gpuarray, {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
-
-
 @pytest.fixture(autouse=True)
 def onCpu(monkeypatch):
     """Pin the port to the CPU, also on a machine with a card (the card-only
@@ -66,58 +59,16 @@ def onCpu(monkeypatch):
     monkeypatch.setattr(TConfig, "globalEvalMode", False)
 
 
-def _host(value):
-    if isinstance(value, torch.Tensor):
-        return value.detach().float().cpu().numpy()
-
-    return np.asarray(value.get() if hasattr(value, "get") else value, dtype=np.float32)
-
-
-def _close(got, want, bound=BOUNDS["f32"]):
-    got, want = _host(got), _host(want)
-    assert got.shape == want.shape
-    assert np.isfinite(want).all()
-    assert np.abs(got - want).max() <= bound * max(1.0, np.abs(want).max())
-
-
-def _jaxRun(name, shapes, dtype):
-    """``layerslice.run`` on the JAX package's module: in bf16 where it
-    takes bf16, else in f32 on the same (bf16-rounded) values."""
-    J, JC, jgpu, types = _jax()
-    case = layerslice.CASES[name]
-    jtype = types[dtype if name in JAX_BF16 else "f32"]
-
-    np.random.seed(1)
-    mod = case.build(J, JC, dtype)
-    if jtype != np.float32 and case.calcMode:
-        mod.calcMode(jtype)
-
-    xs = [jgpu.to_gpu(ary.astype(jtype)) for ary in layerslice.inputs(name, shapes, dtype)]
-
-    out = mod(xs if case.many else xs[0])
-    outs = out if isinstance(out, list) else [out]
-    grads = [jgpu.to_gpu(g.astype(outs[0].dtype)) for g in layerslice.outGrads([o.shape for o in outs], dtype)]
-    mod.backward(grads if isinstance(out, list) else grads[0])
-
-    params = {pname: var.grad for pname, var in mod.vars.items()}
-    for inner, child in (getattr(mod, "modules", None) or {}).items():
-        params.update({"%s.%s" % (inner, pname): var.grad for pname, var in child.vars.items()})
-
-    return {"out": outs, "grad": mod.grad if isinstance(mod.grad, list) else [mod.grad], "params": params}
+_jax, _host, _close = LT.jaxPackage, LT.host, LT.close
 
 
 @pytest.mark.parametrize("dtype", sorted(BOUNDS))
-@pytest.mark.parametrize("name", sorted(layerslice.CASES))
+@pytest.mark.parametrize("name", sorted(SMALL))
 def testLayerTwin(name, dtype):
     """Each case forward and backward against the JAX package: the outputs,
-    the input gradients and every parameter gradient."""
-    want = _jaxRun(name, SMALL[name], dtype)
-    got = layerslice.run(name, SMALL[name], dtype, "cpu")
-
-    assert len(got["out"]) == len(want["out"]) and len(got["grad"]) == len(want["grad"])
-    assert sorted(got["params"]) == sorted(want["params"])
-    for _, g, w in layerslice._pairs(got, want):
-        _close(g, w, BOUNDS[dtype])
+    the input gradients and every parameter gradient (in bf16 against the
+    JAX package's f32 run where it refuses bf16)."""
+    LT.caseTwin(name, SMALL[name], dtype, jaxTakes=name in JAX_BF16)
 
 
 def testPortTypesAndViews():
@@ -297,19 +248,9 @@ def testGlueShapeHooks():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(layerslice.CASES))
+@pytest.mark.parametrize("name", sorted(SMALL))
 def testLayerOnCard(monkeypatch, name):
     """Each case on CUDA tensors against its CPU run, f32 and bf16: bit for
     bit where it only moves data, within the tiers otherwise; and a second
     card run the same bits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-
-    for dtype in sorted(BOUNDS):
-        cpu = layerslice.run(name, SMALL[name], dtype, "cpu")
-        card = layerslice.run(name, SMALL[name], dtype, "cuda")
-        again = layerslice.run(name, SMALL[name], dtype, "cuda")
-
-        rows, ok = layerslice.held(name, card, cpu, dtype)
-        assert ok, rows
-        assert all(same for _, same, _ in layerslice.held(name, again, card, dtype)[0])
+    LT.cardAgainstCpu(name, SMALL[name])

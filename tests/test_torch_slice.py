@@ -317,8 +317,22 @@ from puzzlelib_tpu_torch.tools import layerslice, segslice
 for layerName in layerslice.CASES:
     layerShapes = {"DepthConcat": [(2, 3, 5, 5), (2, 2, 3, 3)], "Split": [(64, 3)], "Mul": [(3, 4)] * 2,
                    "Glue": [(2, layerslice.GLUE_SIZE)], "Upsample3D": [(1, 2, 2, 3, 2)], "Upsample2D": [(1, 2, 3, 4)],
-                   "Pad2D": [(2, 64, 5, 6)], "PRelu": [(2, 64, 5, 6)], "MaxPool2D-MaxUnpool2D": [(2, 64, 5, 6)]}
-    layerslice.run(layerName, layerShapes.get(layerName.split()[0], [(2, 6, 5)]), "bf16", "cpu")
+                   "Pad2D": [(2, 64, 5, 6)], "PRelu": [(2, 64, 5, 6)], "MaxPool2D-MaxUnpool2D": [(2, 64, 5, 6)],
+                   "CrossMapLRN": [(2, 6, 5, 5)], "MapLRN": [(2, 6, 5, 5)], "SubtractMean": [(2, 3, 9, 9)],
+                   "LCN": [(2, 3, 9, 9)], "SpatialTf": [(2, 3, 6, 6), (2, 2, 3)],
+                   "GroupLinear": [(2, layerslice.GROUPS, layerslice.GROUP_SIZE)], "Deconv1D": [(2, 256, 9)],
+                   "Deconv3D": [(1, 256, 2, 3, 3)], "MaxPool3D": [(1, 2, 4, 6, 6)], "AvgPool3D": [(1, 2, 4, 6, 6)],
+                   "GroupLinear batchDim 1": [(layerslice.GROUPS, 2, layerslice.GROUP_SIZE)],
+                   "GroupLinear wmode one batchDim 1": [(layerslice.GROUPS, 2, layerslice.GROUP_SIZE)]}
+    layerslice.run(layerName, layerShapes.get(layerName, layerShapes.get(layerName.split()[0], [(2, 6, 5)])),
+                   layerslice.CASES[layerName].dtypes[-1], "cpu")
+from puzzlelib_tpu_torch.tools import alexnetslice, c3dslice
+alexRun = alexnetslice.buildRun(alexnetslice.build(maps=(4, 4, 4, 4, 4), fcs=(8, 8), classes=4, shape=(3, 67, 67)),
+                                batch=2, classes=4)
+alexRun.train("fused", *alexnetslice.data(2, shape=(3, 67, 67), classes=4))
+c3dRun = alexnetslice.buildRun(c3dslice.build(maps=(2, 2, 2, 2, 2), fcs=(4, 4), classes=4, shape=(3, 16, 16, 16)),
+                               batch=2, classes=4)
+assert c3dRun.serve("hopper", c3dslice.data(2, shape=(3, 16, 16, 16), classes=4)[0])[0].shape == (2, 4)
 segRun = segslice.buildRun(segslice.build(torch.bfloat16, encoder=((1, 8), (1, 8))), batch=2)
 segRun.train("fused", *segslice.data(2, shape=(3, 20, 24), block=4))
 assert segRun.serve("hopper", segslice.data(2, shape=(3, 20, 24))[0])[0].shape == (2, 12, 20, 24)
@@ -350,8 +364,12 @@ def testPortRunsWithoutJax():
     ``presets.sentinet`` and ``datasets.utils.validate`` with ``statistics``,
     and through a fused step under each of the six new optimizers of
     ``tools/zooslice.py``, the seven new costs with ``Multi`` and the cost
-    kernels' wrappers), the fifteen glue, upsampling and unpooling modules
-    in bf16 (``tools/layerslice.py``) and a narrow SegNet trained fused and
+    kernels' wrappers), the glue, upsampling and unpooling modules in bf16
+    and the LRN family, the spatial transformer, ``GroupLinear``, the noise
+    and penalty layers and the 1-d and 3-d modules, each in the last type it
+    takes (``tools/layerslice.py``), a narrow AlexNet trained fused and a
+    narrow C3D in bf16 served (``tools/{alexnet,c3d}slice.py``), and a
+    narrow SegNet trained fused and
     served (``tools/segslice.py``) imports no JAX and nothing of the JAX
     package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
