@@ -331,8 +331,32 @@ it fails:
    AlexNet- and C3D-sized and 16 MiB shapes), forward and backward on the
    card and on the CPU on the same inputs, in each type the module takes:
    the modules that only move data give the CPU's bits, the others fall
-   within the twins' tiers; a second card run gives the same bits.
-   The seconds of phases 26 to 35, of [layers]' cases by module and of the
+   within the twins' tiers; a second card run gives the same bits;
+36. [moe]: the MoE trunk of ``testlib/pipelinemoe.py``
+   (``tools/moeslice.py``: a ``Pipeline`` of 4 ``Graph`` stages, each
+   Linear(64, 64), tanh and a residual ``SwitchMoE`` of 4 Linear(64, 64)
+   experts at capacity factor 2, then a ``Slice`` of 10 logits) in f32 at
+   batch 128 on seeded rows of the digits' shape, ``MomentumSGD(0.05,
+   0.9)`` in local state: 4 requests and 4 steps on the hand, library and
+   fused routes; K1 once a forward inside each of the 20 Linears (counted
+   from the net, inside each Linear and by the profiler), none on the
+   library route; scores and losses within 1e-4 of the library route's,
+   fused within 1e-4 of eager's, the hand run twice the same bits;
+   ``functionalize(stage 0)`` with each stage's weights bit-equal to that
+   stage; a run under global state with the local run's losses; rows/s,
+   idle shares, K1 at the two shapes against cuBLAS;
+37. [graph-pass]: ``toGraph`` of ResNet-50 in bf16 at batch 32 beside the
+   Sequential, 4 requests and 4 steps each on the hand route: the
+   Sequential's launches (13 Winograd convs, fc1000), scores bit-equal,
+   losses within 5e-2;
+38. [rbm]: ``RBM(784, 500)`` in f32 at batch 128 (``tools/rbmslice.py``),
+   20 CD-1 and 20 PCD steps under ``MomentumSGD``: the reconstruction error
+   falls, a second run gives the same bits, one CD-1 gradient within 1e-5
+   of an f64 numpy step on the card's draws;
+39. [vgg-avg]: VGG-16 with average pooling in bf16, 4 requests of 32 on the
+   hand and library routes: 10 K2 and 3 K1 a request, outputs within 5e-2
+   of the library route's.
+   The seconds of phases 26 to 39, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -1397,9 +1421,12 @@ class _LayerLaunches:
     def __init__(self, kernels, net, names):
         self.kernels = kernels
         self.counts = {name: types.SimpleNamespace(**dict.fromkeys(self.FIELDS, 0)) for name in names}
+        paths = dict(net.named_modules())
 
         for name in names:
-            mod = next(m for m in net.modules() if m.name == name)
+            # a layer's path in the tree ("trunk.stage0.moe0.expert1") where
+            # names repeat, else its name
+            mod = paths[name] if name in paths else next(m for m in net.modules() if m.name == name)
             for method in self.METHODS:
                 setattr(mod, method, self._wrap(self.counts[name], getattr(mod, method)))
 
@@ -3229,23 +3256,23 @@ class _SliceLaunches:
 
 def _sameBitsAgain(tag, torch, run, algo, images, labels, losses, what):
     """Train ``algo`` once more from the same start; fail unless its losses
-    are ``losses`` and the flat buffers those the run before left, bit for
+    are ``losses`` and the weights those the run before left, bit for
     bit."""
-    weights = {dtype: pack.ary.clone() for dtype, pack in run.optimizer.shParams.items()}
+    weights = [(var.data, var.data.clone()) for var in run.net.getVarTable()]
     again = []
     run.train(algo, images, labels, again)
-    same = again == losses and all(torch.equal(run.optimizer.shParams[dtype].ary, ary)
-                                   for dtype, ary in weights.items())
+    same = again == losses and all(torch.equal(data, ary) for data, ary in weights)
     print("[%s] %s again from the same start: losses and weights bit-equal %s" % (tag, what, same))
     if not same:
         fail("[%s] a second run of the %s gave other bits" % (tag, what))
 
 
-def _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, valImages, valLabels):
+def _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, valImages, valLabels,
+                       bound=TRAIN_BOUND):
     """The steps of ``images`` through ``FusedTrainer`` against the eager
     hand route's ``losses``: the same launches replayed (``counter``, into
     ``launches["fused"]``), the first loss bit-equal (a replayed dropout
-    draws what the eager step draws), the rest within TRAIN_BOUND, one
+    draws what the eager step draws), the rest within ``bound``, one
     recording, a second run the same bits; then ``FusedValidator`` equal to
     ``Validator`` on the fused weights."""
     steps = len(losses)
@@ -3259,7 +3286,7 @@ def _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losse
         fail("[%s] fused first-step loss %r against %r, recordings %d" %
              (tag, fusedLosses[0], losses[0], run.fusedTrainer.step.captures))
 
-    _lossesAgainst(tag, fusedLosses, losses, TRAIN_BOUND, ref="eager hand route")
+    _lossesAgainst(tag, fusedLosses, losses, bound, ref="eager hand route")
     _sameBitsAgain(tag, torch, run, "fused", images, labels, fusedLosses, "FusedTrainer")
 
     error, _ = run.validate("fused", valImages, valLabels)
@@ -3270,17 +3297,17 @@ def _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losse
         fail("[%s] validation errors differ: %r against %r" % (tag, error, eagerError))
 
 
-def _routeRates(tag, card, work):
-    """Images/s of each of SLICE_ROUTES on each of ``work`` (what -> (images,
-    fn(algo) returning seconds)), 5 runs in turns."""
+def _routeRates(tag, card, work, unit="images"):
+    """``unit``/s of each of SLICE_ROUTES on each of ``work`` (what ->
+    (count, fn(algo) returning seconds)), 5 runs in turns."""
     fns = {"%s %s" % (algo, what): (lambda algo=algo, fn=fn: fn(algo)) for algo in SLICE_ROUTES
            for what, (_, fn) in work.items()}
 
     for name, secs in _turns({}, fns).items():
         algo, what = name.split()
-        print("[%s] %s, %s, 5 runs in turns: %s s, median %.2f images/s on %s" %
+        print("[%s] %s, %s, 5 runs in turns: %s s, median %.2f %s/s on %s" %
               (tag, SLICE_ROUTES[algo], what, " ".join("%.4f" % t for t in secs),
-               work[what][0] / float(np.median(secs)), card))
+               work[what][0] / float(np.median(secs)), unit, card))
 
 
 def _idleShares(tag, run, images, labels):
@@ -4689,6 +4716,352 @@ def phaseLayers(torch):
     Config.device = "cuda"
 
 
+# -- the MoE, graph-pass, RBM and VGG average-pool slice ------------------------------------------
+
+# [moe]: the MoE trunk's step losses and scores on the hand route against
+# the library route's, fused against eager and global state against local:
+# f32 products that differ in summation order only
+MOE_BOUND = 1e-4
+
+# [rbm]: the f64 reference's units take the card's where the draw lies this
+# close to the unit's probability (an f32 pre-activation cannot tell there)
+RBM_TIE = 1e-6
+RBM_BOUND = 1e-5
+
+
+def phaseMoE(torch, card):
+    """The MoE trunk of ``testlib/pipelinemoe.py`` (``tools/moeslice.py``)
+    at full width in f32: a ``Pipeline`` of 4 ``Graph`` stages of Linear,
+    tanh and a residual ``SwitchMoE`` of 4 Linear experts (capacity factor
+    2), a ``Slice`` of 10 logits, ``CrossEntropy`` and ``MomentumSGD(0.05,
+    0.9)`` in local state, batch 128 on seeded rows of the digits' shape.
+    Serving: 4 requests through ``Calculator`` on the hand and library
+    routes and ``FusedCalculator``; training: 4 steps through ``Trainer`` on
+    both routes and ``FusedTrainer``.  K1 once a forward inside each of the
+    20 Linears (4 trunk products of (128, 64) x (64, 64), 16 expert
+    products of (64, 64) x (64, 64)), counted from the net, inside each
+    Linear and by the profiler, none on the library route; the hand route's
+    scores and losses within 1e-4 of the library's, the hand run twice the
+    same bits, the fused losses within 1e-4 of eager's (the first
+    bit-equal), the fused scores and validation error eager's.
+    ``functionalize(stage 0)`` applied with each stage's parameter list
+    gives that stage's eager output bit for bit; one run under global state
+    gives the local run's losses.  Then rows/s of each route, the idle
+    share of 2 profiled steps and K1 at the two shapes against cuBLAS.
+    Returns the launches and the JSON entry's numbers."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.fused import functionalize, paramList
+    from puzzlelib_tpu_torch.modules import SwitchMoE
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+    from puzzlelib_tpu_torch.tools import moeslice as Moe
+
+    tag = "moe"
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    parts, start = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal start
+        parts[name] = time.perf_counter() - start
+        start = time.perf_counter()
+
+    rows, labels, valRows, valLabels = Moe.data()
+    images, labels = rows[:Moe.BATCH * Moe.STEPS], labels[:Moe.BATCH * Moe.STEPS]
+    requests = rows[:Moe.BATCH * REQUESTS]
+
+    run = Moe.buildRun()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    linears = Moe.linearLaunches(run.net, Moe.BATCH, sms)
+    capacities = [moe._capacity(Moe.BATCH) for moe in run.net.getAllByType(SwitchMoE)]
+    print("[%s] %s f32 at batch %d on %d-feature rows, %d parameters, %d stages of %d experts (capacity %s rows); "
+          "K1 a forward on %d Linears, none on wgmma; MomentumSGD(%g, %g) in local state, CrossEntropy" %
+          (tag, run.net.name, Moe.BATCH, Moe.DIM, run.net.numOfParams(), Moe.STAGES, Moe.EXPERTS, capacities,
+           len(linears), Moe.LEARN_RATE, Moe.MOM_RATE))
+    if len(linears) != 20 or capacities != [64] * Moe.STAGES:
+        fail("[%s] expected 20 Linears and capacities of 64, got %d and %s" % (tag, len(linears), capacities))
+    part("build")
+
+    launches, outs = {}, {}
+    with _NetGemms(tag, matmul, run.net, linears) as counter:
+        for algo in ("torch", "hopper", "fused"):
+            run.serve(algo, requests)
+            (out, secs), counts = counter.counted(lambda: run.serve(algo, requests))
+            launches["serving", algo] = counts
+            counter.expect("serving on the %s, %d requests of %d" % (SLICE_ROUTES[algo], REQUESTS, Moe.BATCH),
+                           counts, REQUESTS if algo != "torch" else 0)
+            if out.shape != (len(requests), Moe.CLASSES) or not np.isfinite(out).all():
+                fail("[%s] scores of shape %s, finite: %s" % (tag, out.shape, np.isfinite(out).all()))
+            outs[algo] = out
+
+        scoreErr = np.abs(outs["hopper"] - outs["torch"]).max() / np.abs(outs["torch"]).max()
+        same = np.array_equal(outs["fused"], outs["hopper"])
+        print("[%s] serving %d rows: scores on the hand route against the library route's, max |diff| / max |lib| "
+              "%.3e (bound %.0e); FusedCalculator bit-equal to Calculator %s; recordings %d" %
+              (tag, len(requests), scoreErr, MOE_BOUND, same, run.fusedCalculator._program.captures))
+        if not (scoreErr <= MOE_BOUND and same and run.fusedCalculator._program.captures == 1):
+            fail("[%s] scores %.3e from the library route's, fused equal to eager %s" % (tag, scoreErr, same))
+        part("serving")
+
+        for algo in ("torch", "hopper"):
+            run.train(algo, images, labels)
+
+        losses, libLosses = [], []
+        secs, launches["training"] = counter.counted(lambda: run.train("hopper", images, labels, losses))
+        counter.expect("training, %d steps of %d" % (Moe.STEPS, Moe.BATCH), launches["training"], Moe.STEPS)
+        print("[%s] training: %d rows in %d steps, %.4f s" % (tag, len(images), Moe.STEPS, secs))
+        _sameBitsAgain(tag, torch, run, "hopper", images, labels, losses, "eager hand route")
+        run.train("torch", images, labels, libLosses)
+        _lossesAgainst(tag, losses, libLosses, MOE_BOUND)
+        part("training")
+
+        _fusedAgainstEager(tag, torch, run, counter, launches, images, labels, losses, valRows, valLabels,
+                           bound=MOE_BOUND)
+        part("fused")
+
+        _routeRates(tag, card, {"training": (len(images), lambda algo: run.train(algo, images, labels)),
+                                "serving": (len(requests), lambda algo: run.serve(algo, requests)[1])}, unit="rows")
+        part("rates")
+        _idleShares(tag, run, images[:2 * Moe.BATCH], labels[:2 * Moe.BATCH])
+        part("idle shares")
+
+    # the single-device half of the testlib's "eager == mesh schedule"
+    # check: stage 0 as a function of each stage's weights
+    Config.gemmAlgo = "hopper"
+    pipe = run.net.graph[0]
+    apply, _ = functionalize(pipe.graph[0])
+    pairs = Moe.stageOutputs(run.net, torch.from_numpy(requests[:Moe.BATCH]).cuda())
+    same = [torch.equal(apply(paramList(stage), inp), out) for stage, (inp, out) in zip(pipe.graph, pairs)]
+    print("[%s] functionalize(stage 0) with each stage's parameter list, against that stage's eager output: "
+          "bit-equal %s" % (tag, same))
+    if not all(same):
+        fail("[%s] functionalize gave other bits than the stages' eager forwards: %s" % (tag, same))
+
+    # global state: the flat buffer's views feed the experts
+    globalRun = Moe.buildRun(Moe.buildNet(), globalState=True)
+    globalLosses = []
+    globalRun.train("hopper", images, labels, globalLosses)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(globalLosses, losses))
+    print("[%s] under global state (one flat buffer of %d values): losses %s, against local state's largest "
+          "relative difference %.3e (bound %.0e), bit-equal %s" %
+          (tag, globalRun.optimizer.shParams[torch.float32].ary.numel(), " ".join("%.6f" % v for v in globalLosses),
+           rel, MOE_BOUND, globalLosses == losses))
+    if not rel <= MOE_BOUND:
+        fail("[%s] global state's losses %s against local state's %s" % (tag, globalLosses, losses))
+    part("functionalize and global state")
+
+    del run, globalRun
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    main = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    for label, m, count in (("moe-trunk", Moe.BATCH, Moe.STAGES), ("moe-expert", 64, Moe.STAGES * Moe.EXPERTS)):
+        _addCase(main, binding, _gemmCase(torch, matmul, gen, label, "f32", m, Moe.DIM, Moe.DIM), count)
+    main["bound_by"] = "/".join(sorted(binding))
+    del main["wmma_ms"]
+    part("K1 against cuBLAS")
+    print("[time] [%s] by part: %s" % (tag, ", ".join("%s %.1f s" % item for item in parts.items())))
+    return launches, main
+
+
+def phaseGraphPass(torch, card):
+    """``passes.toGraph`` of ResNet-50 (``tools/resnetslice.py``: bf16 at
+    batch 32, He weights from ``np.random.seed(0)``, without its SoftMax,
+    ``MomentumSGD(0.01, 0.9)`` in global state): the Sequential and its
+    graph, built from the same seed, each serve 4 requests and train 4
+    steps on the hand route.  Each must launch what the Sequential launches
+    (one K2 a request and one K2, K2-bwd and K3 a step inside each of the 13
+    Winograd convs, one K1, on wgmma); the graph's scores must be the
+    Sequential's bit for bit and its losses within 5e-2.  Returns the
+    graph's launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.cost import CrossEntropy
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+    from puzzlelib_tpu_torch.optimizers import MomentumSGD
+    from puzzlelib_tpu_torch.passes import toGraph
+
+    tag = "graph-pass"
+    Config.device = "cuda"
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    seqRun = Res.buildRun()
+    convs = Res.winogradConvs(seqRun.net, (Res.BATCH, ) + Res.SHAPE)
+
+    net = Res.build()
+    net.pop()
+    graph = toGraph(net)
+    graph.calcMode(torch.bfloat16)
+    optimizer = MomentumSGD(Res.LEARN_RATE, momRate=Res.MOM_RATE)
+    optimizer.setupOn(graph, useGlobalState=True)
+    graphRun = Res.Run(graph, optimizer, CrossEntropy(maxlabels=Res.CLASSES), Res.BATCH)
+    print("[%s] ResNet-50 as a Sequential of %d modules and as toGraph's Graph of %d nodes (%d parameters each); "
+          "%d Winograd convs" % (tag, len(seqRun.net.graph), len(graph.nodes), graph.numOfParams(), len(convs)))
+
+    images, labels = Res.data(Res.BATCH * REQUESTS)
+    launches, outs, losses = {}, {}, {}
+    for name, run in (("sequential", seqRun), ("graph", graphRun)):
+        with _SliceLaunches("%s] [%s" % (tag, name), winograd, run.net, convs, 1) as counter:
+            run.serve("hopper", images)
+            (outs[name], _), counts = counter.counted(lambda: run.serve("hopper", images))
+            counter.expect("serving, %d requests of %d" % (REQUESTS, Res.BATCH), counts, REQUESTS, 0)
+            launches[name, "serving"] = counts
+
+            run.train("hopper", images, labels)
+            losses[name] = []
+            _, counts = counter.counted(lambda: run.train("hopper", images, labels, losses[name]))
+            counter.expect("training, %d steps of %d" % (REQUESTS, Res.BATCH), counts, REQUESTS, 1)
+            launches[name, "training"] = counts
+
+    same = np.array_equal(outs["graph"], outs["sequential"])
+    print("[%s] the graph's scores of %d images bit-equal to the Sequential's: %s; launches equal: serving %s, "
+          "training %s" % (tag, len(images), same, launches["graph", "serving"] == launches["sequential", "serving"],
+                           launches["graph", "training"] == launches["sequential", "training"]))
+    if not same or not np.isfinite(outs["graph"]).all():
+        fail("[%s] the graph's scores differ from the Sequential's" % tag)
+    _lossesAgainst(tag, losses["graph"], losses["sequential"], TRAIN_BOUND, ref="Sequential")
+    print("[%s] graph losses bit-equal to the Sequential's: %s" % (tag, losses["graph"] == losses["sequential"]))
+
+    del seqRun, graphRun, net, graph
+    torch.cuda.empty_cache()
+    return {"serving": launches["graph", "serving"], "training": launches["graph", "training"]}
+
+
+class _RecordedDraws:
+    """A stand-in ``rng`` that keeps a copy of every uniform draw of the
+    generator it wraps."""
+
+    def __init__(self, rng):
+        self.rng, self.draws = rng, []
+
+    def fillUniform(self, data, minval=0.0, maxval=1.0):
+        self.rng.fillUniform(data, minval, maxval)
+        self.draws.append(data.clone())
+
+
+def phaseRBM(torch, card):
+    """``RBM(784, 500)`` in f32 (``tools/rbmslice.py``) at batch 128 on
+    seeded binary rows of 10 prototypes: 20 CD-1 steps and 20 PCD steps of
+    ``MomentumSGD``; the reconstruction error must fall (under CD-1 below
+    half its start), and a second run from the same generator seed give the
+    same bits.  One CD-1 gradient against an f64 numpy Gibbs step on the
+    uniforms the card drew, within 1e-5 (a unit whose draw lies within 1e-6
+    of its probability takes the card's value, counted).  Rows/s of each."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.tools import rbmslice as Rbm
+
+    tag = "rbm"
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    rows = torch.from_numpy(Rbm.data()).cuda()
+    print("[%s] RBM(%d, %d) f32 at batch %d on binary rows of %d prototypes (%.0f %% of the pixels flipped); "
+          "MomentumSGD(%g, %g), %d steps" % (tag, Rbm.VSIZE, Rbm.HSIZE, Rbm.BATCH, Rbm.PROTOTYPES, 100 * Rbm.FLIP,
+                                             Rbm.LEARN_RATE, Rbm.MOM_RATE, Rbm.STEPS))
+
+    for persistent, name in ((False, "CD-1"), (True, "PCD")):
+        Rbm.train(rows, persistent, steps=2)
+        errors = []
+        Rbm.train(rows, persistent, errors=errors)
+        synchronize()
+        start = time.perf_counter()
+        rbm = Rbm.train(rows, persistent)
+        synchronize()
+        secs = time.perf_counter() - start
+        again = Rbm.train(rows, persistent)
+        same = all(torch.equal(a.data, b.data) for a, b in zip(rbm.vars.values(), again.vars.values()))
+        if persistent:
+            same = same and torch.equal(rbm.particles, again.particles)
+
+        falls = errors[-1] < errors[0] * (0.5 if not persistent else 1.0)
+        print("[%s] %s: reconstruction error %s over %d steps; falls %s; a second run bit-equal %s; %.4f s, %.0f "
+              "rows/s on %s" % (tag, name, " -> ".join("%.4f" % e for e in errors[::5] + errors[-1:]), Rbm.STEPS,
+                                falls, same, secs, Rbm.STEPS * Rbm.BATCH / secs, card))
+        if not falls or not same:
+            fail("[%s] %s: error %s, repeat %s" % (tag, name, errors, same))
+
+    rbm = Rbm.build()
+    rbm.rng = _RecordedDraws(rbm.rng)
+    units = rbm.calcCDGrad(rows)
+    u = [draw.double().cpu().numpy() for draw in rbm.rng.draws]
+    got = [unit.double().cpu().numpy() for unit in units]
+    W, b, c = (var.data.double().cpu().numpy() for var in rbm.vars.values())
+    x = rows.double().cpu().numpy()
+
+    ties, ref = 0, []
+    for draw, card_, pre in ((u[0], got[0], lambda: x @ W + c), (u[1], got[1], lambda: ref[0] @ W.T + b),
+                             (u[2], got[2], lambda: ref[1] @ W + c)):
+        prob = 1.0 / (1.0 + np.exp(-pre()))
+        tie = np.abs(draw - prob) < RBM_TIE
+        ties += int(tie.sum())
+        ref.append(np.where(tie, card_, (draw < prob).astype(np.float64)))
+
+    want = {"W": x.T @ ref[0] - ref[1].T @ ref[2], "b": x.sum(0) - ref[1].sum(0), "c": ref[0].sum(0) - ref[2].sum(0)}
+    errs = {name: np.abs(rbm.vars[name].grad.double().cpu().numpy() - w).max() / max(1.0, np.abs(w).max())
+            for name, w in want.items()}
+    unitsEqual = all(np.array_equal(g, r) for g, r in zip(got, ref))
+    print("[%s] calcCDGrad against an f64 numpy Gibbs step on the card's draws: max |diff| / max(1, |ref|) %s "
+          "(bound %.0e); units equal %s; units within %.0e of their probability %d of %d" %
+          (tag, ", ".join("%s %.3e" % item for item in errs.items()), RBM_BOUND, unitsEqual, RBM_TIE, ties,
+           sum(d.size for d in u)))
+    if not (max(errs.values()) <= RBM_BOUND and unitsEqual):
+        fail("[%s] calcCDGrad against the f64 reference: %s, units equal %s" % (tag, errs, unitsEqual))
+
+
+def phaseVggAverage(torch, card):
+    """``loadVGG(None, "16", poolmode="avg")`` in bf16, He weights from
+    ``np.random.seed(0)``: 4 requests of 32 through ``Calculator`` on the
+    hand and library routes; one K2 a request on each of the 10 Winograd
+    convs (counted inside each conv), three K1 on wgmma; the outputs of
+    all requests and fc8 of the first within 5e-2 relative L2 of the
+    library route's.  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.models.nets import loadVGG
+    from puzzlelib_tpu_torch.ops.hopper import winograd
+
+    tag = "vgg-avg"
+    Config.device = "cuda"
+    Config.globalEvalMode = True   # no gradient buffers for a serving net
+
+    np.random.seed(0)
+    net = loadVGG(None, "16", poolmode="avg", initscheme="he")
+    net.calcMode(torch.bfloat16)
+    net.evalMode()
+    Config.globalEvalMode = False   # the phases after this one train
+    served = Res.Served(net, BATCH)
+    convs = Res.winogradConvs(net, (BATCH, 3, 224, 224))
+    images = np.random.RandomState(1).randn(BATCH * REQUESTS, 3, 224, 224).astype(np.float32)
+
+    with _SliceLaunches(tag, winograd, net, convs, 3) as counter:
+        for algo in ("torch", "hopper"):
+            served.serve(algo, images)
+        (out, secs), counts = counter.counted(lambda: served.serve("hopper", images))
+        counter.expect("serving, %d requests of %d" % (REQUESTS, BATCH), counts, REQUESTS, 0)
+    libOut, libSecs = served.serve("torch", images)
+
+    fc8 = {}
+    for algo in ("hopper", "torch"):
+        Config.gemmAlgo = Config.convAlgo = algo
+        net(torch.from_numpy(images[:BATCH]).cuda().to(torch.bfloat16))
+        fc8[algo] = net["fc8"].data.float().clone()
+        net.reset()
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+    rel = float(np.linalg.norm(out - libOut) / np.linalg.norm(libOut))
+    relFc8 = ((fc8["hopper"] - fc8["torch"]).norm() / fc8["torch"].norm()).item()
+    print("[%s] VGG-16 with average pooling, bf16, %d images in %d requests of %d: %.4f s (%.1f images/s), library "
+          "route %.4f s, on %s; outputs against the library route's, relative L2 %.3e, fc8 of the first request "
+          "%.3e (bound %.0e)" % (tag, len(images), REQUESTS, BATCH, secs, len(images) / secs, libSecs, card, rel,
+                                 relFc8, SLICE_BOUND))
+    if out.shape != (len(images), 1000) or not np.isfinite(out).all() or not (rel <= SLICE_BOUND and
+                                                                              relFc8 <= SLICE_BOUND):
+        fail("[%s] outputs %s, relative L2 %.3e and fc8 %.3e from the library route's" % (tag, out.shape, rel, relFc8))
+
+    del net, served
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -4772,6 +5145,20 @@ def main():
     torch.cuda.empty_cache()
     print("[time] [c3d] %.1f s" % (time.perf_counter() - phaseStart))
     phaseStart = time.perf_counter()
+    moe, moeGemm = phaseMoE(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [moe] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    graphPass = phaseGraphPass(torch, card)
+    print("[time] [graph-pass] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    phaseRBM(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [rbm] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    vggAverage = phaseVggAverage(torch, card)
+    print("[time] [vgg-avg] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
     phaseLayers(torch)
     torch.cuda.empty_cache()
     print("[time] [layers] %.1f s" % (time.perf_counter() - phaseStart))
@@ -4800,7 +5187,8 @@ def main():
              engine_launches=engineBf16["matmul"], measurement_launches=measured["K1"],
              measurement_launches_wgmma=measured["K1-wgmma"],
              fused_launches=fusedServe["matmul"] + fusedTrain["matmul"] + fusedCnn["lenet"] + fusedCnn["lenetValidate"],
-             fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"], **gemm),
+             fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"],
+             avg_pool_serving_launches=vggAverage["matmul"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
              launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
@@ -4819,7 +5207,8 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
              engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"],
-             fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"], **wino),
+             fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"],
+             avg_pool_serving_launches=vggAverage["winograd"], **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"],
@@ -4843,21 +5232,24 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=resnet["training"]["matmul"],
              launches_wgmma=resnet["training"]["matmulWgmma"], serving_launches=resnet["serving"]["matmul"],
              fused_launches=resnet["fused"]["matmul"], fused_serving_launches=resnet["fusedServing"]["matmul"],
+             graph_launches=graphPass["training"]["matmul"], graph_serving_launches=graphPass["serving"]["matmul"],
              **resnetKernels["K1"]),
         dict(name="K2 Winograd F(2x2,3x3) forward at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=resnet["training"]["winograd"] - resnet["training"]["winogradDataGrad"],
              serving_launches=resnet["serving"]["winograd"],
              fused_launches=resnet["fused"]["winograd"] - resnet["fused"]["winogradDataGrad"],
-             fused_serving_launches=resnet["fusedServing"]["winograd"], **resnetKernels["K2"]),
+             fused_serving_launches=resnet["fusedServing"]["winograd"],
+             graph_launches=graphPass["training"]["winograd"] - graphPass["training"]["winogradDataGrad"],
+             graph_serving_launches=graphPass["serving"]["winograd"], **resnetKernels["K2"]),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=resnet["training"]["winogradDataGrad"], fused_launches=resnet["fused"]["winogradDataGrad"],
-             **resnetKernels["K2-bwd"]),
+             graph_launches=graphPass["training"]["winogradDataGrad"], **resnetKernels["K2-bwd"]),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter at ResNet-50's conv3_x, conv4_x and conv5_x", route="cuda",
              source=source % "winograd_fg", replaces="puzzlelib_tpu/ops/pallas/winograd.py:457",
              launches=resnet["training"]["winogradFG"], fused_launches=resnet["fused"]["winogradFG"],
-             **resnetKernels["K3"]),
+             graph_launches=graphPass["training"]["winogradFG"], **resnetKernels["K3"]),
         dict(name="K2 Winograd F(2x2,3x3) forward at U-Net's 15 Winograd convs", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=unet["training"]["winograd"] - unet["training"]["winogradDataGrad"],
@@ -4921,6 +5313,11 @@ def main():
                fused_launches=seen["fused"]["matmul"], fused_serving_launches=seen["serving", "fused"]["matmul"],
                **gemms) for net, dtName, seen, gemms in (("AlexNet", "f32", alexnet, alexnetGemm),
                                                          ("C3D", "bf16", c3d, c3dGemm))],
+        dict(name="K1 tiled GEMM at the MoE trunk's products (f32)", route="cuda", source=source % "matmul",
+             replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=moe["training"]["matmul"],
+             launches_wgmma=moe["training"]["matmulWgmma"], serving_launches=moe["serving", "hopper"]["matmul"],
+             fused_launches=moe["fused"]["matmul"], fused_serving_launches=moe["serving", "fused"]["matmul"],
+             **moeGemm),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -5013,6 +5410,12 @@ def main():
           "requests of 128, fused_ the FusedTrainer's and FusedCalculator's); K1 at C3D's fc6-fc8: (16, 8192) x "
           "(8192, 4096), (16, 4096) x (4096, 4096) and (16, 4096) x (4096, 487) bf16 together, launches [c3d]'s 4 "
           "training steps of 16 (launches_wgmma those on wgmma: fc8 takes WMMA); "
+          "K1 at the MoE trunk's products: one forward's 4 trunk products (128, 64) x (64, 64) and 16 expert "
+          "products (64, 64) x (64, 64) f32 (gemmF32), launches [moe]'s 4 training steps of 128 (serving_launches "
+          "its 4 requests of 128, fused_ the FusedTrainer's and FusedCalculator's); graph_launches and "
+          "graph_serving_launches on the ResNet-50 entries: [graph-pass]'s toGraph of ResNet-50, 4 steps and 4 "
+          "requests of 32; avg_pool_serving_launches on the first K1 and K2 entries: [vgg-avg]'s VGG-16 with "
+          "average pooling, 4 requests of 32; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

@@ -144,13 +144,16 @@ class Node:
     def _fanInSum(grads):
         """Sum gradient contributions from several consumers of one slot, in
         a new tensor (the contributions may be shared objects: ``Add`` hands
-        one gradient to all its inputs)."""
+        one gradient to all its inputs).  The sum keeps the first one's
+        layout, and adds elementwise: a conv on the card hands back
+        channels-last gradients, which no flat view covers, and the layout
+        the next backward takes decides its bits, as in a Sequential."""
         if len(grads) == 1:
             return grads[0]
 
         total = grads[0].clone()
         for extra in grads[1:]:
-            Blas.toVectorAddVector(total.view(-1), extra.reshape(-1))
+            Blas.toVectorAddVector(total, extra)
 
         return total
 

@@ -5,7 +5,9 @@ A parameter table maps variable names, as ``getVarTable`` names them
 (``"conv1_1.W"`` in a named net, ``"c1.W"`` in a ``Sequential`` of a module
 named ``c1``), to arrays.  The names are those of the JAX package's nets, so
 a table filled from a JAX net (``var.data.get()``) loads into the same net
-built here.
+built here: a ``SwitchMoE``'s router as ``"<moe>.__gate__.W"``, a
+``Pipeline``'s ``Graph`` stages by their node names, an RBM's ``W``,
+``b`` and ``c``.
 
 An attribute table maps module attributes (a batch norm's running
 ``mean`` and ``var``) to arrays, under the names the reference's ``save``

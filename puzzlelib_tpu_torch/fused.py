@@ -46,8 +46,10 @@ How the recording stays true to the eager step:
 
 There is no fallback: on a CUDA tensor a failed recording or replay raises.
 ``Config.verifyData`` reads the labels back, which a graph cannot hold, and
-is refused.  Not ported: ``FusedStep(mesh=...)`` and the sharding specs
-(``tensorParallelSpecs``, ``zeroOptimizerSpecs``), ``functionalize``.
+is refused.  ``functionalize`` gives a module tree as a function of a
+weight list, as ``Pipeline`` and ``SwitchMoE`` use it.  Not ported:
+``FusedStep(mesh=...)`` and the sharding specs (``tensorParallelSpecs``,
+``zeroOptimizerSpecs``).
 """
 
 import numpy as np
@@ -157,6 +159,77 @@ def collectEvalBuffers(module):
     the modules' attributes (a batch norm's running stats), so that a
     program recorded over them reads their values at each replay."""
     return _roots(_evalTensors(module))
+
+
+def _paramSlots(module):
+    """[(owner module, variable name, variable)] of the tree's weights, in
+    the module-tree walk's order, a weight that several names share once:
+    the order ``collectParamBuffers`` gives them under local state.  Unlike
+    the root buffers, it names each variable also where the variables are
+    views of an optimizer's flat buffer (global state)."""
+    seen, slots = set(), []
+    for mod in _moduleTree(module):
+        for name, var in mod.vars.items():
+            key = (var.data.device, var.data.data_ptr(), tuple(var.data.shape), var.data.dtype)
+            if key not in seen:
+                seen.add(key)
+                slots.append((mod, name, var))
+
+    return slots
+
+
+def stageVars(module):
+    """The variables of the tree in ``collectParamBuffers`` order (the
+    JAX package's ``Pipeline._stageVars``): structurally equal trees give
+    their variables in the same order."""
+    return [var for _, _, var in _paramSlots(module)]
+
+
+def paramList(module):
+    """The weights of the tree, as ``stageVars`` orders them: the parameter
+    list that ``functionalize``'s ``apply`` takes for this tree or for a
+    tree of the same structure."""
+    return [var.data for var in stageVars(module)]
+
+
+def functionalize(module):
+    """Pure-apply view of a module tree: returns ``(apply, params)``.
+
+    ``apply(params, x)`` runs the live module on ``x`` with the tensors of
+    ``params`` (``paramList`` order) in place of its weights, then puts its
+    own weights back and calls ``reset()``; ``params`` is the current weight
+    list.  A sibling tree of the same structure hands its weights over as
+    ``paramList(sibling)``.  The tensor objects are swapped, not copied
+    into: a copy would write the live weights, also from inside a CUDA
+    graph.  The weights put back are those the module holds at the call,
+    not at ``functionalize``: the module may have trained, or been set up by
+    an optimizer, in between.
+
+    ``apply`` is a forward only: the port's modules write their outputs in
+    place (a Linear adds its bias into its product) and, on the card, a
+    Linear's product is the custom operator ``puzzlelib::matmul``, which has
+    no autograd formula.  A module's gradient is its own ``backward``
+    (``SwitchMoE`` runs its experts so)."""
+    slots = _paramSlots(module)
+
+    def apply(params, x):
+        if len(params) != len(slots):
+            raise ValueError("%s takes %d parameters, %d were given" % (module, len(slots), len(params)))
+
+        saved = [(mod._parameters[name], var.data) for mod, name, var in slots]
+        try:
+            for (mod, name, var), param in zip(slots, params):
+                mod._parameters[name] = param
+                var.data = param
+
+            return module(x)
+        finally:
+            for (mod, name, var), (owned, data) in zip(slots, saved):
+                mod._parameters[name] = owned
+                var.data = data
+            module.reset()
+
+    return apply, [var.data for _, _, var in slots]
 
 
 def _refuseVerifyData():

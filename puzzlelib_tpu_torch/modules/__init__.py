@@ -2,7 +2,8 @@
 transformer, CNN training, ResNet, U-Net, Inception, sequence, SegNet,
 AlexNet and C3D slices, the glue, upsampling and unpooling layers, and the
 LRN family, the spatial transformer, ``GroupLinear``, the noise and
-penalty layers and the 1-d and 3-d modules."""
+penalty layers and the 1-d and 3-d modules; ``SwitchMoE`` and ``MoEGate``
+lazily, as the JAX package exports them."""
 
 from puzzlelib_tpu_torch.modules.activation import (
     Activation, ActivationType, sigmoid, tanh, relu, leakyRelu, elu, softPlus, clip
@@ -75,3 +76,14 @@ from puzzlelib_tpu_torch.modules.tolist import ToList
 from puzzlelib_tpu_torch.modules.transpose import Transpose
 from puzzlelib_tpu_torch.modules.upsample2d import Upsample2D
 from puzzlelib_tpu_torch.modules.upsample3d import Upsample3D
+
+
+def __getattr__(name):
+    # lazy: switchmoe subclasses Container, and an eager import here would be
+    # circular (containers.container imports modules.module, whose package
+    # init is this file)
+    if name in ("SwitchMoE", "MoEGate"):
+        from puzzlelib_tpu_torch.modules import switchmoe
+        return getattr(switchmoe, name)
+
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -120,8 +120,9 @@ def build(kind):
 
 class Run:
     """One net with its optimizer, trainer and validator, and the start
-    values of the optimizer's flat parameter buffers and of the modules'
-    attributes (a batch norm's running stats)."""
+    values of the optimizer's flat parameter buffers (of each variable under
+    local state) and of the modules' attributes (a batch norm's running
+    stats)."""
 
     def __init__(self, net, optimizer, cost, batch):
         from puzzlelib_tpu_torch.fused import FusedTrainer, FusedValidator
@@ -133,6 +134,7 @@ class Run:
         self.fusedTrainer = FusedTrainer(net, cost, optimizer, batchsize=batch)
         self.fusedValidator = FusedValidator(net, cost, batchsize=batch)
         self.start = {dtype: pack.ary.clone() for dtype, pack in optimizer.shParams.items()}
+        self.startVars = [] if optimizer.globalState else [(var.data, var.data.clone()) for var in net.getVarTable()]
         self.startAttrs = {name: attr.clone() for name, attr in net.getAttrTable().items()}
         self.startStates = _stateValues(optimizer)
 
@@ -145,6 +147,9 @@ class Run:
 
         for dtype, pack in self.optimizer.shParams.items():
             pack.ary.copy_(self.start[dtype])
+
+        for data, value in self.startVars:
+            data.copy_(value)
 
         for name, attr in self.net.getAttrTable().items():
             attr.copy_(self.startAttrs[name])

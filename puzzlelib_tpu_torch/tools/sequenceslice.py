@@ -199,6 +199,7 @@ class W2LRun:
         self.calculator = Calculator(net, batchsize=batch)
 
         self.start = {dtype: pack.ary.clone() for dtype, pack in self.optimizer.shParams.items()}
+        self.startVars = []
         self.startAttrs = {name: attr.clone() for name, attr in net.getAttrTable().items()}
         self.startStates = Cnn._stateValues(self.optimizer)
 

@@ -336,6 +336,24 @@ assert c3dRun.serve("hopper", c3dslice.data(2, shape=(3, 16, 16, 16), classes=4)
 segRun = segslice.buildRun(segslice.build(torch.bfloat16, encoder=((1, 8), (1, 8))), batch=2)
 segRun.train("fused", *segslice.data(2, shape=(3, 20, 24), block=4))
 assert segRun.serve("hopper", segslice.data(2, shape=(3, 20, 24))[0])[0].shape == (2, 12, 20, 24)
+from puzzlelib_tpu_torch.containers import Pipeline, SwitchMoE as ContainersSwitchMoE
+from puzzlelib_tpu_torch.fused import functionalize, paramList
+from puzzlelib_tpu_torch.models.misc import RBM
+from puzzlelib_tpu_torch.parallel import stackExpertParams
+from puzzlelib_tpu_torch.passes import toGraph
+from puzzlelib_tpu_torch.tools import moeslice, rbmslice
+assert ContainersSwitchMoE is T.SwitchMoE and T.MoEGate
+moeNet = moeslice.buildNet(stages=2, dim=8, experts=2, classes=3)
+assert isinstance(moeNet.graph[0], Pipeline)
+moeRun = moeslice.buildRun(moeNet, globalState=True, batch=8, classes=3)
+moeRun.train("fused", *moeslice.data(16, 0, dim=8, classes=3)[:2])
+moeApply, _ = functionalize(moeNet.graph[0].graph[0])
+assert moeApply(paramList(moeNet.graph[0].graph[1]), torch.zeros(4, 8)).shape == (4, 8)
+assert len(stackExpertParams([paramList(e) for e in moeNet.getAllByType(T.SwitchMoE)[0].graph])) == 2
+assert len(toGraph(loadResNet(None, "50")).nodes) == 176
+rbmRows = torch.from_numpy(rbmslice.data(8, vsize=12, prototypes=2))
+assert rbmslice.train(rbmRows, persistent=True, steps=2).particles.shape == (8, 500)
+assert isinstance(RBM(6, 4), RBM)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -370,8 +388,12 @@ def testPortRunsWithoutJax():
     takes (``tools/layerslice.py``), a narrow AlexNet trained fused and a
     narrow C3D in bf16 served (``tools/{alexnet,c3d}slice.py``), and a
     narrow SegNet trained fused and
-    served (``tools/segslice.py``) imports no JAX and nothing of the JAX
-    package (``ml_dtypes`` neither)."""
+    served (``tools/segslice.py``), a narrow MoE trunk (``Pipeline`` of
+    ``Graph`` stages with ``SwitchMoE``) trained fused under global state
+    with ``functionalize`` and ``stackExpertParams`` (``tools/moeslice.py``),
+    ``toGraph`` of ResNet-50 and the RBM trained by PCD
+    (``tools/rbmslice.py``) imports no JAX and nothing of the JAX package
+    (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
