@@ -138,8 +138,10 @@ it fails:
    instance's ptxas registers, spills and shared memory (a spill in a
    wgmma instance fails), and whether wgmma beat mma.sync at every shape;
 18. the measurement path ([measure]): the probe scripts and the benchmarks
-   (``gemmspeed`` and its ``--kernel-rate``, ``convspeed`` and its
-   ``--chain`` on VGG-16's conv3_2, ``attnspeed``) run as a user runs them, with every counter reset just
+   (``gemmspeed``, its ``--kernel-rate`` and its ``--tune`` race at 1024^3
+   and 4096^3, ``kernelspeed``, ``convspeed`` and its ``--chain`` on
+   VGG-16's conv3_2, each racing the conv first, ``attnspeed``, which
+   records its winners) run as a user runs them, with every counter reset just
    before and read just after; each of P1-P3 and K1-K5b must have run, and
    every P1 launch on the wgmma kernel;
 19. the CNN training slices of ``tools/cnnslice.py``, after phase 10.
@@ -212,8 +214,9 @@ it fails:
    eager's (the first loss bit-equal), one recording, a second fused run
    the same bits, a ``FusedCalculator`` replay after more training equal to the eager
    ``Calculator``; images/s of each route in 5 runs in turns, idle shares
-   under the profiler, ``netspeed``, and K2, K2-bwd and K3 at its three
-   Winograd shapes against channels-last cuDNN;
+   under the profiler, ``netspeed`` (training with ``--profile``: the
+   per-layer table of ``benchmarks/layerprofile``), and K2, K2-bwd and K3
+   at its three Winograd shapes against channels-last cuDNN;
 26. [unet]: U-Net (``tools/unetslice.py``) in bf16 at batch 4 on 1 x 512 x
    512 inputs, He weights from ``np.random.seed(0)``: 4 requests served
    with the sigmoid, 8 steps trained without it (``BCE``,
@@ -275,7 +278,9 @@ it fails:
    sentences of 100 + 2 x 4, embeddings of 300, branches 3, 4, 5 of 100
    maps) in f32 on 2048 seeded sentences: ``presets.sentinet.train(...,
    saving=False)`` on the hand and library routes (3 epochs, ``AdaDelta``,
-   ``CrossEntropy``), K1 on the head once a step and a validated batch,
+   ``CrossEntropy``; the head raced against cuBLAS by its
+   ``optimizeForShape`` before the counted runs, so that the preset's own
+   call launches nothing), K1 on the head once a step and a validated batch,
    the epochs' training errors within 1e-4 of the library route's and
    falling, equal validation errors; each of the six new optimizers in
    global state, 4 steps of 64 on the hand, library and fused routes, the
@@ -355,8 +360,23 @@ it fails:
    of an f64 numpy step on the card's draws;
 39. [vgg-avg]: VGG-16 with average pooling in bf16, 4 requests of 32 on the
    hand and library routes: 10 K2 and 3 K1 a request, outputs within 5e-2
-   of the library route's.
-   The seconds of phases 26 to 39, of [layers]' cases by module and of the
+   of the library route's;
+40. [auto]: the measured per-shape dispatch, ``Config.convAlgo = gemmAlgo =
+   "auto"``: the tables emptied, ``optimizeForShape`` races VGG-16 bf16 at
+   batch 32 (10 Winograd convs, 3 directions each, fc6-fc8), U-Net bf16 at
+   batch 4 on 512^2 (15 convs), AlexNet's fc6-fc8 in f32 at 128, the MoE
+   trunk's products and the transformer's attention at its slice shape and
+   at (4, 8, 2048, 64); one line a key with the hand kernel's and the
+   library's ms and the choice, which must follow them (hand below 0.97x
+   for convs and attention, strictly faster for a product); the same races
+   again, the same choice wherever the first gap passed 10 %; then VGG-16
+   and U-Net serve 4 requests and train 4 steps under "auto", eager and
+   fused, each kernel launched as many times as the table's hand choices
+   ask, scores and losses within 5e-2 of the library route's; one forced
+   change of a conv's choice, which the fused trainer records anew; images/s
+   of the hand, library and measured routes in 5 runs in turns.  The
+   races' launches fall outside the counted runs.
+   The seconds of phases 26 to 40, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -2628,12 +2648,14 @@ def phaseMeasurementPath(torch, card):
     """The measurement entry points as a user runs them, with every kernel's
     counter reset just before and read just after: the three probe scripts
     (``tools/roofline_probe``, ``strided_dma_probe``, ``tapdot_probe``) and
-    the benchmarks (``gemmspeed`` at its defaults and ``--kernel-rate``,
-    ``convspeed`` on VGG-16's conv3_2 in bf16 and its ``--chain``,
-    ``attnspeed`` at its defaults).
+    the benchmarks (``gemmspeed`` at its defaults, ``--kernel-rate`` and
+    ``--tune`` at 1024 and 4096, ``kernelspeed``, ``convspeed`` on VGG-16's
+    conv3_2 in bf16 and its ``--chain``, each racing the conv first,
+    ``attnspeed`` at its defaults, which records its winners).
     Every kernel of the path must have run."""
     from puzzlelib_tpu_torch import config as Config
-    from puzzlelib_tpu_torch.benchmarks import attnspeed, convspeed, gemmspeed
+    from puzzlelib_tpu_torch.benchmarks import attnspeed, convspeed, gemmspeed, kernelspeed
+    from puzzlelib_tpu_torch.ops import conv
     from puzzlelib_tpu_torch.ops.hopper import flash, matmul, phasesplit, streamcopy, tapdot, winograd
     from puzzlelib_tpu_torch.tools import roofline_probe, strided_dma_probe, tapdot_probe
 
@@ -2656,6 +2678,9 @@ def phaseMeasurementPath(torch, card):
                        ("tools/tapdot_probe", lambda: tapdot_probe.main([])),
                        ("benchmarks/gemmspeed", lambda: gemmspeed.main([])),
                        ("benchmarks/gemmspeed --kernel-rate", lambda: gemmspeed.main(["--kernel-rate"])),
+                       ("benchmarks/gemmspeed --tune", lambda: gemmspeed.main(["--tune", "--sizes", "1024,4096",
+                                                                              "--iters", "10"])),
+                       ("benchmarks/kernelspeed", lambda: kernelspeed.main(["--iters", "10"])),
                        ("benchmarks/convspeed", lambda: convspeed.cli(vgg)),
                        ("benchmarks/convspeed --chain", lambda: convspeed.cli(vgg + ["--chain"])),
                        ("benchmarks/attnspeed", lambda: attnspeed.main([]))):
@@ -2663,6 +2688,7 @@ def phaseMeasurementPath(torch, card):
         run()
         torch.cuda.empty_cache()
     secs = time.perf_counter() - start
+    conv.resetDispatchCaches()   # the benchmarks' races, which no later phase reads
 
     launches = {"P3": streamcopy.launches, "P2": phasesplit.launches, "P1": tapdot.launches,
                 "P1-wgmma": tapdot.launchesWgmma, "K1": matmul.launches,
@@ -3466,7 +3492,7 @@ def phaseResNet50(torch, card):
     del run, net
     torch.cuda.empty_cache()
 
-    for extra in (["--infer"], []):
+    for extra in (["--infer"], ["--profile"]):
         result = netspeed.main(["--net", "resnet50", "--dtype", "bfloat16", "--iters", "5"] + extra)
         print("[%s] netspeed %s: %.2f ms a step, %.1f images/s on %s" %
               (tag, result["mode"], result["secs"] * 1e3, result["batch"] / result["secs"], card))
@@ -4173,6 +4199,15 @@ def phaseSentiNet(torch, card):
     print("[%s] SentiNet f32, %d parameters, %d sentences of %d tokens (vocabulary %d, embeddings %d, branches %s "
           "of %d maps)" % (tag, run.net.numOfParams(), len(tokens), tokens.shape[1], Zoo.SENTI_VOCAB,
                            Zoo.SENTI_EMBSIZE, Zoo.SENTI_BRANCHES, Zoo.SENTI_MAPS))
+
+    # the preset calls optimizeForShape, which races the head's K1 against
+    # cuBLAS (33 K1 launches); raced here, before the counted runs, the
+    # preset's own calls find the product measured and launch nothing
+    from puzzlelib_tpu_torch.modules import Linear
+    for head in run.net.getAllByType(Linear):
+        head.optimizeForShape((Zoo.SENTI_BATCH, head.W.shape[0]))
+    print("[%s] the head's race before the counted runs (K1 ms, cuBLAS ms): %s -> %s" %
+          (tag, matmul._raceMs, matmul._dispatch))
 
     presets = {}
     for algo in ("torch", "hopper"):
@@ -5062,6 +5097,297 @@ def phaseVggAverage(torch, card):
     return counts
 
 
+# -- the measured per-shape dispatch ----------------------------------------------------------------
+
+# the gap past which a second race must repeat the first's choice
+AUTO_REPEAT_GAP = 0.10
+
+# the races of [auto] beyond VGG-16's and U-Net's: AlexNet's fc6-fc8 in f32
+# at batch 128 and the MoE trunk's products in f32 ((in, out), rows), and
+# the attention cores (batch, seq, emb, heads): the transformer slice's and
+# a long one
+AUTO_LINEARS = [("alexnet-fc6", 9216, 4096, 128), ("alexnet-fc7", 4096, 4096, 128),
+                ("alexnet-fc8", 4096, 1000, 128), ("moe-trunk", 64, 64, 128), ("moe-expert", 64, 64, 64)]
+AUTO_ATTENTION = [("transformer", 64, 80, 128, 4), ("long", 4, 2048, 512, 8)]
+
+
+class _RaceLog:
+    """Inside ``with``, every call of the three races (``measureAlgoChoice``,
+    ``tuneDispatch``, ``measureAttnChoice``) is logged by name and
+    arguments, so that ``again`` can run the same races once more."""
+
+    def __init__(self):
+        from puzzlelib_tpu_torch.ops import attention, conv
+        from puzzlelib_tpu_torch.ops.hopper import matmul
+
+        self.targets = [(conv, "measureAlgoChoice"), (matmul, "tuneDispatch"), (attention, "measureAttnChoice")]
+        self.calls = []
+
+    def __enter__(self):
+        self.saved = [getattr(owner, name) for owner, name in self.targets]
+        for (owner, name), fn in zip(self.targets, self.saved):
+            setattr(owner, name, self._logged(fn))
+        return self
+
+    def _logged(self, fn):
+        def logged(*args, **kwargs):
+            self.calls.append((fn, args, kwargs))
+            return fn(*args, **kwargs)
+        return logged
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self.targets, self.saved):
+            setattr(owner, name, fn)
+
+    def again(self):
+        for fn, args, kwargs in self.calls:
+            fn(*args, **kwargs)
+
+
+def _raceTables():
+    """{("conv" | "gemm" | "attention", key): (choice, hand ms, library ms)}
+    of the three measured tables."""
+    from puzzlelib_tpu_torch.ops import attention, conv
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    table = {}
+    for kind, choices, times in (("conv", conv._algoChoice, conv._algoMs), ("gemm", matmul._dispatch, matmul._raceMs),
+                                 ("attention", attention._attnChoice, attention._attnMs)):
+        for key, choice in choices.items():
+            table[kind, key] = (choice, ) + tuple(times[key])
+    return table
+
+
+def _followsRule(kind, choice, handMs, libMs):
+    from puzzlelib_tpu_torch.ops import conv
+
+    margin = 1.0 if kind == "gemm" else conv.MARGIN
+    hand = handMs < margin * libMs
+    return choice == {"conv": ("hopper", "torch"), "gemm": ("hopper", "torch"),
+                      "attention": ("flash", "xla")}[kind][0 if hand else 1]
+
+
+def _convKeys(net, inshape):
+    """[(direction, ``ops.conv._algoChoice`` key)] of every conv of ``net``
+    that a hand kernel takes, for an input of ``inshape``."""
+    from puzzlelib_tpu_torch.ops import conv
+    from puzzlelib_tpu_torch.tools import resnetslice as Res
+
+    return [item for mod, shape in Res.convInputs(net, inshape)
+            for item in conv.raceKeys(shape, tuple(mod.W.shape), mod.stride, mod.pad, mod.dilation,
+                                      mod.groups).items()]
+
+
+def _autoCounts(net, inshape, steps, backward):
+    """The launches "auto" must make in ``steps`` batches of ``inshape``
+    through ``net`` (forward only, or with ``backward``), from the measured
+    tables: K2 on each conv whose forward was recorded "hopper" (and K2 as
+    bwd-data, K3, on each whose bwd-data, bwd-filter was), K1 on each Linear
+    whose product was."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.modules import Linear
+    from puzzlelib_tpu_torch.ops import conv
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    hand = {"fwd": 0, "bwdData": 0, "fg": 0}
+    for direction, key in _convKeys(net, inshape):
+        hand[direction] += Config.route("auto", conv._algoChoice, key)
+
+    linears = sum(Config.route("auto", matmul._dispatch, matmul.dispatchKey(inshape[0], lin.W.shape[1],
+                                                                               lin.W.shape[0], lin.calctype))
+                  for lin in net.getAllByType(Linear))
+
+    return {"winograd": steps * (hand["fwd"] + backward * hand["bwdData"]),
+            "winogradDataGrad": steps * backward * hand["bwdData"], "winogradFG": steps * backward * hand["fg"],
+            "matmul": steps * linears}
+
+
+def _autoCounted(tag, what, fn, want):
+    _resetCounters()
+    result = fn()
+    counts = _readCounters()
+    seen = {key: counts[key] for key in want}
+    print("[%s] %s launches %s (from the table: %s)" % (tag, what, seen, want))
+    if seen != want:
+        fail("[%s] %s: launches %s, the table asks for %s" % (tag, what, seen, want))
+    return result
+
+
+def _autoNet(torch, card, tag, run, inshape, images, labels, requests):
+    """One slice under "auto" after its race: serving and training eager
+    and fused, each kernel's launches those the table asks for, the scores
+    and losses within 5e-2 of the library route's; a forced table change
+    that the fused trainer records anew; rates of the hand, library and
+    auto routes in 5 runs in turns."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops import conv
+
+    batch = inshape[0]
+    serveWant = _autoCounts(run.net, inshape, len(requests) // batch, 0)
+    trainWant = _autoCounts(run.net, inshape, len(images) // batch, 1)
+
+    run.serve("fused-auto", requests)   # the recordings, outside the counted runs
+    run.train("fused-auto", images, labels)
+
+    libScores, _ = run.serve("torch", requests)
+    libLosses = []
+    run.train("torch", images, labels, libLosses)
+
+    for algo in ("auto", "fused-auto"):
+        scores, _ = _autoCounted(tag, "%s serving, %d requests of %d" % (algo, len(requests) // batch, batch),
+                                 lambda: run.serve(algo, requests), serveWant)
+        losses = []
+        _autoCounted(tag, "%s training, %d steps of %d" % (algo, len(images) // batch, batch),
+                     lambda: run.train(algo, images, labels, losses), trainWant)
+
+        rel = float(np.linalg.norm(scores - libScores) / np.linalg.norm(libScores))
+        print("[%s] %s: scores against the library route's relative L2 %.3e (bound %.0e), finite %s" %
+              (tag, algo, rel, SLICE_BOUND, np.isfinite(scores).all()))
+        if not (rel <= SLICE_BOUND and np.isfinite(scores).all()):
+            fail("[%s] %s scores %.3e from the library route's" % (tag, algo, rel))
+        _lossesAgainst("%s] [%s" % (tag, algo), losses, libLosses, TRAIN_BOUND)
+
+    # a forced change of one conv's forward choice: the fused trainer records anew
+    step = run.fusedTrainer.step
+    before = step.captures
+    key = next(key for direction, key in _convKeys(run.net, inshape) if direction == "fwd")
+    old = conv._algoChoice[key]
+    # a new recording follows one eager warm-up step, whose launches count too
+    unchanged = _autoCounts(run.net, inshape, len(images) // batch + 1, 1)
+    Config.recordChoice(conv._algoChoice, key, "torch" if old == "hopper" else "hopper")
+    changed = _autoCounts(run.net, inshape, len(images) // batch + 1, 1)
+    _autoCounted(tag, "fused-auto training after %s was forced from %s" % (key, old),
+                 lambda: run.train("fused-auto", images, labels), changed)
+    print("[%s] recordings of the fused step before the change %d, after %d" % (tag, before, step.captures))
+    if step.captures != before + 1 or changed == unchanged:
+        fail("[%s] the forced change gave recordings %d -> %d, launches %s" % (tag, before, step.captures, changed))
+    Config.recordChoice(conv._algoChoice, key, old)
+
+    routes = {"hopper": "hand kernels", "torch": "library route", "auto": "measured routes"}
+    for what, count, fn in (("training", len(images), lambda algo: run.train(algo, images, labels)),
+                            ("serving", len(requests), lambda algo: run.serve(algo, requests)[1])):
+        secs = _turns({}, {algo: (lambda algo=algo: fn(algo)) for algo in routes})
+        for algo, runs in secs.items():
+            print("[%s] %s %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
+                  (tag, routes[algo], what, " ".join("%.4f" % t for t in runs), count / float(np.median(runs)), card))
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+
+
+def _heOnCard(torch, net, seed):
+    """He-normal weights for ``net``'s convs and Linears drawn on the card
+    from ``seed`` (numpy's sampler takes seconds for VGG-16's 138 M), zero
+    biases."""
+    from puzzlelib_tpu_torch.modules import ConvND, Linear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for mod in net.getAllByType(ConvND) + net.getAllByType(Linear):
+        fanIn = mod.W[0].numel() if isinstance(mod, ConvND) else mod.W.shape[0]
+        mod.W.copy_(torch.randn(mod.W.shape, generator=gen, device="cuda") * (2.0 / fanIn) ** 0.5)
+        if mod.b is not None:
+            mod.b.zero_()
+
+
+def phaseAuto(torch, card):
+    """The measured per-shape dispatch (``Config.convAlgo = gemmAlgo =
+    "auto"``).  The tables emptied, then the races through the entry points
+    a user calls: ``optimizeForShape`` of VGG-16 bf16 at batch 32 (its 10
+    Winograd convs, three directions each, and fc6-fc8) and of U-Net bf16 at
+    batch 4 on 512^2 (15 convs), of AlexNet's fc6-fc8 in f32 at 128 and the
+    MoE trunk's products (``AUTO_LINEARS``), and of the transformer's
+    attention at its slice shape and at (4, 8, 2048, 64)
+    (``AUTO_ATTENTION``).  One line a key: hand and library ms and the
+    choice, which must follow those times under the rule (hand below 0.97x
+    the library for convs and attention, strictly faster for a product).
+    The same races again: the same choice wherever the first race's gap
+    passed 10 %.  Then VGG-16 and U-Net each serve 4 requests and train 4
+    steps under "auto", eager and fused (``_autoNet``), VGG-16's He weights
+    drawn on the card (``_heOnCard``).  The races' own launches fall before
+    the counted runs and are not counted."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.models.nets import loadVGG
+    from puzzlelib_tpu_torch.modules import Linear, MultiHeadAttention
+    from puzzlelib_tpu_torch.ops import conv
+    from puzzlelib_tpu_torch.tools import resnetslice as Res
+    from puzzlelib_tpu_torch.tools import unetslice as Unet
+
+    tag = "auto"
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    conv.resetDispatchCaches()
+
+    parts, start = {}, time.perf_counter()
+    vggNet = loadVGG(None, "16", initscheme="none")
+    _heOnCard(torch, vggNet, 0)
+    vgg = Res.buildRun(vggNet)
+    vgg.optimizer.learnRate = LEARN_RATE
+    unet = Unet.buildRun()
+    vggShape, unetShape = (BATCH, 3, 224, 224), (Unet.BATCH, ) + Unet.SHAPE
+    parts["build"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    with _RaceLog() as log:
+        vgg.net.optimizeForShape(vggShape)
+        unet.net.optimizeForShape(unetShape)
+        for name, insize, outsize, rows in AUTO_LINEARS:
+            Linear(insize, outsize, name=name).optimizeForShape((rows, insize))
+        for name, batch, seq, emb, heads in AUTO_ATTENTION:
+            attn = MultiHeadAttention(emb, heads, name=name)
+            attn.calcMode(torch.bfloat16)
+            attn.optimizeForShape((batch, seq, emb))
+    parts["races"] = raceSecs = time.perf_counter() - start
+
+    start = time.perf_counter()
+    first = _raceTables()
+    conv.resetDispatchCaches()
+    log.again()
+    second = _raceTables()
+    parts["second race"] = time.perf_counter() - start
+
+    print("[%s] %d races (%d calls of optimizeForShape's measure functions, their convs' three directions "
+          "timed too) in %.1f s on %s" % (tag, len(first), len(log.calls), raceSecs, card))
+    mismatched = []
+    for (kind, key), (choice, handMs, libMs) in sorted(first.items(), key=lambda item: repr(item[0])):
+        again = second.get((kind, key))
+        gap = max(handMs, libMs) / min(handMs, libMs) - 1.0
+        print("[%s] race %-9s %s: hand %.4f ms, library %.4f ms (%.2fx) -> %s; second race %s" %
+              (tag, kind, key, handMs, libMs, handMs / libMs, choice,
+               "%.4f / %.4f ms -> %s" % (again[1], again[2], again[0]) if again else "missing"))
+        if not _followsRule(kind, choice, handMs, libMs) or again is None \
+                or not _followsRule(kind, *again):
+            mismatched.append((kind, key))
+        elif gap > AUTO_REPEAT_GAP and again[0] != choice:
+            mismatched.append((kind, key))
+
+    if len(second) != len(first) or mismatched:
+        fail("[%s] races off their rule or not repeated past a %.0f %% gap: %s" %
+             (tag, 100 * AUTO_REPEAT_GAP, mismatched))
+
+    hands = {kind: sum(choice in ("hopper", "flash") for (k, _), (choice, _, _) in first.items() if k == kind)
+             for kind in ("conv", "gemm", "attention")}
+    print("[%s] hand choices: conv directions %d, products %d, attention %d, of %d races" %
+          (tag, hands["conv"], hands["gemm"], hands["attention"], len(first)))
+
+    start = time.perf_counter()
+    images, labels = Res.data(BATCH * STEPS)
+    _autoNet(torch, card, "%s] [vgg16" % tag, vgg, vggShape, images, labels, images[:BATCH * REQUESTS])
+    del vgg, images, labels
+    torch.cuda.empty_cache()
+    parts["VGG-16 under auto"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    images, masks = Unet.data(Unet.BATCH * STEPS)
+    _autoNet(torch, card, "%s] [unet" % tag, unet, unetShape, images, masks, images[:Unet.BATCH * REQUESTS])
+    del unet, images, masks
+    parts["U-Net under auto"] = time.perf_counter() - start
+    print("[time] [%s] by part: %s" % (tag, ", ".join("%s %.1f s" % item for item in parts.items())))
+
+    conv.resetDispatchCaches()
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    torch.cuda.empty_cache()
+    return first
+
+
 def main():
     import torch
 
@@ -5162,6 +5488,9 @@ def main():
     phaseLayers(torch)
     torch.cuda.empty_cache()
     print("[time] [layers] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    phaseAuto(torch, card)
+    print("[time] [auto] %.1f s" % (time.perf_counter() - phaseStart))
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:

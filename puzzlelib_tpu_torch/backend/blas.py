@@ -3,7 +3,10 @@
 ``mulMatrixOnMatrix`` sends a product on CUDA tensors to kernel K1 under the
 reference's static conditions for its Pallas GEMM: both operands 2-D, no
 transposes, alpha 1 and no beta accumulation, while ``Config.gemmAlgo`` is
-"hopper".  Every other product goes to ``ops.blas.gemm`` (``torch.matmul``),
+"hopper"; under "auto" where the race of ``optimizeForShape`` recorded K1
+for its shape and type (``ops.hopper.matmul._dispatch``), and for a shape
+not raced where the reference's static prior takes its kernel (min(m, n,
+k) >= 1024, n and k multiples of 128).  Every other product goes to ``ops.blas.gemm`` (``torch.matmul``),
 the counterpart of the reference's XLA dot: so do the transposed products
 and the ``beta`` accumulation of ``Linear``'s backward, as in the reference;
 so does ``mulTensorBatch``, the grouped product (``torch.matmul``), which
@@ -23,6 +26,17 @@ def kernelTakes(A, B, transpA=False, transpB=False, alpha=1.0, hasOut=False):
     return A.dim() == 2 and B.dim() == 2 and not transpA and not transpB and not hasOut and alpha == 1.0
 
 
+def useKernel(A, B):
+    """True when ``Config.gemmAlgo`` sends A @ B (a product that
+    ``kernelTakes``) to K1: the reference's ``_pallasGemmTiles(A, B) is not
+    None``."""
+    m, k = A.shape
+    n = B.shape[1]
+    key = _hopper.dispatchKey(m, n, k, A.dtype) if Config.gemmAlgo == "auto" else None
+    prior = min(m, n, k) >= 1024 and n % 128 == 0 and k % 128 == 0
+    return Config.route(Config.gemmAlgo, _hopper._dispatch, key, prior)
+
+
 def _write(result, out):
     if out is None:
         return result
@@ -34,7 +48,7 @@ def _write(result, out):
 def mulMatrixOnMatrix(A, B, out=None, transpA=False, transpB=False, alpha=1.0, beta=0.0):
     hasOut = out is not None and beta != 0.0
 
-    if A.is_cuda and Config.useHopper(Config.gemmAlgo) and kernelTakes(A, B, transpA, transpB, alpha, hasOut):
+    if A.is_cuda and kernelTakes(A, B, transpA, transpB, alpha, hasOut) and useKernel(A, B):
         return _write(_hopper.matmul(A.contiguous(), B.contiguous()), out)
 
     result = _ops.gemm(A, B, out if hasOut else None, alpha, beta, transpA=transpA, transpB=transpB)

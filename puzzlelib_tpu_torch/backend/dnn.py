@@ -158,14 +158,19 @@ def convNdbenchmark(datashape, Wshape, stride, pad, dilation, groups, transpose=
     With ``transpose`` the three are the deconvolution's, whose output has
     ``datashape`` and whose weights ``Wshape`` (inmaps, outmaps // groups,
     *size), as ``DeconvND.optimizeForShape`` passes them.  ``dtype`` is a
-    numpy or torch type ("bfloat16" by name).  The reference's race of its
-    kernels against XLA (``measureAlgoChoice``) waits for the port's
-    per-shape race."""
+    numpy or torch type ("bfloat16" by name).  A 2-d conv that is not
+    transposed is first raced (``ops.conv.measureAlgoChoice``: each hand
+    kernel that takes it against its library call, the faster recorded for
+    ``Config.convAlgo = "auto"``), as the reference's is, so that the times
+    are those of the route a net optimized for the shape runs."""
     from puzzlelib_tpu_torch.ops.hopper import winograd
 
     stride, pad, dilation, groups = _t(stride), _t(pad), _t(dilation), int(groups)
     dtype = torch.bfloat16 if isinstance(dtype, str) and dtype == "bfloat16" else gpuarray.toTorchDtype(dtype)
     device = getDevice()
+
+    if not transpose and len(datashape) == 4:
+        _conv.measureAlgoChoice(datashape, Wshape, stride, pad, dilation, groups, dtype=dtype)
 
     x = torch.zeros(tuple(datashape), dtype=dtype, device=device)
     w = torch.zeros(tuple(Wshape), dtype=dtype, device=device)

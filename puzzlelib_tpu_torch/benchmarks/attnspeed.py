@@ -20,8 +20,11 @@ Each line gives ms and TFLOP/s on the file's count, 4 b h s^2 d x 3.5
 and library times over flash's.  Times on the card are the device's, by CUDA
 events behind a device sleep, after the card's name and power limit; with
 ``--device cpu`` they are the CPU's, and the kernels run their plain
-versions.  The reference's write of the winner into the "auto" table
-(``attnspeed.py:84-91``) waits for the port's per-shape race.  Without
+versions.  On the card each shape's winner of flash against the composed
+route is written into the "auto" table (``ops.attention._attnChoice``:
+flash only below 0.97x composed, as ``measureAttnChoice`` records it), and
+the table is printed at the end, as the reference does
+(``attnspeed.py:84-91``); on the CPU nothing is recorded.  Without
 ``--device cpu`` the script needs a card and raises ``DeviceError`` where
 there is none.
 """
@@ -98,7 +101,25 @@ def main(argv=None):
                    flops / times["composed"] / 1e9, times["composed"] / times["flash"], times["library"],
                    flops / times["library"] / 1e9, times["library"] / times["flash"], where))
 
+            if device.type == "cuda":
+                _record(b, h, s, d, causal, times["flash"], times["composed"])
+
+    if device.type == "cuda":
+        from puzzlelib_tpu_torch.ops import attention as attnops
+        print("dispatch table:", sorted(attnops._attnChoice.items()))
+
     return results
+
+
+def _record(b, h, s, d, causal, flashMs, composedMs):
+    """Write the winner at this signature into the "auto" table."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.ops import attention as attnops
+    from puzzlelib_tpu_torch.tools.timing import handWins
+
+    key = attnops._signature(b, h, s, d, causal, torch.bfloat16)
+    attnops._attnMs[key] = (flashMs, composedMs)
+    Config.recordChoice(attnops._attnChoice, key, "flash" if handWins(flashMs, composedMs, attnops.MARGIN) else "xla")
 
 
 if __name__ == "__main__":

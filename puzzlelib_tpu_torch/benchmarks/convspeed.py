@@ -15,11 +15,16 @@ default shape is the file's, an 11x11 conv that no hand kernel takes;
 ``--data``, ``--weights`` and ``--pad`` choose another (a 3x3 conv with C
 and CO multiples of 128 goes to K2 and K3 in bf16).
 
+Both modes first race the hand kernels that take the conv against cuDNN
+(``ops.conv.measureAlgoChoice``, which ``convNdbenchmark`` runs) and print
+each direction's choice beside the two times it rests on, as the
+reference prints its measured dispatch; under ``Config.convAlgo = "auto"``
+the times that follow are those of the chosen routes.
+
 On the card every line follows the card's name and power limit; with
-``--device cpu`` the times are the CPU's.  The reference's race of its
-kernels against XLA (``measureAlgoChoice``) waits for the port's per-shape
-race.  Without ``--device cpu`` the script needs a card and raises
-``DeviceError`` where there is none.
+``--device cpu`` the times are the CPU's and nothing is raced.  Without
+``--device cpu`` the script needs a card and raises ``DeviceError`` where
+there is none.
 """
 
 import argparse
@@ -41,6 +46,22 @@ def _flops(datashape, Wshape, stride, pad):
     return 2.0 * n * cout * outh * outw * cin * kh * kw, (outh, outw)
 
 
+def printChoices(datashape, Wshape, stride, pad, dilation):
+    """One line a direction raced at this conv: the recorded choice and
+    the hand kernel's and the library's ms; returns {direction: (choice,
+    hand ms, library ms)}."""
+    from puzzlelib_tpu_torch.ops import conv as opsconv
+
+    measured = {}
+    for direction, key in opsconv.raceKeys(datashape, Wshape, stride, pad, dilation, 1).items():
+        if key in opsconv._algoChoice:
+            measured[direction] = (opsconv._algoChoice[key], ) + opsconv._algoMs[key]
+            print("measured dispatch %-8s -> %-6s (hand %.4f ms, library %.4f ms)" % ((direction, ) +
+                                                                                   measured[direction]))
+
+    return measured
+
+
 def chainRate(datashape=DATASHAPE, Wshape=WSHAPE, pad=0, iters=20):
     """bf16 forward, bwd-data and bwd-filter of one conv on the configured
     device, each timed alone (``deviceMs`` on the card): {direction: ms}."""
@@ -59,6 +80,11 @@ def chainRate(datashape=DATASHAPE, Wshape=WSHAPE, pad=0, iters=20):
     wgt = (torch.randn(Wshape, generator=gen, device=device) * 0.1).to(torch.bfloat16)
     grad = (torch.randn((n, Wshape[0], outh, outw), generator=gen, device=device) * 0.1).to(torch.bfloat16)
     x = opsconv.kernelLayout(x, Wshape, stride, pads, dilation, 1)
+
+    # the race first, so that the chains time what a net optimized for the
+    # shape runs under "auto"
+    opsconv.measureAlgoChoice(datashape, Wshape, stride, pads, dilation, 1)
+    printChoices(datashape, Wshape, stride, pads, dilation)
 
     directions = [
         ("fwd", flops, "launches", lambda: opsconv.convNd(x, wgt, None, stride, pads, dilation, 1)),
@@ -91,6 +117,8 @@ def main(datashape=DATASHAPE, Wshape=WSHAPE, stride=1, pad=0, dtype=np.float32):
 
     flops, _ = _flops(datashape, Wshape, stride, pad)
     print("Benchmarking conv data %s W %s" % (tuple(datashape), tuple(Wshape)))
+
+    printChoices(datashape, Wshape, (stride, ) * nd, (pad, ) * nd, (1, ) * nd)
 
     for name, results in (("fwd", fwdResults), ("bwdFilter", bwdParamsResults), ("bwdData", bwdDataResults)):
         perf = results[0]

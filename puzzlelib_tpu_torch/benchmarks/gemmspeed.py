@@ -2,7 +2,7 @@
 (counterpart of ``puzzlelib_tpu/benchmarks/gemmspeed.py``).
 
 Run:  python3 -m puzzlelib_tpu_torch.benchmarks.gemmspeed [--sizes 1024,2048,4096]
-          [--dtypes float32,bfloat16,float16,int8] [--iters 20] [--kernel-rate] [--device cpu]
+          [--dtypes float32,bfloat16,float16,int8] [--iters 20] [--kernel-rate] [--tune] [--device cpu]
 
 For each square size and type it times the library's product
 (``torch.matmul``; ``torch._int_mm`` for int8) and K1 (``ops/hopper/matmul``;
@@ -21,10 +21,13 @@ and in int8 on operands made on the card (``gemmspeed.py:33-98``): at K =
 65536 the operands' 1-2 GB are read in a small share of the time of 8.8
 TFLOP of tensor-core work, so it measures the kernels' sustained rate.
 
-The reference's ``--tune`` sweep, ``autotune`` and the write of the winner
-into the dispatch table (``gemmspeed.py:157-177``) wait for the port's
-per-shape race of K1 against cuBLAS.  Without ``--device cpu`` the script
-needs a card and raises ``DeviceError`` where there is none.
+``--tune`` races K1 against cuBLAS at each size and type (not int8) through
+``ops.hopper.matmul.tuneDispatch`` and writes the winner into the table that
+``Config.gemmAlgo = "auto"`` reads, as the reference does
+(``gemmspeed.py:157-177``; its Pallas tile sweep has no counterpart, since
+K1's path follows from the shape): one line each with K1's and cuBLAS's ms
+and the choice; on the CPU nothing is raced.  Without ``--device cpu`` the
+script needs a card and raises ``DeviceError`` where there is none.
 """
 
 import argparse
@@ -74,8 +77,29 @@ def _rate(ops, ms, dtname, device):
     return "%8.2f %s (%5.1f%% peak)" % (rate, unit, rate / PEAKS[dtname] * 1e14)
 
 
-def sweep(sizes, dtnames, iters, device):
-    """One line per (size, type): the library's and K1's rates."""
+def tune(size, dtname, iters):
+    """Race K1 against cuBLAS at size^3 and record the winner for "auto",
+    anew where the table held one: (choice, K1 ms, cuBLAS ms), None on the
+    CPU."""
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+
+    dtype = DTYPES[dtname]
+    key = matmul.dispatchKey(size, size, size, dtype)
+    matmul._dispatch.pop(key, None)
+
+    choice = matmul.tuneDispatch(size, size, size, dtype, iters=iters)
+    if choice is None:
+        print("    dispatch: not raced (no card)")
+        return None
+
+    handMs, libMs = matmul._raceMs[key]
+    print("    dispatch -> %s (K1 %.4f ms, cuBLAS %.4f ms)" % (choice, handMs, libMs))
+    return choice, handMs, libMs
+
+
+def sweep(sizes, dtnames, iters, device, tuning=False):
+    """One line per (size, type): the library's and K1's rates; with
+    ``tuning``, the race's line after each (not int8)."""
     results = {}
     for size in sizes:
         for dtname in dtnames:
@@ -91,6 +115,9 @@ def sweep(sizes, dtnames, iters, device):
             print("%5d %8s | %s %s | %s %s | K1 time / library's %.2fx" %
                   (size, dtname, label, _rate(ops, libMs, dtname, device), kernel, _rate(ops, kernelMs, dtname, device),
                    kernelMs / libMs))
+
+            if tuning and dtname != "int8":
+                tune(size, dtname, iters)
 
     return results
 
@@ -119,6 +146,8 @@ def main(argv=None):
     parser.add_argument("--dtypes", default="float32,bfloat16")
     parser.add_argument("--kernel-rate", action="store_true",
                         help="the huge-K single-GEMM sustained rate, bf16 and int8 (the card only)")
+    parser.add_argument("--tune", action="store_true",
+                        help="race K1 against cuBLAS at each size and record the winner for gemmAlgo='auto'")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--device", default=None, help="cpu to run on the CPU; default the card")
     args = parser.parse_args(argv)
@@ -143,7 +172,7 @@ def main(argv=None):
     if unknown:
         raise SystemExit("unknown --dtypes %s (from %s)" % (",".join(unknown), ",".join(DTYPES)))
 
-    return sweep([int(s) for s in args.sizes.split(",")], dtnames, args.iters, device)
+    return sweep([int(s) for s in args.sizes.split(",")], dtnames, args.iters, device, args.tune)
 
 
 if __name__ == "__main__":

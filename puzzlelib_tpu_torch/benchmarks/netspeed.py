@@ -20,8 +20,10 @@ reference does.
 The line printed is the reference's: ms a step and images/s, after the
 card's name and power limit.  It runs on the card unless the caller sets
 ``Config.device`` to the CPU (as the tests do), and raises ``DeviceError``
-where there is no card.  ``--profile``, the per-layer table, needs
-``benchmarks/layerprofile``, which is not ported yet: it raises.
+where there is no card.  ``--profile`` then prints the per-layer table of
+``benchmarks/layerprofile`` (forward, backward-data and backward-params ms
+of each leaf, the rate, the share of the step timed above and the route
+each leaf took).
 """
 
 import argparse
@@ -61,8 +63,7 @@ def _parser():
                         help="per-step time via FusedStep.many: run K and 2K steps in single calls and "
                              "difference them")
     parser.add_argument("--infer", action="store_true", help="time inference instead of training")
-    parser.add_argument("--profile", action="store_true",
-                        help="per-layer fwd/bwd table (needs benchmarks/layerprofile, not ported yet)")
+    parser.add_argument("--profile", action="store_true", help="per-layer fwd/bwd table after the timing")
     return parser
 
 
@@ -70,8 +71,6 @@ def main(argv=None):
     """Time one net as the arguments say; returns {"net", "mode", "dtype",
     "batch", "secs"} of the line printed (``secs`` a step)."""
     args = _parser().parse_args(argv)
-    if args.profile:
-        raise NotImplementedError("--profile needs benchmarks/layerprofile, which is not ported yet")
 
     import torch
 
@@ -153,6 +152,11 @@ def main(argv=None):
 
     print("%s %s %s batch %d: %.2f ms/step, %.1f images/sec" %
           (args.net, mode, args.dtype, args.batch, secs * 1e3, args.batch / secs))
+
+    if args.profile:
+        from puzzlelib_tpu_torch.benchmarks.layerprofile import profileNet
+        profileNet(net, devData, stepSecs=None if args.infer else secs)
+
     return {"net": args.net, "mode": mode, "dtype": args.dtype, "batch": args.batch, "secs": secs}
 
 

@@ -16,7 +16,10 @@ freezes its weights, and the program is saved with ``torch.export.save``:
 The hand kernels appear in the graph as their custom operators
 (``puzzlelib::matmul``, ``puzzlelib::matmul_nt`` for the int8 products,
 ``puzzlelib::winograd_conv2d``, ``puzzlelib::flash``), so a loaded engine
-launches them as the eager net does.  An exported program records the
+launches them as the eager net does.  Under ``Config.*Algo = "auto"`` the
+trace takes each call's route from the measured tables as they stand at
+build time, and the engine keeps those routes: a race run after the build
+changes nothing in it.  An exported program records the
 device it was traced on: build an engine on the device where it serves.
 The net's tensors are read through a closure, not registered on the traced
 module, so only the tensors the forward uses are saved: an int8 engine holds

@@ -330,12 +330,19 @@ def _record(body, data, generators):
 class _Recordings:
     """Recordings by key (the inputs' signature and the route), each made
     anew where an address it was recorded over moved; ``captures`` counts
-    the recordings made."""
+    the recordings made.  A write into a measured dispatch table
+    (``Config.dispatchEpoch``) may change what the step launches, so it
+    drops every recording (``ops/conv.py:332-341`` drops the traces that
+    pinned the old choice)."""
 
     def __init__(self):
-        self.byKey, self.captures = {}, 0
+        self.byKey, self.captures, self.epoch = {}, 0, Config.dispatchEpoch
 
     def get(self, key, addresses, record):
+        if self.epoch != Config.dispatchEpoch:
+            self.byKey.clear()
+            self.epoch = Config.dispatchEpoch
+
         held = self.byKey.get(key)
         if held is None or held[0] != addresses:
             self.byKey.pop(key, None)   # the old graph and its memory pool go first
@@ -346,7 +353,7 @@ class _Recordings:
 
 
 def _routeKey():
-    return Config.gemmAlgo, Config.convAlgo, Config.matmulPrecision
+    return Config.gemmAlgo, Config.convAlgo, Config.matmulPrecision, Config.dispatchEpoch
 
 
 class _Scalars:

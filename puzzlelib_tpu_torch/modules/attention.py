@@ -5,7 +5,9 @@ The variables are the reference's: ``Wq Wk Wv Wo`` (emb, emb), drawn in that
 order by the numpy sampler, and zero biases ``bq bk bv bo`` with
 ``useBias``.  ``attnAlgo`` (default ``Config.attentionAlgo``) picks the core:
 "flash" is kernel K4 on CUDA tensors, "xla" the composed attention in
-PyTorch, "auto" is resolved per input (``ops.attention.resolveAlgo``).
+PyTorch, "auto" is resolved per input (``ops.attention.resolveAlgo``): the
+choice that ``optimizeForShape`` measured for the signature, else the
+structural prior.
 
 In training the forward keeps what the backward needs (``mhaForward``'s
 saved state: the projected heads, the core's output and lse), and
@@ -48,7 +50,15 @@ class MultiHeadAttention(Module):
                 self.setVar(bname, Variable(self.paramTensor(None, (embsize, )).zero_()))
 
     def _algo(self, data):
-        return attnops.resolveAlgo(self.attnAlgo, data.shape[1], data.dtype, data.device)
+        return attnops.resolveAlgo(self.attnAlgo, data.shape[0], self.nheads, data.shape[1],
+                                   self.embsize // self.nheads, self.causal, data.dtype, data.device)
+
+    def optimizeForShape(self, shape, memlimit=None):
+        """Race the flash kernels against the composed attention at this
+        layer's signature and record the faster (the reference's cuDNN
+        algo-search hook); nothing on the CPU."""
+        attnops.measureAttnChoice(shape[0], self.nheads, shape[1], self.embsize // self.nheads, self.causal,
+                                  self.calctype)
 
     def _weights(self):
         ws = [self.vars[n].data for n in ("Wq", "Wk", "Wv", "Wo")]

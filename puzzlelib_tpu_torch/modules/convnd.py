@@ -1,7 +1,7 @@
 """N-d convolution module (counterpart of
 ``puzzlelib_tpu/modules/convnd.py``).  The reference's cuDNN-style algo slots
-are not carried: ``Config.convAlgo`` chooses between the hand kernel and the
-library."""
+are not carried: ``Config.convAlgo`` chooses between the hand kernels and the
+library, under "auto" from the race that ``optimizeForShape`` runs."""
 
 from puzzlelib_tpu_torch.backend.dnn import (
     convKernelLayout, convNd, convNdBackwardData, convNdBackwardParams, convNdbenchmark
@@ -40,8 +40,11 @@ class ConvND(Module):
             self.setVar("b", Variable(self.paramTensor(None, (1, outmaps) + (1, ) * nd).zero_()))
 
     def optimizeForShape(self, shape, memlimit=None):
-        """Time the conv's forward, bwd-filter and bwd-data at ``shape`` on
-        the configured route, as the reference's does."""
+        """Race the hand kernels that take the conv at ``shape`` against
+        the library, each direction on its own, and record the faster for
+        ``Config.convAlgo = "auto"`` (nothing on the CPU); then time the
+        conv's forward, bwd-filter and bwd-data on the configured route, as
+        the reference's does (``convNdbenchmark``)."""
         convNdbenchmark(shape, self.W.shape, self.stride, self.pad, self.dilation, self.groups, transpose=False,
                         dtype=self.calctype)
 

@@ -5,7 +5,10 @@ the output's high side back in, weights laid out (inmaps, outmaps // groups,
 both packages the same weights.  The cuDNN-style algo fields are kept as the
 reference keeps them; ``Config.convAlgo`` chooses between the hand kernels
 (K2 forward and bwd-data, K3 bwd-filter, where ``winograd.applicable`` takes
-the stride-1 3x3 deconv) and the library.
+the stride-1 3x3 deconv) and the library.  Under "auto" its directions read
+the conv table's entries of the kernels they run (its forward a bwd-data
+key, its bwd-data a forward key, ``ops.conv``); its ``optimizeForShape``
+times the configured route and races nothing, as the reference's does not.
 
 With ``groups > 1`` the bias has ``outmaps // groups`` maps, as in the
 reference, so the forward of a grouped deconv with a bias fails in both
@@ -54,6 +57,8 @@ class DeconvND(Module):
             self.setVar("b", Variable(self.paramTensor(None, (1, outmapsPerGroup) + (1, ) * nd).zero_()))
 
     def optimizeForShape(self, shape, memlimit=None):
+        """Time the deconv's three directions at ``shape`` on the
+        configured route (``convNdbenchmark``); no race."""
         outshape = self.dataShapeFrom(shape)
         convNdbenchmark(outshape, self.W.shape, self.stride, self.pad, self.dilation, self.groups, transpose=True,
                         dtype=self.calctype)

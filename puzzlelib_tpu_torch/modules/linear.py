@@ -2,12 +2,16 @@
 The untransposed forward product is the one that ``Blas.mulMatrixOnMatrix``
 sends to the GEMM kernel K1; the backward's products are transposed, and the
 parameter gradients accumulate through ``beta``, so they go to the library
-product, as in the reference."""
+product, as in the reference.  ``optimizeForShape`` races K1 against cuBLAS at
+the forward product's shape (``ops.hopper.matmul.tuneDispatch``), which
+``Config.gemmAlgo = "auto"`` then reads."""
 
 from puzzlelib_tpu_torch.backend import blas as Blas
+from puzzlelib_tpu_torch.backend.device import getDevice
 from puzzlelib_tpu_torch.backend.kernels import matvec as MatVec
 from puzzlelib_tpu_torch.variable import Variable
 from puzzlelib_tpu_torch.modules.module import ModuleError, Module
+from puzzlelib_tpu_torch.ops.hopper import matmul as _hopper
 
 
 class Linear(Module):
@@ -51,6 +55,20 @@ class Linear(Module):
 
         if self.useBias:
             Blas.sumOnMatrix(grad, out=self.vars["b"].grad, alpha=scale, beta=momentum)
+
+    def optimizeForShape(self, shape, memlimit=None):
+        """Race the forward product's K1 against cuBLAS at ``shape`` and
+        record the faster (the reference's cuDNN algo-search hook).  Nothing
+        on the CPU, for a transposed Linear (its product never goes to K1)
+        or where ``shape[1]`` is not the input width."""
+        if getDevice().type != "cuda" or self.transpose:
+            return
+
+        insize, outsize = self.W.shape
+        if shape[1] != insize:
+            return
+
+        _hopper.tuneDispatch(shape[0], outsize, insize, dtype=self.calctype)
 
     def dataShapeFrom(self, shape):
         return (shape[0], self.W.shape[1]) if not self.transpose else (shape[0], self.W.shape[0])

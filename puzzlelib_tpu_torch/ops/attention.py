@@ -10,8 +10,13 @@ and every weight and bias; their core is ``attention`` or, under "flash",
 kernels K4 (forward) and K5a / K5b (backward) of ``ops.hopper.flash``.  The
 four projections and their backward are ``torch.matmul`` with f32
 accumulation, as the reference leaves them to ``einsum`` outside any Pallas
-kernel.  The measured "auto" choice (``measureAttnChoice``) waits with the
-race of the kernels against the library.
+kernel.
+
+``measureAttnChoice`` races the two cores on a training step's attention
+(forward and the gradient with respect to q, k and v) at one signature and
+records the faster in ``_attnChoice``, keyed by ``_signature`` as the
+reference keys it (``attention.py:60-61``); ``resolveAlgo`` reads it under
+"auto".
 """
 
 import math
@@ -19,7 +24,9 @@ import math
 import torch
 
 from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.backend.device import getDevice
 from puzzlelib_tpu_torch.ops.hopper import flash as _flash
+from puzzlelib_tpu_torch.tools import timing
 
 
 def attention(q, k, v, causal=False):
@@ -61,11 +68,26 @@ def attentionBackward(q, k, v, grad, causal=False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def resolveAlgo(algo, seq, dtype, device):
+# _signature -> "flash" or "xla", filled by measureAttnChoice; the race's
+# times in ms beside them (flash, composed)
+_attnChoice = {}
+_attnMs = {}
+
+# the race's margin: flash only below 0.97x the composed route (attention.py:141)
+MARGIN = 0.97
+
+
+def _signature(batch, nheads, seq, hdim, causal, dtype):
+    return (batch, nheads, seq, hdim, bool(causal), str(dtype).replace("torch.", ""))
+
+
+def resolveAlgo(algo, batch, nheads, seq, hdim, causal, dtype, device):
     """The attention core, "xla" or "flash", for ``algo`` (a value of
-    ``Config.attentionAlgo``): "xla" and "flash" force it; "auto" keeps the
-    reference's structural prior, flash for bf16 on the card at seq >= 1024
-    and "xla" otherwise."""
+    ``Config.attentionAlgo``) at this signature: "xla" and "flash" force
+    it; "auto" takes the measured choice (``_attnChoice``) and, for an
+    unmeasured signature, the reference's structural prior: flash for bf16
+    on the card at seq >= 1024, "xla" otherwise.  Off the card or off bf16
+    "auto" is "xla"."""
     if algo not in Config.ATTENTION_ALGOS:
         raise Config.ConfigError("Unknown attention algo %r (expected one of %s)" %
                                  (algo, ", ".join(Config.ATTENTION_ALGOS)))
@@ -73,7 +95,49 @@ def resolveAlgo(algo, seq, dtype, device):
     if algo != "auto":
         return algo
 
-    return "flash" if torch.device(device).type == "cuda" and dtype == torch.bfloat16 and seq >= 1024 else "xla"
+    if torch.device(device).type != "cuda" or dtype != torch.bfloat16:
+        return "xla"
+
+    choice = _attnChoice.get(_signature(batch, nheads, seq, hdim, causal, dtype))
+    if choice is not None:
+        return choice
+
+    return "flash" if seq >= 1024 else "xla"
+
+
+def measureAttnChoice(batch, nheads, seq, hdim, causal=False, dtype=torch.bfloat16, reps=10, k=3):
+    """Race "flash" (K4, then K5a / K5b) against "xla" (``attention``, then
+    ``attentionBackward``) on a training step's attention at this signature:
+    the forward and the gradient with respect to q, k and v, on the same
+    seeded operands, in ``k`` alternating turns of ``reps`` calls, the least
+    turn of each.  Records "flash" only below ``MARGIN`` times the composed
+    route (``attention.py:93-147``).  Returns (choice, flash ms, composed
+    ms); None on the CPU and where the flash kernels do not take the
+    signature (not bf16, a head dim off ``flash.HEAD_DIMS``), recording
+    nothing.  A race that fails raises."""
+    device = getDevice()
+    if dtype != torch.bfloat16 or hdim not in _flash.HEAD_DIMS or not timing.raceable(device):
+        return None
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k_, v, dOut = [(torch.randn((batch, nheads, seq, hdim), generator=gen, device=device) * 0.5).to(dtype)
+                      for _ in range(4)]
+
+    def flashStep():
+        out, lse = _flash.flash(q, k_, v, causal)
+        return _flash.backward(q, k_, v, out, lse, dOut, causal)
+
+    def composedStep():
+        attention(q, k_, v, causal)
+        return attentionBackward(q, k_, v, dOut, causal)
+
+    times = timing.race({"flash": flashStep, "xla": composedStep}, reps, k)
+    choice = "flash" if timing.handWins(times["flash"], times["xla"], MARGIN) else "xla"
+
+    key = _signature(batch, nheads, seq, hdim, causal, dtype)
+    _attnMs[key] = (times["flash"], times["xla"])
+    Config.recordChoice(_attnChoice, key, choice)
+    return choice, times["flash"], times["xla"]
 
 
 def mhaForward(x, wq, wk, wv, wo, bq, bk, bv, bo, nheads, causal=False, algo="xla", save=False):

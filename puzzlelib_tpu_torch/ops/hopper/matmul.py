@@ -38,6 +38,13 @@ launches (both kernels), ``launchesWgmma`` those of them on ``wgmma``,
 those of them on ``wgmma``, so a run can show that its products went
 through the kernels.
 
+``tuneDispatch`` races K1 against cuBLAS at one product's shape and type and
+records the faster in ``_dispatch``, keyed by ``dispatchKey`` as the
+reference keys its table (``matmul.py:170-171``): ``Config.gemmAlgo = "auto"``
+reads it (``backend.blas``).  ``autotune`` times K1 alone at the path that
+``_route`` picks, where the reference sweeps its Pallas tiles, which K1 has
+no counterpart of: its path follows from the shape.
+
 ``matmulOp`` and ``matmulNTOp`` are ``matmul`` and ``matmulNT`` registered as
 the custom operators ``puzzlelib::matmul`` and ``puzzlelib::matmul_nt``, with
 shape functions.  The wrappers hand a fake tensor, which is what
@@ -51,7 +58,11 @@ import ctypes
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch.backend.device import getDevice
+from puzzlelib_tpu_torch.ops import blas as _blas
 from puzzlelib_tpu_torch.ops.hopper import build
+from puzzlelib_tpu_torch.tools import timing
 
 
 launches = 0
@@ -280,6 +291,70 @@ def _launch(a, b, out, path):
         launches += 1
         if path.startswith("wgmma"):
             launchesWgmma += 1
+
+
+# -- the measured dispatch of Config.gemmAlgo = "auto" ------------------------------
+
+# dispatchKey -> "hopper" where K1 measured strictly faster than cuBLAS at the
+# product's shape and type, "torch" where it did not; K1's seconds there
+# (``_tunedSecs``, as the reference keeps them) and both times in ms
+# (``_raceMs``: K1's, cuBLAS's)
+_dispatch = {}
+_tunedSecs = {}
+_raceMs = {}
+
+_RACED = (torch.float32, torch.bfloat16, torch.float16)
+
+# the reference names a key's type as numpy does (bf16 is ml_dtypes' "<V2")
+_NUMPY_STR = {torch.float32: "<f4", torch.float16: "<f2", torch.bfloat16: "<V2", torch.int8: "|i1"}
+
+
+def dispatchKey(m, n, k, dtype):
+    return (m, n, k, _NUMPY_STR.get(dtype, str(dtype)))
+
+
+def _raceOperands(m, n, k, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=device) / k ** 0.5).to(dtype)
+    return a, b
+
+
+def autotune(m, n, k, dtype=torch.float32, iters=10):
+    """K1's path at (m, n, k) (``_route``'s), its seconds there recorded in
+    ``_tunedSecs``; None on the CPU, where no kernel runs."""
+    device = getDevice()
+    if not timing.raceable(device):
+        return None
+
+    a, b = _raceOperands(m, n, k, dtype, device)
+    _tunedSecs[dispatchKey(m, n, k, dtype)] = timing.deviceMs(lambda: matmul(a, b), iters) / 1e3
+    return _pathOf(a, b, n)
+
+
+def tuneDispatch(m, n, k, dtype=torch.float32, iters=10, turns=3):
+    """Race K1 against cuBLAS (``ops.blas.gemm``) on the same (m, k) @ (k,
+    n) operands, in ``turns`` alternating turns of ``iters`` calls, and
+    record "hopper" only where K1 is strictly faster, else "torch"
+    (``matmul.py:200``).  Returns the choice, the recorded one for a key
+    already measured; None on the CPU and for int8, whose products have no
+    dispatch."""
+    key = dispatchKey(m, n, k, dtype)
+    if key in _dispatch:
+        return _dispatch[key]
+
+    device = getDevice()
+    if dtype not in _RACED or not timing.raceable(device):
+        return None
+
+    a, b = _raceOperands(m, n, k, dtype, device)
+    times = timing.race({"hopper": lambda: matmul(a, b), "torch": lambda: _blas.gemm(a, b, None, 1.0, 0.0)},
+                        iters, turns)
+
+    _tunedSecs[key] = times["hopper"] / 1e3
+    _raceMs[key] = (times["hopper"], times["torch"])
+    Config.recordChoice(_dispatch, key, "hopper" if timing.handWins(times["hopper"], times["torch"], 1.0) else "torch")
+    return _dispatch[key]
 
 
 @torch.library.custom_op("puzzlelib::matmul", mutates_args=())

@@ -25,9 +25,11 @@ A ``Run`` holds one net, its optimizer, trainer and validator, and the
 start values of the optimizer's flat buffers: every ``train`` starts from
 the same weights, a zero momentum and the same dropout draws, on the route
 that ``algo`` names (``Config.gemmAlgo`` / ``Config.convAlgo``: "hopper",
-the hand kernels, or "torch", the library), or on route "fused": the hand
-kernels through the run's ``FusedTrainer`` and ``FusedValidator``, as
-``testlib/digitsnin.py`` trains and validates.  The device is the caller's
+the hand kernels, "torch", the library, or "auto", the routes that
+``optimizeForShape`` measured), or on route "fused": the hand kernels
+through the run's ``FusedTrainer`` and ``FusedValidator``, as
+``testlib/digitsnin.py`` trains and validates ("fused-auto": the measured
+routes through them).  The device is the caller's
 ``Config.device``.
 """
 
@@ -201,12 +203,13 @@ def _stateValues(optimizer):
 
 
 def _route(algo):
-    """Set the kernels of ``algo`` ("fused" takes the hand kernels); True
-    for the fused route."""
+    """Set the kernels of ``algo`` ("fused" takes the hand kernels,
+    "fused-auto" the measured routes of "auto"); True for the fused
+    routes."""
     from puzzlelib_tpu_torch import config as Config
 
-    fused = algo == "fused"
-    Config.gemmAlgo = Config.convAlgo = "hopper" if fused else algo
+    fused = algo in ("fused", "fused-auto")
+    Config.gemmAlgo = Config.convAlgo = {"fused": "hopper", "fused-auto": "auto"}.get(algo, algo)
     return fused
 
 

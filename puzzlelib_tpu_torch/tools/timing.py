@@ -1,6 +1,8 @@
 """Timing a call on the card by CUDA events, and the least time the card
 could take for a piece of work; the card's name and power limit, which go
-beside every number taken on it."""
+beside every number taken on it; the race of a hand kernel against its
+library call that ``optimizeForShape`` runs (``raceable``, ``race``,
+``handWins``)."""
 
 import subprocess
 import time
@@ -39,6 +41,38 @@ def deviceMs(fn, iters):
     end.synchronize()
 
     return start.elapsed_time(end) / iters
+
+
+def raceable(device):
+    """True where a dispatch race can run: on a CUDA device, outside the
+    recording of a CUDA graph (where it raises).  On the CPU no hand kernel
+    runs and nothing is raced."""
+    if torch.device(device).type != "cuda":
+        return False
+
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a dispatch race cannot run while a CUDA graph is being recorded")
+
+    return True
+
+
+def race(candidates, iters, turns):
+    """{name: ms}: each candidate (name -> fn) timed by ``deviceMs`` over
+    ``iters`` calls, in alternating turns on the same operands, so that a
+    drift of the card's clock or power falls on all of them alike; the
+    least of ``turns`` turns."""
+    best = dict.fromkeys(candidates, float("inf"))
+    for _ in range(turns):
+        for name, fn in candidates.items():
+            best[name] = min(best[name], deviceMs(fn, iters))
+
+    return best
+
+
+def handWins(handMs, libraryMs, margin):
+    """The race's rule: the hand kernel only where its time is below
+    ``margin`` times the library's, so a tie goes to the library."""
+    return handMs < margin * libraryMs
 
 
 def bound(nbytes, flops, flopPerS=BF16_FLOP_PER_S, f32Flops=0):

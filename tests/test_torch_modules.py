@@ -283,11 +283,11 @@ def testUnknownAlgoIsRejected(monkeypatch):
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.backend import blas
 
-    monkeypatch.setattr(Config, "gemmAlgo", "auto")
+    monkeypatch.setattr(Config, "gemmAlgo", "pallas")
     a = torch.zeros(2, 2)
 
     with pytest.raises(Config.ConfigError):
-        Config.useHopper(Config.gemmAlgo)
+        Config.route(Config.gemmAlgo)
 
     # a CPU product never asks: only CUDA tensors reach the kernel dispatch
     assert blas.mulMatrixOnMatrix(a, a).shape == (2, 2)

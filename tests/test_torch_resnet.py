@@ -377,12 +377,17 @@ def testNetspeedOnCpu(args, capsys):
     assert line.startswith("lenet %s float32 batch 4:" % result["mode"]) and line.endswith("images/sec")
 
 
-def testNetspeedBuildsTheZooAndRefusesProfile():
+def testNetspeedBuildsTheZooAndRefusesProfile(capsys):
+    """``buildNet`` builds the zoo's nets; ``--profile`` prints
+    ``benchmarks/layerprofile``'s table after the step's line: one row a
+    leaf of LeNet and the sum line."""
     net, inshape, classes = netspeed.buildNet("resnet50")
     assert net.name == "ResNet-50" and inshape == (3, 224, 224) and classes == 1000
 
-    with pytest.raises(NotImplementedError, match="layerprofile"):
-        netspeed.main(["--net", "lenet", "--profile"])
+    netspeed.main(["--net", "lenet", "--batch", "4", "--iters", "2", "--profile"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[1].startswith("layer") and lines[-2].startswith("TOTAL (sum of layers)")
+    assert len(lines) == 2 + 10 + 2 and all(" library" in line for line in lines[2:12])
 
     with pytest.raises(ValueError, match="unknown net"):
         netspeed.buildNet("alexnet")

@@ -215,19 +215,22 @@ def testAttentionTwin(causal):
 
 
 def testResolveAlgo():
-    """Explicit values force the core; "auto" keeps the reference's
-    structural prior; anything else raises."""
+    """Explicit values force the core; "auto" on an unmeasured signature
+    keeps the reference's structural prior; anything else raises."""
     bf16, f32 = torch.bfloat16, torch.float32
 
-    assert tattn.resolveAlgo("flash", 8, f32, "cpu") == "flash"
-    assert tattn.resolveAlgo("xla", 4096, bf16, "cuda") == "xla"
-    assert tattn.resolveAlgo("auto", 1024, bf16, "cuda") == "flash"
-    assert tattn.resolveAlgo("auto", 1023, bf16, "cuda") == "xla"
-    assert tattn.resolveAlgo("auto", 4096, f32, "cuda") == "xla"
-    assert tattn.resolveAlgo("auto", 4096, bf16, "cpu") == "xla"
+    def resolve(algo, seq, dtype, device):
+        return tattn.resolveAlgo(algo, 2, 4, seq, 64, False, dtype, device)
+
+    assert resolve("flash", 8, f32, "cpu") == "flash"
+    assert resolve("xla", 4096, bf16, "cuda") == "xla"
+    assert resolve("auto", 1024, bf16, "cuda") == "flash"
+    assert resolve("auto", 1023, bf16, "cuda") == "xla"
+    assert resolve("auto", 4096, f32, "cuda") == "xla"
+    assert resolve("auto", 4096, bf16, "cpu") == "xla"
 
     with pytest.raises(TConfig.ConfigError):
-        tattn.resolveAlgo("pallas", 8, f32, "cpu")
+        resolve("pallas", 8, f32, "cpu")
 
 
 @pytest.mark.parametrize("algo", ["xla", "flash"])
