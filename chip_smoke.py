@@ -376,7 +376,30 @@ it fails:
    change of a conv's choice, which the fused trainer records anew; images/s
    of the hand, library and measured routes in 5 runs in turns.  The
    races' launches fall outside the counted runs.
-   The seconds of phases 26 to 40, of [layers]' cases by module and of the
+41. [data]: the data path from raw files to trained nets, in a temporary
+   directory it removes: MNIST's four idx files (60000 + 10000 images),
+   CIFAR-10's ``cifar-10-python.tar`` (5 x 10000 + 10000) and IMDB's
+   ``imdb.npz`` (25000 + 25000 reviews up to 2494 words) with its 88584-word
+   index, written from a seed (``tools/dataslice.py``), then parsed by the
+   loaders' parse steps without a cache (host seconds and rows/s; whether
+   ``h5py`` imports; the cache is held by the CPU twins): MNIST's and
+   CIFAR-10's arrays equal to ``dataslice``'s own computation from the
+   bytes, bit for bit; IMDB's at 20000 words and 80 tokens (50000, 80)
+   int32 in [0, 20000), a second parse under the same seed (in a process
+   of its own, beside the card's work) the same bits.
+   LeNet f32 on ``cnnmnistlenet``'s recipe, one epoch over ``data[:60000]``
+   in chunks of 10000, straight into ``trainFromHost`` and through a
+   4-thread ``Serial`` with the identity ``Transformer`` preparing the next
+   chunk: the same step losses bit for bit, K1 twice a step on each, a
+   held-out error of ``data[60000:]`` at most 0.10.  The CIFAR-10 NIN on
+   ``cnncifar10nin``'s recipe over 25000 standardized images in chunks of
+   5000, shifted by ``dataslice.ShiftAugment`` on 4 threads of a
+   ``Serial`` and inline on the main thread: finite losses, no hand-kernel
+   launch, images/s and the card's idle share of each.  The IMDB LSTM of
+   ``rnnimdbtrain`` on the first 256 parsed rows, 8 steps of 32 of
+   ``_imdb``'s Adam and BCE: one K1 launch a step at its head, finite
+   losses.
+   The seconds of phases 26 to 41, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -395,12 +418,15 @@ without the package beside it, the script exits non-zero and prints no
 result.
 """
 
+import itertools
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -629,6 +655,17 @@ CTC_HOST_BOUND = 1e-4
 
 # [costs]: each cost on the card against the same call on the CPU, in f32
 COST_BOUND = 1e-5
+
+# [data]: rows a chunk that LeNet's two routes train on, the Serial's
+# threads, the NIN's images and chunk, the LSTM's rows, LeNet's held-out
+# error bound (chance is 0.9), and the numpy seeds of the files, of the
+# trainers' shuffles and of IMDB's split shuffles
+DATA_CHUNK = 10000
+DATA_THREADS = 4
+DATA_NIN_IMAGES, DATA_NIN_CHUNK = 25000, 2500
+DATA_LSTM_ROWS = 256
+DATA_LENET_ERROR = 0.10
+DATA_SEEDS = {"files": 0, "shuffle": 4, "imdb": 3}
 
 # the routes of the ResNet-50, U-Net and Inception phases (and of [imdb-rnn])
 SLICE_ROUTES = {"hopper": "eager hand route", "torch": "library route (cuDNN / cuBLAS)", "fused": "fused route"}
@@ -5388,6 +5425,310 @@ def phaseAuto(torch, card):
     return first
 
 
+def _dataRate(tag, what, count, secs, card, unit="rows"):
+    print("[%s] %s: %d %s in %.4f s, %.1f %s/s on %s" % (tag, what, count, unit, secs, count / secs, unit, card))
+
+
+def _dataParse(tag, card, path, raw):
+    """MNIST's and CIFAR-10's parse steps on the files in ``path`` (``raw``
+    what ``dataslice`` wrote), timed and held to ``dataslice``'s arrays,
+    and IMDB's parse under DATA_SEEDS["imdb"]: (MNIST's arrays, CIFAR-10's,
+    IMDB's (data, labels))."""
+    from puzzlelib_tpu_torch.datasets import Cifar10Loader, MnistLoader
+    from puzzlelib_tpu_torch.tools import dataslice as Data
+    from puzzlelib_tpu_torch.testlib import rnnimdbtrain
+
+    parsed, want = {}, {"mnist": Data.mnistArrays(*raw["mnist"]), "cifar": Data.cifarArrays(raw["cifar"])}
+    for name, loader in (("mnist", MnistLoader()), ("cifar", Cifar10Loader())):
+        start = time.perf_counter()
+        parsed[name] = loader._parse(path, log=False)
+        _dataRate(tag, "%s parsed on the host" % type(loader).__name__, len(parsed[name][0]),
+                  time.perf_counter() - start, card)
+
+        same = all(got.dtype == ref.dtype and np.array_equal(got, ref) for got, ref in zip(parsed[name], want[name]))
+        print("[%s] %s: images %s %s, labels %s %s; equal to the computation from the written bytes, bit for bit: %s"
+              % (tag, type(loader).__name__, parsed[name][0].shape, parsed[name][0].dtype, parsed[name][1].shape,
+                 parsed[name][1].dtype, same))
+        if not same:
+            fail("[%s] %s's arrays differ from the bytes it read" % (tag, type(loader).__name__))
+
+    data, labels, secs = Data.parseImdb(path, DATA_SEEDS["imdb"], rnnimdbtrain.NUMWORDS, rnnimdbtrain.MAXLEN)
+    _dataRate(tag, "IMDBLoader(numwords=%d, maxlen=%d) parsed on the host (%d words)" %
+              (rnnimdbtrain.NUMWORDS, rnnimdbtrain.MAXLEN, raw["imdbWords"]), len(data), secs, card)
+
+    inRange = data.dtype == np.int32 and 0 <= data.min() and data.max() < rnnimdbtrain.NUMWORDS
+    reviews = Data.IMDB_TRAIN + Data.IMDB_TEST
+    print("[%s] IMDBLoader: data %s %s, ids in [%d, %d], labels %s %s" % (tag, data.shape, data.dtype, data.min(),
+                                                                          data.max(), labels.shape, labels.dtype))
+    if data.shape != (reviews, rnnimdbtrain.MAXLEN) or len(labels) != reviews or not inRange:
+        fail("[%s] IMDB's parsed arrays: %s %s, ids %d to %d" % (tag, data.shape, data.dtype, data.min(), data.max()))
+
+    try:
+        import h5py  # noqa: F401
+        h5 = "imports here"
+    except ImportError:
+        h5 = "does not import here"
+    print("[%s] h5py %s; the loaders' HDF5 cache (load) is held by the CPU twins (tests/test_torch_datasets.py), "
+          "this phase runs the parse steps" % (tag, h5))
+
+    return parsed["mnist"], parsed["cifar"], (data, labels)
+
+
+def _dataParsedAgain(tag, card, imdb, again):
+    """Fail unless ``again`` (a second IMDB parse under the same seed, from
+    another process) gave ``imdb``'s bits."""
+    data, labels, secs = again.result()
+    _dataRate(tag, "IMDBLoader, a second parse under the same seed in a process of its own, beside the card's work",
+              len(data), secs, card)
+
+    repeated = np.array_equal(data, imdb[0]) and np.array_equal(labels, imdb[1])
+    print("[%s] IMDBLoader: the second parse bit-equal: %s" % (tag, repeated))
+    if not repeated:
+        fail("[%s] a second IMDB parse under the same seed gave other bits" % tag)
+
+
+def _dataChunks(serial, count, chunk):
+    """The ``count`` chunks of ``serial``, the next one prepared on its
+    threads while the caller trains on the current one."""
+    serial.prepareData(chunksize=chunk)
+    for k in range(count):
+        current = serial.getData()
+        if k + 1 < count:
+            serial.prepareData(chunksize=chunk)
+        yield current
+
+
+def _dataLeNet(torch, tag, card, images, labels):
+    """LeNet on ``cnnmnistlenet``'s recipe over its ``TRAIN_SPLIT`` (60000)
+    images, on the two routes from the same start, validated on the rest;
+    returns K1's launches."""
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+    from puzzlelib_tpu_torch.testlib import cnnmnistlenet
+    from puzzlelib_tpu_torch.transformers import Serial, Transformer
+
+    split = cnnmnistlenet.TRAIN_SPLIT
+    train, trainLabels = images[:split], labels[:split]
+    chunks = len(train) // DATA_CHUNK
+
+    _, _, trainer, _ = cnnmnistlenet.buildTraining()
+    rows = trainer.batchsize + DATA_CHUNK % trainer.batchsize
+    trainer.trainFromHost(train[:rows], trainLabels[:rows], macroBatchSize=DATA_CHUNK)
+    steps = chunks * -(-DATA_CHUNK // trainer.batchsize)
+
+    def direct():
+        for k in range(chunks):
+            rows = slice(k * DATA_CHUNK, (k + 1) * DATA_CHUNK)
+            yield train[rows], trainLabels[rows]
+
+    def threaded():
+        with Serial(train, trainLabels, numofthreads=DATA_THREADS) as serial:
+            serial.addTransformer(Transformer())
+            yield from _dataChunks(serial, chunks, DATA_CHUNK)
+
+    losses, launches, errors = {}, {}, {}
+    for route, feed in (("direct", direct), ("serial", threaded)):
+        _, _, trainer, validator = cnnmnistlenet.buildTraining()
+        losses[route] = []
+        trainer.onBatchFinish = lambda h, out=losses[route]: out.append(h.cost.getError())
+
+        np.random.seed(DATA_SEEDS["shuffle"])
+        _resetCounters()
+        synchronize()
+        start = time.perf_counter()
+        for chunk, chunkLabels in feed():
+            trainer.trainFromHost(chunk, chunkLabels, macroBatchSize=DATA_CHUNK)
+        synchronize()
+        secs = time.perf_counter() - start
+        launches[route] = matmul.launches
+
+        _resetCounters()
+        errors[route] = validator.validateFromHost(images[split:], labels[split:], macroBatchSize=DATA_CHUNK)
+        launches[route + "Validate"] = matmul.launches
+
+        what = {"direct": "chunks of %d straight into trainFromHost" % DATA_CHUNK,
+                "serial": "chunks of %d through a %d-thread Serial (identity Transformer, the next chunk prepared "
+                          "while the card trains)" % (DATA_CHUNK, DATA_THREADS)}[route]
+        _dataRate(tag, "LeNet f32, MomentumSGD(%g, %g), one epoch of parsed MNIST in %s, %d steps" %
+                  (cnnmnistlenet.LEARN_RATE, cnnmnistlenet.MOM_RATE, what, len(losses[route])), len(train), secs,
+                  card, unit="images")
+        print("[%s] LeNet, %s: K1 launches %d in training (expected %d), %d in the validation of %d; held-out error "
+              "%r (bound %.2f); last step loss %.6f" % (tag, route, launches[route], 2 * steps,
+                                                         launches[route + "Validate"], len(images) - split,
+                                                         errors[route], DATA_LENET_ERROR, losses[route][-1]))
+
+        if launches[route] != 2 * steps or len(losses[route]) != steps or not errors[route] <= DATA_LENET_ERROR:
+            fail("[%s] LeNet %s: K1 launches %d (expected %d), %d steps, held-out error %r" %
+                 (tag, route, launches[route], 2 * steps, len(losses[route]), errors[route]))
+
+    same = losses["direct"] == losses["serial"]
+    print("[%s] LeNet: the direct and Serial routes' %d step losses bit-equal: %s" % (tag, steps, same))
+    if not same or errors["direct"] != errors["serial"]:
+        fail("[%s] LeNet's routes differ: losses equal %s, errors %r and %r" % (tag, same, errors["direct"],
+                                                                                errors["serial"]))
+
+    return {"lenet": launches["direct"], "lenetSerial": launches["serial"],
+            "lenetValidate": launches["directValidate"]}
+
+
+def _dataNiN(torch, tag, card, images, labels):
+    """The CIFAR-10 NIN on ``cnncifar10nin``'s recipe over DATA_NIN_IMAGES
+    standardized images in chunks, shifted on a threaded Serial and inline:
+    each route timed over all the chunks, then the card's idle share in one
+    steady-state chunk under the profiler (the Serial's chunk trained while
+    its threads shift the next; the inline chunk shifted, then trained)."""
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.rng import globalRng
+    from puzzlelib_tpu_torch.testlib import cnncifar10nin
+    from puzzlelib_tpu_torch.tools.dataslice import ShiftAugment
+    from puzzlelib_tpu_torch.transformers import Serial
+    from puzzlelib_tpu_torch.transformers.provider import _mergeShards, _shardChunk
+
+    images = cnncifar10nin.standardize(images)[:DATA_NIN_IMAGES]
+    labels = labels[:DATA_NIN_IMAGES]
+    chunks = DATA_NIN_IMAGES // DATA_NIN_CHUNK
+
+    def threaded():
+        with Serial(images, labels, numofthreads=DATA_THREADS) as serial:
+            serial.addTransformer(ShiftAugment(DATA_THREADS))
+            yield from _dataChunks(serial, chunks, DATA_NIN_CHUNK)
+
+    def inline():
+        shift = ShiftAugment(DATA_THREADS)
+        for k in range(chunks):
+            rows = slice(k * DATA_NIN_CHUNK, (k + 1) * DATA_NIN_CHUNK)
+            shards = _shardChunk((images[rows], labels[rows]), DATA_THREADS)
+            yield _mergeShards([shift(shard, idx) for idx, shard in enumerate(shards)])
+
+    def fresh(losses=None):
+        _, _, trainer, _ = cnncifar10nin.buildTraining()
+        if losses is not None:
+            trainer.onBatchFinish = lambda h: losses.append(h.cost.getError())
+
+        globalRng.seed(Cnn.DROPOUT_SEED)
+        np.random.seed(DATA_SEEDS["shuffle"])
+        return trainer
+
+    def timed(trainer, feed):
+        synchronize()
+        start = time.perf_counter()
+        for chunk, chunkLabels in feed:
+            trainer.trainFromHost(chunk, chunkLabels, macroBatchSize=cnncifar10nin.MACRO_BATCH)
+        synchronize()
+        return time.perf_counter() - start
+
+    warm = fresh()
+    rows = warm.batchsize + DATA_NIN_CHUNK % warm.batchsize
+    warm.trainFromHost(images[:rows], labels[:rows], macroBatchSize=cnncifar10nin.MACRO_BATCH)
+
+    routes = {"threads": threaded, "inline": inline}
+    losses, secs, counts, idle = {}, {}, {}, {}
+    for route, feed in routes.items():
+        losses[route] = []
+        _resetCounters()
+        secs[route] = timed(fresh(losses[route]), feed())
+        counts[route] = _readCounters()
+
+    profileStart = time.perf_counter()
+    for route, feed in routes.items():
+        trainer, stream = fresh(), feed()
+        trainer.trainFromHost(*next(stream), macroBatchSize=cnncifar10nin.MACRO_BATCH)
+        idle[route] = _profiledLaunches("%s] [nin %s" % (tag, route),
+                                        lambda: timed(trainer, itertools.islice(stream, 1)))[1]
+        stream.close()
+    print("[time] [%s] [nin] the two routes' runs %.1f s, their profiled chunks %.1f s" %
+          (tag, sum(secs.values()), time.perf_counter() - profileStart))
+
+    for route, what in (("threads", "shifted on %d threads of a Serial while the card trains" % DATA_THREADS),
+                        ("inline", "shifted inline on the main thread before each trainFromHost")):
+        _dataRate(tag, "CIFAR-10 NIN f32, MomentumSGD(%g, %g) with WeightDecay(%g), %d parsed images in chunks of %d "
+                  "%s, %d steps; idle share of the card in one chunk under the profiler %.1f %%" %
+                  (cnncifar10nin.LEARN_RATE, cnncifar10nin.MOM_RATE, cnncifar10nin.WEIGHT_DECAY, len(images),
+                   DATA_NIN_CHUNK, what, len(losses[route]), 100 * idle[route]), len(images), secs[route], card,
+                  unit="images")
+
+    finite = all(np.isfinite(losses[route]).all() for route in losses)
+    handLaunches = {route: sum(counts[route].values()) for route in counts}
+    print("[%s] NIN: step losses finite %s (first %.6f, last %.6f); the two routes' losses bit-equal %s; hand-kernel "
+          "launches %s (its 192-channel convs go to cuDNN)" % (tag, finite, losses["threads"][0],
+                                                               losses["threads"][-1],
+                                                               losses["threads"] == losses["inline"], handLaunches))
+    if not finite or any(handLaunches.values()):
+        fail("[%s] NIN: finite losses %s, hand-kernel launches %s" % (tag, finite, handLaunches))
+
+
+def _dataLSTM(torch, tag, card, data, labels):
+    """The IMDB LSTM of ``rnnimdbtrain`` on ``_imdb``'s recipe over the
+    first DATA_LSTM_ROWS parsed rows; returns K1's launches."""
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+    from puzzlelib_tpu_torch.testlib import _imdb, rnnimdbtrain
+
+    np.random.seed(0)
+    trainer, _ = _imdb.buildTraining(rnnimdbtrain.buildNet())
+    losses = []
+    trainer.onBatchFinish = lambda h: losses.append(h.cost.getError())
+
+    np.random.seed(DATA_SEEDS["shuffle"])
+    _resetCounters()
+    synchronize()
+    start = time.perf_counter()
+    trainer.trainFromHost(data[:DATA_LSTM_ROWS], labels[:DATA_LSTM_ROWS], macroBatchSize=_imdb.TRAIN_SPLIT)
+    synchronize()
+    secs = time.perf_counter() - start
+    launches, steps = matmul.launches, DATA_LSTM_ROWS // trainer.batchsize
+
+    _dataRate(tag, "IMDB LSTM f32, Adam(%g) and BCE, %d parsed rows in %d steps of %d" %
+              (_imdb.ALPHA, DATA_LSTM_ROWS, len(losses), trainer.batchsize), DATA_LSTM_ROWS, secs, card)
+    print("[%s] LSTM: K1 launches %d at the head (expected %d); step losses %s" %
+          (tag, launches, steps, " ".join("%.6f" % loss for loss in losses)))
+    if launches != steps or len(losses) != steps or not np.isfinite(losses).all():
+        fail("[%s] LSTM: K1 launches %d (expected %d), losses %s" % (tag, launches, steps, losses))
+
+    return launches
+
+
+def phaseData(torch, card):
+    """[data]: the datasets' raw files written from a seed at their
+    published sizes in a temporary directory, parsed by the port's loaders
+    and fed to LeNet, the CIFAR-10 NIN and the IMDB LSTM on the card (see
+    the module's docstring, item 41).  Returns K1's launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.testlib import rnnimdbtrain
+    from puzzlelib_tpu_torch.tools import dataslice as Data
+
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    tag = "data"
+
+    parts, start = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory() as path:
+        raw = {"mnist": Data.writeMnist(path, seed=DATA_SEEDS["files"]),
+               "cifar": Data.writeCifar(path, seed=DATA_SEEDS["files"]),
+               "imdbWords": Data.writeImdb(path, seed=DATA_SEEDS["files"])}
+        parts["files"] = time.perf_counter() - start
+        print("[%s] raw files written in %.2f s: %s" % (tag, parts["files"], ", ".join(
+            "%s %d bytes" % (name, os.path.getsize(os.path.join(path, name))) for name in sorted(os.listdir(path)))))
+
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            again = pool.submit(Data.parseImdb, path, DATA_SEEDS["imdb"], rnnimdbtrain.NUMWORDS, rnnimdbtrain.MAXLEN)
+            mnist, cifar, imdb = _dataParse(tag, card, path, raw)
+            parts["parse"] = time.perf_counter() - start - sum(parts.values())
+
+            launches = _dataLeNet(torch, tag, card, *mnist)
+            parts["lenet"] = time.perf_counter() - start - sum(parts.values())
+            _dataNiN(torch, tag, card, *cifar)
+            parts["nin"] = time.perf_counter() - start - sum(parts.values())
+            launches["lstm"] = _dataLSTM(torch, tag, card, *imdb)
+            parts["lstm"] = time.perf_counter() - start - sum(parts.values())
+
+            _dataParsedAgain(tag, card, imdb, again)
+
+    print("[time] [%s] by part: %s" % (tag, ", ".join("%s %.1f s" % item for item in parts.items())))
+    return launches
+
+
 def main():
     import torch
 
@@ -5505,6 +5846,10 @@ def main():
     phaseSlabs = phasePhaseSplit(torch, phasesplit)
     tapdotConv = phaseTapdot(torch, tapdot, winograd, build)
     measured = phaseMeasurementPath(torch, card)
+    phaseStart = time.perf_counter()
+    data = phaseData(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [data] %.1f s" % (time.perf_counter() - phaseStart))
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -5531,7 +5876,9 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=lenet["train"],
              validation_launches=lenet["validate"], bf16_launches=lenet["bf16"],
              bf16_launches_wgmma=lenet["bf16Wgmma"], fused_launches=fusedCnn["lenet"],
-             fused_validation_launches=fusedCnn["lenetValidate"], **gemmLeNet),
+             fused_validation_launches=fusedCnn["lenetValidate"], data_launches=data["lenet"],
+             data_serial_launches=data["lenetSerial"], data_validation_launches=data["lenetValidate"],
+             **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -5609,7 +5956,7 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=sequence["hopper"],
              sequence_launches=sequence["hopper"], fused_sequence_launches=sequence["fused"],
              validation_launches=sequence["validate"], fused_validation_launches=sequence["fusedValidate"],
-             **sequenceKernels),
+             data_launches=data["lstm"], **sequenceKernels),
         *[dict(name="K2 Winograd F(2x2,3x3) forward at %s's convs" % Zoo.NAMES[kind], route="cuda",
                source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
                launches=zoo[kind, "hopper"]["winograd"], fused_launches=zoo[kind, "fused"]["winograd"],
@@ -5744,7 +6091,10 @@ def main():
           "its 4 requests of 128, fused_ the FusedTrainer's and FusedCalculator's); graph_launches and "
           "graph_serving_launches on the ResNet-50 entries: [graph-pass]'s toGraph of ResNet-50, 4 steps and 4 "
           "requests of 32; avg_pool_serving_launches on the first K1 and K2 entries: [vgg-avg]'s VGG-16 with "
-          "average pooling, 4 requests of 32; "
+          "average pooling, 4 requests of 32; data_launches on K1 at LeNet's shapes: [data]'s epoch of 60000 "
+          "parsed MNIST images in chunks of 10000 straight into trainFromHost (data_serial_launches through the "
+          "threaded Serial, data_validation_launches its validation of 10000), on K1 at the IMDB nets' heads: "
+          "[data]'s 8 steps of 32 parsed rows of the LSTM; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

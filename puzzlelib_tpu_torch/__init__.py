@@ -20,8 +20,10 @@ the flash-attention backward), the CNN training slice (LeNet, the CIFAR-10
 NIN and the ImageNet NiN through ``Trainer`` and ``Validator``), the fused
 step over these (``fused.FusedTrainer``, ``FusedValidator``,
 ``FusedCalculator``: each step a CUDA graph, recorded once and replayed),
-serving engines (``converter.engine``), and the kernel-measurement path
-(``benchmarks``, the probes under ``tools``, ``profiler``).
+serving engines (``converter.engine``), the kernel-measurement path
+(``benchmarks``, the probes under ``tools``, ``profiler``), and the data
+path (the dataset loaders of ``datasets``, the threaded providers of
+``transformers`` and the loaders' training scripts under ``testlib``).
 
 The port runs on the CUDA card; a run on the CPU asks for it with
 ``Config.device = "cpu"``.

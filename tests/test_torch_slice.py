@@ -354,6 +354,19 @@ assert len(toGraph(loadResNet(None, "50")).nodes) == 176
 rbmRows = torch.from_numpy(rbmslice.data(8, vsize=12, prototypes=2))
 assert rbmslice.train(rbmRows, persistent=True, steps=2).particles.shape == (8, 500)
 assert isinstance(RBM(6, 4), RBM)
+from puzzlelib_tpu_torch import datasets as portDatasets, transformers as portTransformers
+from puzzlelib_tpu_torch.testlib import (_imdb, birnnimdbtrain, cnncifar10nin, cnncifar10simple, cnnimdbtrain,
+                                         cnnmnistlenet, rnnimdbtrain)
+from puzzlelib_tpu_torch.tools import dataslice
+with tempfile.TemporaryDirectory() as dataDir:
+    dataslice.writeMnist(dataDir, train=12, test=5)
+    mnistImages, mnistLabels = portDatasets.MnistLoader()._parse(dataDir, log=False)
+lenetNet, _, lenetTrainer, _ = cnnmnistlenet.buildTraining()
+with portTransformers.Serial(mnistImages, mnistLabels, numofthreads=2) as dataSerial:
+    dataSerial.addTransformer(portTransformers.Transformer())
+    dataSerial.prepareData(chunksize=8)
+    lenetTrainer.trainFromHost(*dataSerial.getData(), macroBatchSize=8)
+assert cnncifar10simple.buildNet().dataShapeFrom((1, 3, 32, 32)) == (1, 10) and rnnimdbtrain.NUMWORDS == 20000
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -392,8 +405,12 @@ def testPortRunsWithoutJax():
     ``Graph`` stages with ``SwitchMoE``) trained fused under global state
     with ``functionalize`` and ``stackExpertParams`` (``tools/moeslice.py``),
     ``toGraph`` of ResNet-50 and the RBM trained by PCD
-    (``tools/rbmslice.py``) imports no JAX and nothing of the JAX package
-    (``ml_dtypes`` neither)."""
+    (``tools/rbmslice.py``), and the data path (the loaders, the
+    transformers and the ``testlib`` counterparts imported, MNIST's idx
+    files written by ``tools/dataslice.py`` and parsed, and LeNet's
+    ``cnnmnistlenet`` recipe fed one chunk through a threaded ``Serial``)
+    imports no JAX and nothing of the JAX package (``ml_dtypes``
+    neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
