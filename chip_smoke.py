@@ -399,7 +399,25 @@ it fails:
    ``rnnimdbtrain`` on the first 256 parsed rows, 8 steps of 32 of
    ``_imdb``'s Adam and BCE: one K1 launch a step at its head, finite
    losses.
-   The seconds of phases 26 to 41, of [layers]' cases by module and of the
+42. [ckpt]: checkpoints and blueprints on the card, run right after the
+   serving slice (5).  The card's machine has no ``h5py``, so ``save`` and
+   ``load`` take an open handle, a ``MemoryStore`` of numpy arrays defined
+   here (the HDF5 file layer is held by the CPU twins).  The served VGG-16
+   bf16 is saved into it, rebuilt from ``json.loads(json.dumps(
+   net.getBlueprint(), sort_keys=True))`` through ``BlueprintFactory``,
+   set to bf16 and loaded: every variable on the card, bit-equal to the
+   served net's; the rebuilt net serves the 4 requests with the counters
+   reset, 12 K1 (all on wgmma) and 40 K2 launches, its output bit-equal to
+   the served net's; the seconds of save, rebuild and load and the MB
+   moved printed.  LeNet f32 under ``MomentumSGD(0.1, 0.9)`` in global
+   state (``testlib/resumetrain.py``'s flow): 8 steps of 128, the net and
+   the optimizer saved, 8 more (the reference); a fresh LeNet from the
+   blueprint and a fresh optimizer in global state load both and take the
+   same 8 steps: losses and variables bit-equal to the reference, every
+   variable's and state's address kept across the load, K1 twice a step.
+   The same through ``FusedTrainer``, whose fresh trainer records its CUDA
+   graph before the load: no new recording after it.
+   The seconds of phases 26 to 42, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -1084,7 +1102,7 @@ def phaseSlice(torch, card):
     if not rel <= SLICE_BOUND:
         fail("fc8 relative L2 error %.3e against the f32 run" % rel)
 
-    return launches
+    return launches, net, images
 
 
 def _layerGrads(net, names=GRAD_LAYERS):
@@ -5729,6 +5747,239 @@ def phaseData(torch, card):
     return launches
 
 
+class MemoryStore:
+    """An in-memory checkpoint store: numpy arrays, answering only the calls
+    the port's HDF5 codec (``puzzlelib_tpu_torch/hdf.py``) makes on an
+    ``h5py`` group, which ``save`` and ``load`` take as an open handle.  The
+    card's machine has no ``h5py``; the HDF5 file layer is held by the CPU
+    twins (``tests/test_torch_checkpoint.py``)."""
+
+    def __init__(self):
+        self.children, self.attrs, self.value = {}, {}, None
+
+    def require_group(self, name):
+        return self.children.setdefault(name, MemoryStore())
+
+    def create_dataset(self, name, data=None, compression=None):
+        dataset = self.children[name] = MemoryStore()
+        dataset.value = np.asarray(data)
+        return dataset
+
+    def __getitem__(self, key):
+        return self.value[key] if key == () else self.children[key]
+
+    def __setitem__(self, key, value):
+        self.create_dataset(key, data=value)
+
+    def __contains__(self, key):
+        return key in self.children
+
+    def items(self):
+        return self.children.items()
+
+    def __array__(self, dtype=None, copy=None):
+        return self.value if dtype is None else self.value.astype(dtype)
+
+    def nbytes(self):
+        own = 0 if self.value is None else self.value.nbytes
+        return own + sum(child.nbytes() for child in self.children.values())
+
+
+CKPT_STEPS = 8
+
+
+def _ckptRebuild(net):
+    """``net`` rebuilt from its blueprint after a JSON round trip, as a
+    file's blueprint would rebuild it (every init scheme "none")."""
+    from puzzlelib_tpu_torch.blueprint import BlueprintFactory
+
+    return BlueprintFactory().build(json.loads(json.dumps(net.getBlueprint(), sort_keys=True)))
+
+
+def _ckptSameBits(torch, tag, what, got, want):
+    """Fail unless the variables of ``got`` hold those of ``want`` bit for
+    bit, on the card."""
+    wantVars = {name: var.data for var, names in want.getVarTable().items() for name in names}
+    gotVars = {name: var.data for var, names in got.getVarTable().items() for name in names}
+    if sorted(gotVars) != sorted(wantVars):
+        fail("[%s] %s: variable names %s, expected %s" % (tag, what, sorted(gotVars), sorted(wantVars)))
+
+    for name, value in wantVars.items():
+        tensor = gotVars[name]
+        if tensor.device.type != "cuda" or tensor.dtype != value.dtype or \
+                not torch.equal(tensor.view(torch.int16), value.view(torch.int16)):
+            fail("[%s] %s: variable %s is not the saved one bit for bit on the card (%s, %s)" %
+                 (tag, what, name, tensor.device, tensor.dtype))
+
+
+def _ckptVgg(torch, tag, card, net, images):
+    """The served VGG-16 bf16 saved into a ``MemoryStore``, rebuilt from its
+    blueprint, ``calcMode(bf16)``, loaded, and served: outputs bit-equal to
+    the original net's, 12 K1 (all on wgmma) and 40 K2 launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.handlers import Calculator
+
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    want = Calculator(net, batchsize=BATCH).calcFromHost(images)
+
+    secs = {}
+    synchronize()
+    start = time.perf_counter()
+    store = MemoryStore()
+    net.save(store)
+    secs["save"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    rebuilt = _ckptRebuild(net)
+    synchronize()
+    secs["rebuild"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    rebuilt.calcMode(torch.bfloat16)
+    rebuilt.load(store)
+    synchronize()
+    secs["load"] = time.perf_counter() - start
+    megabytes = store.nbytes() / 1e6
+
+    _ckptSameBits(torch, tag, "VGG-16 rebuilt and loaded", rebuilt, net)
+    rebuilt.evalMode()
+
+    _resetCounters()
+    got = Calculator(rebuilt, batchsize=BATCH).calcFromHost(images)
+    counts = _readCounters()
+    launches = {"matmul": counts["matmul"], "matmulWgmma": counts["matmulWgmma"], "winograd": counts["winograd"]}
+
+    print("[%s] VGG-16 bf16 (%d variables, %.1f MB in the store): save %.4f s, blueprint rebuild %.4f s, calcMode "
+          "and load %.4f s (%.1f MB/s host to card) on %s" %
+          (tag, len(rebuilt.getVarTable()), megabytes, secs["save"], secs["rebuild"], secs["load"],
+           megabytes / secs["load"], card))
+    print("[%s] the rebuilt net served %d images in %d requests of %d: launches %s; output bit-equal to the served "
+          "net's: %s" % (tag, len(images), REQUESTS, BATCH, launches, np.array_equal(got, want)))
+
+    if launches != {"matmul": 3 * REQUESTS, "matmulWgmma": 3 * REQUESTS, "winograd": 10 * REQUESTS}:
+        fail("[%s] expected 40 Winograd and 12 GEMM launches, all 12 on wgmma, got %s" % (tag, launches))
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail("[%s] the rebuilt and loaded VGG-16 does not serve the saved net's output bit for bit" % tag)
+
+    return launches, secs, megabytes
+
+
+def _ckptLeNet(torch, fusedRoute):
+    """LeNet f32 from ``np.random.seed(1234)`` with ``MomentumSGD(0.1,
+    0.9)`` in global state, on the eager or the fused trainer."""
+    from puzzlelib_tpu_torch.models.nets import loadLeNet
+
+    np.random.seed(1234)
+    net = loadLeNet(None, initscheme=None)
+    return net, _ckptTrainer(net, fusedRoute)
+
+
+def _ckptTrainer(net, fusedRoute):
+    """(optimizer, trainer) of ``net``: ``MomentumSGD(0.1, 0.9)`` in global
+    state, ``CrossEntropy``, the eager or the fused trainer at batch 128."""
+    from puzzlelib_tpu_torch.cost import CrossEntropy
+    from puzzlelib_tpu_torch.fused import FusedTrainer
+    from puzzlelib_tpu_torch.handlers import Trainer
+    from puzzlelib_tpu_torch.optimizers import MomentumSGD
+
+    optimizer = MomentumSGD(0.1, 0.9)
+    optimizer.setupOn(net, useGlobalState=True)
+    trainerCls = FusedTrainer if fusedRoute else Trainer
+    return optimizer, trainerCls(net, CrossEntropy(maxlabels=10), optimizer, batchsize=Cnn.BATCH)
+
+
+def _ckptSteps(trainer, images, labels):
+    """``CKPT_STEPS`` steps of ``Cnn.BATCH`` in order: the step losses."""
+    losses = []
+    trainer.onBatchFinish = lambda h: losses.append(h.cost.getError())
+    trainer.trainFromHost(images, labels, macroBatchSize=len(images), random=False)
+    return losses
+
+
+def _ckptResume(torch, tag, fusedRoute, images, labels):
+    """8 steps, save net and optimizer, 8 more (the reference run); a fresh
+    LeNet from the blueprint with a fresh optimizer in global state loads
+    both and takes the same 8 steps: losses and variables bit-equal to the
+    reference run's.  On the fused route the fresh trainer records its CUDA
+    graph before the load (one step on zeroed weights): the load must keep
+    every address, so no new recording is made.  Returns K1's launches in
+    the resumed steps."""
+    first, rest = images[:len(images) // 2], images[len(images) // 2:]
+    firstLabels, restLabels = labels[:len(labels) // 2], labels[len(labels) // 2:]
+    route = "fused" if fusedRoute else "eager"
+
+    net, (optimizer, trainer) = _ckptLeNet(torch, fusedRoute)
+    _ckptSteps(trainer, first, firstLabels)
+    netStore, optStore = MemoryStore(), MemoryStore()
+    net.save(netStore)
+    optimizer.save(optStore)
+    reference = _ckptSteps(trainer, rest, restLabels)
+
+    fresh = _ckptRebuild(net)
+    freshOpt, freshTrainer = _ckptTrainer(fresh, fusedRoute)
+    captures = None
+    if fusedRoute:
+        for pack in freshOpt.shParams.values():
+            pack.ary.zero_()
+        _ckptSteps(freshTrainer, first[:Cnn.BATCH], firstLabels[:Cnn.BATCH])
+        captures = freshTrainer.step.captures
+
+    addresses = [tensor.data_ptr() for tensor in [var.data for var in fresh.getVarTable()] +
+                 [t for state in freshOpt.states.values() for t in state.values()]]
+    fresh.load(netStore)
+    freshOpt.load(optStore)
+    moved = addresses != [tensor.data_ptr() for tensor in [var.data for var in fresh.getVarTable()] +
+                          [t for state in freshOpt.states.values() for t in state.values()]]
+
+    _resetCounters()
+    resumed = _ckptSteps(freshTrainer, rest, restLabels)
+    launches = _readCounters()["matmul"]
+
+    print("[%s] LeNet f32 %s, MomentumSGD(0.1, 0.9) in global state: %d steps of %d, save, %d more; resumed from "
+          "the blueprint: losses %s (reference %s); step t %d; K1 launches in the resumed steps %d; variable and "
+          "state addresses kept across the load: %s%s" %
+          (tag, route, CKPT_STEPS, Cnn.BATCH, CKPT_STEPS, " ".join("%.6f" % x for x in resumed),
+           " ".join("%.6f" % x for x in reference), freshOpt.t, launches, not moved,
+           "" if captures is None else "; recordings %d before the load, %d after" %
+           (captures, freshTrainer.step.captures)))
+
+    if moved:
+        fail("[%s] %s: the load moved a variable or an optimizer state" % (tag, route))
+    if resumed != reference:
+        fail("[%s] %s: the resumed losses are not the reference run's bit for bit" % (tag, route))
+    if captures is not None and freshTrainer.step.captures != captures:
+        fail("[%s] fused: the load made the trainer record anew (%d -> %d recordings)" %
+             (tag, captures, freshTrainer.step.captures))
+    if launches != 2 * CKPT_STEPS:
+        fail("[%s] %s: expected %d K1 launches in the resumed steps, got %d" % (tag, route, 2 * CKPT_STEPS, launches))
+    _ckptSameBits(torch, tag, "LeNet %s resumed" % route, fresh, net)
+
+    return launches
+
+
+def phaseCheckpoint(torch, card, net, images):
+    """[ckpt]: save and load on the card, through a ``MemoryStore`` (see the
+    module's docstring, item 42).  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+
+    tag = "ckpt"
+    Config.device = "cuda"
+    start = time.perf_counter()
+
+    launches, secs, megabytes = _ckptVgg(torch, tag, card, net, images)
+
+    Config.globalEvalMode = False   # training needs gradient buffers
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    lenetImages, lenetLabels = Cnn.data("lenet", 2 * CKPT_STEPS * Cnn.BATCH, seed=7)
+    launches["lenet"] = _ckptResume(torch, tag, False, lenetImages, lenetLabels)
+    launches["lenetFused"] = _ckptResume(torch, tag, True, lenetImages, lenetLabels)
+
+    print("[time] [%s] %.1f s (save %.4f s, rebuild %.4f s, load %.4f s of %.1f MB)" %
+          (tag, time.perf_counter() - start, secs["save"], secs["rebuild"], secs["load"], megabytes))
+    return launches
+
+
 def main():
     import torch
 
@@ -5749,7 +6000,9 @@ def main():
     gemmInt8 = phaseGemmInt8(torch, matmul)
     wino, dataGrad, filterGrad = phaseWinograd(torch, winograd)
     attention = phaseFlash(torch, flash, build)
-    serving = phaseSlice(torch, card)
+    serving, servedNet, servedImages = phaseSlice(torch, card)
+    checkpoint = phaseCheckpoint(torch, card, servedNet, servedImages)
+    del servedNet, servedImages
     torch.cuda.empty_cache()
     training = phaseTrain(torch, card)
     torch.cuda.empty_cache()
@@ -5862,7 +6115,8 @@ def main():
              measurement_launches_wgmma=measured["K1-wgmma"],
              fused_launches=fusedServe["matmul"] + fusedTrain["matmul"] + fusedCnn["lenet"] + fusedCnn["lenetValidate"],
              fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"],
-             avg_pool_serving_launches=vggAverage["matmul"], **gemm),
+             avg_pool_serving_launches=vggAverage["matmul"], checkpoint_serving_launches=checkpoint["matmul"],
+             checkpoint_serving_launches_wgmma=checkpoint["matmulWgmma"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
              launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
@@ -5878,13 +6132,15 @@ def main():
              bf16_launches_wgmma=lenet["bf16Wgmma"], fused_launches=fusedCnn["lenet"],
              fused_validation_launches=fusedCnn["lenetValidate"], data_launches=data["lenet"],
              data_serial_launches=data["lenetSerial"], data_validation_launches=data["lenetValidate"],
+             checkpoint_launches=checkpoint["lenet"], checkpoint_fused_launches=checkpoint["lenetFused"],
              **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
              engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"],
              fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"],
-             avg_pool_serving_launches=vggAverage["winograd"], **wino),
+             avg_pool_serving_launches=vggAverage["winograd"], checkpoint_serving_launches=checkpoint["winograd"],
+             **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"],
@@ -6095,6 +6351,9 @@ def main():
           "parsed MNIST images in chunks of 10000 straight into trainFromHost (data_serial_launches through the "
           "threaded Serial, data_validation_launches its validation of 10000), on K1 at the IMDB nets' heads: "
           "[data]'s 8 steps of 32 parsed rows of the LSTM; "
+          "checkpoint_serving_launches on the first K1 and K2 entries: [ckpt]'s VGG-16 rebuilt from its blueprint and "
+          "loaded, 4 requests of 32; checkpoint_launches and checkpoint_fused_launches on K1 at LeNet's shapes: "
+          "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

@@ -10,13 +10,20 @@ by name, in insertion order, so ``net.modules["conv1_1"]`` and
 ``net.modules.items()`` work as in the reference.  Called, the view is
 ``nn.Module.modules()``, which PyTorch's own code calls.  A child's name must
 not clash with an attribute of the container.
+
+Checkpoints follow the JAX package's layout: each child saves and loads
+itself under its dotted path ("<container>.<child>"), a container never
+squashes its own path (``assumeUniqueNames`` acts at the leaves), and the
+container's own attributes (a net's timestamp, a preset's sentence length)
+go in the group ``attrs.<path>``, each as "<container name>.<attr>".
 """
 
 from collections.abc import Mapping
 
 from torch import nn
 
-from puzzlelib_tpu_torch.modules.module import Module, ModuleError
+from puzzlelib_tpu_torch import hdf as hdfcodec
+from puzzlelib_tpu_torch.modules.module import Module, ModuleError, hostValue, loadInto
 
 
 class ContainerError(ModuleError):
@@ -47,6 +54,9 @@ class ModulesView(Mapping):
 
 
 class Container(Module):
+    _errorKind = "Container"
+    _errorType = ContainerError
+
     @property
     def modules(self):
         return ModulesView(self)
@@ -185,6 +195,55 @@ class Container(Module):
 
     def numOfParams(self):
         return sum(child.numOfParams() for child in self._modules.values())
+
+    # -- persistence ------------------------------------------------------------------------
+
+    def _checkpointPath(self, name, assumeUniqueNames):
+        # containers never squash their own path; children apply the
+        # unique-names squash at their own level
+        return name if name is not None else (self.name or "")
+
+    def _attrKey(self, name):
+        return "%s.%s" % (self.name or "", name)
+
+    def _writeState(self, hdf, varlinks, name, compress, assumeUniqueNames=False):
+        for child in self._modules.values():
+            child.save(hdf, varlinks, "%s.%s" % (name, child.name), compress=compress,
+                       assumeUniqueNames=assumeUniqueNames, isRoot=False)
+
+        # container attrs live in their own group (made also when empty), each
+        # under "<container name>.<attr>"
+        group = "attrs.%s" % name
+        hdf.require_group(group)
+        hdfcodec.storeAttrs(hdf, {self._attrKey(attrName): attr for attrName, attr in
+                                  {**self.attrs, **self.hostAttrs}.items()}, compress=None, group=group)
+
+    def _readState(self, hdf, initvars, name, assumeUniqueNames):
+        for child in self._modules.values():
+            child.load(hdf, initvars, "%s.%s" % (name, child.name),
+                       assumeUniqueNames=assumeUniqueNames, isRoot=False)
+
+        group = "attrs.%s" % name
+        if group not in hdf:
+            return
+
+        prefix = self._attrKey("")
+        for key, dataset in hdf[group].items():
+            attrName = key[len(prefix):] if key.startswith(prefix) else key.partition(".")[2]
+            value = hdfcodec.readDataset(dataset)
+
+            if attrName in self.attrs:
+                loadInto(self.attrs[attrName], value)
+            else:
+                self.setAttr(attrName, hostValue(value))
+
+    # -- blueprint / misc -----------------------------------------------------------------------
+
+    def getBlueprint(self):
+        blueprint = super().getBlueprint()
+        blueprint["modules"] = {name: child.getBlueprint() for name, child in self._modules.items()}
+
+        return blueprint
 
     def handleError(self, mod, e):
         detail = str(e)

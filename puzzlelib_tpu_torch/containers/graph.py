@@ -5,8 +5,9 @@ standard Module interface.  Every node's module is appended as a child, so
 ``calcMode``, ``evalMode``, ``reset``, ``getVarTable`` and ``nn.Module``'s
 registry reach all of them under their node names.  Forward feeds every input
 node and sweeps to the outputs; backward seeds every output node and sweeps
-upstream, summing gradient fan-in at each node.  Blueprints come with the
-checkpoints.
+upstream, summing gradient fan-in at each node.  ``getBlueprint`` records
+the edges, inputs and outputs, from which ``blueprint.BlueprintFactory``
+rebuilds the graph.
 """
 
 from puzzlelib_tpu_torch.containers.container import ContainerError, Container
@@ -73,6 +74,18 @@ class Graph(Container):
         return self.nodes[name]
 
     # -- forward / backward ------------------------------------------------------------
+
+    def getBlueprint(self):
+        blueprint = super().getBlueprint()
+
+        blueprint["graph"] = {
+            node.name: [(parent.name, slots) for parent, slots in node.bwds]
+            for node in self.nodes.values()
+        }
+        blueprint["inputs"] = [node.name for node in self.inputs]
+        blueprint["outputs"] = [node.name for node in self.outputs]
+
+        return blueprint
 
     def updateData(self, data):
         feeds = _aslist(data)

@@ -52,6 +52,12 @@ class Parallel(Container):
 
         return super().__getitem__(item)
 
+    def getBlueprint(self):
+        blueprint = super().getBlueprint()
+        blueprint["graph"] = [branch.name for branch in self.graph]
+
+        return blueprint
+
     def getByIndex(self, index):
         return self.graph[index]
 

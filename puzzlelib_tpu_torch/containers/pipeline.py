@@ -18,7 +18,7 @@ from puzzlelib_tpu_torch.containers.sequential import Sequential
 from puzzlelib_tpu_torch.ops import elementwise as ew
 
 
-_MESH = "a mesh, which the port does not have yet (ROADMAP Queue 1, item 9)"
+_MESH = "a mesh, which the port does not have yet (ROADMAP Queue 1, item 4)"
 
 
 class Pipeline(Sequential):

@@ -98,6 +98,12 @@ class Sequential(Container):
 
         return super().__getitem__(item)
 
+    def getBlueprint(self):
+        blueprint = super().getBlueprint()
+        blueprint["graph"] = [mod.name for mod in self.graph]
+
+        return blueprint
+
     def getModuleIndex(self, name):
         for index, mod in enumerate(self.graph):
             if mod.name == name:

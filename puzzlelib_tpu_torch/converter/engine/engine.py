@@ -21,6 +21,7 @@ from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd  # noqa: F401
 class Engine(Module):
     def __init__(self, enginepath, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         with open(enginepath, "rb") as f:
             exported = torch.export.load(f)

@@ -11,12 +11,15 @@ cuDNN's legacy packed format, which the reference's checkpoints hold:
 The port's layout (``backend/rnn.py`` ``RnnDesc.layout``, the JAX package's)
 interleaves [matrix, bias] per linear layer.  ``convertRnnWeights`` moves a
 flat blob between the two; both are numpy arrays, so the conversion runs on
-the host.  ``convertRnnCheckpoint``, which rewrites an HDF5 checkpoint,
-comes with the port's checkpoints.
+the host.  ``convertRnnCheckpoint`` rewrites the RNN blobs of an HDF5
+checkpoint into a copy of the file (it needs ``h5py``).
 """
+
+import shutil
 
 import numpy as np
 
+from puzzlelib_tpu_torch import hdf as hdfcodec
 from puzzlelib_tpu_torch.backend.rnn import _LINLAYERS, RnnDesc
 
 
@@ -85,3 +88,28 @@ def convertRnnWeights(flatW, mode, insize, hsize, layers, direction="uni", sourc
             out[cudnnOffset:cudnnOffset + count] = flatW[nativeOffset:nativeOffset + count]
 
     return out
+
+
+def convertRnnCheckpoint(hdfPath, outPath, mode, insize, hsize, layers, direction="uni",
+                         paramKey=None, source="cudnn"):
+    """Copy the checkpoint ``hdfPath`` to ``outPath`` and convert its RNN
+    weight datasets there: every ``params/<idx>`` dataset whose size is the
+    packed blob's (or only the one named by ``paramKey``)."""
+    h5py = hdfcodec._h5py()
+
+    shutil.copyfile(hdfPath, outPath)
+
+    _, wsize = cudnnRnnLayout(mode, insize, hsize, layers, direction)
+
+    with h5py.File(outPath, "r+") as hdf:
+        grp = hdf["params"]
+        keys = [paramKey] if paramKey is not None else list(grp.keys())
+
+        for key in keys:
+            blob = np.asarray(grp[key])
+            if blob.size == wsize:
+                grp[key][...] = convertRnnWeights(
+                    blob, mode, insize, hsize, layers, direction, source=source
+                ).reshape(blob.shape)
+
+    return outPath

@@ -12,8 +12,8 @@ names.  The convs carry no bias.
 
 Weights come from the init scheme or, through
 ``puzzlelib_tpu_torch.convert.paramsFromNumpy`` and ``attrsFromNumpy``
-(the batch norms' running stats), from tables of arrays; loading a
-checkpoint file comes with the checkpoint port."""
+(the batch norms' running stats), from tables of arrays, or from the HDF5 checkpoint
+at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential, Parallel
 from puzzlelib_tpu_torch.modules import (
@@ -195,10 +195,6 @@ def expandBlock(inmaps, b1m, b2m, b3m, b4m, name, act, bn, scheme, pool="avg"):
 
 
 def loadInceptionBN(modelpath, actInplace=False, bnInplace=False, initscheme="none", name="Inception-BN-0126"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy and convert.attrsFromNumpy")
-
     net = Sequential(name=name)
 
     net.append(Conv2D(3, 64, 7, stride=2, pad=3, useBias=False, initscheme=initscheme, name="conv_1"))
@@ -234,14 +230,13 @@ def loadInceptionBN(modelpath, actInplace=False, bnInplace=False, initscheme="no
     net.append(Flatten(name="flatten"))
     net.append(Linear(1024, 1000, initscheme=initscheme, name="fc1"))
     net.append(SoftMax(name="softmax"))
+    if modelpath is not None:
+        net.load(modelpath, assumeUniqueNames=True)
+
     return net
 
 
 def loadInceptionV3(modelpath, actInplace=False, bnInplace=False, initscheme="none", name="Inception-7-0001"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy and convert.attrsFromNumpy")
-
     net = Sequential(name=name)
 
     net.append(Conv2D(3, 32, 3, stride=2, useBias=False, initscheme=initscheme, name="conv_conv2d"))
@@ -292,4 +287,7 @@ def loadInceptionV3(modelpath, actInplace=False, bnInplace=False, initscheme="no
     net.append(Flatten(name="flatten"))
     net.append(Linear(2048, 1008, name="fc1"))
     net.append(SoftMax(name="softmax"))
+    if modelpath is not None:
+        net.load(modelpath, assumeUniqueNames=True)
+
     return net

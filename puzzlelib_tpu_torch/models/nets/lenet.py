@@ -1,17 +1,13 @@
 """LeNet-5-like MNIST net (counterpart of ``puzzlelib_tpu/models/nets/lenet.py``).
 Weights come from the init scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential
 from puzzlelib_tpu_torch.modules import Conv2D, MaxPool2D, Activation, relu, Flatten, Linear
 
 
 def loadLeNet(modelpath, initscheme="none", name="lenet-5-like"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     net = Sequential(name=name)
 
     net.append(Conv2D(1, 16, 3, initscheme=initscheme))
@@ -27,5 +23,8 @@ def loadLeNet(modelpath, initscheme="none", name="lenet-5-like"):
     net.append(Activation(relu))
 
     net.append(Linear(1024, 10, initscheme=initscheme))
+
+    if modelpath is not None:
+        net.load(modelpath)
 
     return net

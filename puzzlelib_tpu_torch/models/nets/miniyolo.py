@@ -6,8 +6,8 @@ map, 1024 x 7 x 7), ``fc26`` of 4096, ``fc27`` of ``numOutput`` and a
 SoftMax.  The net is fixed at 448 x 448: ``fc25`` takes 50176 inputs.
 
 Weights come from the init scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 import numpy as np
 
@@ -35,10 +35,6 @@ def block(idx, inmaps, outmaps, sizeconv, strideconv, initscheme, actInPlace, si
 
 
 def loadMiniYolo(modelpath, numOutput, actInplace=False, initscheme="none"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     net = Sequential(name="YOLONet")
 
     net.extend(block(idx=["1"], inmaps=[3], outmaps=[64], sizeconv=[7], strideconv=[2],
@@ -76,5 +72,8 @@ def loadMiniYolo(modelpath, numOutput, actInplace=False, initscheme="none"):
     net.append(Activation(relu, inplace=actInplace, name="fc_relu25"))
     net.append(Linear(4096, numOutput, initscheme=initscheme, name="fc27"))
     net.append(SoftMax())
+
+    if modelpath is not None:
+        net.load(modelpath)
 
     return net

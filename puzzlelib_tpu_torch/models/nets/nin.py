@@ -3,8 +3,8 @@
 1x1 "cccp" convs, each with a relu, pooled by 3x3 windows at stride 2
 (max or average), then a 5x5 average pool of the 1000 maps, 224x224x3 in.
 Weights come from the init scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential
 from puzzlelib_tpu_torch.modules import Conv2D, Activation, relu, MaxPool2D, AvgPool2D, Flatten, SoftMax
@@ -20,10 +20,6 @@ _LAYOUT = [
 
 
 def loadNiNImageNet(modelpath, poolmode="max", actInplace=False, initscheme="none", name="CaffeNet"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     if poolmode == "avg":
         pool = AvgPool2D
     elif poolmode == "max":
@@ -48,5 +44,8 @@ def loadNiNImageNet(modelpath, poolmode="max", actInplace=False, initscheme="non
     net.append(AvgPool2D(5, 1, name="pool4"))
     net.append(Flatten())
     net.append(SoftMax())
+
+    if modelpath is not None:
+        net.load(modelpath)
 
     return net

@@ -9,8 +9,8 @@ wraps the block before it as its ``prenet``, so the returned tree and its
 module and variable names are the reference's.  Every conv is built with
 the "none" scheme, as there.
 
-Weights come from ``puzzlelib_tpu_torch.convert.paramsFromNumpy``; loading
-a checkpoint file comes with the checkpoint port."""
+Weights come from ``puzzlelib_tpu_torch.convert.paramsFromNumpy`` or from
+the HDF5 checkpoint at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential, Parallel
 from puzzlelib_tpu_torch.modules import Conv2D, Activation, relu, MaxPool2D, Replicate, Identity, Concat
@@ -100,10 +100,6 @@ _STEM = [
 
 
 def loadCOCO(modelpath, name="", inplace=False):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     net = Sequential(name)
 
     for entry in _STEM:
@@ -133,5 +129,8 @@ def loadCOCO(modelpath, name="", inplace=False):
         buildBranch(stage=6, num=1, inplace=inplace))
     )
     net.append(Concat(axis=1))
+
+    if modelpath is not None:
+        net.load(modelpath, assumeUniqueNames=True)
 
     return net

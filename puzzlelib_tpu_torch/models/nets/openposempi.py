@@ -11,8 +11,8 @@ the returned ``Sequential`` holds the four earlier stages nested inside it,
 with the reference's module and variable names and tree order.
 
 Weights come from the default scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential, Parallel
 from puzzlelib_tpu_torch.modules import Conv2D, Activation, relu, MaxPool2D, Replicate, Identity, Concat
@@ -28,10 +28,6 @@ _STEM = [
 
 
 def loadMPI(modelpath, name="OpenPoseFaceNet"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     net = Sequential(name=name)
 
     for entry in _STEM:
@@ -82,5 +78,8 @@ def loadMPI(modelpath, name="OpenPoseFaceNet"):
         branch.append(Conv2D(128, 128, 1, pad=0, name="Mconv6_stage%d" % stage))
         branch.append(Activation(relu, name="Mconv6_stage%d_re" % stage))
         branch.append(Conv2D(128, 71, 1, pad=0, name="Mconv7_stage%d" % stage))
+
+    if modelpath is not None:
+        net.load(modelpath, assumeUniqueNames=True)
 
     return net

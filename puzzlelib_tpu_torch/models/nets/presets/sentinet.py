@@ -6,10 +6,13 @@ runs ``train``: ``AdaDelta`` in local state, ``CrossEntropy``, ``Trainer``
 at batch 64 and ``Validator``, the net's convs timed for the batch's shape
 first (``optimizeForShape``), one validation an epoch.
 
-Keeping the best net on disk (``saving=True``) needs the checkpoints,
-which are not ported yet: ``train`` refuses it before it trains.  Call it
-with ``saving=False``; it returns (None, best accuracy), as the reference's
-does then."""
+With ``saving=True`` (the default) ``train`` keeps the best net so far on
+disk, in ``<temporary directory>/<net name>.hdf``, loads it back at the
+end and returns (net, best accuracy); with ``saving=False`` it returns
+(None, best accuracy), as the reference's does."""
+
+import os
+import tempfile
 
 import numpy as np
 
@@ -25,9 +28,6 @@ from puzzlelib_tpu_torch.datasets.utils import validate, getDim, splitData, repl
 
 def train(net, trainData, trainLabels, valData, valLabels, dim=0, epochs=50, epochsBeforeSaving=0, saving=True,
           printing=True, macroBatchSize=30000, optimizeNet=True):
-    if saving:
-        raise NotImplementedError("saving a checkpoint is not ported yet: train with saving=False")
-
     if dim == 0:
         dim = getDim(trainLabels)
 
@@ -71,10 +71,17 @@ def train(net, trainData, trainLabels, valData, valLabels, dim=0, epochs=50, epo
             if lowestValerror >= valerror and epoch >= epochsBeforeSaving:
                 lowestValerror = valerror
 
+                if saving:
+                    net.save(os.path.join(tempfile.gettempdir(), net.name + ".hdf"))
+
     bestPrecision = 1.0 - lowestValerror
 
     if printing:
         print("Highest accuracy: %-6f%%\n" % (100.0 * bestPrecision))
+
+    if saving:
+        net.load(os.path.join(tempfile.gettempdir(), net.name + ".hdf"))
+        return net, bestPrecision
 
     return None, bestPrecision
 

@@ -8,8 +8,8 @@ variable and attribute names.  The convs carry no bias.
 
 Weights come from the init scheme or, through
 ``puzzlelib_tpu_torch.convert.paramsFromNumpy`` and ``attrsFromNumpy``
-(the batch norms' running stats), from tables of arrays; loading a
-checkpoint file comes with the checkpoint port.  ``actInplace`` and
+(the batch norms' running stats), from tables of arrays, or from the HDF5 checkpoint
+at ``modelpath``.  ``actInplace`` and
 ``bnInplace`` default to False: ``Replicate`` hands one tensor to both
 branches, so an inplace layer in the branch would write the shortcut's
 input, and a batch norm refuses ``inplace`` in train mode."""
@@ -64,10 +64,6 @@ def residBlock(inmaps, hmaps, stride, blockname, convShortcut, actInplace, bnInp
 
 
 def loadResNet(modelpath, layers, actInplace=False, bnInplace=False, initscheme="none", name=None):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy and convert.attrsFromNumpy")
-
     if layers == "50":
         name = "ResNet-50" if name is None else name
         level3names = ["3%s" % alpha for alpha in string.ascii_lowercase[1:4]]
@@ -113,5 +109,8 @@ def loadResNet(modelpath, layers, actInplace=False, bnInplace=False, initscheme=
     net.append(Flatten())
     net.append(Linear(2048, 1000, initscheme=initscheme, name="fc1000"))
     net.append(SoftMax())
+
+    if modelpath is not None:
+        net.load(modelpath, assumeUniqueNames=True)
 
     return net

@@ -13,8 +13,8 @@ the reference's order.  Dropout draws from the port's generator
 (``rng.globalRng``).
 
 Weights come from the init schemes or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 import time
 
@@ -89,8 +89,9 @@ def buildNet(vocabulary, branches, w2v, sentlength, embsize, wscale, dim=2, bran
 
 def loadSentiNet(modelpath, vocabulary, branches, sentlength, embsize, wscale=1.0, dim=2, branchMaps=100,
                  w2v=None, name="sentinet"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
+    net = buildNet(vocabulary, branches, w2v, sentlength, embsize, wscale, dim, branchMaps, name)
 
-    return buildNet(vocabulary, branches, w2v, sentlength, embsize, wscale, dim, branchMaps, name)
+    if modelpath is not None:
+        net.load(modelpath)
+
+    return net

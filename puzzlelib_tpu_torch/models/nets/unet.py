@@ -9,8 +9,8 @@ shortcut)`` -> ``Concat``), each of the first three ending in a deconv and a
 reference's module and variable names.  The deconvs carry no bias.
 
 Weights come from the init scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential, Parallel
 from puzzlelib_tpu_torch.modules import (
@@ -74,10 +74,6 @@ def blockB(blockId, actInplace, initscheme):
 
 
 def loadUNet(modelpath, actInplace=False, initscheme="none"):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     net = Sequential(name="unet")
 
     blocksA, blocksB, shortcuts = [None], [None] * 6, [None]
@@ -100,4 +96,7 @@ def loadUNet(modelpath, actInplace=False, initscheme="none"):
         blocksA[blockId].extend(blocksB[10 - blockId])
 
     net.extend(blocksA[1])
+    if modelpath is not None:
+        net.load(modelpath)
+
     return net

@@ -1,7 +1,7 @@
 """VGG-11/16/19 (counterpart of ``puzzlelib_tpu/models/nets/vgg.py``), with
 max or average pooling.  Weights come from the init scheme or, through
-``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays;
-loading a checkpoint file comes with the checkpoint port."""
+``puzzlelib_tpu_torch.convert.paramsFromNumpy``, from a table of arrays,
+or from the HDF5 checkpoint at ``modelpath``."""
 
 import numpy as np
 
@@ -20,10 +20,6 @@ _STAGES = [
 
 
 def loadVGG(modelpath, layers, poolmode="max", initscheme="none", withLinear=True, actInplace=False, name=None):
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy")
-
     if poolmode == "avg":
         pool = AvgPool2D
     elif poolmode == "max":
@@ -62,5 +58,8 @@ def loadVGG(modelpath, layers, poolmode="max", initscheme="none", withLinear=Tru
         net.append(Activation(relu, inplace=actInplace, name="relu7"))
         net.append(Linear(4096, 1000, initscheme=initscheme, name="fc8"))
         net.append(SoftMax())
+
+    if modelpath is not None:
+        net.load(modelpath)
 
     return net

@@ -10,8 +10,8 @@ T / 2), which ``ops.ctc`` takes as (T / 2, N, nlabels) after a
 
 Weights come from the init scheme or, through
 ``puzzlelib_tpu_torch.convert.paramsFromNumpy`` and ``attrsFromNumpy``
-(the batch norms' running stats), from tables of arrays; loading a
-checkpoint file comes with the checkpoint port."""
+(the batch norms' running stats), from tables of arrays, or from the HDF5 checkpoint
+at ``modelpath``."""
 
 from puzzlelib_tpu_torch.containers import Sequential
 from puzzlelib_tpu_torch.modules import Activation, BatchNorm1D, Conv1D, Dropout, Pad1D, clip
@@ -55,10 +55,6 @@ _LAYOUT = [
 def loadW2L(modelpath, inmaps, nlabels, initscheme=None, name="w2l"):
     """Wave2Letter for ``inmaps`` input features and ``nlabels`` labels
     (blank included)."""
-    if modelpath is not None:
-        raise NotImplementedError("loading a checkpoint is not ported yet; build with modelpath=None and "
-                                  "load weights with convert.paramsFromNumpy and attrsFromNumpy")
-
     net = Sequential(name=name)
 
     for i, (inm, outm, size, stride, pad, dropout, dilation, bnAct) in enumerate(_LAYOUT):
@@ -69,5 +65,8 @@ def loadW2L(modelpath, inmaps, nlabels, initscheme=None, name="w2l"):
             inm, outm, size=size, stride=stride, pad=pad, dropout=dropout, initscheme=initscheme,
             dilation=dilation, bnAct=bnAct, name="conv1d_%d" % i
         ))
+
+    if modelpath is not None:
+        net.load(modelpath)
 
     return net

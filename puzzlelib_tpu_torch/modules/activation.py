@@ -61,6 +61,7 @@ def _overSlice(fn, tensors, args, slc):
 class Activation(Module):
     def __init__(self, activation, slc=None, inplace=False, name=None, args=()):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.gradUsesOutData = True
 

@@ -29,6 +29,7 @@ class MultiHeadAttention(Module):
     def __init__(self, embsize, nheads, causal=False, useBias=True, wscale=1.0, initscheme=None, attnAlgo=None,
                  name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         if embsize % nheads != 0:
             raise ModuleError("Embedding size %d not divisible by %d heads" % (embsize, nheads))

@@ -8,6 +8,7 @@ from puzzlelib_tpu_torch.modules.pool2d import Pool2D
 class AvgPool2D(Pool2D):
     def __init__(self, size=2, stride=2, pad=0, includePad=True, name=None):
         super().__init__(size, stride, pad, name)
+        self.registerBlueprint(locals())
         self.mode = PoolMode.avgWithPad if includePad else PoolMode.avgNoPad
 
     def updateData(self, data):

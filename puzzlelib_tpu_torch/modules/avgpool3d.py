@@ -8,4 +8,5 @@ from puzzlelib_tpu_torch.modules.pool3d import Pool3D
 class AvgPool3D(Pool3D):
     def __init__(self, size=2, stride=2, pad=0, includePad=True, name=None):
         super().__init__(size, stride, pad, name)
+        self.registerBlueprint(locals())
         self.mode = PoolMode.avgWithPad if includePad else PoolMode.avgNoPad

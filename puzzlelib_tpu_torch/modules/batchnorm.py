@@ -15,6 +15,7 @@ class BatchNorm(BatchNormND):
     def __init__(self, size, epsilon=1e-5, initFactor=1.0, minFactor=0.1, sscale=0.01, affine=True, name=None,
                  empty=False, inplace=False):
         super().__init__(2, size, epsilon, initFactor, minFactor, sscale, affine, name, empty, inplace)
+        self.registerBlueprint(locals())
         self.size = size
 
     def _view(self, tensor):

@@ -26,7 +26,11 @@ _TORCH = {DataType.float32: torch.float32, DataType.float16: torch.float16, Data
 class Cast(Module):
     def __init__(self, intype, outtype, name=None):
         super().__init__(name)
-        self.intype, self.outtype = self.dataTypeToNumpy(intype), self.dataTypeToNumpy(outtype)
+
+        intype, outtype = self.dataTypeToNumpy(intype), self.dataTypeToNumpy(outtype)
+        self.registerBlueprint(locals())
+
+        self.intype, self.outtype = intype, outtype
 
     def updateData(self, data):
         self.data = data.to(_TORCH[self.outtype]) if self.intype != self.outtype else data

@@ -12,6 +12,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Concat(Module):
     def __init__(self, axis, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.axis = axis
         self.sections = None

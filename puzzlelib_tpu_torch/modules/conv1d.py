@@ -15,6 +15,7 @@ class Conv1D(ConvND):
         super().__init__(
             1, inmaps, outmaps, size, stride, pad, dilation, wscale, useBias, name, initscheme, empty, groups
         )
+        self.registerBlueprint(locals())
 
     def checkDataShape(self, shape):
         if len(shape) != 3:

@@ -10,6 +10,7 @@ class Conv2D(ConvND):
         super().__init__(
             2, inmaps, outmaps, size, stride, pad, dilation, wscale, useBias, name, initscheme, empty, groups
         )
+        self.registerBlueprint(locals())
 
     def checkDataShape(self, shape):
         if len(shape) != 4:

@@ -15,6 +15,7 @@ class Conv3D(ConvND):
         super().__init__(
             3, inmaps, outmaps, size, stride, pad, dilation, wscale, useBias, name, initscheme, empty, groups
         )
+        self.registerBlueprint(locals())
 
     def checkDataShape(self, shape):
         if len(shape) != 5:

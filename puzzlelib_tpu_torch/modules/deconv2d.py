@@ -11,6 +11,7 @@ class Deconv2D(DeconvND):
         super().__init__(
             2, inmaps, outmaps, size, stride, pad, dilation, postpad, wscale, useBias, name, initscheme, empty, groups
         )
+        self.registerBlueprint(locals())
 
     def checkDataShape(self, shape):
         if len(shape) != 4:

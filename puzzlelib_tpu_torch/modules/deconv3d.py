@@ -13,6 +13,7 @@ class Deconv3D(DeconvND):
         super().__init__(
             3, inmaps, outmaps, size, stride, pad, dilation, postpad, wscale, useBias, name, initscheme, empty, groups
         )
+        self.registerBlueprint(locals())
 
     def checkDataShape(self, shape):
         if len(shape) != 5:

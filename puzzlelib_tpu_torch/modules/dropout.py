@@ -27,6 +27,7 @@ UINT32_RANGE = 2 ** 32
 class Dropout(Module):
     def __init__(self, p=0.5, rng=None, slicing=None, inplace=False, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals(), exclude=["rng"])
 
         from puzzlelib_tpu_torch.rng import globalRng
 

@@ -4,7 +4,13 @@ Gathers rows of W by int32 token index; a negative index is padding and
 gives a zero row.  The vocabulary is kept as a host array of words
 (``vocab``), as the reference keeps it.  The backward is a scatter-add into
 W's gradient (``ops.embed.embedBackwardParams``); tokens have no gradient, so
-``updateGrad`` sets none.  The HDF5 loading hooks come with the checkpoints.
+``updateGrad`` sets none.
+
+A checkpoint may hold another vocabulary than the module's: its loading
+hooks (``varLoader`` / ``attrLoader``) take the file's ``W`` and ``vocab``
+whatever their vocabulary size, as the reference's do.  That makes ``W``
+anew, a new tensor, not a write in place: load such a file before an
+optimizer's ``setupOn``, which would otherwise keep the old ``W``.
 """
 
 import numpy as np
@@ -35,12 +41,19 @@ class Embedder(Module):
     def __init__(self, vocabulary, sentlength, embsize, onVocabulary=None, initscheme="uniform", wscale=1.0,
                  learnable=True, name=None):
         super().__init__(name)
+        ctorArgs = dict(locals())
 
         self.embsize, self.sentlength = embsize, sentlength
         self.learnable = learnable
         self.outgrad = None
 
-        vocabsize, self.vocab = _vocabArray(vocabulary)
+        vocabsize, words = _vocabArray(vocabulary)
+
+        self.vocab = None
+        self.setAttr("vocab", words)
+
+        ctorArgs["vocabulary"] = vocabsize
+        self.registerBlueprint(ctorArgs, exclude=["onVocabulary"])
 
         W = self.createTensorWithScheme(initscheme, (vocabsize, embsize), wscale, (embsize, vocabsize))
         if onVocabulary is not None:
@@ -50,7 +63,31 @@ class Embedder(Module):
         self.W = None
         self.setVar("W", Variable(self.paramTensor(W, (vocabsize, embsize))))
 
+        self.varLoader = self.checkVarOnLoad
+        self.attrLoader = self.checkAttrOnLoad
+
+    # -- checkpoint hooks (embedding tables may change vocab size on load) -------
+
+    def checkVarOnLoad(self, paramName, dataset):
+        if paramName != "W":
+            raise ModuleError("Unknown parameter name '%s' for embedder" % paramName)
+
+        if dataset.shape[1] != self.embsize:
+            raise ModuleError("Expected embedding size %s, was given %s" % (self.embsize, dataset.shape[1]))
+
+        value = dataset if isinstance(dataset, torch.Tensor) else torch.from_numpy(np.array(dataset))
+        self.setVar("W", Variable(value.to(self.W.device)))
+
+    def checkAttrOnLoad(self, attrName, dataset):
+        if attrName != "vocab":
+            raise ModuleError("Unknown attribute name '%s' for embedder" % attrName)
+
+        self.setAttr("vocab", dataset)
+
     def getVocabulary(self):
+        if not self.hasAttr("vocab"):
+            return {}
+
         return {word: index for index, word in enumerate(self.vocab)}
 
     def verifyData(self, data):

@@ -12,6 +12,7 @@ from puzzlelib_tpu_torch.modules.module import Module
 class Gelu(Module):
     def __init__(self, inplace=False, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
         self.inplace = inplace
 
         if inplace and Config.showWarnings:

@@ -44,6 +44,7 @@ class GroupLinear(Module):
     def __init__(self, groups, insize, outsize, wscale=1.0, useW=True, useBias=True, initscheme=None,
                  inmode="full", wmode="full", batchDim=0, name=None, empty=False, transpW=False):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         if not useW and not useBias:
             raise ModuleError("Not using W and bias is not supported")

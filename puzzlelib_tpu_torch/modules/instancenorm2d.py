@@ -14,6 +14,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class InstanceNorm2D(Module):
     def __init__(self, numOfMaps, epsilon=1e-5, affine=True, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.numOfMaps = numOfMaps
         self.epsilon = epsilon

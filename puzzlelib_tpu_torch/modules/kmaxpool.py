@@ -32,6 +32,7 @@ def kmaxBackward(grad, idx, axis, axissize):
 class KMaxPool(Module):
     def __init__(self, topk, axis, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.topk = topk
         self.axis = axis

@@ -44,6 +44,7 @@ def layerNormBackward(x, scale, grad, epsilon):
 class LayerNorm(Module):
     def __init__(self, size, epsilon=1e-5, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.size = size
         self.epsilon = epsilon

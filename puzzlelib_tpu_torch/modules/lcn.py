@@ -17,6 +17,7 @@ from puzzlelib_tpu_torch.modules.lrn import LRN
 class LCN(LRN):
     def __init__(self, N=5, alpha=1e-4, beta=0.75, K=2.0, includePad=True, name=None):
         super().__init__(N, alpha, beta, K, name)
+        self.registerBlueprint(locals())
 
         if N % 2 != 1 or N == 1:
             raise ModuleError("LCN size must be odd and > 1")

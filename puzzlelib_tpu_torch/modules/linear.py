@@ -18,6 +18,7 @@ class Linear(Module):
     def __init__(self, insize, outsize, wscale=1.0, useBias=True, initscheme=None, name=None,
                  empty=False, transpose=False):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.transpose = transpose
         self.useBias = useBias

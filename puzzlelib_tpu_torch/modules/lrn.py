@@ -12,6 +12,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class LRN(Module):
     def __init__(self, N=5, alpha=1e-4, beta=0.75, K=2.0, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.N, self.alpha, self.beta, self.K = N, alpha, beta, K
         self.workspace = None

@@ -12,6 +12,7 @@ from puzzlelib_tpu_torch.modules.pool2d import Pool2D
 class MaxPool2D(Pool2D):
     def __init__(self, size=2, stride=2, pad=0, useMask=False, name=None):
         super().__init__(size, stride, pad, name)
+        self.registerBlueprint(locals())
 
         self.useMask = useMask
         self.mask = None

@@ -31,6 +31,7 @@ def _pooledHW(pool, fullHW):
 class MaxUnpool2D(Module):
     def __init__(self, maxpool2d, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals(), exclude=["maxpool2d"])
 
         maxpool2d.withMask = True
         object.__setattr__(self, "maxpool2d", maxpool2d)

@@ -32,16 +32,26 @@ gradient, then ``updateGrad`` sets ``self.grad`` (the input gradient) and
 buffers as ``grad * scale + buffer * momentum``.  Those writes, and every
 other write to a variable (``zeroGradParams``, ``updateParams``), go in
 place, so they reach variables that are views of an optimizer's flat
-buffers.  Checkpoints and blueprints come with later parts of the port.
+buffers.
+
+Each module records its constructor's arguments (``registerBlueprint``), so
+``getBlueprint()`` describes it as the JAX package does and
+``blueprint.BlueprintFactory`` rebuilds it.  ``save`` and ``load`` write and
+read the JAX package's HDF5 layout (``puzzlelib_tpu_torch.hdf``); a load
+writes each value into the variable's or attribute's own tensor, in place,
+so variables that are views of an optimizer's flat buffers stay views and
+a fused step's recorded graphs keep their addresses.
 """
 
 import math
+import warnings
 from enum import Enum
 
 import numpy as np
 import torch
 
 from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch import hdf as hdfcodec
 from puzzlelib_tpu_torch.backend import blas as Blas
 from puzzlelib_tpu_torch.backend import gpuarray
 from puzzlelib_tpu_torch.ops import elementwise as ew
@@ -77,10 +87,44 @@ def _mapNested(fn, data):
     return fn(data)
 
 
+def loadInto(target, value):
+    """Write a value read from a checkpoint (a host array, or a bf16 CPU
+    tensor) into the tensor ``target`` on its device, in place, under
+    numpy's ``casting="safe"``: an f32 file into a bf16 net raises, bf16
+    into f32 loads."""
+    src, dst = hdfcodec.dtypeName(value), hdfcodec.dtypeName(target)
+
+    if not hdfcodec.canCastSafely(src, dst):
+        raise TypeError("Cannot cast array data from dtype('%s') to dtype('%s') according to the rule 'safe'" %
+                        (src, dst))
+
+    if tuple(value.shape) != tuple(target.shape):
+        raise ValueError("shape %s in the file, %s in the module" % (tuple(value.shape), tuple(target.shape)))
+
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(value if value.flags.writeable else value.copy())
+
+    with torch.no_grad():
+        target.copy_(value)
+
+
+def hostValue(value):
+    """A host value read from a checkpoint as a module keeps it: a scalar
+    for a 0-d array, else the array."""
+    return value.item() if isinstance(value, np.ndarray) and value.ndim == 0 else value
+
+
 class Module(torch.nn.Module):
+    # subclasses raising container-flavored errors override these two
+    _errorKind = "Module"
+    _errorType = ModuleError
+
     def __init__(self, name=None):
         super().__init__()
         self.name = name
+
+        self.blueprint = None
+        self.registerBlueprint(locals())
 
         self.vars = {}
         self.attrs = {}
@@ -96,7 +140,25 @@ class Module(torch.nn.Module):
         self.training = not Config.globalEvalMode
         self.calctype = torch.float32
 
-    # -- variable registry -------------------------------------------------------
+        # optional checkpoint interception hooks: (name, value read from the file)
+        self.varLoader = None
+        self.attrLoader = None
+
+    # -- blueprint / variable registry ----------------------------------------------
+
+    def registerBlueprint(self, args, exclude=None):
+        """Record the constructor's arguments (its ``locals()``) as the
+        module's scheme; the names in ``exclude`` are recorded as None."""
+        hidden = {"self", "__class__"}
+        masked = set() if exclude is None else set(exclude)
+
+        self.blueprint = {
+            key: (None if key in masked else value)
+            for key, value in args.items() if key not in hidden
+        }
+
+    def getBlueprint(self):
+        return {"classname": type(self).__name__, "scheme": self.blueprint}
 
     def setVar(self, name, var):
         setattr(self, name, var.data)
@@ -217,6 +279,114 @@ class Module(torch.nn.Module):
     def optimizeForShape(self, shape, memlimit=None):
         """The reference's per-shape algorithm search: nothing to search
         for a module without one (``ConvND`` times its convs)."""
+
+    # -- persistence -------------------------------------------------------------------
+
+    def _checkpointPath(self, name, assumeUniqueNames):
+        """Dotted path of this module inside the checkpoint namespace."""
+        if name is None:
+            name = self.name or ""
+
+        if assumeUniqueNames and name:
+            # collapse the middle of the path: root + leaf identify the module
+            pieces = name.split(".")
+            name = "%s.%s" % (pieces[0], pieces[-1])
+
+        return name
+
+    def _failPersist(self, verb, name, exc):
+        raise self._errorType("%s %s %s error: %s" % (self._errorKind, name, verb, exc)) from exc
+
+    def _writeState(self, hdf, varlinks, name, compress, assumeUniqueNames=False):
+        """Leaf persistence: deduplicated vars + flat attribute datasets."""
+        for paramName, var in self.vars.items():
+            hdfcodec.storeParam(hdf, "%s.%s" % (name, paramName), var, varlinks, compress)
+
+        hdfcodec.storeAttrs(
+            hdf, {"%s.%s" % (name, attrName): attr for attrName, attr in {**self.attrs, **self.hostAttrs}.items()},
+            compress=compress,
+        )
+
+    def _readState(self, hdf, initvars, name, assumeUniqueNames):
+        for paramName, var in self.vars.items():
+            if var in initvars:
+                continue  # shared variable already restored through another link
+
+            param = hdfcodec.fetchParam(hdf, "%s.%s" % (name, paramName))
+
+            if self.varLoader is not None:
+                self.varLoader(paramName, param)
+            else:
+                loadInto(var.data, param)
+
+            initvars[var] = True
+
+        for attrName, attr in {**self.attrs, **self.hostAttrs}.items():
+            value = hdfcodec.fetchAttr(hdf, "%s.%s" % (name, attrName))
+
+            if self.attrLoader is not None:
+                self.attrLoader(attrName, value)
+            elif isinstance(attr, torch.Tensor):
+                loadInto(attr, value)
+            else:
+                self.setAttr(attrName, hostValue(value))
+
+    def save(self, hdf=None, varlinks=None, name=None, compress="gzip", assumeUniqueNames=False,
+             withBlueprint=False, isRoot=True):
+        """Write the module's variables and attributes into ``hdf`` (a path,
+        an open handle, or nothing: then the file's image comes back as
+        bytes), with its blueprint if ``withBlueprint``."""
+        wantImage = hdf is None
+        hdf, owned = hdfcodec.openStore(hdf, "w")
+
+        name = self._checkpointPath(name, assumeUniqueNames)
+        varlinks = {} if varlinks is None else varlinks
+
+        image = None
+        try:
+            self._writeState(hdf, varlinks, name, compress, assumeUniqueNames)
+
+            if withBlueprint:
+                hdfcodec.storeBlueprint(hdf, self.getBlueprint())
+
+            if isRoot and wantImage:
+                image = hdfcodec.snapshot(hdf)
+
+        except Exception as e:
+            self._failPersist("save", name, e)
+
+        finally:
+            if isRoot and owned:
+                hdf.close()
+
+        return image
+
+    def load(self, hdf, initvars=None, name=None, assumeUniqueNames=False, isRoot=True):
+        """Read the module's variables and attributes from ``hdf`` (a path, a
+        file image or an open handle), each into its own tensor, in place;
+        a value that does not cast safely to the tensor's type raises."""
+        hdf, owned = hdfcodec.openStore(hdf, "r")
+
+        name = self._checkpointPath(name, assumeUniqueNames)
+        initvars = {} if initvars is None else initvars
+
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error")
+
+            try:
+                self._readState(hdf, initvars, name, assumeUniqueNames)
+
+            except Exception as e:
+                self._failPersist("load", name, e)
+
+            finally:
+                if isRoot and owned:
+                    hdf.close()
+
+    @staticmethod
+    def ensureHdf(file, mode):
+        store, _ = hdfcodec.openStore(file, mode)
+        return store
 
     # -- modes -------------------------------------------------------------------------
 

@@ -18,6 +18,7 @@ def _movedShape(shape, src, dst):
 class MoveAxis(Module):
     def __init__(self, src, dst, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         if src == dst:
             raise ModuleError("Trivial axis move is treated as error")

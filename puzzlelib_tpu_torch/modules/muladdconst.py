@@ -9,6 +9,7 @@ from puzzlelib_tpu_torch.modules.module import Module
 class MulAddConst(Module):
     def __init__(self, a=1.0, b=0.0, inplace=False, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.a, self.b = a, b
 

@@ -46,6 +46,7 @@ class NoiseInjector(Module):
     def __init__(self, mode="add", noisetype="uniform", params=(0.0, 1.0), rng=None, inplace=False, slicing=None,
                  name=None):
         super().__init__(name)
+        self.registerBlueprint(locals(), exclude=["rng"])
 
         from puzzlelib_tpu_torch.rng import globalRng
 

@@ -24,6 +24,7 @@ class PadMode(str, Enum):
 class Pad1D(Module):
     def __init__(self, pad, mode="constant", fillValue=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.mode = PadMode(mode)
         self.pad = self.repeat(pad, 2)

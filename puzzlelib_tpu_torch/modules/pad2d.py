@@ -18,6 +18,7 @@ from puzzlelib_tpu_torch.modules.pad1d import PadMode
 class Pad2D(Module):
     def __init__(self, pad, mode="constant", fillValue=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.mode = PadMode(mode)
         self.pad = self.repeat(pad, 4)

@@ -17,6 +17,7 @@ class PenaltyMode(str, Enum):
 class Penalty(Module):
     def __init__(self, mode="l1", weight=1e-2, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.gradUsesOutData = True
         self.movesData = True

@@ -19,6 +19,7 @@ INIT_SLOPE = 0.25
 class PRelu(Module):
     def __init__(self, maps, inplace=False, sharedMaps=False, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.sharedMaps, self.inplace = sharedMaps, inplace
 

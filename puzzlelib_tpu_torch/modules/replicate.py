@@ -13,6 +13,7 @@ from puzzlelib_tpu_torch.modules.module import Module
 class Replicate(Module):
     def __init__(self, times, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.movesData = True
         self.times = times

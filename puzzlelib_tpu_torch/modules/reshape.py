@@ -16,6 +16,7 @@ def _volume(shape):
 class Reshape(Module):
     def __init__(self, shape, showWarnings=True, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.showWarnings = showWarnings
         self.movesData = self.movesGrad = True

@@ -51,6 +51,7 @@ class RNN(Module):
     def __init__(self, insize, hsize, layers=1, mode="relu", direction="uni", dropout=0.0, getSequences=False,
                  initscheme=None, modifier="orthogonal", wscale=1.0, hintBatchSize=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         from puzzlelib_tpu_torch.rng import globalRng
 

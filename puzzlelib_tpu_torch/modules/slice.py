@@ -13,6 +13,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Slice(Module):
     def __init__(self, slc=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.slc = slc
         self.inshape = None

@@ -13,6 +13,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class SpatialTf(Module):
     def __init__(self, shape=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.shape = shape
         self.grid = None

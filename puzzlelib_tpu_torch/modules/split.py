@@ -11,6 +11,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Split(Module):
     def __init__(self, axis, sections, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.sections = sections
         self.axis = axis

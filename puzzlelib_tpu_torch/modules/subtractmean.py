@@ -11,6 +11,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class SubtractMean(Module):
     def __init__(self, size=5, includePad=True, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         if size % 2 != 1 or size == 1:
             raise ModuleError("Subtractive norm size must be odd and > 1")

@@ -15,6 +15,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Sum(Module):
     def __init__(self, axis, useWeights=True, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.useWeights = useWeights
         self.axis = axis

@@ -9,6 +9,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class SwapAxes(Module):
     def __init__(self, axis1, axis2, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
         self.axis1, self.axis2 = (axis2, axis1) if axis1 > axis2 else (axis1, axis2)
 
     def updateData(self, data):

@@ -28,8 +28,11 @@ flat buffer; the JAX package's ``SwitchMoE`` reads root buffers there
 (``fused.collectParamBuffers``) and fails.
 
 Nothing in the routing reads a value back to the host, so ``FusedTrainer``
-and ``FusedCalculator`` record the layer in their CUDA graphs.  The mesh
-path ``distributedForward`` and blueprints are not ported yet.
+and ``FusedCalculator`` record the layer in their CUDA graphs.  The layer
+carries a scheme (``insize``, ``capacityFactor``, ``auxWeight``) and its
+experts in order (``getBlueprint``'s "graph"); a checkpoint holds the router
+as the child ``__gate__``.  The mesh path ``distributedForward`` is not
+ported yet.
 """
 
 import numpy as np
@@ -50,6 +53,7 @@ class MoEGate(Module):
 
     def __init__(self, insize, nExperts, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         rng = np.random.RandomState(nExperts)
         self.setVar("W", Variable(self.paramTensor((rng.randn(insize, nExperts) * 0.02).astype(np.float32),
@@ -71,6 +75,7 @@ class MoEGate(Module):
 class SwitchMoE(Container):
     def __init__(self, insize, capacityFactor=1.25, auxWeight=0.01, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.insize = insize
         self.capacityFactor = capacityFactor
@@ -100,6 +105,11 @@ class SwitchMoE(Container):
     @property
     def gateVar(self):
         return self._gateMod.vars["W"]
+
+    def getBlueprint(self):
+        blueprint = super().getBlueprint()
+        blueprint["graph"] = [mod.name for mod in self.graph]
+        return blueprint
 
     @property
     def nExperts(self):
@@ -175,7 +185,7 @@ class SwitchMoE(Container):
 
     def distributedForward(self, x, mesh, expertAxis="expert"):
         raise NotImplementedError("SwitchMoE.distributedForward shards the experts over a mesh, which the port "
-                                  "does not have yet (ROADMAP Queue 1, item 9)")
+                                  "does not have yet (ROADMAP Queue 1, item 4)")
 
     # -- protocol ----------------------------------------------------------------
 

@@ -9,6 +9,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Tile(Module):
     def __init__(self, axis, times, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.axis = axis
         self.times = times

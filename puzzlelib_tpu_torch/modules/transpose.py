@@ -13,6 +13,7 @@ from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 class Transpose(Module):
     def __init__(self, axes=None, name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.axes = axes
         self.invaxes = None if axes is None else [int(i) for i in np.argsort(axes)]

@@ -18,6 +18,7 @@ class UpsampleMode(str, Enum):
 class Upsample2D(Module):
     def __init__(self, scale=2, mode="nearest", name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.scale = scale
         self.mode = UpsampleMode(mode)

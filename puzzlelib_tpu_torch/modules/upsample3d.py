@@ -10,6 +10,7 @@ from puzzlelib_tpu_torch.modules.upsample2d import UpsampleMode
 class Upsample3D(Module):
     def __init__(self, scale=2, mode="nearest", name=None):
         super().__init__(name)
+        self.registerBlueprint(locals())
 
         self.scale = scale
         self.mode = UpsampleMode(mode)

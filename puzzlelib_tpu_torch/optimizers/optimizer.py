@@ -8,16 +8,28 @@ every parameter.  The views are the variables from then on: every write to
 them goes in place, and ``calcMode``, which rebuilds the variables, must come
 before ``setupOn``, as in the reference.
 
-Hooks run on each (variable, state) before its update.  The reference's
-multi-node state and HDF5 ``save``/``load`` are not ported; the state moves
-to and from numpy through ``convert.optimizerStateToNumpy`` /
-``optimizerStateFromNumpy``.
+Hooks run on each (variable, state) before its update.  ``save`` and
+``load`` write and read the JAX package's HDF5 layout: the groups
+``<prefix>.attrs`` (``t``, ``learnRate`` and the optimizer's own rates) and
+``<prefix>.states``, whose datasets are ``<state>.<entity>``, a state named
+by its variable under local state and by the numpy type of its flat buffer
+under global state (``"<class 'numpy.float32'>.mom"``).  A load writes each
+state tensor in place, so a fused step's recorded graphs keep reading it.
+The state also moves to and from numpy through
+``convert.optimizerStateToNumpy`` / ``optimizerStateFromNumpy``.  The
+reference's multi-node state is not ported.
 """
 
 from collections import OrderedDict
 
+import numpy as np
+import torch
+
 from puzzlelib_tpu_torch import config as Config
+from puzzlelib_tpu_torch import hdf as hdfcodec
 from puzzlelib_tpu_torch.backend import gpuarray
+from puzzlelib_tpu_torch.convert import _stateName
+from puzzlelib_tpu_torch.modules.module import loadInto
 from puzzlelib_tpu_torch.variable import Variable
 
 
@@ -42,6 +54,9 @@ class Optimizer:
     def setAttr(self, name, attr):
         setattr(self, name, attr)
         self.attrs.add(name)
+
+    def getAttrDict(self):
+        return {attrName: getattr(self, attrName) for attrName in self.attrs}
 
     def addHook(self, hook):
         if self.globalState and Config.showWarnings:
@@ -148,3 +163,62 @@ class Optimizer:
 
     def updateVar(self, var, state):
         raise NotImplementedError()
+
+    # -- optimizer-state persistence ---------------------------------------------------------
+
+    def save(self, hdf, name=None):
+        """Write the attributes and every state tensor into ``hdf`` (a path or
+        an open handle)."""
+        hdf, owned = hdfcodec.openStore(hdf, "w")
+        prefix = name or ""
+
+        try:
+            if self.attrs:
+                grp = hdf.require_group(prefix + ".attrs")
+                for attrName, attr in self.getAttrDict().items():
+                    hdfcodec.writeDataset(grp, attrName, attr)
+
+            if self.states:
+                grp = hdf.require_group(prefix + ".states")
+                for key, state in self.states.items():
+                    for entityName, entity in state.items():
+                        hdfcodec.writeDataset(grp, "%s.%s" % (_stateName(key), entityName), entity)
+
+        finally:
+            if owned:
+                hdf.close()
+
+    def load(self, hdf, name=None):
+        """Read the attributes (``t`` and the rates, through ``setAttr``) and
+        every state tensor, in place, from ``hdf`` (a path, a file image or
+        an open handle)."""
+        hdf, owned = hdfcodec.openStore(hdf, "r")
+        prefix = name or ""
+
+        try:
+            grpName = prefix + ".attrs"
+            if grpName in hdf:
+                for attrName, attr in hdf[grpName].items():
+                    kind = type(getattr(self, attrName))
+                    self.setAttr(attrName, kind(np.array(attr)))
+
+            if self.states:
+                grp = hdf[prefix + ".states"]
+                for key, state in self.states.items():
+                    for entityName, entity in state.items():
+                        value = hdfcodec.readDataset(grp["%s.%s" % (_stateName(key), entityName)])
+                        loadInto(entity, _rawBf16(value, entity))
+
+        finally:
+            if owned:
+                hdf.close()
+
+
+def _rawBf16(value, entity):
+    """A bf16 state the JAX package wrote untagged (its raw 16 bits, opaque
+    on disk) as a bf16 tensor; any other value as it is."""
+    if isinstance(value, np.ndarray) and value.dtype.kind == "V" and value.dtype.itemsize == 2 and \
+            entity.dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(value).view(np.int16)).view(torch.bfloat16)
+
+    return value

@@ -79,6 +79,22 @@ def _jattrs(jnet, prefix=""):
     return table
 
 
+def _loadsJaxFile(jnet, load, path, unique):
+    """``load(path)`` (a zoo loader's ``modelpath``) of the file the JAX net
+    wrote: every variable of the port's net bit-equal to the JAX net's.
+    Returns the port's net."""
+    jnet.save(path, compress=None, assumeUniqueNames=unique)
+    tnet = load(path)
+
+    want = {name: np.asarray(var.data.get()) for var, names in jnet.getVarTable().items() for name in names}
+    got = {name: var.data.detach().numpy() for var, names in tnet.getVarTable().items() for name in names}
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
+
+    return tnet
+
+
 def _carry(jnet, tnet):
     paramsFromNumpy(tnet, _jvars(jnet))
     attrsFromNumpy(tnet, _jattrs(jnet))
@@ -86,10 +102,14 @@ def _carry(jnet, tnet):
 
 @pytest.mark.parametrize("kind, shape, out, nparams", [("bn", (1, 3, 224, 224), (1, 1000), 11285224),
                                                         ("v3", (1, 3, 299, 299), (1, 1008), 23850960)])
-def testInceptionShapesTwin(monkeypatch, kind, shape, out, nparams):
+def testInceptionShapesTwin(monkeypatch, tmp_path, kind, shape, out, nparams):
     """The JAX package's shape checks (``tests/test_models.py``), and the
     same module names and types, variable and attribute names and shapes
-    and parameter count in both packages."""
+    and parameter count in both packages.  The loader's ``modelpath`` loads
+    the file the JAX net wrote (``assumeUniqueNames``): every variable and
+    running stat bit-equal to the JAX net's, so the forward is the one the
+    forward twins (``testInceptionBNForwardTwin``, ``testInceptionV3BlockTwin``)
+    hold to the JAX package's."""
     JInception, _ = _jax()
     from puzzlelib_tpu import config as JConfig
 
@@ -107,8 +127,11 @@ def testInceptionShapesTwin(monkeypatch, kind, shape, out, nparams):
         {name: a.shape for name, a in _jattrs(jnet).items()}
     assert tnet.numOfParams() == jnet.numOfParams() == nparams
 
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        getattr(TNets, load)("inception.hdf")
+    loaded = _loadsJaxFile(jnet, getattr(TNets, load), str(tmp_path / "inception.hdf"), unique=True)
+    got = {name: attr.numpy() for name, attr in loaded.getAttrTable().items()}
+    assert sorted(got) == sorted(_jattrs(jnet))
+    for name, value in _jattrs(jnet).items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
 
 
 def testInceptionBNForwardTwin():

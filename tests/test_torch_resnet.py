@@ -96,6 +96,22 @@ def _jattrs(jnet, prefix=""):
     return table
 
 
+def _loadsJaxFile(jnet, load, path, unique):
+    """``load(path)`` (a zoo loader's ``modelpath``) of the file the JAX net
+    wrote: every variable of the port's net bit-equal to the JAX net's.
+    Returns the port's net."""
+    jnet.save(path, compress=None, assumeUniqueNames=unique)
+    tnet = load(path)
+
+    want = {name: np.asarray(var.data.get()) for var, names in jnet.getVarTable().items() for name in names}
+    got = {name: var.data.detach().numpy() for var, names in tnet.getVarTable().items() for name in names}
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
+
+    return tnet
+
+
 def _carry(jnet, tnet):
     """The JAX net's weights and running stats into the port's net."""
     paramsFromNumpy(tnet, _jvars(jnet))
@@ -153,9 +169,25 @@ def testResNetStructureTwin(monkeypatch, layers, nvars, nparams):
     assert tuple(shape) == (1, 1000)
 
 
-def testLoadResNetRefusesACheckpointAndUnknownDepths():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TNets.loadResNet("resnet50.hdf", "50")
+def testLoadResNetRefusesACheckpointAndUnknownDepths(monkeypatch, tmp_path):
+    """The loader's ``modelpath`` loads the file the JAX package's ResNet-50
+    wrote (``assumeUniqueNames``): every variable and running stat
+    bit-equal to the JAX net's, so the forward is the one
+    ``testResNet50FullWidthForwardTwin`` holds to the JAX package's.  An
+    unknown depth is refused."""
+    _, _, JNets, _, _, _, _, _ = _jax()
+    from puzzlelib_tpu import config as JConfig
+
+    monkeypatch.setattr(JConfig, "globalEvalMode", True)
+    monkeypatch.setattr(TConfig, "globalEvalMode", True)
+
+    jnet = JNets.loadResNet(None, "50", initscheme="none")
+    loaded = _loadsJaxFile(jnet, lambda path: TNets.loadResNet(path, "50"), str(tmp_path / "resnet50.hdf"),
+                           unique=True)
+    got = {name: attr.numpy() for name, attr in loaded.getAttrTable().items()}
+    assert sorted(got) == sorted(_jattrs(jnet))
+    for name, value in _jattrs(jnet).items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
 
     with pytest.raises(ValueError, match="layers"):
         TNets.loadResNet(None, "34")

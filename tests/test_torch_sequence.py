@@ -419,19 +419,29 @@ def testW2LNarrowCtcStepsTwin():
     assert scores.shape == (8, 29, 60) and np.isfinite(scores).all()
 
 
-def testW2LShape(monkeypatch):
+def testW2LShape(monkeypatch, tmp_path):
     """The twin of the JAX package's ``testW2LShape``: 161 features over
     200 frames give 29 scores over 100 steps; 106.8 M parameters.  Built
     without initialising or gradient buffers (``initscheme="none"``,
-    ``globalEvalMode``)."""
+    ``globalEvalMode``).  Saved without compression, the net loads back
+    through the loader's ``modelpath``: every variable and batch-norm
+    statistic bit-equal."""
     monkeypatch.setattr(TConfig, "globalEvalMode", True)
     net = tLoadW2L(None, inmaps=161, nlabels=29, initscheme="none")
 
     assert net.dataShapeFrom((1, 161, 200)) == (1, 29, 100)
     assert net.numOfParams() == 106779293
 
-    with pytest.raises(NotImplementedError):
-        tLoadW2L("w2l.hdf", inmaps=161, nlabels=29)
+    path = str(tmp_path / "w2l.hdf")
+    net.save(path, compress=None)
+    loaded = tLoadW2L(path, inmaps=161, nlabels=29)
+
+    for table in (lambda n: {name: var.data for var, names in n.getVarTable().items() for name in names},
+                  lambda n: n.getAttrTable()):
+        want, got = table(net), table(loaded)
+        assert sorted(got) == sorted(want)
+        for name, value in want.items():
+            assert torch.equal(got[name].view(torch.int32), value.view(torch.int32)), name
 
 
 # -- on the card ------------------------------------------------------------------------------

@@ -133,9 +133,35 @@ def testUNetStructureTwin(monkeypatch):
     assert sum(len(names.split()) for names, _, _ in unetslice.KERNEL_CONVS) == 15
 
 
-def testLoadUNetRefusesACheckpoint():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TNets.loadUNet("unet.hdf")
+def testLoadUNetRefusesACheckpoint(monkeypatch, tmp_path):
+    """The loader's ``modelpath`` loads the file the JAX package's U-Net
+    wrote: every variable bit-equal to the JAX net's, so the forward is the
+    one ``testUNetForwardBackwardTwin`` holds to the JAX package's."""
+    jLoadUNet = _jax()[0]
+    from puzzlelib_tpu import config as JConfig
+
+    monkeypatch.setattr(JConfig, "globalEvalMode", True)
+    monkeypatch.setattr(TConfig, "globalEvalMode", True)
+
+    _loadsJaxFile(jLoadUNet(None, initscheme="none"), TNets.loadUNet, str(tmp_path / "unet.hdf"), unique=False)
+
+
+def _loadsJaxFile(jnet, load, path, unique):
+    """``load(path)`` (a zoo loader's ``modelpath``) of the file the JAX net
+    wrote: every variable of the port's net bit-equal to the JAX net's.
+    Returns the port's net."""
+    jnet.save(path, compress=None, assumeUniqueNames=unique)
+    tnet = load(path)
+
+    want = {name: np.asarray(var.data.get()) for var, names in jnet.getVarTable().items() for name in names}
+    got = {name: var.data.detach().numpy() for var, names in tnet.getVarTable().items() for name in names}
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
+
+    return tnet
+
+
 
 
 def testUNetForwardBackwardTwin():

@@ -16,6 +16,7 @@ import collections.abc
 import contextlib
 import io
 import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -113,11 +114,15 @@ def _loaders():
 
 
 @pytest.mark.parametrize("kind", ["miniyolo", "coco", "mpi"])
-def testZooStructureTwin(monkeypatch, kind):
+def testZooStructureTwin(monkeypatch, tmp_path, kind):
     """The same tree (module names and types, depth first), the same
     variables by name and shape, the same parameter count and output shape
     in both packages; MPI's four earlier stages nest inside the net as the
-    reference builds them.  A modelpath raises until checkpoints land."""
+    reference builds them.  The loader's ``modelpath`` loads the file the
+    JAX net wrote (OpenPose with ``assumeUniqueNames``, as its loaders
+    read): every variable bit-equal to the JAX net's, so the forward is the
+    one ``testMiniYoloTwin`` / ``testOpenPoseTwin`` hold to the JAX
+    package's."""
     _jax()
     from puzzlelib_tpu import config as JConfig
 
@@ -138,10 +143,25 @@ def testZooStructureTwin(monkeypatch, kind):
         depth = max(path.count(".") for path, _ in _tree(tnet))
         assert depth >= 10 and tnet.getByName("Mconv7_stage2") is not None
 
-    loadFile = {"miniyolo": lambda: TNets.loadMiniYolo("yolo.hdf", 1470), "coco": lambda: TNets.loadCOCO("coco.hdf"),
-                "mpi": lambda: TNets.loadMPI("mpi.hdf")}[kind]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        loadFile()
+    loadFile = {"miniyolo": lambda path: TNets.loadMiniYolo(path, 1470), "coco": TNets.loadCOCO,
+                "mpi": TNets.loadMPI}[kind]
+    _loadsJaxFile(jnet, loadFile, str(tmp_path / ("%s.hdf" % kind)), unique=kind != "miniyolo")
+
+
+def _loadsJaxFile(jnet, load, path, unique):
+    """``load(path)`` (a zoo loader's ``modelpath``) of the file the JAX net
+    wrote: every variable of the port's net bit-equal to the JAX net's.
+    Returns the port's net."""
+    jnet.save(path, compress=None, assumeUniqueNames=unique)
+    tnet = load(path)
+
+    want = {name: np.asarray(var.data.get()) for var, names in jnet.getVarTable().items() for name in names}
+    got = {name: var.data.detach().numpy() for var, names in tnet.getVarTable().items() for name in names}
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        assert np.array_equal(got[name].view(np.uint32), value.view(np.uint32)), name
+
+    return tnet
 
 
 def _carry(jnet, tnet, seed):
@@ -314,12 +334,16 @@ def _epochs(text):
             for m in re.finditer(r"Train error: (\S+)\. Val error: (\S+)", text)]
 
 
-def testSentiNetPresetTwin(monkeypatch):
+def testSentiNetPresetTwin(monkeypatch, tmp_path):
     """``presets.sentinet.train(..., saving=False)`` for one epoch on 256
     seeded sentences, split and oversampled by each package's
     ``splitData`` / ``replicateData`` from one numpy seed, against the JAX
     preset: the printed training and validation errors, the best accuracy
-    and the trained weights; ``saving=True`` raises before it trains."""
+    and the trained weights.  Then two more epochs with ``saving=True``
+    (the temporary directory moved into the test's): each preset keeps its
+    best net in ``<net name>.hdf``, loads it back and returns it; the
+    printed errors, the accuracy and the returned weights agree, and the
+    port's net equals the file it wrote."""
     JNets, _ = _jax()
     from puzzlelib_tpu.datasets import utils as JUtils
     from puzzlelib_tpu.models.nets.presets import sentinet as JPreset
@@ -354,8 +378,27 @@ def testSentiNetPresetTwin(monkeypatch):
     for name, got in paramsToNumpy(tnet).items():
         _close(got, want[name])
 
-    with pytest.raises(NotImplementedError, match="saving=False"):
-        TPreset.train(tnet, *results["port"][:1], results["port"][1], results["port"][2], results["port"][3])
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    for which, net, preset in (("jax", jnet, JPreset), ("port", tnet, TPreset)):
+        trainData, trainLabels, valData, valLabels = results[which]
+        out = io.StringIO()
+        np.random.seed(12)
+        with contextlib.redirect_stdout(out):
+            returned, accuracy[which] = preset.train(net, trainData, trainLabels, valData, valLabels, 2, epochs=2,
+                                                     saving=True)
+        assert returned is net and (tmp_path / (net.name + ".hdf")).exists()
+        printed[which] = _epochs(out.getvalue())
+
+    assert len(printed["port"]) == 2
+    _close(printed["port"], printed["jax"])
+    assert accuracy["port"] == accuracy["jax"]
+    want = _jtable(jnet)
+    for name, got in paramsToNumpy(tnet).items():
+        _close(got, want[name])
+
+    kept = TNets.loadSentiNet(str(tmp_path / (tnet.name + ".hdf")), **SENTI)
+    for name, got in paramsToNumpy(kept).items():
+        assert np.array_equal(got, paramsToNumpy(tnet)[name]), name
 
 
 def testDatasetUtilsTwin():
