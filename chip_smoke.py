@@ -417,7 +417,33 @@ it fails:
    variable's and state's address kept across the load, K1 twice a step.
    The same through ``FusedTrainer``, whose fresh trainer records its CUDA
    graph before the load: no new recording after it.
-   The seconds of phases 26 to 42, of [layers]' cases by module and of the
+43. [testlib]: the last nine ``testlib`` counterparts
+   (``puzzlelib_tpu_torch/testlib``), each through its own entry point,
+   right after [data], with the counters reset just before each run and
+   read just after: each kernel's launches (a kernel the script does not
+   reach must launch no time), the script's printed errors, accuracy or
+   rates, the wall seconds, and the card's idle share of the run (or of a
+   shorter run of it: an epoch, 10 CTC steps) under the profiler, its
+   launches held to the device events.  The digits scripts train on
+   ``dataslice.digits`` (the card's machine has no scikit-learn):
+   ``gradientcheck.main()`` (median relative error below 1e-2, no hand
+   kernel), ``digitslenet`` 15 epochs (accuracy >= 0.97, K1 in its
+   Linears), ``digitsreal``'s tied autoencoder 40 epochs (MSE below 0.01,
+   K1 twice a step: the encoder's forward product and the decoder's
+   data-gradient product, which is untransposed; the decoder's transposed
+   forward product on the library) and LSTM 40 epochs (accuracy >= 0.95),
+   ``digitsnin`` 20 of its 300 epochs at 11 steps a dispatch (the train
+   error falls; cuDNN runs its convs); ``encodertrain`` 2 epochs of
+   [data]'s 70000 MNIST images (K1 twice a step, as the autoencoder's; the
+   error falls); ``normfilters.normalize`` on a seeded 3 x 480 x 640
+   image, held to the CPU within 1e-5; ``ctctrain.main(200)`` and its gate
+   (the last NLL below 40 % of the first; cuDNN's 1-d convs and the host
+   CTC loops, no hand kernel); ``transformertrain`` one epoch of [data]'s
+   IMDB rows on the "xla" route in f32 (no K4 / K5) and on the "flash"
+   route in bf16 (K4, K5a and K5b launched); ``optimizenet.main(16,
+   looplength=3)`` in bf16: K2, K2-bwd and K3 10 a step and K1 3 a step,
+   the eager and fused seconds a step printed.
+   The seconds of phases 26 to 43, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -5710,7 +5736,8 @@ def phaseData(torch, card):
     """[data]: the datasets' raw files written from a seed at their
     published sizes in a temporary directory, parsed by the port's loaders
     and fed to LeNet, the CIFAR-10 NIN and the IMDB LSTM on the card (see
-    the module's docstring, item 41).  Returns K1's launches."""
+    the module's docstring, item 41).  Returns K1's launches and the parsed
+    MNIST and IMDB arrays, which [testlib] trains on."""
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.testlib import rnnimdbtrain
     from puzzlelib_tpu_torch.tools import dataslice as Data
@@ -5744,7 +5771,260 @@ def phaseData(torch, card):
             _dataParsedAgain(tag, card, imdb, again)
 
     print("[time] [%s] by part: %s" % (tag, ", ".join("%s %.1f s" % item for item in parts.items())))
-    return launches
+    return launches, mnist, imdb
+
+
+# [testlib]: the counterparts' stated runs where the script's full run does
+# not fit the phase (the NIN's 300 epochs, the autoencoder's 40 epochs of
+# 70000 images), and optimizenet's calls a timing
+TESTLIB_NIN_EPOCHS = 20
+TESTLIB_ENCODER_EPOCHS = 2
+TESTLIB_OPTIMIZE_LOOP = 3
+TESTLIB_IMAGE = (1, 3, 480, 640)
+TESTLIB_BOUND = 1e-5
+TESTLIB_PROFILE_PAD = 64
+
+
+def _testlibCounts(tag, what, counts, want):
+    """Print ``what``'s launches by kernel; fail unless each kernel named in
+    ``want`` (name -> predicate on its count, with the rule's text) holds
+    and every other kernel launched no time."""
+    byKernel = {"K1": counts["matmul"], "K2": counts["winograd"] - counts["winogradDataGrad"],
+                "K2-bwd": counts["winogradDataGrad"], "K3": counts["winogradFG"], "K4": counts["flash"],
+                "K5a": counts["flashDq"], "K5b": counts["flashDkv"]}
+    print("[%s] %s: launches %s (K1 on wgmma %d, K4 on wgmma %d)" % (tag, what, byKernel, counts["matmulWgmma"],
+                                                                     counts["flashWgmma"]))
+    for kernel, count in byKernel.items():
+        rule, text = want.get(kernel, (lambda n: n == 0, "none"))
+        if not rule(count):
+            fail("[%s] %s: %s launched %d times, expected %s" % (tag, what, kernel, count, text))
+
+    return byKernel
+
+
+def _testlibRun(tag, what, run, want, profileRun=None):
+    """``run()`` with the counters reset just before and read just after,
+    timed on the host clock between two synchronizes; then the card's idle
+    share of ``profileRun`` (``run`` itself by default) under the profiler,
+    its launches held to the device events.  Returns (run's result, its
+    launches by kernel, its seconds).
+
+    Late in the script the profiler has lost ~25 device events of a
+    session, every time (an autoencoder epoch showed 33 of its 34 K1
+    launches, 842 events against 868 in a fresh process): the profiled
+    window opens and closes with TESTLIB_PROFILE_PAD one-element adds,
+    timed with the run, so that events lost at its edges are no hand
+    kernel's."""
+    from puzzlelib_tpu_torch.backend import gpuarray
+    from puzzlelib_tpu_torch.backend.device import synchronize
+
+    _resetCounters()
+    synchronize()
+    start = time.perf_counter()
+    result = run()
+    synchronize()
+    secs = time.perf_counter() - start
+    counts = _testlibCounts(tag, what, _readCounters(), want)
+
+    pad = gpuarray.zeros((1, ))
+
+    def timed():
+        synchronize()
+        begin = time.perf_counter()
+        for _ in range(TESTLIB_PROFILE_PAD):
+            pad.add_(1.0)
+        (profileRun or run)()
+        for _ in range(TESTLIB_PROFILE_PAD):
+            pad.add_(1.0)
+        synchronize()
+        return time.perf_counter() - begin
+
+    idle = _profiledLaunches(tag, timed)[1]
+    print("[%s] %s: %.3f s wall; idle share of the card %.1f %% under the profiler (%s)" %
+          (tag, what, secs, 100 * idle, "the same run" if profileRun is None else "a shorter run of it"))
+    return result, counts, secs
+
+
+def phaseTestlib(torch, card, mnist, imdb):
+    """[testlib]: the last nine ``testlib`` counterparts on the card, each
+    through its own entry point (see the module's docstring, item 43).
+    Returns the launches by script and kernel."""
+    import contextlib
+    import io
+
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.testlib import (ctctrain, digitslenet, digitsnin, digitsreal, encodertrain,
+                                             gradientcheck, normfilters, optimizenet, transformertrain)
+    from puzzlelib_tpu_torch.tools import dataslice as Data
+
+    tag = "testlib"
+    Config.device = "cuda"
+    Config.globalEvalMode = False
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    K1 = {"K1": (lambda n: n > 0, "some")}
+    seen = {}
+
+    try:
+        import sklearn  # noqa: F401
+        sk = "imports here"
+    except ImportError:
+        sk = "does not import here"
+    images, target = Data.digits()
+    print("[%s] the digits scripts train on tools/dataslice.digits: seeded arrays of the UCI digits' shape and "
+          "range (%d x 8 x 8 in [%d, %d], 10 class templates with each pixel moved by -1, 0 or +1); scikit-learn "
+          "%s, and the loaders (loadDigits, loadDigits32) are held to the root scripts' by the CPU twins" %
+          (tag, len(images), images.min(), images.max(), sk))
+
+    # gradientcheck: 33 central differences, cuDNN's convs, no hand kernel
+    out = io.StringIO()
+
+    def check():
+        np.random.seed(0)
+        with contextlib.redirect_stdout(out):
+            return gradientcheck.main()
+
+    errors, _, _ = _testlibRun(tag, "gradientcheck.main()", check, {})
+    print("[%s] gradientcheck: %d relative errors, median %.3e, max %.3e (gate: median below 1e-2)" %
+          (tag, len(errors), np.median(errors), np.max(errors)))
+    if len(errors) != 33 or not np.median(errors) < 1e-2:
+        fail("[%s] gradientcheck: %d errors, median %r" % (tag, len(errors), np.median(errors)))
+
+    # digitslenet: the script's 15 epochs through FusedTrainer, K1 in the two Linears
+    splits = digitslenet.prepareDigits(images, target)
+    accuracy, seen["digitslenet"], _ = _testlibRun(
+        tag, "digitslenet.train(15 epochs)", lambda: digitslenet.train(*splits), K1,
+        lambda: digitslenet.train(*splits, epochs=1))
+    print("[%s] digitslenet: held-out accuracy %.4f (gate %.2f)" % (tag, accuracy, digitslenet.ACCURACY_GATE))
+    if not accuracy >= digitslenet.ACCURACY_GATE:
+        fail("[%s] digitslenet: accuracy %r" % (tag, accuracy))
+
+    # digitsreal: the tied autoencoder (K1 twice a step: the encoder's forward product and the decoder's
+    # untransposed data-gradient product) and the LSTM, the scripts' 40 epochs each
+    realImages, realLabels = digitsreal.prepareDigits(images, target)
+    steps = 40 * (len(realImages) // 100)
+    err, seen["autoencoder"], _ = _testlibRun(
+        tag, "digitsreal.trainAutoencoder(40 epochs, %d steps)" % steps,
+        lambda: digitsreal.trainAutoencoder(realImages), {"K1": (lambda n: n == 2 * steps, "%d" % (2 * steps))},
+        lambda: digitsreal.trainAutoencoder(realImages, epochs=1))
+    print("[%s] digitsreal autoencoder: MSE %.5f (gate below %g)" % (tag, err, digitsreal.MSE_GATE))
+    if not err < digitsreal.MSE_GATE:
+        fail("[%s] autoencoder: MSE %r" % (tag, err))
+
+    accuracy, seen["lstm"], _ = _testlibRun(
+        tag, "digitsreal.trainLstm(40 epochs)", lambda: digitsreal.trainLstm(realImages, realLabels), K1,
+        lambda: digitsreal.trainLstm(realImages, realLabels, epochs=1))
+    print("[%s] digitsreal lstm: held-out accuracy %.4f (gate %.2f)" % (tag, accuracy, digitsreal.ACCURACY_GATE))
+    if not accuracy >= digitsreal.ACCURACY_GATE:
+        fail("[%s] lstm: accuracy %r" % (tag, accuracy))
+
+    # digitsnin: a stated number of epochs (the script's 300 take ~1 min); its 192-channel convs go to cuDNN
+    ninData, ninLabels = digitsnin.prepareDigits32(images, target)
+    (trainErrors, valErrors), seen["digitsnin"], _ = _testlibRun(
+        tag, "digitsnin.train(%d epochs, stepsPerDispatch=11)" % TESTLIB_NIN_EPOCHS,
+        lambda: digitsnin.train(ninData.copy(), ninLabels, epochs=TESTLIB_NIN_EPOCHS), {},
+        lambda: digitsnin.train(ninData.copy(), ninLabels, epochs=1))
+    print("[%s] digitsnin: train error %.5f -> %.5f over %d of the script's 300 epochs, held-out error %.5f "
+          "(the gate, accuracy 0.95, is for the full run)" % (tag, trainErrors[0], trainErrors[-1],
+                                                             TESTLIB_NIN_EPOCHS, valErrors[-1]))
+    if not (np.isfinite(trainErrors).all() and trainErrors[-1] < trainErrors[0]):
+        fail("[%s] digitsnin: train errors %s" % (tag, trainErrors))
+
+    # encodertrain: [data]'s 70000 parsed MNIST images as rows, a stated number of epochs (no filter dump)
+    rows = mnist[0].reshape(len(mnist[0]), -1)
+    steps = TESTLIB_ENCODER_EPOCHS * (len(rows) // encodertrain.BATCH)
+    with tempfile.TemporaryDirectory() as path:
+        errors, seen["encodertrain"], _ = _testlibRun(
+            tag, "encodertrain.train(%d epochs of %d images, %d steps)" % (TESTLIB_ENCODER_EPOCHS, len(rows), steps),
+            lambda: encodertrain.train(rows, epochs=TESTLIB_ENCODER_EPOCHS, datapath=path),
+            {"K1": (lambda n: n == 2 * steps, "%d" % (2 * steps))}, lambda: encodertrain.train(rows[:10000], epochs=1,
+                                                                                    datapath=path))
+    print("[%s] encodertrain: error %s (the script dumps its filters every %d epochs, with PIL)" %
+          (tag, " -> ".join("%.6f" % e for e in errors), encodertrain.DUMP_EVERY))
+    if not (np.isfinite(errors).all() and errors[-1] < errors[0]):
+        fail("[%s] encodertrain: errors %s" % (tag, errors))
+
+    # normfilters: SubtractMean and LCN on a seeded 3 x 480 x 640 image, held to the CPU run
+    img = np.random.RandomState(5).rand(*TESTLIB_IMAGE).astype(np.float32) * 2 - 1
+    maps, _, _ = _testlibRun(tag, "normfilters.normalize(%s f32)" % (TESTLIB_IMAGE, ),
+                             lambda: normfilters.normalize(img), {})
+    Config.device = "cpu"
+    ref = normfilters.normalize(img)
+    Config.device = "cuda"
+    errs = [relErr(torch, got.cpu(), want) for got, want in zip(maps, ref)]
+    print("[%s] normfilters: SubtractMean and LCN on the card against the CPU: max |diff| / max |ref| %s "
+          "(bound %.0e)" % (tag, " ".join("%.2e" % e for e in errs), TESTLIB_BOUND))
+    if not all(e <= TESTLIB_BOUND for e in errs):
+        fail("[%s] normfilters: %s" % (tag, errs))
+
+    # ctctrain: the script's 200 steps and its gate (main asserts it); cuDNN's 1-d convs and the host CTC loops
+    (first, last, ctcSecs), seen["ctctrain"], secs = _testlibRun(
+        tag, "ctctrain.main(200)", lambda: ctctrain.main(200), {}, lambda: _ctcSteps(ctctrain, 10))
+    print("[%s] ctctrain: NLL %.4f -> %.4f (%.1f %%, gate below %.0f %%), 200 steps in %.3f s on %s" %
+          (tag, first, last, 100 * last / first, 100 * ctctrain.GATE, secs, card))
+    total, inCtc = _ctcSteps(ctctrain, 20)
+    print("[%s] ctctrain: 20 more steps in %.3f s, %.3f s of it in the CTC cost calls (%.1f %%: the host loops of "
+          "ops/ctc.py and their small ops, each call fenced by a synchronize)" % (tag, total, inCtc,
+                                                                                  100 * inCtc / total))
+
+    # transformertrain: one epoch of [data]'s IMDB rows on each attention route
+    data, labels = imdb
+    routes = {"xla": ({**K1}, None, "f32, the script's route"),
+              "flash": ({**K1, **{k: (lambda n: n > 0, "some") for k in ("K4", "K5a", "K5b")}}, torch.bfloat16,
+                        "bf16: the flash kernels take bf16 and f16")}
+    for algo, (want, dtype, note) in routes.items():
+        np.random.seed(DATA_SEEDS["shuffle"])
+        (trainErrors, accuracies), seen["transformertrain-" + algo], secs = _testlibRun(
+            tag, "transformertrain.train(1 epoch, attnAlgo=%r, %s)" % (algo, note),
+            lambda: transformertrain.train(data, labels, epochs=1, attnAlgo=algo, dtype=dtype), want,
+            lambda: transformertrain.train(data[:2560], labels[:2560], epochs=1, attnAlgo=algo, dtype=dtype,
+                                           split=2048))
+        print("[%s] transformertrain %s: train error %.6f, accuracy %.4f, %.0f rows/s trained and validated on %s" %
+              (tag, algo, trainErrors[0], accuracies[0], len(data) / secs, card))
+        if not (np.isfinite(trainErrors).all() and 0.0 <= accuracies[0] <= 1.0):
+            fail("[%s] transformertrain %s: %s %s" % (tag, algo, trainErrors, accuracies))
+
+    # optimizenet: VGG-16 at batch 16 in bf16, the eager and the fused trainer
+    calls = 2 * (TESTLIB_OPTIMIZE_LOOP + 1)
+    (eager, fusedSecs), counts, _ = _testlibRun(
+        tag, "optimizenet.main(16, looplength=%d, bf16)" % TESTLIB_OPTIMIZE_LOOP,
+        lambda: optimizenet.main(16, TESTLIB_OPTIMIZE_LOOP, torch.bfloat16),
+        {k: (lambda n: n >= 10 * calls and n % 10 == 0, "10 a step") for k in ("K2", "K2-bwd", "K3")} |
+        {"K1": (lambda n: n >= 3 * calls and n % 3 == 0, "3 a step")})
+    seen["optimizenet"] = counts
+    stepsRun = counts["K2"] // 10
+    if not counts["K2"] == counts["K2-bwd"] == counts["K3"] == 10 * stepsRun or counts["K1"] != 3 * stepsRun:
+        fail("[%s] optimizenet: launches %s for %d steps" % (tag, counts, stepsRun))
+    print("[%s] optimizenet: %d steps counted (%d calls and the fused step's warm-up), K2 / K2-bwd / K3 10 a step "
+          "and K1 3 a step; VGG-16 bf16 at batch 16: eager %.6f s a step, fused %.6f s a step on %s" %
+          (tag, stepsRun, calls, eager, fusedSecs, card))
+
+    return seen
+
+
+def _ctcSteps(ctctrain, steps):
+    """``steps`` of ``ctctrain``'s loop, without its gate: (their seconds,
+    the seconds in the CTC cost calls), each call fenced by a synchronize."""
+    from puzzlelib_tpu_torch.backend.device import synchronize
+
+    net, optimizer, cost, rng, embed = ctctrain.buildTraining()
+    datalen = np.full((ctctrain.BATCH, ), ctctrain.LABLEN * ctctrain.STRETCH // 2, dtype=np.int32)
+    inCost = [0.0]
+
+    def timedCost(pred, target):
+        synchronize()
+        begin = time.perf_counter()
+        result = cost(pred, target)
+        synchronize()
+        inCost[0] += time.perf_counter() - begin
+        return result
+
+    synchronize()
+    start = time.perf_counter()
+    for _ in range(steps):
+        data, labels, lengths = ctctrain.makeBatch(rng, embed)
+        ctctrain.step(net, optimizer, timedCost, data, datalen, labels, lengths)
+    synchronize()
+    return time.perf_counter() - start, inCost[0]
 
 
 class MemoryStore:
@@ -6100,9 +6380,14 @@ def main():
     tapdotConv = phaseTapdot(torch, tapdot, winograd, build)
     measured = phaseMeasurementPath(torch, card)
     phaseStart = time.perf_counter()
-    data = phaseData(torch, card)
+    data, mnist, imdb = phaseData(torch, card)
     torch.cuda.empty_cache()
     print("[time] [data] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    testlib = phaseTestlib(torch, card, mnist, imdb)
+    del mnist, imdb
+    torch.cuda.empty_cache()
+    print("[time] [testlib] %.1f s" % (time.perf_counter() - phaseStart))
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -6116,7 +6401,9 @@ def main():
              fused_launches=fusedServe["matmul"] + fusedTrain["matmul"] + fusedCnn["lenet"] + fusedCnn["lenetValidate"],
              fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"],
              avg_pool_serving_launches=vggAverage["matmul"], checkpoint_serving_launches=checkpoint["matmul"],
-             checkpoint_serving_launches_wgmma=checkpoint["matmulWgmma"], **gemm),
+             checkpoint_serving_launches_wgmma=checkpoint["matmulWgmma"],
+             testlib_launches=sum(counts["K1"] for counts in testlib.values()),
+             optimizenet_launches=testlib["optimizenet"]["K1"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
              launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
@@ -6125,7 +6412,9 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
              launches_wgmma=transformer["matmulWgmma"], fused_launches=fusedServe["matmul"],
              fused_launches_wgmma=fusedServe["matmulWgmma"], fused_training_launches=fusedTrain["matmul"],
-             fused_training_launches_wgmma=fusedTrain["matmulWgmma"], **gemmTransformer),
+             fused_training_launches_wgmma=fusedTrain["matmulWgmma"],
+             transformertrain_launches=testlib["transformertrain-flash"]["K1"],
+             transformertrain_xla_launches=testlib["transformertrain-xla"]["K1"], **gemmTransformer),
         dict(name="K1 tiled GEMM at LeNet's shapes (f32)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=lenet["train"],
              validation_launches=lenet["validate"], bf16_launches=lenet["bf16"],
@@ -6140,14 +6429,16 @@ def main():
              engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"],
              fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"],
              avg_pool_serving_launches=vggAverage["winograd"], checkpoint_serving_launches=checkpoint["winograd"],
-             **wino),
+             optimizenet_launches=testlib["optimizenet"]["K2"], **wino),
         dict(name="K2 Winograd F(2x2,3x3) as bwd-data (dataGradNHWC, winograd.py:725)", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winogradDataGrad"], measurement_launches=measured["K2-bwd"],
-             fused_launches=fusedCnn["nin"]["winogradDataGrad"], **dataGrad),
+             fused_launches=fusedCnn["nin"]["winogradDataGrad"], optimizenet_launches=testlib["optimizenet"]["K2-bwd"],
+             **dataGrad),
         dict(name="K3 Winograd F(2x2,3x3) bwd-filter", route="cuda", source=source % "winograd_fg",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:457", launches=training["winogradFG"],
-             measurement_launches=measured["K3"], fused_launches=fusedCnn["nin"]["winogradFG"], **filterGrad),
+             measurement_launches=measured["K3"], fused_launches=fusedCnn["nin"]["winogradFG"],
+             optimizenet_launches=testlib["optimizenet"]["K3"], **filterGrad),
         dict(name="K2 Winograd F(2x2,3x3) forward at the ImageNet NiN's conv3 and conv4-1024", route="cuda",
              source=source % "winograd", replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=ninTraining["winograd"] - ninTraining["winogradDataGrad"],
@@ -6257,13 +6548,16 @@ def main():
              engine_launches_wgmma=engineFlash["flashWgmma"], measurement_launches=measured["K4"],
              measurement_launches_wgmma=measured["K4-wgmma"], fused_launches=fusedServe["flash"],
              fused_launches_wgmma=fusedServe["flashWgmma"], fused_training_launches=fusedTrain["flash"],
-             fused_training_launches_wgmma=fusedTrain["flashWgmma"], **attention),
+             fused_training_launches_wgmma=fusedTrain["flashWgmma"],
+             transformertrain_launches=testlib["transformertrain-flash"]["K4"], **attention),
         dict(name="K5a flash-attention dQ", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:67", launches=transformerTrain["flashDq"],
-             measurement_launches=measured["K5a"], fused_launches=fusedTrain["flashDq"], **attentionDq),
+             measurement_launches=measured["K5a"], fused_launches=fusedTrain["flashDq"],
+             transformertrain_launches=testlib["transformertrain-flash"]["K5a"], **attentionDq),
         dict(name="K5b flash-attention dK/dV", route="cuda", source=source % "flash_bwd",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:103", launches=transformerTrain["flashDkv"],
-             measurement_launches=measured["K5b"], fused_launches=fusedTrain["flashDkv"], **attentionDkv),
+             measurement_launches=measured["K5b"], fused_launches=fusedTrain["flashDkv"],
+             transformertrain_launches=testlib["transformertrain-flash"]["K5b"], **attentionDkv),
         dict(name="P1 tap-dot direct conv (probe)", route="cuda", source=source % "tapdot",
              replaces="tools/tapdot_probe.py:32", launches=measured["P1"], launches_wgmma=measured["P1-wgmma"],
              **tapdotConv),
@@ -6351,6 +6645,11 @@ def main():
           "parsed MNIST images in chunks of 10000 straight into trainFromHost (data_serial_launches through the "
           "threaded Serial, data_validation_launches its validation of 10000), on K1 at the IMDB nets' heads: "
           "[data]'s 8 steps of 32 parsed rows of the LSTM; "
+          "testlib_launches on the first K1 entry: all of [testlib]'s K1 launches (the digits scripts, encodertrain, "
+          "both transformertrain routes and optimizenet); optimizenet_launches on the first K1, K2, K2-bwd and K3 "
+          "entries: [testlib]'s optimizenet.main(16, looplength=3) in bf16, eager and fused calls; "
+          "transformertrain_launches on K1 at the transformer's shapes, K4, K5a and K5b: [testlib]'s epoch of "
+          "transformertrain on the flash route in bf16 (transformertrain_xla_launches its f32 xla route's); "
           "checkpoint_serving_launches on the first K1 and K2 entries: [ckpt]'s VGG-16 rebuilt from its blueprint and "
           "loaded, 4 requests of 32; checkpoint_launches and checkpoint_fused_launches on K1 at LeNet's shapes: "
           "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; "

@@ -2,8 +2,9 @@
 ``testlib/cnncifar10nin.py``): the three NIN blocks of
 ``tools/cnnslice.py`` (``buildNet``), per-feature standardization,
 ``MomentumSGD`` 0.1 / 0.9 with ``WeightDecay(1e-4)``, the rate times 0.1 at
-epochs 60 and 80.  The filter dumps of the root script
-(``showImageBasedFilters``, ``showFilters``) are left out."""
+epochs 60 and 80.  The filters of conv1 (as RGB tiles), conv2 and conv3
+are written to ``ninconv1.png`` to ``ninconv3.png`` in ``datapath`` after
+each epoch (``visual.py``)."""
 
 import numpy as np
 
@@ -13,6 +14,7 @@ from puzzlelib_tpu_torch.handlers import Trainer, Validator
 from puzzlelib_tpu_torch.optimizers import MomentumSGD
 from puzzlelib_tpu_torch.optimizers import hooks as Hooks
 from puzzlelib_tpu_torch.tools.cnnslice import buildNet
+from puzzlelib_tpu_torch.visual import showFilters, showImageBasedFilters
 
 SEED = 1234
 LEARN_RATE, MOM_RATE, WEIGHT_DECAY = 0.1, 0.9, 1e-4
@@ -41,12 +43,18 @@ def buildTraining():
     return net, optimizer, Trainer(net, cost, optimizer), Validator(net, cost)
 
 
+def dumpFilters(net, datapath):
+    showImageBasedFilters(net["conv1"].W, "%s/ninconv1.png" % datapath)
+    showFilters(net["conv2"].W, "%s/ninconv2.png" % datapath)
+    showFilters(net["conv3"].W, "%s/ninconv3.png" % datapath)
+
+
 def main(epochs=100, datapath="testdata/"):
     data, labels = Cifar10Loader().load(path=datapath)
     data, labels = standardize(data[:]), labels[:]
     print("Loaded cifar10")
 
-    _, optimizer, trainer, validator = buildTraining()
+    net, optimizer, trainer, validator = buildTraining()
 
     for epoch in range(1, epochs + 1):
         trainer.trainFromHost(
@@ -60,6 +68,8 @@ def main(epochs=100, datapath="testdata/"):
         if epoch in (60, 80):
             optimizer.learnRate *= 0.1
             print("Lowered learn rate: %s" % optimizer.learnRate)
+
+        dumpFilters(net, datapath)
 
 
 if __name__ == "__main__":

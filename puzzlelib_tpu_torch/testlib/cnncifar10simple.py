@@ -1,8 +1,9 @@
 """A simple CNN on CIFAR-10 (the counterpart of
 ``testlib/cnncifar10simple.py``): three Gaussian-initialized conv + pool
 blocks, two linear layers, ``MomentumSGD`` 0.01 / 0.9 with the rate halved
-on a validation plateau.  The filter dumps of the root script
-(``showImageBasedFilters``, ``showFilters``) are left out."""
+on a validation plateau.  The filters of the three convs are written to
+``conv1.png`` (as RGB tiles) to ``conv3.png`` in ``datapath`` after each
+epoch (``visual.py``)."""
 
 import math
 
@@ -14,6 +15,7 @@ from puzzlelib_tpu_torch.datasets import Cifar10Loader
 from puzzlelib_tpu_torch.handlers import Trainer, Validator
 from puzzlelib_tpu_torch.modules import Activation, Conv2D, Flatten, Linear, MaxPool2D, relu
 from puzzlelib_tpu_torch.optimizers import MomentumSGD
+from puzzlelib_tpu_torch.visual import showFilters, showImageBasedFilters
 
 SEED = 1234
 LEARN_RATE, MOM_RATE = 0.01, 0.9
@@ -40,6 +42,11 @@ def buildNet():
     return seq
 
 
+def dumpFilters(net, datapath):
+    for layer, dump in ((0, showImageBasedFilters), (3, showFilters), (6, showFilters)):
+        dump(net[layer].W, "%s/conv%d.png" % (datapath, layer // 3 + 1))
+
+
 def buildTraining():
     """(net, optimizer, trainer, validator) of the script: the net from
     ``np.random.seed(SEED)``."""
@@ -59,7 +66,7 @@ def main(epochs=25, datapath="testdata/"):
     data, labels = data[:], labels[:]
     print("Loaded cifar10")
 
-    _, optimizer, trainer, validator = buildTraining()
+    net, optimizer, trainer, validator = buildTraining()
     plateau = math.inf
 
     for _ in range(epochs):
@@ -76,6 +83,7 @@ def main(epochs=25, datapath="testdata/"):
             print("Lowered learn rate: %s" % optimizer.learnRate)
 
         plateau = valerror
+        dumpFilters(net, datapath)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 ``MomentumSGD`` at 0.1 / 0.9 in global state, ``CrossEntropy``, trained on
 ``data[:60000]`` (the 10000 test images, then 50000 training ones: the
 loader's order) and validated on the last 10000, the rate times 0.9 an
-epoch.  The filter dumps of the root script (``showFilters``) are left
-out."""
+epoch.  The filters of the two convs are written to ``conv1.png`` and
+``conv2.png`` in ``datapath`` after each epoch (``visual.showFilters``)."""
 
 import numpy as np
 
@@ -12,6 +12,7 @@ from puzzlelib_tpu_torch.datasets import MnistLoader
 from puzzlelib_tpu_torch.handlers import Trainer, Validator
 from puzzlelib_tpu_torch.models.nets.lenet import loadLeNet
 from puzzlelib_tpu_torch.optimizers import MomentumSGD
+from puzzlelib_tpu_torch.visual import showFilters
 
 SEED = 1234
 LEARN_RATE, MOM_RATE = 0.1, 0.9
@@ -33,13 +34,18 @@ def buildTraining():
     return net, optimizer, Trainer(net, cost, optimizer), Validator(net, cost)
 
 
+def dumpFilters(net, datapath):
+    showFilters(net[0].W, "%s/conv1.png" % datapath)
+    showFilters(net[3].W, "%s/conv2.png" % datapath)
+
+
 def main(epochs=15, datapath="testdata/"):
     mnist = MnistLoader()
     data, labels = mnist.load(path=datapath)
     data, labels = data[:], labels[:]
     print("Loaded mnist")
 
-    _, optimizer, trainer, validator = buildTraining()
+    net, optimizer, trainer, validator = buildTraining()
 
     for _ in range(epochs):
         trainer.trainFromHost(
@@ -50,6 +56,8 @@ def main(epochs=15, datapath="testdata/"):
                                                                  macroBatchSize=10000)))
 
         optimizer.learnRate *= 0.9
+
+        dumpFilters(net, datapath)
 
 
 if __name__ == "__main__":

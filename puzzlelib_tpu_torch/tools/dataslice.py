@@ -26,6 +26,11 @@ published sizes:
 ``mnistArrays`` and ``cifarArrays`` compute what the loaders' parse steps
 must return from the seeded bytes, independently of the loaders;
 ``parseImdb`` runs IMDB's parse under a seed.
+- The UCI handwritten digits (``digits``): scikit-learn's bundled set
+  (1797 images of 8 x 8 in [0, 16]) is not on every machine, so the card
+  runs the ``digits*`` scripts' training on seeded arrays of its shape and
+  range: each image its class's seeded template plus noise.
+
 ``ShiftAugment`` is ``augmentShift`` of the JAX package's
 ``testlib/digitsnin.py`` as a ``Transformer``: each shard's images shifted
 by up to 2 pixels with edge padding, from one generator a thread.
@@ -50,6 +55,7 @@ IMDB_TRAIN, IMDB_TEST = 25000, 25000
 IMDB_WORDS = 88584
 IMDB_LENGTHS = (10, 178, 2494)  # shortest, median, longest review
 CLASSES = 10
+DIGITS = 1797
 
 MNIST_FILES = ("train-images.idx3-ubyte", "train-labels.idx1-ubyte", "t10k-images.idx3-ubyte",
                "t10k-labels.idx1-ubyte")
@@ -66,6 +72,21 @@ def _classImages(rng, count, protos, noise):
     its class's prototype."""
     labels = rng.randint(0, CLASSES, size=count).astype(np.uint8)
     return noise(protos[labels]), labels
+
+
+def digits(count=DIGITS, seed=0):
+    """(images float64 (count, 8, 8) of integers in [0, 16], labels int64),
+    as ``sklearn.datasets.load_digits()``'s ``images`` and ``target``: each
+    image its class's seeded template (uniform in [0, 16]) with each pixel
+    moved by -1, 0 or +1 and clipped."""
+    rng = np.random.RandomState(seed)
+    protos = rng.randint(0, 17, size=(CLASSES, 8, 8)).astype(np.int16)
+
+    def jitter(images):
+        return np.clip(images + rng.randint(-1, 2, size=images.shape), 0, 16)
+
+    images, labels = _classImages(rng, count, protos, jitter)
+    return images.astype(np.float64), labels.astype(np.int64)
 
 
 def writeMnist(path, train=MNIST_TRAIN, test=MNIST_TEST, seed=0):

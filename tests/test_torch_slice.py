@@ -367,6 +367,22 @@ with portTransformers.Serial(mnistImages, mnistLabels, numofthreads=2) as dataSe
     dataSerial.prepareData(chunksize=8)
     lenetTrainer.trainFromHost(*dataSerial.getData(), macroBatchSize=8)
 assert cnncifar10simple.buildNet().dataShapeFrom((1, 3, 32, 32)) == (1, 10) and rnnimdbtrain.NUMWORDS == 20000
+from puzzlelib_tpu_torch import visual
+from puzzlelib_tpu_torch.testlib import (ctctrain, digitslenet, digitsnin, digitsreal, encodertrain, gradientcheck,
+                                         normfilters, optimizenet, transformertrain)
+assert visual.whiten(np.random.RandomState(0).rand(6, 2, 2).astype(np.float32)).shape == (6, 2, 2)
+assert len(gradientcheck.gradientCheck(gradientcheck.buildNet(), torch.randn(1, 1, 6, 6), torch.tensor([1], dtype=torch.int32),
+                                       BCE(), log=False)) == 33
+digitImages, digitTarget = dataslice.digits(count=300)
+assert digitslenet.prepareDigits(digitImages, digitTarget)[0].shape == (300, 1, 28, 28)
+assert digitsnin.prepareDigits32(digitImages, digitTarget)[0].shape == (300, 3, 32, 32)
+assert digitsreal.trainAutoencoder(digitsreal.prepareDigits(digitImages, digitTarget)[0], epochs=1) > 0.0
+assert encodertrain.train(np.random.RandomState(1).rand(100, 784).astype(np.float32), epochs=1)[0] > 0.0
+assert normfilters.normalize(np.random.RandomState(2).rand(1, 3, 16, 16).astype(np.float32))[1].shape == (1, 3, 16, 16)
+ctcNet, ctcOpt, ctcCost, ctcRng, ctcEmbed = ctctrain.buildTraining()
+ctcBatch = ctctrain.makeBatch(ctcRng, ctcEmbed)
+assert ctctrain.step(ctcNet, ctcOpt, ctcCost, ctcBatch[0], np.full(ctctrain.BATCH, 24, np.int32), *ctcBatch[1:]) > 0.0
+assert transformertrain.NUMWORDS == 20000 and optimizenet.buildRun.__name__ == "buildRun"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -408,8 +424,11 @@ def testPortRunsWithoutJax():
     (``tools/rbmslice.py``), and the data path (the loaders, the
     transformers and the ``testlib`` counterparts imported, MNIST's idx
     files written by ``tools/dataslice.py`` and parsed, and LeNet's
-    ``cnnmnistlenet`` recipe fed one chunk through a threaded ``Serial``)
-    imports no JAX and nothing of the JAX package (``ml_dtypes``
+    ``cnnmnistlenet`` recipe fed one chunk through a threaded ``Serial``),
+    ``visual.py`` and the last nine ``testlib`` counterparts (a whitening,
+    ``gradientCheck`` of its net, the digits prepared from
+    ``dataslice.digits``, an epoch of the tied autoencoders, the two
+    normalizations and a CTC step of ``ctctrain``) imports no JAX and nothing of the JAX package (``ml_dtypes``
     neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
