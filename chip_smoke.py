@@ -332,8 +332,9 @@ it fails:
 35. [layers]: the glue, upsampling and unpooling modules, the LRN family,
    ``SubtractMean``, ``LCN``, ``SpatialTf``, ``GroupLinear``, ``Penalty``,
    ``NoiseInjector``, ``Deconv1D`` / ``Deconv3D``, the 3-d pools and the
-   1-d pools' backward one by one (``tools/layerslice.py``, at SegNet-,
-   AlexNet- and C3D-sized and 16 MiB shapes), forward and backward on the
+   1-d pools' backward one by one (``tools/layerslice.py``, at SegNet's,
+   AlexNet's and C3D's maps at a quarter of their batches, and 16 MiB
+   shapes), forward and backward on the
    card and on the CPU on the same inputs, in each type the module takes:
    the modules that only move data give the CPU's bits, the others fall
    within the twins' tiers; a second card run gives the same bits;
@@ -443,7 +444,30 @@ it fails:
    route in bf16 (K4, K5a and K5b launched); ``optimizenet.main(16,
    looplength=3)`` in bf16: K2, K2-bwd and K3 10 a step and K1 3 a step,
    the eager and fused seconds a step printed.
-   The seconds of phases 26 to 43, of [layers]' cases by module and of the
+44. [convert]: the converters on the card, run right after [ckpt] on the
+   served VGG-16 bf16 and its 4 requests (the card's machine has no
+   ``h5py``: every import goes into a ``MemoryStore``, which refuses a
+   second dataset of a name, as ``h5py`` does).  VGG-16's weights (the f32
+   of its bf16 values, exact) written by ``tools/convertslice.py`` as a V1
+   ``VGG_ILSVRC_16_layers.caffemodel`` (the published file's layout: enum
+   types, num / channels / height / width blobs, biases (1, 1, 1, N)),
+   parsed (``loadNetParameter``), imported (``js2hdf``), loaded
+   (``loadVGG(store, "16")``, then ``calcMode(bf16)``) and served: output
+   bit-equal to the served net's, 40 K2 and 12 K1 (12 on wgmma).  The same
+   through an MXNet ``.params`` and ``-symbol.json`` (``readHeader`` /
+   ``readData`` / ``readKeys``, ``buildHdf``).  ResNet-50 bf16 from
+   ``resnetslice.build`` with seeded running stats, written in He et al.'s
+   new-format layout (BatchNorm's stats times a scale factor of 4, Scale,
+   InnerProduct), imported, loaded (``loadResNet(store, "50")``) and
+   served: bit-equal, 52 K2 and 4 K1.  Both nets exported to ONNX from the
+   card and parsed back: VGG-16's 41 nodes by type and 32 initializers,
+   ResNet-50's counts as ``convertslice.onnxCounts`` derives them, every
+   initializer the bytes of ``gpuarray.get`` of its variable.  Then
+   ``benchmarks/enginespeed`` on the NiN at batch 128 in bf16 and int8
+   (eager and ``Engine.many`` over 8 distinct batches).  Each file's MB and
+   the seconds and MB/s of its write, parse, import, load and export are
+   printed; the files go to a directory under ``build/`` and are deleted.
+   The seconds of phases 26 to 44, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -6029,10 +6053,11 @@ def _ctcSteps(ctctrain, steps):
 
 class MemoryStore:
     """An in-memory checkpoint store: numpy arrays, answering only the calls
-    the port's HDF5 codec (``puzzlelib_tpu_torch/hdf.py``) makes on an
-    ``h5py`` group, which ``save`` and ``load`` take as an open handle.  The
-    card's machine has no ``h5py``; the HDF5 file layer is held by the CPU
-    twins (``tests/test_torch_checkpoint.py``)."""
+    the port's HDF5 codec (``puzzlelib_tpu_torch/hdf.py``) and the Caffe and
+    MXNet importers make on an ``h5py`` group, which ``save``, ``load``,
+    ``js2hdf`` and ``buildHdf`` take as an open handle.  The card's machine
+    has no ``h5py``; the HDF5 file layer is held by the CPU twins
+    (``tests/test_torch_checkpoint.py``, ``tests/test_torch_converters.py``)."""
 
     def __init__(self):
         self.children, self.attrs, self.value = {}, {}, None
@@ -6040,7 +6065,17 @@ class MemoryStore:
     def require_group(self, name):
         return self.children.setdefault(name, MemoryStore())
 
+    def create_group(self, name):
+        if name in self.children:
+            raise ValueError("Unable to create group (name already exists): %s" % name)
+
+        group = self.children[name] = MemoryStore()
+        return group
+
     def create_dataset(self, name, data=None, compression=None):
+        if name in self.children:
+            raise ValueError("Unable to create dataset (name already exists): %s" % name)
+
         dataset = self.children[name] = MemoryStore()
         dataset.value = np.asarray(data)
         return dataset
@@ -6260,6 +6295,259 @@ def phaseCheckpoint(torch, card, net, images):
     return launches
 
 
+# [convert]: ResNet-50's batch norms write their running stats times this
+# scale factor, as Caffe's BatchNorm layer keeps them (a power of two, so
+# the importer's division is exact); enginespeed's arguments on the card
+CONVERT_SCALE_FACTOR = 4.0
+CONVERT_ENGINESPEED = ["--net", "nin", "--batch", "128", "--dtypes", "bfloat16,int8", "--many", "8", "--iters", "10"]
+
+# the ONNX nodes of VGG-16 by type: 13 convs, 15 relus, 5 max pools, the
+# flatten, fc6-fc8 as a MatMul and an Add each, the softmax; 32 initializers
+VGG_ONNX_NODES = {"Conv": 13, "Relu": 15, "MaxPool": 5, "Flatten": 1, "MatMul": 3, "Add": 3, "Softmax": 1}
+VGG_ONNX_INITIALIZERS = 32
+
+
+def _convertTimed(secs, what, fn):
+    """``fn()``, its seconds to the card's end kept in ``secs[what]``."""
+    from puzzlelib_tpu_torch.backend.device import synchronize
+
+    synchronize()
+    start = time.perf_counter()
+    result = fn()
+    synchronize()
+    secs[what] = time.perf_counter() - start
+    return result
+
+
+def _convertServed(tag, what, net, images, want, expect):
+    """Serve ``images`` on the imported ``net``, the counters reset just
+    before and read just after; fail unless the output is ``want`` bit for
+    bit and the launches are ``expect``."""
+    from puzzlelib_tpu_torch.handlers import Calculator
+
+    net.evalMode()
+    _resetCounters()
+    got = Calculator(net, batchsize=BATCH).calcFromHost(images)
+    counts = _readCounters()
+    launches = {key: counts[key] for key in expect}
+
+    same = got.shape == want.shape and np.array_equal(got, want)
+    print("[%s] %s served %d images in %d requests of %d: launches %s; output bit-equal to the source net's: %s" %
+          (tag, what, len(images), REQUESTS, BATCH, launches, same))
+
+    if launches != expect:
+        fail("[%s] %s: expected the launches %s, got %s" % (tag, what, expect, launches))
+    if not same or not np.isfinite(got).all():
+        fail("[%s] %s does not serve the source net's output bit for bit" % (tag, what))
+
+    return launches
+
+
+def _convertImport(torch, tag, card, what, path, write, parse, fill, build):
+    """Write a model file (``write(path)``), parse it (``parse(path)``),
+    import it into a ``MemoryStore`` (``fill(parsed, store)``), build the
+    net from the store (``build(store)``) and cast it to bf16, each step
+    timed; the file is deleted.  Returns (net, seconds by step, MB)."""
+    secs = {}
+    _convertTimed(secs, "write", lambda: write(path))
+    parsed = _convertTimed(secs, "parse", lambda: parse(path))
+    store = MemoryStore()
+    _convertTimed(secs, "import", lambda: fill(parsed, store))
+
+    def load():
+        net = build(store)
+        net.calcMode(torch.bfloat16)
+        return net
+
+    net = _convertTimed(secs, "load", load)
+    megabytes = os.path.getsize(path) / 1e6
+    os.remove(path)
+
+    print("[%s] %s, %.1f MB: %s on %s" % (tag, what, megabytes, ", ".join(
+        "%s %.3f s (%.1f MB/s)" % (step, t, megabytes / t) for step, t in secs.items()), card))
+    return net, secs, megabytes
+
+
+def _writeBytes(data):
+    def write(path):
+        with open(path, "wb") as f:
+            f.write(data())
+
+    return write
+
+
+def _mxnetParsed(paramsPath):
+    """(keys, tensors, symbols) of a ``.params`` file and its
+    ``-symbol.json``, read as ``converter.mxnet.convert`` reads them."""
+    from puzzlelib_tpu_torch.converter import mxnet
+
+    with open(paramsPath, "rb") as f:
+        mxnet.readHeader(f)
+        tensors = mxnet.readData(f)
+        keys = mxnet.readKeys(f)
+
+    return keys, tensors, mxnet.convertmodel.loadSymbols(paramsPath.replace(".params", "-symbol.json"))
+
+
+def _convertOnnx(tag, card, workdir, net, inshape, wantNodes, wantInits):
+    """Export ``net`` from the card with ``ONNXExporter``, parse the file
+    back: fail unless its nodes by type and its initializer count are
+    ``wantNodes`` / ``wantInits`` and every initializer holds the bytes of
+    ``gpuarray.get`` of its variable or attribute.  Returns (seconds, MB)."""
+    from puzzlelib_tpu_torch.converter.onnx import ONNXExporter, onnxmodel
+    from puzzlelib_tpu_torch.tools import convertslice as Files
+
+    secs = {}
+    _convertTimed(secs, "export", lambda: ONNXExporter().export(net, inshape, workdir))
+    path = os.path.join(workdir, "%s.onnx" % net.name)
+
+    def parse():
+        with open(path, "rb") as f:
+            return onnxmodel.parseModel(f.read())
+
+    graph = _convertTimed(secs, "parse", parse)["graph"]
+    megabytes = os.path.getsize(path) / 1e6
+    os.remove(path)
+
+    nodes = {}
+    for node in graph["nodes"]:
+        nodes[node["op_type"]] = nodes.get(node["op_type"], 0) + 1
+
+    values = Files.onnxInitializers(net)
+    inits = graph["initializer"]
+    same = len(inits) == len(values) and all(
+        init["vals"].tobytes() == value.astype("<f4").tobytes() for init, value in zip(inits, values))
+
+    print("[%s] ONNX %s: %d nodes %s, %d initializers, each the card's weights byte for byte: %s; %.1f MB, export "
+          "%.3f s (%.1f MB/s), parse %.3f s on %s" % (tag, net.name, len(graph["nodes"]), nodes, len(inits), same,
+                                                      megabytes, secs["export"], megabytes / secs["export"],
+                                                      secs["parse"], card))
+
+    if nodes != wantNodes or len(inits) != wantInits:
+        fail("[%s] ONNX %s: nodes %s and %d initializers, expected %s and %d" %
+             (tag, net.name, nodes, len(inits), wantNodes, wantInits))
+    if not same:
+        fail("[%s] ONNX %s: an initializer differs from the card's weights" % (tag, net.name))
+
+    return secs, megabytes
+
+
+def _convertResNet(torch, tag, card, workdir, images):
+    """ResNet-50 bf16 from ``resnetslice.build`` (He, seed 0) with seeded
+    running stats, written as a new-format caffemodel (He et al.'s layout),
+    imported, loaded by ``loadResNet``, served: bit-equal, 52 K2 and 4 K1.
+    Returns (the source net, launches, seconds, MB)."""
+    from puzzlelib_tpu_torch import convert
+    from puzzlelib_tpu_torch.converter.caffe import js2hdf, loadNetParameter
+    from puzzlelib_tpu_torch.handlers import Calculator
+    from puzzlelib_tpu_torch.models.nets import loadResNet
+    from puzzlelib_tpu_torch.tools import convertslice as Files
+
+    source = Res.build()
+    source.calcMode(torch.bfloat16)
+    rng = np.random.RandomState(3)
+    convert.attrsFromNumpy(source, {
+        name: (rng.randn(*attr.shape) * 0.1 if name.endswith(".mean") else rng.rand(*attr.shape) + 0.5)
+        .astype(np.float32) for name, attr in source.getAttrTable().items()})
+    source.evalMode()
+    want = Calculator(source, batchsize=BATCH).calcFromHost(images)
+
+    convs = len(Res.winogradConvs(source, (BATCH, ) + Res.SHAPE))
+    imported, secs, megabytes = _convertImport(
+        torch, tag, card, "Caffe ResNet-50-model.caffemodel (new format, BatchNorm scale factor %.1f)" %
+        CONVERT_SCALE_FACTOR, os.path.join(workdir, "ResNet-50-model.caffemodel"),
+        _writeBytes(lambda: Files.caffeFromNet(source, CONVERT_SCALE_FACTOR)), loadNetParameter, js2hdf,
+        lambda store: loadResNet(store, "50"))
+    launches = _convertServed(tag, "the Caffe ResNet-50", imported, images, want,
+                              {"matmul": REQUESTS, "matmulWgmma": REQUESTS, "winograd": convs * REQUESTS})
+    return source, launches, secs, megabytes
+
+
+def phaseConvert(torch, card, net, images):
+    """[convert]: the converters on the card, right after [ckpt], on the
+    served VGG-16 bf16 (``net``) and its 4 requests (``images``): VGG-16
+    through a V1 caffemodel and an MXNet ``.params`` file, ResNet-50 through
+    a new-format caffemodel, each imported into a ``MemoryStore``, loaded
+    through the zoo loader and served bit-equal to the source net with the
+    slice's launches; both nets exported to ONNX from the card and parsed
+    back; ``enginespeed`` on the NiN.  The files go to a work directory
+    under ``build/`` and are deleted after use.  Returns the launches."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.benchmarks import enginespeed
+    from puzzlelib_tpu_torch.converter.caffe import js2hdf, loadNetParameter
+    from puzzlelib_tpu_torch.converter.mxnet import buildHdf
+    from puzzlelib_tpu_torch.handlers import Calculator
+    from puzzlelib_tpu_torch.models.nets import loadVGG
+    from puzzlelib_tpu_torch.ops.hopper import build
+    from puzzlelib_tpu_torch.tools import convertslice as Files
+
+    tag = "convert"
+    Config.device = "cuda"
+    Config.globalEvalMode = True   # serving nets: no gradient buffers
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    started = time.perf_counter()
+
+    net.evalMode()
+    want = Calculator(net, batchsize=BATCH).calcFromHost(images)
+    vggLaunches = {"matmul": 3 * REQUESTS, "matmulWgmma": 3 * REQUESTS, "winograd": 10 * REQUESTS}
+    launches, seconds = {}, {}
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
+        imported, seconds["caffe-v1"], _ = _convertImport(
+            torch, tag, card, "Caffe V1 %s.caffemodel" % net.name, os.path.join(workdir, "%s.caffemodel" % net.name),
+            _writeBytes(lambda: Files.caffeV1FromNet(net)), loadNetParameter, js2hdf,
+            lambda store: loadVGG(store, "16"))
+        launches["caffeV1"] = _convertServed(tag, "the Caffe V1 VGG-16", imported, images, want, vggLaunches)
+        del imported
+
+        def writeMxnet(path):
+            Files.writeMxnet(net, path[:-len(".params")])
+
+        imported, seconds["mxnet"], _ = _convertImport(
+            torch, tag, card, "MXNet %s.params and -symbol.json" % net.name, os.path.join(workdir, "%s.params" %
+                                                                                          net.name),
+            writeMxnet, _mxnetParsed, lambda parsed, store: buildHdf(*parsed, store, net.name),
+            lambda store: loadVGG(store, "16"))
+        os.remove(os.path.join(workdir, "%s-symbol.json" % net.name))
+        launches["mxnet"] = _convertServed(tag, "the MXNet VGG-16", imported, images, want, vggLaunches)
+        del imported
+        torch.cuda.empty_cache()
+
+        resnet, launches["caffeResNet"], seconds["caffe-resnet"], _ = _convertResNet(torch, tag, card, workdir,
+                                                                                      images)
+
+        seconds["onnx-vgg"], _ = _convertOnnx(tag, card, workdir, net, (BATCH, 3, 224, 224), VGG_ONNX_NODES,
+                                              VGG_ONNX_INITIALIZERS)
+        counts, inits = Files.onnxCounts(resnet)
+        seconds["onnx-resnet"], _ = _convertOnnx(tag, card, workdir, resnet, (BATCH, ) + Res.SHAPE, counts, inits)
+        del resnet
+        torch.cuda.empty_cache()
+
+        if Files.onnxCounts(net) != (VGG_ONNX_NODES, VGG_ONNX_INITIALIZERS):
+            fail("[%s] onnxCounts of VGG-16 gives %s, not the table's" % (tag, Files.onnxCounts(net)))
+
+        _resetCounters()
+        start = time.perf_counter()
+        rates = enginespeed.main(CONVERT_ENGINESPEED + ["--workdir", workdir])
+        seconds["enginespeed"] = time.perf_counter() - start
+        launches["enginespeed"] = _readCounters()
+
+    Config.globalEvalMode = False
+    torch.cuda.empty_cache()
+
+    if sorted(rates) != ["bfloat16", "int8"] or not all(t > 0 for pair in rates.values() for t in pair):
+        fail("[%s] enginespeed gave no two rates for each of bf16 and int8: %s" % (tag, rates))
+    batch = int(CONVERT_ENGINESPEED[CONVERT_ENGINESPEED.index("--batch") + 1])
+    print("[%s] enginespeed %s: %s; launches in the run (both builds, calibration and timings) %s" %
+          (tag, " ".join(CONVERT_ENGINESPEED), ", ".join(
+              "%s eager %.1f / many %.1f images/s" % (dtype, batch / eager, batch / many)
+              for dtype, (eager, many) in rates.items()), {k: v for k, v in launches["enginespeed"].items() if v}))
+    print("[time] [%s] %.1f s (%s)" % (tag, time.perf_counter() - started, ", ".join(
+        "%s %.1f s" % (what, sum(t.values()) if isinstance(t, dict) else t) for what, t in seconds.items())))
+    return launches
+
+
 def main():
     import torch
 
@@ -6282,6 +6570,7 @@ def main():
     attention = phaseFlash(torch, flash, build)
     serving, servedNet, servedImages = phaseSlice(torch, card)
     checkpoint = phaseCheckpoint(torch, card, servedNet, servedImages)
+    phaseConvert(torch, card, servedNet, servedImages)
     del servedNet, servedImages
     torch.cuda.empty_cache()
     training = phaseTrain(torch, card)

@@ -23,7 +23,11 @@ step over these (``fused.FusedTrainer``, ``FusedValidator``,
 serving engines (``converter.engine``), the kernel-measurement path
 (``benchmarks``, the probes under ``tools``, ``profiler``), and the data
 path (the dataset loaders of ``datasets``, the threaded providers of
-``transformers`` and the loaders' training scripts under ``testlib``).
+``transformers`` and the loaders' training scripts under ``testlib``),
+checkpoints (``hdf``, ``blueprint``), and the converters and tooling: the
+ONNX exporter and the Caffe and MXNet importers (``converter.onnx``,
+``converter.caffe``, ``converter.mxnet``), ``board``, ``unittester`` and
+``benchmarks.enginespeed``.
 
 The port runs on the CUDA card; a run on the CPU asks for it with
 ``Config.device = "cpu"``.

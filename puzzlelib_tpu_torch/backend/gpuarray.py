@@ -12,6 +12,7 @@ comes back as float32.
 import numpy as np
 import torch
 
+from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.backend.device import getDevice
 
 
@@ -60,9 +61,22 @@ def to_gpu(ary, dtype=None, device=None):
 
 def empty(shape, dtype=np.float32, device=None):
     """An uninitialised tensor of ``shape`` on ``device`` (default: the
-    configured one)."""
+    configured one); under ``Config.debugAllocator`` filled with a poison:
+    NaN for floats, the type's largest value for integers, 0 otherwise."""
     device = getDevice() if device is None else torch.device(device)
-    return _traceAlloc(torch.empty(shape, dtype=toTorchDtype(dtype), device=device))
+    dtype = toTorchDtype(dtype)
+
+    if not Config.debugAllocator:
+        return _traceAlloc(torch.empty(shape, dtype=dtype, device=device))
+
+    if dtype.is_floating_point:
+        poison = float("nan")
+    elif dtype.is_complex or dtype == torch.bool:
+        poison = 0
+    else:
+        poison = torch.iinfo(dtype).max
+
+    return _traceAlloc(torch.full(shape, poison, dtype=dtype, device=device))
 
 
 def zeros(shape, dtype=np.float32, device=None):

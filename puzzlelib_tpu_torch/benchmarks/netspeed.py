@@ -32,23 +32,24 @@ import time
 import numpy as np
 
 
-def buildNet(name):
-    """(net, image shape, classes) of the zoo net ``name``."""
+def buildNet(name, initscheme="none"):
+    """(net, image shape, classes) of the zoo net ``name``, its weights drawn
+    by ``initscheme`` (the builders' "none": uninitialised memory)."""
     if name.startswith("vgg"):
         from puzzlelib_tpu_torch.models.nets.vgg import loadVGG
-        return loadVGG(None, name[3:]), (3, 224, 224), 1000
+        return loadVGG(None, name[3:], initscheme=initscheme), (3, 224, 224), 1000
 
     if name.startswith("resnet"):
         from puzzlelib_tpu_torch.models.nets.resnet import loadResNet
-        return loadResNet(None, name[6:]), (3, 224, 224), 1000
+        return loadResNet(None, name[6:], initscheme=initscheme), (3, 224, 224), 1000
 
     if name == "nin":
         from puzzlelib_tpu_torch.models.nets.nin import loadNiNImageNet
-        return loadNiNImageNet(None), (3, 224, 224), 1000
+        return loadNiNImageNet(None, initscheme=initscheme), (3, 224, 224), 1000
 
     if name == "lenet":
         from puzzlelib_tpu_torch.models.nets.lenet import loadLeNet
-        return loadLeNet(None), (1, 28, 28), 10
+        return loadLeNet(None, initscheme=initscheme), (1, 28, 28), 10
 
     raise ValueError("unknown net %s" % name)
 

@@ -40,6 +40,9 @@ backend reads at each call, so setting one takes effect at the next op.
   per batch).
 - ``disableModuleCompatChecks``: ``Sequential`` skips its inplace
   compatibility check.
+- ``debugAllocator``: ``gpuarray.empty`` poisons what it allocates (NaN for
+  floats, the type's largest value for integers, 0 otherwise), so a read
+  of memory nobody wrote shows; ``unittester`` sets it.
 """
 
 import sys
@@ -70,6 +73,7 @@ disableDtypeShapeChecks = False
 disableModuleCompatChecks = False
 verifyData = False
 showWarnings = True
+debugAllocator = False
 
 
 def checkAlgo(algo):

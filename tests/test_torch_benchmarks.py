@@ -1,5 +1,5 @@
 """The port's measurement path on the CPU: the benchmark CLIs
-(``benchmarks/{gemmspeed,convspeed,attnspeed}``) and the probe scripts
+(``benchmarks/{gemmspeed,convspeed,attnspeed,enginespeed}``) and the probe scripts
 (``tools/{roofline,strided_dma,tapdot}_probe``) run as a user runs them, in
 a process of their own, with ``--device cpu`` or ``--check`` at small sizes,
 and their refusal without a card; ``convNdbenchmark`` and ``timeKernel``;
@@ -50,8 +50,8 @@ CPU_RUNS = [
     ("tools.tapdot_probe", ["--check"], ["(2, 128, 12, 10, 128) k3: err", "(1, 128, 9, 9, 128) k5: err"]),
 ]
 
-SCRIPTS = ["benchmarks.gemmspeed", "benchmarks.convspeed", "benchmarks.attnspeed", "tools.roofline_probe",
-           "tools.strided_dma_probe", "tools.tapdot_probe"]
+SCRIPTS = ["benchmarks.gemmspeed", "benchmarks.convspeed", "benchmarks.attnspeed", "benchmarks.enginespeed",
+           "tools.roofline_probe", "tools.strided_dma_probe", "tools.tapdot_probe"]
 
 
 def _run(module, argv):
@@ -86,6 +86,20 @@ def testCliRefusesWithoutCard(module):
 
     assert proc.returncode != 0 and "DeviceError: no CUDA device" in proc.stderr, proc.stderr[-2000:]
     assert proc.stdout == ""
+
+
+def testEnginespeedCli():
+    """``enginespeed`` (the JAX package's ``tests/test_benchmarks.py``
+    case) on LeNet at batch 4, an f32 and an int8 engine, on the CPU: two
+    rates a type, eager and ``Engine.many`` over 2 distinct batches."""
+    proc = _run("benchmarks.enginespeed", ["--net", "lenet", "--batch", "4", "--dtypes", "float32,int8", "--many", "2",
+                                           "--iters", "2", "--device", "cpu"])
+
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for dtype in ("float32", "int8"):
+        line = next(line for line in proc.stdout.splitlines() if line.startswith("lenet serve %s batch 4:" % dtype))
+        assert line.count("img/s") == 2 and "many(2 distinct batches)" in line, proc.stdout
+    assert "H100" not in proc.stdout
 
 
 def testConvNdbenchmarkAndTimeKernel():

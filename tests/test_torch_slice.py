@@ -383,6 +383,23 @@ ctcNet, ctcOpt, ctcCost, ctcRng, ctcEmbed = ctctrain.buildTraining()
 ctcBatch = ctctrain.makeBatch(ctcRng, ctcEmbed)
 assert ctctrain.step(ctcNet, ctcOpt, ctcCost, ctcBatch[0], np.full(ctctrain.BATCH, 24, np.int32), *ctcBatch[1:]) > 0.0
 assert transformertrain.NUMWORDS == 20000 and optimizenet.buildRun.__name__ == "buildRun"
+from puzzlelib_tpu_torch import board, unittester
+from puzzlelib_tpu_torch.benchmarks import enginespeed
+from puzzlelib_tpu_torch.converter import caffe, mxnet
+from puzzlelib_tpu_torch.converter.onnx import ONNXExporter, onnxmodel
+from puzzlelib_tpu_torch.tools import convertslice
+import chip_smoke
+convertStore = chip_smoke.MemoryStore()
+caffe.js2hdf({"name": "lenet-5-like", "layers": [{"name": "conv1", "type": 4, "blobs": [
+    {"data": np.ones(10, np.float32), "shape": {"dim": [1, 1, 1, 10]}}]}]}, convertStore)
+assert list(convertStore["links"].children) == ["lenet-5-like.conv1.W"]
+mxnet.buildHdf(["arg:fc_bias"], [np.zeros(3, np.float32)], {"nodes": [{"op": "FullyConnected", "name": "fc"}]},
+               chip_smoke.MemoryStore(), "n")
+with tempfile.TemporaryDirectory() as onnxDir:
+    assert len(onnxmodel.parseModel(ONNXExporter().export(lenet, (2, 1, 28, 28), onnxDir).serialize())["graph"]["nodes"]) > 0
+assert convertslice.onnxCounts(lenet)[1] > 0 and callable(board.drawBoard) and callable(unittester.main)
+assert enginespeed.main(["--net", "lenet", "--batch", "2", "--dtypes", "float32", "--many", "2", "--iters", "1",
+                         "--device", "cpu"])["float32"][0] > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -428,8 +445,11 @@ def testPortRunsWithoutJax():
     ``visual.py`` and the last nine ``testlib`` counterparts (a whitening,
     ``gradientCheck`` of its net, the digits prepared from
     ``dataslice.digits``, an epoch of the tied autoencoders, the two
-    normalizations and a CTC step of ``ctctrain``) imports no JAX and nothing of the JAX package (``ml_dtypes``
-    neither)."""
+    normalizations and a CTC step of ``ctctrain``), the converters and the
+    last tooling (a V1 caffemodel's layer and an MXNet bias imported into a
+    store, LeNet exported to ONNX and parsed back, ``board``,
+    ``unittester``, and ``enginespeed`` on a LeNet engine) imports no JAX
+    and nothing of the JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
