@@ -250,7 +250,7 @@ it fails:
    losses within 5e-2 of the library route's, fused within 5e-2 of eager's,
    the hand route twice the same bits; ``Validator`` and ``FusedValidator``
    over 128 rows, one readback a call, the errors equal; rows/s of each
-   route in 5 runs in turns, the idle share of a profiled fused and eager
+   route in 3 runs in turns, the idle share of a profiled fused and eager
    run with K1's launches held to the profiler's device events; K1 at the
    four head products against cuBLAS;
 29. [w2l]: Wave2Letter at full width (161 features, 29 labels, 106.8 M
@@ -402,8 +402,9 @@ it fails:
    losses.
 42. [ckpt]: checkpoints and blueprints on the card, run right after the
    serving slice (5).  The card's machine has no ``h5py``, so ``save`` and
-   ``load`` take an open handle, a ``MemoryStore`` of numpy arrays defined
-   here (the HDF5 file layer is held by the CPU twins).  The served VGG-16
+   ``load`` take an open handle, a ``MemoryStore`` of numpy arrays
+   (``puzzlelib_tpu_torch/hdf.py``; the HDF5 file layer is held by the CPU
+   twins).  The served VGG-16
    bf16 is saved into it, rebuilt from ``json.loads(json.dumps(
    net.getBlueprint(), sort_keys=True))`` through ``BlueprintFactory``,
    set to bf16 and loaded: every variable on the card, bit-equal to the
@@ -467,7 +468,18 @@ it fails:
    (eager and ``Engine.many`` over 8 distinct batches).  Each file's MB and
    the seconds and MB/s of its write, parse, import, load and export are
    printed; the files go to a directory under ``build/`` and are deleted.
-   The seconds of phases 26 to 44, of [layers]' cases by module and of the
+45. [engine-driver], right after [engine-flash]: the native host driver
+   (``converter/engine/src/engine_driver.cpp``, a libtorch C++ program whose
+   ``g++`` compile [build] starts beside the kernels' ``nvcc`` runs) runs
+   the three engines of phases 11-13 from their ``.program`` and
+   ``.weights`` files, each in a process of its own on its phase's first
+   request: the output ``.npy`` bit-equal to ``Engine``'s for that request,
+   and each custom operator launched a run as many times as the program has
+   nodes of it (16 ``matmul_nt``; 10 ``winograd_conv2d`` and 3 ``matmul``;
+   1 ``flash`` and the attention net's ``matmul`` nodes).  The driver's
+   program load, its first (cold) run and the median of its next runs are
+   printed beside ``Engine``'s calls on the same request.
+   The seconds of phases 26 to 45, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -494,13 +506,14 @@ import sys
 import tempfile
 import time
 import types
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from puzzlelib_tpu_torch.tools import alexnetslice as Alex  # noqa: E402  (the package beside this script)
+from puzzlelib_tpu_torch.hdf import MemoryStore  # noqa: E402,F401  (the package beside this script)
+from puzzlelib_tpu_torch.tools import alexnetslice as Alex  # noqa: E402
 from puzzlelib_tpu_torch.tools import c3dslice as C3D  # noqa: E402
 from puzzlelib_tpu_torch.tools import cnnslice as Cnn  # noqa: E402
 from puzzlelib_tpu_torch.tools import engineslice as Engines  # noqa: E402
@@ -756,8 +769,18 @@ def phaseDevice(torch):
     return card
 
 
-def phaseBuild(build):
+def phaseBuild(build, pool):
+    """Every kernel built, one ``nvcc`` a source in parallel, with the engine
+    driver's ``g++`` compile started beside them on ``pool``: returns the
+    driver's future, (path, seconds), which [engine-driver] waits for."""
+    from puzzlelib_tpu_torch.converter.engine.src import build as driverBuild
+
+    def buildDriver():
+        begin = time.perf_counter()
+        return driverBuild.buildDriver(log=False), time.perf_counter() - begin
+
     start = time.perf_counter()
+    driverJob = pool.submit(buildDriver)
     build.buildAll()
     secs = time.perf_counter() - start
 
@@ -765,6 +788,8 @@ def phaseBuild(build):
     for name in build.KERNELS:
         for line in build.compilerReport(name):
             print("[build] %s: %s" % (name, line))
+
+    return driverJob
 
 
 def _medianTurns(fns, iters=10, turns=2):
@@ -2042,7 +2067,7 @@ def phaseEngineInt8(torch, card, workdir):
           (" ".join("%.4f" % t for t in runs), len(requests) / float(np.median(runs)), card))
 
     del engine
-    return net, requests, launches
+    return net, requests, launches, (path, requests[:Engines.BATCH], out[:Engines.BATCH])
 
 
 def phaseEngineBf16(torch, card, workdir, net, requests):
@@ -2098,7 +2123,7 @@ def phaseEngineBf16(torch, card, workdir, net, requests):
         print("[engine-bf16] %s, 5 runs in turns: %s s, median %.1f images/s on %s" %
               (text, " ".join("%.4f" % t for t in runs[label]), len(requests) / float(np.median(runs[label])), card))
 
-    return launches
+    return launches, (path, requests[:Engines.BATCH], out[:Engines.BATCH])
 
 
 def _visiblePairs(seqQ, seqK, causal):
@@ -2881,6 +2906,111 @@ def phaseEngineFlash(torch, card, workdir):
     if out.shape != requests.shape or not np.isfinite(out).all() or not rel <= 1e-3:
         fail("flash engine output of shape %s, relative L2 %.3e from the eager run" % (out.shape, rel))
 
+    return launches, (path, requests[:batch], out[:batch])
+
+
+# [engine-driver]: each custom operator's nodes in each engine's program
+# (the flash engine's matmul nodes are counted from its program), and the
+# runs of the request in the driver and through Engine, the first of each
+# set apart (the driver's is cold: CUDA's and the libraries' set-up; the
+# Engine's follows a reload), the medians of the rest printed
+DRIVER_NODES = {"int8": {"matmul_nt": 16}, "bf16": {"winograd_conv2d": 10, "matmul": 3}, "flash": {"flash": 1}}
+DRIVER_OPERATORS = ("matmul", "matmul_nt", "winograd_conv2d", "flash")
+DRIVER_RUNS = 11
+
+
+def _programNodes(program):
+    """Each custom operator's node count in an engine's program."""
+    counts = dict.fromkeys(DRIVER_OPERATORS, 0)
+    with open(program) as f:
+        for line in f:
+            fields = line.split()
+            if fields[0] == "node" and fields[2].startswith("puzzlelib::"):
+                counts[fields[2][len("puzzlelib::"):]] += 1
+    return counts
+
+
+def phaseEngineDriver(torch, card, driverJob, workdir, served):
+    """[engine-driver]: the VGG-16 int8 and bf16 engines and the flash engine
+    that [engine-int8], [engine-bf16] and [engine-flash] built, each run
+    through the native driver (``converter/engine/src/engine_driver.cpp``)
+    in a process of its own on that phase's first request: the output
+    ``.npy`` bit-equal to ``Engine``'s output for that request in that
+    phase, and each custom operator launched as many times a run as the
+    program has nodes of it.  The driver's load and run times are printed
+    beside ``Engine``'s for the same request on the card.  Returns each
+    operator's launches in the driver's first runs."""
+    import subprocess
+
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.converter.engine import Engine
+
+    started = time.perf_counter()
+    driver, buildSecs = driverJob.result()
+    print("[engine-driver] %s built in %.2f s beside [build]'s nvcc runs (waited %.2f s for it here)" %
+          (os.path.basename(driver), buildSecs, time.perf_counter() - started))
+
+    launches = dict.fromkeys(DRIVER_OPERATORS, 0)
+    for label, (path, request, want) in served.items():
+        program = path.replace(".engine", ".program")
+        nodes = _programNodes(program)
+        expected = dict(DRIVER_NODES[label])
+        if label == "flash":
+            expected["matmul"] = nodes["matmul"]
+        if {op: n for op, n in nodes.items() if n} != {op: n for op, n in expected.items() if n}:
+            fail("[engine-driver] the %s engine's program has custom operator nodes %s, expected %s" %
+                 (label, nodes, expected))
+
+        engine = Engine(path)
+        x = torch.from_numpy(request).cuda()
+        engineMs = []
+        for _ in range(DRIVER_RUNS):
+            synchronize()
+            begin = time.perf_counter()
+            engine(x)
+            synchronize()
+            engineMs.append(1e3 * (time.perf_counter() - begin))
+        del engine, x
+
+        inpath, outpath = os.path.join(workdir, label + ".in.npy"), os.path.join(workdir, label + ".out.npy")
+        np.save(inpath, request)
+        begin = time.perf_counter()
+        proc = subprocess.run([str(driver), "--runs", str(DRIVER_RUNS), "cuda", program, outpath, inpath],
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - begin
+        if proc.returncode != 0:
+            fail("[engine-driver] the driver failed on the %s engine (exit %d):\n%s" %
+                 (label, proc.returncode, proc.stderr[-3000:]))
+
+        report = json.loads(next(line for line in proc.stderr.splitlines()
+                                 if line.startswith("engine_driver: report "))[len("engine_driver: report "):])
+        got = np.load(outpath)
+        same = got.dtype == want.dtype and got.shape == want.shape and np.array_equal(got, want)
+
+        print("[engine-driver] %s engine, request of %s: driver output bit-equal to Engine's: %s (max |diff| %.3e); "
+              "launches a run %s, nodes %s" % (label, "x".join(map(str, request.shape)), "yes" if same else "NO",
+                                               float(np.abs(got.astype(np.float64) - want).max()),
+                                               report["launches"], nodes))
+        print("[engine-driver] %s engine on %s: driver process %.3f s wall, program load %.3f ms, first run %.3f "
+              "ms, median of the next %d %.3f ms; Engine in this process: first call %.3f ms, median of the next "
+              "%d %.3f ms (driver / Engine %.3f)" %
+              (label, card, wall, report["load_ms"], report["run_ms"][0], DRIVER_RUNS - 1,
+               float(np.median(report["run_ms"][1:])), engineMs[0], DRIVER_RUNS - 1, float(np.median(engineMs[1:])),
+               float(np.median(report["run_ms"][1:])) / float(np.median(engineMs[1:]))))
+        print("[engine-driver] %s runs, ms: driver %s; Engine %s" %
+              (label, " ".join("%.3f" % t for t in report["run_ms"]), " ".join("%.3f" % t for t in engineMs)))
+
+        if not same:
+            fail("[engine-driver] the driver's %s output differs from Engine's" % label)
+
+        if report["launches"] != nodes or report["calls"] != nodes:
+            fail("[engine-driver] the %s engine's driver run launched %s (calls %s), its program has %s nodes" %
+                 (label, report["launches"], report["calls"], nodes))
+
+        for op in DRIVER_OPERATORS:
+            launches[op] += report["launches"][op]
+
+    print("[time] [engine-driver] %.1f s" % (time.perf_counter() - started))
     return launches
 
 
@@ -3909,6 +4039,11 @@ def _itemReads(torch, fn):
         torch.Tensor.item = item
 
 
+# [imdb-rnn]: the runs in turns of each route's rate (5 until [engine-driver]
+# came: 3 pay for its time)
+IMDB_RATE_TURNS = 3
+
+
 def phaseImdbRnn(torch, card):
     """The three IMDB sentiment nets of ``tools/sequenceslice.py`` (LSTM,
     BiLSTM, 1-d CNN) at full width in f32, weights from
@@ -3920,8 +4055,8 @@ def phaseImdbRnn(torch, card):
     each ``Linear`` head forward, one launch a step per head, none on the
     library route; ``Validator`` and ``FusedValidator`` over 128 rows, each
     call one readback, the fused error equal to eager's and K1's launches
-    counted; rows/s of each route in 5 runs in turns, and the idle share of
-    a profiled run, fused and eager, its K1 launches held to the profiler's
+    counted; rows/s of each route in ``IMDB_RATE_TURNS`` runs in turns, and
+    the idle share of a profiled run, fused and eager, its K1 launches held to the profiler's
     device events.  Then K1 at the four head products against its plain
     version, cuBLAS and the bound.  Returns the launches and the JSON
     entry's numbers."""
@@ -3983,9 +4118,9 @@ def phaseImdbRnn(torch, card):
                                                                           errors["hopper"]))
 
         fns = {algo: (lambda algo=algo: run.train(algo, images, labels)) for algo in SLICE_ROUTES}
-        for algo, secs in _turns({}, fns).items():
-            print("[%s] %s, %s, training, 5 runs in turns: %s s, median %.1f rows/s on %s" %
-                  (tag, kind, SLICE_ROUTES[algo], " ".join("%.4f" % t for t in secs),
+        for algo, secs in _turns({}, fns, IMDB_RATE_TURNS).items():
+            print("[%s] %s, %s, training, %d runs in turns: %s s, median %.1f rows/s on %s" %
+                  (tag, kind, SLICE_ROUTES[algo], IMDB_RATE_TURNS, " ".join("%.4f" % t for t in secs),
                    len(images) / float(np.median(secs)), card))
 
         _idleShares("%s] [%s" % (tag, kind), run, images, labels)
@@ -6051,55 +6186,6 @@ def _ctcSteps(ctctrain, steps):
     return time.perf_counter() - start, inCost[0]
 
 
-class MemoryStore:
-    """An in-memory checkpoint store: numpy arrays, answering only the calls
-    the port's HDF5 codec (``puzzlelib_tpu_torch/hdf.py``) and the Caffe and
-    MXNet importers make on an ``h5py`` group, which ``save``, ``load``,
-    ``js2hdf`` and ``buildHdf`` take as an open handle.  The card's machine
-    has no ``h5py``; the HDF5 file layer is held by the CPU twins
-    (``tests/test_torch_checkpoint.py``, ``tests/test_torch_converters.py``)."""
-
-    def __init__(self):
-        self.children, self.attrs, self.value = {}, {}, None
-
-    def require_group(self, name):
-        return self.children.setdefault(name, MemoryStore())
-
-    def create_group(self, name):
-        if name in self.children:
-            raise ValueError("Unable to create group (name already exists): %s" % name)
-
-        group = self.children[name] = MemoryStore()
-        return group
-
-    def create_dataset(self, name, data=None, compression=None):
-        if name in self.children:
-            raise ValueError("Unable to create dataset (name already exists): %s" % name)
-
-        dataset = self.children[name] = MemoryStore()
-        dataset.value = np.asarray(data)
-        return dataset
-
-    def __getitem__(self, key):
-        return self.value[key] if key == () else self.children[key]
-
-    def __setitem__(self, key, value):
-        self.create_dataset(key, data=value)
-
-    def __contains__(self, key):
-        return key in self.children
-
-    def items(self):
-        return self.children.items()
-
-    def __array__(self, dtype=None, copy=None):
-        return self.value if dtype is None else self.value.astype(dtype)
-
-    def nbytes(self):
-        own = 0 if self.value is None else self.value.nbytes
-        return own + sum(child.nbytes() for child in self.children.values())
-
-
 CKPT_STEPS = 8
 
 
@@ -6562,7 +6648,8 @@ def main():
     ensureInit()
 
     card = phaseDevice(torch)
-    phaseBuild(build)
+    pool = ThreadPoolExecutor(max_workers=1)
+    driverJob = phaseBuild(build, pool)
     installProbe, install = phaseCheckinstall(torch, matmul, probe)
     gemm, gemmTransformer = phaseGemm(torch, matmul)
     gemmInt8 = phaseGemmInt8(torch, matmul)
@@ -6657,11 +6744,15 @@ def main():
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR.parent) as workdir:
-        net, requests, engineInt8 = phaseEngineInt8(torch, card, workdir)
-        engineBf16 = phaseEngineBf16(torch, card, workdir, net, requests)
+        net, requests, engineInt8, servedInt8 = phaseEngineInt8(torch, card, workdir)
+        engineBf16, servedBf16 = phaseEngineBf16(torch, card, workdir, net, requests)
         del net, requests
         torch.cuda.empty_cache()
-        engineFlash = phaseEngineFlash(torch, card, workdir)
+        engineFlash, servedFlash = phaseEngineFlash(torch, card, workdir)
+        torch.cuda.empty_cache()
+        engineDriver = phaseEngineDriver(torch, card, driverJob, workdir,
+                                         {"int8": servedInt8, "bf16": servedBf16, "flash": servedFlash})
+    pool.shutdown()
     torch.cuda.empty_cache()
 
     roofline = phaseStreamCopy(torch, streamcopy)
@@ -6685,7 +6776,8 @@ def main():
         dict(name="K1 tiled GEMM", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=training["matmul"],
              launches_wgmma=training["matmulWgmma"], serving_launches=serving["matmul"],
-             engine_launches=engineBf16["matmul"], measurement_launches=measured["K1"],
+             engine_launches=engineBf16["matmul"], driver_launches=engineDriver["matmul"],
+             measurement_launches=measured["K1"],
              measurement_launches_wgmma=measured["K1-wgmma"],
              fused_launches=fusedServe["matmul"] + fusedTrain["matmul"] + fusedCnn["lenet"] + fusedCnn["lenetValidate"],
              fused_launches_wgmma=fusedServe["matmulWgmma"] + fusedTrain["matmulWgmma"],
@@ -6695,7 +6787,8 @@ def main():
              optimizenet_launches=testlib["optimizenet"]["K1"], **gemm),
         dict(name="K1-int8 tiled GEMM, int8 -> int32 (matmul.py:54-56)", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=engineInt8["int8"],
-             launches_wgmma=engineInt8["int8Wgmma"], measurement_launches=measured["K1-int8"],
+             launches_wgmma=engineInt8["int8Wgmma"], driver_launches=engineDriver["matmul_nt"],
+             measurement_launches=measured["K1-int8"],
              measurement_launches_wgmma=measured["K1-int8-wgmma"], **gemmInt8),
         dict(name="K1 tiled GEMM at the transformer's shapes", route="cuda", source=source % "matmul",
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=transformer["matmul"],
@@ -6715,7 +6808,8 @@ def main():
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
-             engine_launches=engineBf16["winograd"], measurement_launches=measured["K2"],
+             engine_launches=engineBf16["winograd"], driver_launches=engineDriver["winograd_conv2d"],
+             measurement_launches=measured["K2"],
              fused_launches=fusedCnn["nin"]["winograd"] - fusedCnn["nin"]["winogradDataGrad"],
              avg_pool_serving_launches=vggAverage["winograd"], checkpoint_serving_launches=checkpoint["winograd"],
              optimizenet_launches=testlib["optimizenet"]["K2"], **wino),
@@ -6834,6 +6928,7 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
              training_launches_wgmma=transformerTrain["flashWgmma"], engine_launches=engineFlash["flash"],
+             driver_launches=engineDriver["flash"],
              engine_launches_wgmma=engineFlash["flashWgmma"], measurement_launches=measured["K4"],
              measurement_launches_wgmma=measured["K4-wgmma"], fused_launches=fusedServe["flash"],
              fused_launches_wgmma=fusedServe["flashWgmma"], fused_training_launches=fusedTrain["flash"],
@@ -6939,6 +7034,8 @@ def main():
           "entries: [testlib]'s optimizenet.main(16, looplength=3) in bf16, eager and fused calls; "
           "transformertrain_launches on K1 at the transformer's shapes, K4, K5a and K5b: [testlib]'s epoch of "
           "transformertrain on the flash route in bf16 (transformertrain_xla_launches its f32 xla route's); "
+          "driver_launches on the first K1, K1-int8, the first K2 and K4 entries: [engine-driver]'s first runs of "
+          "the VGG-16 int8 and bf16 engines and the flash engine through the native driver, one request each; "
           "checkpoint_serving_launches on the first K1 and K2 entries: [ckpt]'s VGG-16 rebuilt from its blueprint and "
           "loaded, 4 requests of 32; checkpoint_launches and checkpoint_fused_launches on K1 at LeNet's shapes: "
           "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; "

@@ -10,8 +10,12 @@ freezes its weights, and the program is saved with ``torch.export.save``:
 - ``<name>.<dtype>.spec.json``: ``name``, ``dtype``, ``inshape``,
   ``outshape``, as the reference writes it;
 - ``<name>.<dtype>.graph.txt``: the exported graph's code, with each value's
-  type and shape.  It takes the place of the reference's
-  ``.stablehlo.mlir``, whose reader, the PJRT host driver, is not ported.
+  type and shape;
+- ``<name>.<dtype>.program`` and ``<name>.<dtype>.weights``: the same graph
+  as text and its tensors as one blob (``program.py``), which the native
+  host driver (``src/engine_driver.cpp``) runs without Python.  They take
+  the place of the reference's ``.stablehlo.mlir``, which its PJRT driver
+  reads.
 
 The hand kernels appear in the graph as their custom operators
 (``puzzlelib::matmul``, ``puzzlelib::matmul_nt`` for the int8 products,
@@ -26,7 +30,6 @@ module, so only the tensors the forward uses are saved: an int8 engine holds
 its int8 weight tables, their scales and the biases, not the f32 weights.
 """
 
-import copy
 import json
 import os
 
@@ -35,6 +38,7 @@ import torch
 
 from puzzlelib_tpu_torch.backend import gpuarray
 from puzzlelib_tpu_torch.backend.device import getDevice
+from puzzlelib_tpu_torch.converter.engine.program import fromExported
 
 
 class DataType:
@@ -164,20 +168,46 @@ def _netDevice(net):
     return getDevice() if param is None else param.device
 
 
+def halfClone(net, dtype):
+    """A copy of ``net`` in eval mode and ``calcMode(dtype)``, made as the
+    reference makes it (``blueprint.load(net.save(withBlueprint=True))``):
+    rebuilt from its blueprint, its variables and attributes carried across
+    by ``save`` and ``load``.  They go through an in-memory store
+    (``hdf.MemoryStore``), neither through a file nor through a string
+    dataset, so no ``h5py`` is needed.  ``net`` is left as it was."""
+    from puzzlelib_tpu_torch.blueprint import BlueprintFactory
+    from puzzlelib_tpu_torch.hdf import MemoryStore
+
+    clone = BlueprintFactory().build(net.getBlueprint())
+    device = _netDevice(net)
+    if _netDevice(clone) != device:
+        clone.to(device)
+
+    store = MemoryStore()
+    net.save(store)
+    clone.load(store)
+
+    clone.evalMode()
+    clone.calcMode(dtype)
+    return clone
+
+
 def buildEngine(net, inshape, savepath, dtype=DataType.float32, name=None, returnEngine=True,
                 calibrator=None):
     """Trace, export and save ``net`` for the given input shape, on the
     device its parameters are on.
 
     Produces ``<name>.<dtype>.engine`` (``torch.export``, loadable by
-    ``Engine``), ``<name>.<dtype>.spec.json`` and ``<name>.<dtype>.graph.txt``.
-    Input and output are f32 whatever the engine's type.
+    ``Engine``), ``<name>.<dtype>.spec.json``, ``<name>.<dtype>.graph.txt``
+    and, for the native driver, ``<name>.<dtype>.program`` and
+    ``<name>.<dtype>.weights``.  Input and output are f32 whatever the
+    engine's type.
 
     ``dtype="int8"`` (with a ``DataCalibrator``) quantizes Linear and Conv
     weights per output channel and activations per tensor with calibrated
     scales; every integer product runs on K1-int8.  ``float16`` and
-    ``bfloat16`` trace a ``calcMode``-cast copy, so the user's f32 net keeps
-    its weights.  The user's net is restored after the build.
+    ``bfloat16`` trace a ``calcMode``-cast copy made through the net's
+    blueprint (``halfClone``), so the user's f32 net keeps its weights.  The user's net is restored after the build.
     """
     if name is None:
         name = net.name or "net"
@@ -195,9 +225,7 @@ def buildEngine(net, inshape, savepath, dtype=DataType.float32, name=None, retur
         restore = _patchQuantized(modules, scales)
 
     elif dtype in _HALF:
-        net = copy.deepcopy(net)
-        net.evalMode()
-        net.calcMode(_HALF[dtype])
+        net = halfClone(net, _HALF[dtype])
         castInputTo = _HALF[dtype]
 
     program = _Program(_functionalForward(net), castInputTo)
@@ -221,6 +249,8 @@ def buildEngine(net, inshape, savepath, dtype=DataType.float32, name=None, retur
 
     with open(base + ".graph.txt", "w") as f:
         f.write(exported.graph_module.print_readable(print_output=False))
+
+    fromExported(exported).save(base + ".program", base + ".weights")
 
     output = next(node for node in exported.graph.nodes if node.op == "output")
     with open(base + ".spec.json", "w") as f:

@@ -189,3 +189,52 @@ def storeBlueprint(hdf, blueprint):
 def fetchBlueprint(hdf):
     raw = hdf["blueprint"][()]
     return json.loads(raw.decode() if isinstance(raw, bytes) else str(raw))
+
+
+class MemoryStore:
+    """An in-memory checkpoint store: numpy arrays, answering only the calls
+    this codec and the Caffe and MXNet importers make on an ``h5py`` group,
+    which ``save``, ``load``, ``js2hdf`` and ``buildHdf`` take as an open
+    handle, without ``h5py``.  It refuses a second group or dataset of a
+    name, as ``h5py`` does.  ``buildEngine``'s half-precision clone carries
+    the net's variables through one."""
+
+    def __init__(self):
+        self.children, self.attrs, self.value = {}, {}, None
+
+    def require_group(self, name):
+        return self.children.setdefault(name, MemoryStore())
+
+    def create_group(self, name):
+        if name in self.children:
+            raise ValueError("Unable to create group (name already exists): %s" % name)
+
+        group = self.children[name] = MemoryStore()
+        return group
+
+    def create_dataset(self, name, data=None, compression=None):
+        if name in self.children:
+            raise ValueError("Unable to create dataset (name already exists): %s" % name)
+
+        dataset = self.children[name] = MemoryStore()
+        dataset.value = np.asarray(data)
+        return dataset
+
+    def __getitem__(self, key):
+        return self.value[key] if key == () else self.children[key]
+
+    def __setitem__(self, key, value):
+        self.create_dataset(key, data=value)
+
+    def __contains__(self, key):
+        return key in self.children
+
+    def items(self):
+        return self.children.items()
+
+    def __array__(self, dtype=None, copy=None):
+        return self.value if dtype is None else self.value.astype(dtype)
+
+    def nbytes(self):
+        own = 0 if self.value is None else self.value.nbytes
+        return own + sum(child.nbytes() for child in self.children.values())

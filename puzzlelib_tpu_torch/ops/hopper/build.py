@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -32,6 +33,10 @@ KERNELS = ("matmul", "winograd", "winograd_fg", "flash", "flash_bwd", "probe", "
            "tapdot")
 
 _loaded = {}
+
+# one lock a kernel: a build that another thread has started is waited for,
+# not started twice
+_building = {name: threading.Lock() for name in KERNELS}
 
 
 class KernelBuildError(RuntimeError):
@@ -56,7 +61,13 @@ def libraryPath(name):
 def build(name):
     """Compile ``csrc/<name>.cu`` unless its hashed library exists; returns
     the library path.  The compiler's report (registers, shared memory,
-    spills from ``-Xptxas -v``) is kept beside it as ``.log``."""
+    spills from ``-Xptxas -v``) is kept beside it as ``.log``.  Threads
+    that build one kernel at once wait for one ``nvcc``."""
+    with _building[name]:
+        return _build(name)
+
+
+def _build(name):
     target = libraryPath(name)
     if target.exists():
         return target

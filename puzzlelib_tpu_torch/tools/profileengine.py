@@ -6,7 +6,8 @@ Run from the root of a checkout:
 
 Builds the int8 and bf16 VGG-16 engines of ``tools/engineslice.py`` on the
 card, serves the slice's 4 requests of 32 images through each, and through
-the eager bf16 net (a clone, as the bf16 engine traces one), once to warm up
+the eager bf16 net (a clone made through the net's blueprint, as the bf16
+engine traces one: ``buildengine.halfClone``), once to warm up
 and once under ``torch.profiler``, and prints for each run the wall time of
 the profiled run, the device's busy time (the union of the kernel and copy
 intervals), the idle share, and the device time by kernel name.
@@ -14,7 +15,6 @@ intervals), the idle share, and the device time by kernel name.
 throughput outside the profiler, [K1-int8] the kernel's times.
 """
 
-import copy
 import tempfile
 
 import torch
@@ -30,6 +30,7 @@ def main():
 
     from puzzlelib_tpu_torch import config as Config
     from puzzlelib_tpu_torch.converter.engine import Engine
+    from puzzlelib_tpu_torch.converter.engine.buildengine import halfClone
     from puzzlelib_tpu_torch.ops.hopper import build
 
     print(cardName())
@@ -45,8 +46,7 @@ def main():
         paths = Engines.buildEngines(net, workdir, Engines.images(Engines.CALIBRATION, seed=2))
         modules = {"int8 engine": Engine(paths["int8"]), "bf16 engine": Engine(paths["bfloat16"])}
 
-    clone = copy.deepcopy(net)
-    clone.calcMode(torch.bfloat16)
+    clone = halfClone(net, torch.bfloat16)
     modules["eager bf16 net"] = clone
     del net
 

@@ -293,6 +293,51 @@ def testHalfPrecisionEngineTwin(tmp_path, dtype, other):
     assert _relL2(got, want[other]) > 1e-4
 
 
+@pytest.mark.parametrize("dtype, half", [("bfloat16", torch.bfloat16), ("float16", torch.float16)])
+def testHalfEngineFromBlueprintClone(tmp_path, monkeypatch, dtype, half):
+    """bf16 and f16 engines trace a clone rebuilt from the net's blueprint,
+    its variables and running stats carried through ``hdf.MemoryStore``
+    (``buildengine.halfClone``, no ``h5py``): their output equals that of
+    an engine built on a deep-copied clone; the caller's f32 net is
+    unchanged after the build, every variable and running stat equal to
+    before and still f32."""
+    from puzzlelib_tpu_torch import hdf
+    from puzzlelib_tpu_torch.converter.engine import buildengine
+
+    np.random.seed(15)
+    net = _smallNet(T, TC, initscheme="he")
+    stats = {"bn1.mean": np.random.randn(1, 4, 1, 1).astype(np.float32),
+             "bn1.var": np.random.uniform(0.5, 2.0, (1, 4, 1, 1)).astype(np.float32)}
+    attrsFromNumpy(net, stats)
+    before = {name: var.data.clone() for var, names in net.getVarTable().items() for name in names}
+
+    def noH5py():
+        raise AssertionError("the clone went through the HDF5 file layer")
+
+    monkeypatch.setattr(hdf, "_h5py", noH5py)
+    path = buildEngine(net, (2, 3, 8, 8), str(tmp_path), dtype=dtype, returnEngine=False)
+
+    copied = copy.deepcopy(net)
+    copied.evalMode()
+    copied.calcMode(half)
+    monkeypatch.setattr(buildengine, "halfClone", lambda net, dtype: copied)
+    os.makedirs(tmp_path / "copy")
+    copypath = buildEngine(net, (2, 3, 8, 8), str(tmp_path / "copy"), dtype=dtype, returnEngine=False)
+
+    x = torch.from_numpy(np.random.RandomState(16).randn(2, 3, 8, 8).astype(np.float32))
+    got = Engine(path)(x)
+    assert got.dtype == torch.float32 and torch.equal(got, Engine(copypath)(x))
+
+    after = {name: var.data for var, names in net.getVarTable().items() for name in names}
+    assert sorted(after) == sorted(before)
+    for name, value in before.items():
+        assert after[name].dtype == torch.float32 and torch.equal(after[name], value), name
+    for name, value in stats.items():
+        module, attr = name.split(".")
+        held = getattr(net[module], attr)
+        assert held.dtype == torch.float32 and torch.equal(held, torch.from_numpy(value)), name
+
+
 class _Scales:
     """A calibrator that hands out given scales, in module order."""
 

@@ -400,6 +400,9 @@ with tempfile.TemporaryDirectory() as onnxDir:
 assert convertslice.onnxCounts(lenet)[1] > 0 and callable(board.drawBoard) and callable(unittester.main)
 assert enginespeed.main(["--net", "lenet", "--batch", "2", "--dtypes", "float32", "--many", "2", "--iters", "1",
                          "--device", "cpu"])["float32"][0] > 0
+from puzzlelib_tpu_torch.converter.engine import program as engineProgram
+from puzzlelib_tpu_torch.converter.engine.src import build as driverBuild
+assert driverBuild.driverPath().name.startswith("engine_driver-") and engineProgram.MAGIC
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
