@@ -479,7 +479,34 @@ it fails:
    1 ``flash`` and the attention net's ``matmul`` nodes).  The driver's
    program load, its first (cold) run and the median of its next runs are
    printed beside ``Engine``'s calls on the same request.
-   The seconds of phases 26 to 45, of [layers]' cases by module and of the
+46. [grid], right after [testlib]: data parallelism on the one card.  (a)
+   ``testlib/multigpumnist.py``'s recipe (``multigpumnist.train``, one
+   epoch, through ``tools/gridslice.py``'s ``mnistNode``) on two nodes of
+   ``runGrid(..., devices=[0, 0])``, which share card 0 and so run over
+   gloo: the first 12800 rows of [data]'s parsed MNIST, 100 steps of 64 a
+   node (a global batch of 128), 2000 rows validated.  The parent first
+   runs ``gridslice.oracle``: the same seed and, at each step, the rows the
+   two nodes take together, as one batch of 128.  The nodes' final weights
+   must be bit-equal, ``meanValue`` must give both the same errors, the
+   weights after step 1 and after step 100 within 1e-5 of the oracle's (of
+   max(1, max |w|)), the first 10 step losses (the nodes' mean) within
+   1e-4 relative of the oracle's, and each node's K1 launches the oracle's
+   2 a step times 100.  The largest relative gap of the 100 losses is
+   printed, not held: the losses fall towards 0 on the seeded data, and the
+   relative gap of a vanishing loss grows with it.
+   The grid's and the oracle's images/s over steps 2-100, the spawn and
+   first-step seconds and ``sumTensor``'s milliseconds on LeNet's 838,858
+   f32 parameters are printed: two processes time-slicing one card, not a
+   scaling figure.  (b) ``runGrid`` of one node on card 0 (so NCCL) runs
+   ``gridslice.meshNode``, its process started beside (a)'s and let onto
+   the card once (a) has ended: LeNet f32 through ``FusedStep(mesh=...)`` over a
+   one-rank ``DeviceMesh`` and through the step over no mesh, 20 steps of
+   128 each from the same start: the weights bit-equal, one graph recorded
+   for each, K1's launches equal and at least 2 a step, and NCCL's kernel
+   (its one-rank reduce) among the kernels of the mesh step's last replay,
+   which ``torch.profiler`` traces.  The nodes load the kernels that
+   [build] built.
+   The seconds of phases 26 to 46, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -6634,6 +6661,143 @@ def phaseConvert(torch, card, net, images):
     return launches
 
 
+# [grid]: testlib/multigpumnist.py's recipe on two nodes sharing card 0 over
+# gloo, against the single process; a one-rank NCCL mesh step against the
+# step over no mesh
+GRID_NODES = 2
+GRID_TRAIN, GRID_VALIDATE = 12800, 2000
+GRID_MESH_STEPS = 20
+GRID_TIMEOUT = 300
+GRID_WEIGHT_BOUND = 1e-5
+GRID_LOSS_BOUND = 1e-4
+GRID_LOSS_STEPS = 10
+
+
+def _gridRel(got, want):
+    """Largest |got - want| over max(1, max |want|), over the arrays of two
+    {name: array} tables with the same names."""
+    return max(float(np.abs(got[name] - value).max()) / max(1.0, float(np.abs(value).max()))
+               for name, value in want.items())
+
+
+def phaseGrid(torch, card, mnist):
+    """[grid] (see the module's docstring, item 46).  Returns K1's launches:
+    each node's over its 100 training steps, and the mesh step's over its
+    20."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.grid import runGrid
+    from puzzlelib_tpu_torch.testlib import multigpumnist
+    from puzzlelib_tpu_torch.tools import gridslice
+
+    Config.device = "cuda"
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    tag = "grid"
+    images, labels = mnist[0][:GRID_TRAIN + GRID_VALIDATE], mnist[1][:GRID_TRAIN + GRID_VALIDATE]
+    batch = multigpumnist.GLOBAL_BATCH
+    steps = GRID_TRAIN // batch
+
+    synchronize()
+    final, oracle = gridslice.oracle(images, labels, GRID_NODES, GRID_TRAIN)
+    oracleRate = (steps - 1) * batch / (oracle.stamps[-1] - oracle.stamps[0])
+
+    # (b)'s node starts beside (a)'s, sets its mesh up and waits for (a) to
+    # end before it trains: the spawns overlap, the card's work does not
+    with tempfile.TemporaryDirectory() as outdir, tempfile.TemporaryDirectory() as meshDir, \
+            ThreadPoolExecutor(1) as pool:
+        gate = os.path.join(meshDir, "go")
+        spawned = time.time()
+        meshJob = pool.submit(runGrid, gridslice.meshNode, 1, images, labels, GRID_MESH_STEPS, meshDir, gate=gate,
+                              timeout=GRID_TIMEOUT)
+
+        try:
+            runGrid(gridslice.mnistNode, GRID_NODES, images, labels, GRID_TRAIN, GRID_VALIDATE, outdir, spawned,
+                    devices=[0] * GRID_NODES, timeout=GRID_TIMEOUT)
+        finally:
+            open(gate, "w").close()
+
+        gridSecs = time.time() - spawned
+        nodes = gridslice.load(outdir, "mnist", GRID_NODES)
+        meshJob.result()
+        meshSecs = time.time() - spawned - gridSecs
+        mesh = gridslice.load(meshDir, "mesh", 1)[0]
+
+    finals = [{key[len("final/"):]: value for key, value in node.items() if key.startswith("final/")}
+              for node in nodes]
+    firsts = [{key[len("first/"):]: value for key, value in node.items() if key.startswith("first/")}
+              for node in nodes]
+    sameWeights = all(np.array_equal(node[name], finals[0][name]) for node in finals[1:] for name in finals[0])
+    sameErrors = all(np.array_equal(node["history"], nodes[0]["history"]) for node in nodes[1:])
+
+    gridLosses = np.mean([node["losses"] for node in nodes], axis=0)
+    lossGaps = np.abs(gridLosses - np.asarray(oracle.losses)) / np.abs(np.asarray(oracle.losses))
+    firstRel = _gridRel(firsts[0], oracle.first)
+    finalRel = _gridRel(finals[0], final)
+
+    perStep = oracle.launches[-1] // steps
+    launches = [int(node["launches"][-1]) for node in nodes]
+    steady = max(node["stamps"][-1] - node["stamps"][0] for node in nodes)
+    trainErr, valErr = nodes[0]["history"][-1]
+
+    print("[%s] multigpumnist.train on %d nodes sharing card 0 over gloo (two processes time-slicing one card, not "
+          "a scaling figure): %d images in %d steps of %d a node (global batch %d), %d validated; grid %.1f s from "
+          "spawn to the last node's end on %s" % (tag, GRID_NODES, GRID_TRAIN, steps, batch // GRID_NODES, batch,
+                                                 GRID_VALIDATE, gridSecs, card))
+    print("[%s] steps 2-%d: grid %.1f images/s (the slower node's wall time from step 1's end to step %d's), the "
+          "single-process oracle %.1f images/s on the same card; spawn to a node's target %.2f s (slowest), "
+          "first step %.2f s (slowest, the net's build and node 0's broadcast included)" %
+          (tag, steps, (steps - 1) * batch / steady, steps, oracleRate, max(float(n["spawnSecs"]) for n in nodes),
+           max(float(n["stamps"][0]) for n in nodes)))
+    print("[%s] sumTensor of LeNet's %d f32 parameters (%.2f MB) over gloo between the two processes: %.3f ms a "
+          "step (node 0), %.3f ms (node 1), mean of %d calls" %
+          (tag, int(nodes[0]["params"]), int(nodes[0]["params"]) * 4 / 1e6, float(nodes[0]["allreduceMs"]),
+           float(nodes[1]["allreduceMs"]), gridslice.ALLREDUCE_CALLS))
+    print("[%s] nodes' final weights bit-equal: %s; meanValue gave both nodes the same errors: %s (global train "
+          "error %r, validation error %r)" % (tag, sameWeights, sameErrors, float(trainErr), float(valErr)))
+    worst = int(np.argmax(lossGaps))
+    print("[%s] against the oracle: weights after step 1 %.3e, after step %d %.3e (bound %.0e of max(1, max |w|)); "
+          "step losses' largest relative gap %.3e over the first %d steps (bound %.0e), %.3e over the %d (at step "
+          "%d: grid %.9g, oracle %.9g; not a gate: the losses fall towards 0, where a relative gap measures the "
+          "rounding of a vanishing number)" %
+          (tag, firstRel, steps, finalRel, GRID_WEIGHT_BOUND, float(lossGaps[:GRID_LOSS_STEPS].max()),
+           GRID_LOSS_STEPS, GRID_LOSS_BOUND, float(lossGaps.max()), steps, worst + 1, float(gridLosses[worst]),
+           float(oracle.losses[worst])))
+    print("[%s] K1 launches (gemmF32) over the %d training steps: nodes %s, the oracle %d a step" %
+          (tag, steps, launches, perStep))
+
+    if not (sameWeights and sameErrors and max(firstRel, finalRel) <= GRID_WEIGHT_BOUND and
+            lossGaps[:GRID_LOSS_STEPS].max() <= GRID_LOSS_BOUND):
+        fail("[%s] the grid disagrees: weights bit-equal %s, errors equal %s, step 1 %.3e, step %d %.3e, losses "
+             "%.3e" % (tag, sameWeights, sameErrors, firstRel, steps, finalRel,
+                       float(lossGaps[:GRID_LOSS_STEPS].max())))
+    if perStep != 2 or launches != [perStep * steps] * GRID_NODES:
+        fail("[%s] expected %d K1 launches in each node, got %s (the oracle %d a step)" %
+             (tag, perStep * steps, launches, perStep))
+
+    names = [key[len("single/"):] for key in mesh if key.startswith("single/") and "." in key]
+    sameMesh = all(np.array_equal(mesh["mesh/" + name], mesh["single/" + name]) for name in names)
+    ncclKernels = [str(name) for name in mesh["kernels"] if "nccl" in name.lower() or "onerank" in name.lower()]
+
+    print("[%s] one-rank mesh (runGrid of one node on card 0, NCCL, its node spawned beside the two and let onto "
+          "the card when they ended), LeNet f32 through FusedStep(mesh=...) and over no mesh, %d steps of %d each, "
+          "%.1f s after the two ended (in the node: mesh set-up %.2f s, the first %d mesh steps %.2f s, the profiled "
+          "step %.2f s, the first %d steps over no mesh %.2f s): weights bit-equal %s; graphs recorded %d and %d; "
+          "K1 launches %d and %d; NCCL kernels in the profiled replay: %s" %
+          (tag, GRID_MESH_STEPS, batch, meshSecs, float(mesh["secs/setup"]), GRID_MESH_STEPS - 1,
+           float(mesh["secs/mesh"]), float(mesh["secs/profiled"]), GRID_MESH_STEPS - 1, float(mesh["secs/single"]),
+           sameMesh, int(mesh["mesh/captures"]), int(mesh["single/captures"]), int(mesh["mesh/launches"]),
+           int(mesh["single/launches"]), ncclKernels))
+
+    if not (sameMesh and int(mesh["mesh/captures"]) == int(mesh["single/captures"]) == 1 and ncclKernels):
+        fail("[%s] the mesh step: bit-equal %s, recordings %d and %d, NCCL kernels %s" %
+             (tag, sameMesh, int(mesh["mesh/captures"]), int(mesh["single/captures"]), ncclKernels))
+    if not int(mesh["mesh/launches"]) == int(mesh["single/launches"]) >= 2 * GRID_MESH_STEPS:
+        fail("[%s] the mesh step's K1 launches %d, over no mesh %d" %
+             (tag, int(mesh["mesh/launches"]), int(mesh["single/launches"])))
+
+    return {"nodes": launches, "mesh": int(mesh["mesh/launches"])}
+
+
 def main():
     import torch
 
@@ -6765,9 +6929,13 @@ def main():
     print("[time] [data] %.1f s" % (time.perf_counter() - phaseStart))
     phaseStart = time.perf_counter()
     testlib = phaseTestlib(torch, card, mnist, imdb)
-    del mnist, imdb
     torch.cuda.empty_cache()
     print("[time] [testlib] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    grid = phaseGrid(torch, card, mnist)
+    del mnist, imdb
+    torch.cuda.empty_cache()
+    print("[time] [grid] %.1f s" % (time.perf_counter() - phaseStart))
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -6804,7 +6972,7 @@ def main():
              fused_validation_launches=fusedCnn["lenetValidate"], data_launches=data["lenet"],
              data_serial_launches=data["lenetSerial"], data_validation_launches=data["lenetValidate"],
              checkpoint_launches=checkpoint["lenet"], checkpoint_fused_launches=checkpoint["lenetFused"],
-             **gemmLeNet),
+             grid_node_launches=grid["nodes"], grid_mesh_launches=grid["mesh"], **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -7038,7 +7206,9 @@ def main():
           "the VGG-16 int8 and bf16 engines and the flash engine through the native driver, one request each; "
           "checkpoint_serving_launches on the first K1 and K2 entries: [ckpt]'s VGG-16 rebuilt from its blueprint and "
           "loaded, 4 requests of 32; checkpoint_launches and checkpoint_fused_launches on K1 at LeNet's shapes: "
-          "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; "
+          "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; grid_node_launches on K1 at LeNet's "
+          "shapes: each of [grid]'s two nodes' 100 training steps of 64, grid_mesh_launches its one-rank mesh step's "
+          "20 steps of 128 through FusedStep(mesh=...); "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

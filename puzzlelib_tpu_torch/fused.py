@@ -47,17 +47,39 @@ How the recording stays true to the eager step:
 There is no fallback: on a CUDA tensor a failed recording or replay raises.
 ``Config.verifyData`` reads the labels back, which a graph cannot hold, and
 is refused.  ``functionalize`` gives a module tree as a function of a
-weight list, as ``Pipeline`` and ``SwitchMoE`` use it.  Not ported:
-``FusedStep(mesh=...)`` and the sharding specs (``tensorParallelSpecs``,
-``zeroOptimizerSpecs``).
+weight list, as ``Pipeline`` and ``SwitchMoE`` use it.
+
+Data parallelism (``FusedStep(mesh=...)``, the JAX package's GSPMD mesh
+step): the mesh is a ``torch.distributed`` ``DeviceMesh`` with a data axis,
+built by the caller in an initialised process group (a grid node, say), and
+each rank of the axis runs its own step, on CUDA its own CUDA graph.  The
+caller passes the global batch; each rank takes its contiguous 1 / size of
+the rows.  Between the backward and the update every gradient root buffer is
+replaced by its mean over the data group (an f32 sum times 1 / size,
+``backend/collective.py``), and the cost's ``devErr`` is summed over it
+(its running sum ``accumErr`` taken anew from it), so every rank's error is
+the global batch's; a batch norm's statistics are
+summed over the group too (``ops/norm.py``, through ``fusedctx``).  On
+CUDA the collectives are NCCL calls that the graph records (a mesh over
+gloo raises there); on the CPU the body runs eagerly over gloo.  A batch that
+does not divide over the axis runs whole on every rank with no collective:
+the single-device step's numerics, as the JAX package's ragged fallback.
+The JAX package's ``_invoke``, which turns its Pallas kernels off under a
+mesh for the partitioner's sake, has no counterpart: each rank runs its hand
+kernels.  An optimizer built with a grid's ``nodeinfo`` is refused: its
+collectives run eagerly over the grid's group (the JAX package's trace of
+them fails too); ``mesh=`` is the fused form of that training.  Not ported
+(model parallelism): the sharding specs (``stateShardings``,
+``tensorParallelSpecs``, ``zeroOptimizerSpecs``).
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch import fusedctx
-from puzzlelib_tpu_torch.backend import gpuarray
+from puzzlelib_tpu_torch.backend import collective, gpuarray
 from puzzlelib_tpu_torch.containers.container import Container
 from puzzlelib_tpu_torch.handlers.calculator import Calculator
 from puzzlelib_tpu_torch.handlers.trainer import Trainer
@@ -383,12 +405,21 @@ class FusedStep:
     CUDA tensors, recorded once per input signature; the eager body on CPU
     tensors.  The state updates in place; ``buffers`` are its root buffers
     (``collectStateBuffers``).  Call it with tensors (or host arrays, which
-    go to the configured device as they are)."""
+    go to the configured device as they are).  With a ``mesh``, each rank
+    of its ``dataAxis`` takes its share of the global batch that it is
+    called with, and the gradients are averaged over the axis."""
 
-    def __init__(self, module, cost, optimizer, mesh=None, stateShardings=None):
-        if mesh is not None or stateShardings is not None:
-            raise NotImplementedError("FusedStep over a mesh (data and tensor parallelism) is not ported yet")
+    def __init__(self, module, cost, optimizer, mesh=None, dataAxis="data", stateShardings=None):
+        if stateShardings is not None:
+            raise NotImplementedError("FusedStep's stateShardings (tensor parallelism and ZeRO sharding) are model "
+                                      "parallelism, not ported yet (ROADMAP.md, Queue 1, item 4b)")
 
+        if getattr(optimizer, "nodeinfo", None) is not None:
+            raise ValueError("FusedStep takes no optimizer built with a grid's nodeinfo: its collectives run "
+                             "eagerly over the grid's process group, which a CUDA graph cannot record; "
+                             "FusedStep(mesh=...) is the fused form of data-parallel training")
+
+        self.group = None if mesh is None else mesh.get_group(dataAxis)
         self.module, self.cost, self.optimizer = module, cost, optimizer
         self.buffers = collectStateBuffers(module, cost, optimizer)
         self._recordings = _Recordings()
@@ -413,9 +444,35 @@ class FusedStep:
 
         return hyper
 
-    def _body(self, data, target, hyper, t):
-        """The eager train step, with the hyper-parameters and t as tensors;
-        the Python-side counters it advances are put back."""
+    def _shard(self, data, target, axis):
+        """(this rank's rows of ``data`` and ``target`` along ``axis``, the
+        data group), or the whole batch and no group where there is no mesh
+        or the batch does not divide over it."""
+        if self.group is None:
+            return data, target, None
+
+        size, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        if data.shape[axis] % size:
+            return data, target, None
+
+        rows = data.shape[axis] // size
+        return data.narrow(axis, rank * rows, rows), target.narrow(axis, rank * rows, rows), self.group
+
+    def _reduce(self, group, accumErr):
+        """Every gradient root buffer replaced by its mean over ``group``,
+        and the cost's error summed over it: the step's ``devErr``, and its
+        running sum taken anew from ``accumErr``, its value before the
+        step."""
+        for grad in _roots(var.grad for var in _variables(self.module) if var.grad is not None):
+            collective.meanInPlace(grad, group)
+
+        collective.sumInPlace(self.cost.devErr, group)
+        torch.add(accumErr, self.cost.devErr, out=self.cost.accumErr)
+
+    def _body(self, data, target, hyper, t, group):
+        """The eager train step, with the hyper-parameters and t as tensors,
+        over the data ``group`` (or None); the Python-side counters it
+        advances are put back."""
         snapshot = {name: getattr(self.optimizer, name) for name in hyper}
         for name, val in hyper.items():
             setattr(self.optimizer, name, val)
@@ -424,11 +481,16 @@ class FusedStep:
         optT = self.optimizer.t
 
         try:
-            with fusedctx.activate(hyper, t):
+            with fusedctx.activate(hyper, t, group):
+                accumErr = self.cost.accumErr.clone() if group is not None else None
                 grad = self.cost(self.module(data), target, queryError=False)
 
                 self.optimizer.zeroGradParams()
                 self.module.backward(grad, updGrad=False)
+
+                if group is not None:
+                    self._reduce(group, accumErr)
+
                 self.optimizer.update()
 
         finally:
@@ -438,22 +500,26 @@ class FusedStep:
             self.cost.batchsize, self.cost.numOfSamples = costCounters
             self.optimizer.t = optT
 
-    def _run(self, data, target, t):
+    def _run(self, data, target, t, group):
         device = data.device
         hyper = {name: self._scalars.get(name, val, device) for name, val in self._hyper().items()}
         tensorT = self._scalars.get("t", t, device)
 
         if device.type != "cuda":
-            self._body(data, target, hyper, tensorT)
+            self._body(data, target, hyper, tensorT, group)
             return
 
-        key = (_signature(data), _signature(target), device, tuple(hyper)) + _routeKey()
+        if group is not None and dist.get_backend(group) != dist.Backend.NCCL:
+            raise ValueError("a mesh step on CUDA tensors records its collectives in a CUDA graph, which takes "
+                             "NCCL's; the mesh's data group runs %s" % dist.get_backend(group))
+
+        key = (_signature(data), _signature(target), device, tuple(hyper), group is not None) + _routeKey()
         addresses = tuple(tensor.data_ptr() for tensor in _stateTensors(self.module, self.cost, self.optimizer))
 
-        recording = self._recordings.get(key, addresses, lambda: self._record(data, target, hyper, tensorT))
+        recording = self._recordings.get(key, addresses, lambda: self._record(data, target, hyper, tensorT, group))
         recording.replay(data, target)
 
-    def _record(self, data, target, hyper, t):
+    def _record(self, data, target, hyper, t, group):
         """A recording of the step, with the state and the generators put
         back as they were before it (the body puts back the counters of the
         cost and the optimizer itself)."""
@@ -463,7 +529,7 @@ class FusedStep:
         saved = [buf.clone() for buf in self.buffers]
         genStates = [gen.get_state() for gen in generators]
 
-        recording = _record(lambda d, tgt: self._body(d, tgt, hyper, t), [data, target], generators)
+        recording = _record(lambda d, tgt: self._body(d, tgt, hyper, t, group), [data, target], generators)
         self.module.reset()
 
         for buf, value in zip(self.buffers, saved):
@@ -486,9 +552,10 @@ class FusedStep:
     def many(self, data, target, steps):
         """``steps`` consecutive train steps, step i at t0 + i.  ``data`` and
         ``target`` hold the minibatches stacked on the leading dim: (steps *
-        b, ...) split evenly, or already (steps, b, ...).  The cost's last
-        error is the sum over the steps, so ``getError()`` is the mean over
-        all steps * b samples."""
+        b, ...) split evenly, or already (steps, b, ...); over a mesh each
+        rank takes its share of each step's b rows.  The cost's last error
+        is the sum over the steps, so ``getError()`` is the mean over all
+        steps * b samples."""
         data, target = _asTensor(data), _asTensor(target)
 
         if data.shape[0] != steps:
@@ -501,10 +568,11 @@ class FusedStep:
 
         t0 = self.optimizer.t + 1
         self._begin(int(data.shape[0] * data.shape[1]), steps)
+        data, target, group = self._shard(data, target, 1)
 
         errSum = torch.zeros((), dtype=torch.float32, device=data.device)
         for i in range(steps):
-            self._run(data[i], target[i], float(t0 + i))
+            self._run(data[i], target[i], float(t0 + i), group)
             errSum.add_(self.cost.devErr)
 
         self.cost.devErr.copy_(errSum)
@@ -515,7 +583,8 @@ class FusedStep:
         data, target = _asTensor(data), _asTensor(target)
         self._begin(int(data.shape[0]), 1)
 
-        self._run(data, target, float(self.optimizer.t))
+        data, target, group = self._shard(data, target, 0)
+        self._run(data, target, float(self.optimizer.t), group)
 
         self.module.reset()
         return self.cost

@@ -15,6 +15,11 @@ outside the graph.  The reference's third value, the random key, has no
 counterpart: the port's draws come from the ``torch.Generator`` of
 ``rng.py``, which the graph advances at each replay.
 
+A step over a mesh (``FusedStep(mesh=...)``) also names its data group: the
+process group of the ranks that share the global batch.  A batch norm sums
+its statistics over that group (``ops/norm.py``), as the JAX mesh step's
+``jnp.mean`` over the sharded batch does; outside a mesh step there is none.
+
 Code consults these helpers; outside a fused step they pass values through.
 """
 
@@ -22,16 +27,17 @@ _ctx = None
 
 
 class _Ctx:
-    __slots__ = ("hyper", "t")
+    __slots__ = ("hyper", "t", "group")
 
-    def __init__(self, hyper, t):
+    def __init__(self, hyper, t, group):
         self.hyper = hyper
         self.t = t
+        self.group = group
 
 
 class activate:
-    def __init__(self, hyper, t):
-        self.ctx = _Ctx(hyper, t)
+    def __init__(self, hyper, t, group=None):
+        self.ctx = _Ctx(hyper, t, group)
 
     def __enter__(self):
         global _ctx
@@ -49,6 +55,11 @@ def active():
 
 def stepOr(val):
     return _ctx.t if _ctx is not None else val
+
+
+def dataGroup():
+    """The data group of the mesh step running, or None."""
+    return _ctx.group if _ctx is not None else None
 
 
 def hyperOr(name, val):

@@ -16,6 +16,13 @@ are torch ops, computed in f32 as the reference computes them:
   a Python number or a 0-d f32 tensor on the device (inside a fused step),
   and a CUDA graph replays the writes to the same addresses with the
   factor's value at each replay.
+  Inside a mesh step (``fusedctx.dataGroup()``) the statistics are the
+  global batch's, as the JAX mesh step's ``jnp.mean`` over the sharded batch
+  gives them: the forward sums its per-map sums of x and x^2 over the data
+  group before it forms the mean and variance (the count is the shard's
+  times the group's size: the step hands every rank an equal shard), and
+  the backward sums its two per-map sums so for dx, while dscale and dbias
+  stay the shard's, for the step's gradient mean to average.
 - instance norm: batch norm of the (1, N * C, H, W) view with the scale and
   bias tiled N times, as the reference builds it.
 - local response norms: y = x / d^beta with d = K + alpha / n * S(x^2),
@@ -34,7 +41,11 @@ are torch ops, computed in f32 as the reference computes them:
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from puzzlelib_tpu_torch import fusedctx
+from puzzlelib_tpu_torch.backend import collective
 
 
 MODE_SPATIAL = "spatial"
@@ -59,19 +70,27 @@ def _count(x, axes):
     return n
 
 
-def _normalize(x, scale, bias, epsilon, axes):
-    """(out in f32, batch mean, batch biased variance, invstd), the stats
-    per map in f32."""
+def _normalize(x, scale, bias, epsilon, axes, group=None):
+    """(out in f32, batch mean, batch biased variance, invstd, the count),
+    the stats per map in f32; with a ``group``, over the group's batch."""
     shape = _statShape(x, axes)
 
     xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = (xf * xf).mean(dim=axes) - mean * mean
+    if group is None:
+        n = _count(x, axes)
+        mean = xf.mean(dim=axes)
+        var = (xf * xf).mean(dim=axes) - mean * mean
+    else:
+        n = _count(x, axes) * dist.get_world_size(group)
+        sums = collective.sumInPlace(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]), group)
+        mean = sums[0] / n
+        var = sums[1] / n - mean * mean
+
     invstd = torch.rsqrt(var + epsilon)
 
     xhat = (xf - mean.reshape(shape)) * invstd.reshape(shape)
     out = xhat * scale.float().reshape(shape) + bias.float().reshape(shape)
-    return out, mean, var, invstd
+    return out, mean, var, invstd, n
 
 
 def batchNormTrain(x, scale, bias, runMean, runVar, epsilon, factor, mode=MODE_SPATIAL):
@@ -79,9 +98,8 @@ def batchNormTrain(x, scale, bias, runMean, runVar, epsilon, factor, mode=MODE_S
     in x's type; ``runMean`` and ``runVar`` blended with ``factor`` in
     place."""
     axes = _axes(x.dim(), mode)
-    n = _count(x, axes)
 
-    out, mean, var, invstd = _normalize(x, scale, bias, epsilon, axes)
+    out, mean, var, invstd, n = _normalize(x, scale, bias, epsilon, axes, fusedctx.dataGroup())
     unbiased = var * (n / max(n - 1, 1))
 
     keep = 1 - factor
@@ -105,6 +123,10 @@ def batchNormTest(x, scale, bias, runMean, runVar, epsilon, mode=MODE_SPATIAL):
 def batchNormBackward(grad, x, scale, savemean, saveinvvar, epsilon, mode=MODE_SPATIAL):
     """(dx in x's type, dscale, dbias in scale's type, shaped as the saved
     stats) from the saved stats as the forward rounded them."""
+    return _batchNormBackward(grad, x, scale, savemean, saveinvvar, epsilon, mode, fusedctx.dataGroup())
+
+
+def _batchNormBackward(grad, x, scale, savemean, saveinvvar, epsilon, mode, group):
     axes = _axes(x.dim(), mode)
     n = _count(x, axes)
     shape = _statShape(x, axes)
@@ -118,8 +140,13 @@ def batchNormBackward(grad, x, scale, savemean, saveinvvar, epsilon, mode=MODE_S
     dbias = gf.sum(dim=axes)
     dscale = (gf * xhat).sum(dim=axes)
 
+    sumBias, sumScale = dbias, dscale
+    if group is not None:
+        n *= dist.get_world_size(group)
+        sumBias, sumScale = collective.sumInPlace(torch.stack([dbias, dscale]), group)
+
     sf = scale.float().reshape(shape)
-    dx = sf * invstd / n * (n * gf - dbias.reshape(shape) - xhat * dscale.reshape(shape))
+    dx = sf * invstd / n * (n * gf - sumBias.reshape(shape) - xhat * sumScale.reshape(shape))
 
     return (
         dx.to(x.dtype),
@@ -142,7 +169,7 @@ def instanceNorm2d(x, scale, bias, epsilon):
     extscale, extbias = scale.reshape(-1).repeat(n), bias.reshape(-1).repeat(n)
 
     xr = _perInstance(x)
-    out, mean, _, invstd = _normalize(xr, extscale, extbias, epsilon, _axes(xr.dim(), MODE_SPATIAL))
+    out, mean, _, invstd, _ = _normalize(xr, extscale, extbias, epsilon, _axes(xr.dim(), MODE_SPATIAL))
     return out.to(x.dtype).reshape(x.shape), mean.to(x.dtype), invstd.to(x.dtype), extscale
 
 
@@ -151,8 +178,8 @@ def instanceNorm2dBackward(grad, x, extscale, savemean, saveinvvar, epsilon, aff
     summed over the batch."""
     n, c = x.shape[:2]
 
-    dx, dscale, dbias = batchNormBackward(_perInstance(grad), _perInstance(x), extscale, savemean, saveinvvar,
-                                          epsilon, mode=MODE_SPATIAL)
+    dx, dscale, dbias = _batchNormBackward(_perInstance(grad), _perInstance(x), extscale, savemean, saveinvvar,
+                                           epsilon, MODE_SPATIAL, None)
     dx = dx.reshape(x.shape)
 
     if not affine:

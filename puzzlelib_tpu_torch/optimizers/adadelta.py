@@ -12,8 +12,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class AdaDelta(Optimizer):
-    def __init__(self, rho=0.95, epsilon=1e-6):
-        super().__init__()
+    def __init__(self, rho=0.95, epsilon=1e-6, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.rho = None
         self.epsilon = None

@@ -9,8 +9,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class AdaGrad(Optimizer):
-    def __init__(self, learnRate=1e-3, epsilon=1e-8):
-        super().__init__()
+    def __init__(self, learnRate=1e-3, epsilon=1e-8, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.epsilon = None
 

@@ -17,8 +17,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class Adam(Optimizer):
-    def __init__(self, alpha=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8):
-        super().__init__()
+    def __init__(self, alpha=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.alpha = None
         self.beta1 = None

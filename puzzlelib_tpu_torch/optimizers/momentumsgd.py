@@ -9,8 +9,8 @@ from puzzlelib_tpu_torch.optimizers.sgd import SGD
 
 
 class MomentumSGD(SGD):
-    def __init__(self, learnRate=1e-3, momRate=0.9):
-        super().__init__(learnRate)
+    def __init__(self, learnRate=1e-3, momRate=0.9, nodeinfo=None):
+        super().__init__(learnRate, nodeinfo)
 
         self.momRate = None
         self.setAttr("momRate", momRate)

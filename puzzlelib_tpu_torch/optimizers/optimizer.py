@@ -16,8 +16,14 @@ by its variable under local state and by the numpy type of its flat buffer
 under global state (``"<class 'numpy.float32'>.mom"``).  A load writes each
 state tensor in place, so a fused step's recorded graphs keep reading it.
 The state also moves to and from numpy through
-``convert.optimizerStateToNumpy`` / ``optimizerStateFromNumpy``.  The
-reference's multi-node state is not ported.
+``convert.optimizerStateToNumpy`` / ``optimizerStateFromNumpy``.
+
+With a ``nodeinfo`` (a grid node, ``parallel/grid.py``) the optimizer trains
+data-parallel, as the JAX package's does: it takes global state only and
+no variable with its own updater; the setup copies node 0's flat parameter
+buffers into every node's before the state is set up, and each update runs
+the hooks, then replaces each flat gradient by the grid's mean
+(``nodeinfo.sumTensor``), then updates.  ``save`` and ``load`` ignore it.
 """
 
 from collections import OrderedDict
@@ -34,7 +40,7 @@ from puzzlelib_tpu_torch.variable import Variable
 
 
 class Optimizer:
-    def __init__(self):
+    def __init__(self, nodeinfo=None):
         self.t = 0
         self.learnRate = 0.0
 
@@ -50,6 +56,7 @@ class Optimizer:
         self.globalVar = OrderedDict()
 
         self.customVars = []
+        self.nodeinfo = nodeinfo
 
     def setAttr(self, name, attr):
         setattr(self, name, attr)
@@ -67,6 +74,9 @@ class Optimizer:
     # -- setup -------------------------------------------------------------------
 
     def setupOn(self, mod, useGlobalState=False):
+        if self.nodeinfo is not None:
+            assert useGlobalState, "an optimizer with a nodeinfo takes global state (useGlobalState=True)"
+
         self.module = mod
         vartable = self.module.getVarTable()
 
@@ -92,6 +102,9 @@ class Optimizer:
 
     def setupGlobalState(self, vartable):
         managed = self._partitionVars(vartable)
+
+        if self.customVars:
+            assert self.nodeinfo is None, "an optimizer with a nodeinfo takes no variable with its own updater"
 
         # one flat (param, grad) pair per dtype
         for lead, _, var in managed:
@@ -119,7 +132,11 @@ class Optimizer:
             for name in names:
                 self.module.setVar(name, Variable(view, grad=gradView))
 
+        # every node starts from node 0's weights
         for dtype, globalVar in self.globalVar.items():
+            if self.nodeinfo is not None:
+                self.nodeinfo.broadcastBuffer("data", globalVar.data)
+
             self.states[dtype] = self.setupState(globalVar)
 
     def setupLocalStates(self, vartable):
@@ -157,6 +174,11 @@ class Optimizer:
     def _updateOne(self, var, state):
         for hook in self.hooks:
             hook(var, state)
+
+        # one mean over the grid per flat gradient (a nodeinfo implies
+        # global state)
+        if self.nodeinfo is not None:
+            self.nodeinfo.sumTensor("grad", var.grad)
 
         if var.learnRate > 0.0:
             self.updateVar(var, state)

@@ -9,8 +9,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class RMSProp(Optimizer):
-    def __init__(self, learnRate=1e-3, factor=0.9, epsilon=1e-5):
-        super().__init__()
+    def __init__(self, learnRate=1e-3, factor=0.9, epsilon=1e-5, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.factor = None
         self.epsilon = None

@@ -11,8 +11,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class RMSPropGraves(Optimizer):
-    def __init__(self, learnRate=1e-4, alpha=0.95, momRate=0.9, epsilon=1e-4):
-        super().__init__()
+    def __init__(self, learnRate=1e-4, alpha=0.95, momRate=0.9, epsilon=1e-4, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.alpha = None
         self.momRate = None

@@ -5,8 +5,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class SGD(Optimizer):
-    def __init__(self, learnRate=1e-3):
-        super().__init__()
+    def __init__(self, learnRate=1e-3, nodeinfo=None):
+        super().__init__(nodeinfo)
         self.setAttr("learnRate", learnRate)
 
     def updateVar(self, var, state):

@@ -10,8 +10,8 @@ from puzzlelib_tpu_torch.optimizers.optimizer import Optimizer
 
 
 class SMORMS3(Optimizer):
-    def __init__(self, learnRate=1e-3, epsilon=1e-16):
-        super().__init__()
+    def __init__(self, learnRate=1e-3, epsilon=1e-16, nodeinfo=None):
+        super().__init__(nodeinfo)
 
         self.epsilon = None
 

@@ -527,13 +527,16 @@ def testVerifyDataIsRefused(monkeypatch, kind):
 
 
 def testFusedStepOverAMeshIsNotPorted():
+    """What is not ported of the mesh step, its sharding specs (model
+    parallelism), raises; the data-parallel mesh step itself runs
+    (``test_torch_mesh.py``)."""
     np.random.seed(0)
     net = tLoadLeNet(None, initscheme=None)
     opt = TMomentumSGD(0.01)
     opt.setupOn(net)
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fused.FusedStep(net, TCrossEntropy(), opt, mesh=object())
+    with pytest.raises(NotImplementedError, match="model parallelism, not ported"):
+        fused.FusedStep(net, TCrossEntropy(), opt, mesh=object(), stateShardings=[])
 
 
 @pytest.mark.parametrize("useGlobalState", [True, False])

@@ -403,6 +403,14 @@ assert enginespeed.main(["--net", "lenet", "--batch", "2", "--dtypes", "float32"
 from puzzlelib_tpu_torch.converter.engine import program as engineProgram
 from puzzlelib_tpu_torch.converter.engine.src import build as driverBuild
 assert driverBuild.driverPath().name.startswith("engine_driver-") and engineProgram.MAGIC
+from puzzlelib_tpu_torch import grid, parallel
+from puzzlelib_tpu_torch.testlib import multigpucifar10, multigpumnist
+from puzzlelib_tpu_torch.tools import gridslice
+with tempfile.TemporaryDirectory() as gridDir:
+    gridRows = np.random.RandomState(0).rand(256, 1, 28, 28).astype(np.float32)
+    grid.runGrid(gridslice.meshNode, 1, gridRows, np.zeros(256, np.int32), 2, gridDir, timeout=60)
+    assert int(gridslice.load(gridDir, "mesh", 1)[0]["mesh/captures"]) == 0
+assert parallel.runGrid is grid.runGrid and callable(multigpumnist.main) and callable(multigpucifar10.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -451,8 +459,11 @@ def testPortRunsWithoutJax():
     normalizations and a CTC step of ``ctctrain``), the converters and the
     last tooling (a V1 caffemodel's layer and an MXNet bias imported into a
     store, LeNet exported to ONNX and parsed back, ``board``,
-    ``unittester``, and ``enginespeed`` on a LeNet engine) imports no JAX
-    and nothing of the JAX package (``ml_dtypes`` neither)."""
+    ``unittester``, and ``enginespeed`` on a LeNet engine), and the
+    data-parallel path (a one-rank ``FusedStep(mesh=...)`` of
+    ``tools/gridslice.py`` run by ``runGrid`` on the CPU, the multi-GPU
+    scripts imported) imports no JAX and nothing of the JAX package
+    (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
