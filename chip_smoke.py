@@ -506,7 +506,47 @@ it fails:
    (its one-rank reduce) among the kernels of the mesh step's last replay,
    which ``torch.profiler`` traces.  The nodes load the kernels that
    [build] built.
-   The seconds of phases 26 to 46, of [layers]' cases by module and of the
+47. [model-parallel], right after [grid]: model parallelism on the one
+   card (``tools/mpslice.py``).  (a) ``testlib/pipelinemoe.py``'s trunk at
+   its full width (84,224 f32 parameters) on four ranks of
+   ``runGrid(..., devices=[0, 0, 0, 0])``, which share card 0 and so run
+   over gloo, each with a ``DeviceMesh`` of one "stage" axis: 24 GPipe steps
+   of 128 rows in 4 microbatches (``pipelinemoe.train``, 2 epochs of
+   ``moeslice.data``'s 1536 seeded rows), each epoch ending in
+   ``distributedForward`` of the 256 validation rows.  The parent runs
+   ``mpslice.oracle`` meanwhile (the eager pipe microbatch by microbatch, the
+   gradients summed), while the ranks import torch, and lets them onto the
+   card when it has ended.  Gates: the ranks' final weights bit-equal, the
+   weights after step 1 and after step 24 within 1e-5 of max(1, max |w|)
+   of the oracle's, the first 10 losses within 1e-4 relative, the last
+   ``distributedForward`` within 1e-5 of the eager pipe's forward of each
+   64-row microbatch, and K1's launches on each rank 880: 5 products a
+   stage forward (the trunk Linear and 4 experts) x (4 microbatches + 3
+   recomputed, the last microbatch's forward still held) = 35 a step, x 24,
+   + 20 a validation forward x 2; each step's own count 35, and the last
+   validation forward's 20, read around it on each rank.  Printed, not
+   held: the ranks' and the oracle's rows/s over steps 2-24, the spawn
+   seconds and a stage handoff's ms, four processes time-slicing one card.
+   (b) On the same ranks: ``SwitchMoE(64, capacityFactor=2.0)``'s
+   ``distributedForward`` of the 256 rows over an "expert" axis of 4, one
+   expert a rank (one K1 launch each), within 1e-5 of the eager layer, the
+   auxiliary loss equal; ``seqParallelMLP`` of x (2048, 512), w1 (512,
+   2048), w2 (2048, 512) f32 over a "model" axis of 4 within 1e-4 of the
+   dense ``F.gelu(x @ w1, approximate="tanh") @ w2`` (of max |dense|), TF32
+   off under ``Config.matmulPrecision = "highest"``.  (c) ``runGrid`` of
+   one node on card 0 (so NCCL, a one-rank (data 1, model 1) mesh), its
+   process started beside (a)'s and let onto the card once (a) and (b) have
+   ended: LeNet f32, 20 steps of 128 through ``FusedStep`` with
+   ``tensorParallelSpecs`` (``MomentumSGD``) and with ``zeroOptimizerSpecs``
+   (``Adam``), each beside the step over no mesh from the same start: the
+   weights bit-equal, one graph recorded for each, K1's launches equal and
+   at least 40; the kernels of each sharded step's last replay, which
+   ``torch.profiler`` traces, are printed (a one-rank NCCL all-gather may
+   leave no kernel).  Then, once every node has ended, K1 at the shapes the
+   ranks gave it, (32, 64) x (64, 64) for a stage's trunk on a microbatch
+   and (16, 64) x (64, 64) for an expert at the microbatch's capacity,
+   against its plain version, as [gemm] holds it.
+   The seconds of phases 26 to 47, of [layers]' cases by module and of the
    whole script are printed.
 
 Kernel times are the device's, by CUDA events behind a device sleep that
@@ -6798,6 +6838,186 @@ def phaseGrid(torch, card, mnist):
     return {"nodes": launches, "mesh": int(mesh["mesh/launches"])}
 
 
+# [model-parallel]: testlib/pipelinemoe.py's trunk on four ranks sharing
+# card 0 over gloo against the one-process microbatched oracle, expert and
+# sequence parallelism on the same ranks, and LeNet's tensor-parallel and
+# ZeRO fused steps on a one-rank NCCL mesh against the steps over no mesh
+MP_RANKS = 4
+MP_EPOCHS = 2
+MP_FUSED_STEPS = 20
+MP_TIMEOUT = 300
+MP_WEIGHT_BOUND = 1e-5
+MP_LOSS_BOUND = 1e-4
+MP_LOSS_STEPS = 10
+MP_EAGER_BOUND = 1e-5
+MP_EXPERT_BOUND = 1e-5
+MP_SEQ_BOUND = 1e-4
+
+
+def phaseModelParallel(torch, card):
+    """[model-parallel] (see the module's docstring, item 47).  Returns K1's
+    launches (each rank's over its training, each rank's last validation
+    forward's, each rank's expert-parallel forward's, and the tensor-parallel
+    and ZeRO steps') and K1 against its plain version at the pipelined
+    trunk's shapes."""
+    from puzzlelib_tpu_torch import config as Config
+    from puzzlelib_tpu_torch.backend.device import synchronize
+    from puzzlelib_tpu_torch.grid import runGrid
+    from puzzlelib_tpu_torch.ops.hopper import matmul
+    from puzzlelib_tpu_torch.testlib import pipelinemoe
+    from puzzlelib_tpu_torch.tools import gridslice, moeslice, mpslice
+
+    Config.device = "cuda"
+    Config.gemmAlgo = Config.convAlgo = "hopper"
+    tag = "model-parallel"
+    data = moeslice.data()
+    steps = MP_EPOCHS * len(data[0]) // pipelinemoe.BATCH
+    fusedImages, fusedLabels = Cnn.data("lenet", MP_FUSED_STEPS * mpslice.FUSED_BATCH)
+
+    # the five processes start together and import torch while the parent
+    # runs the oracle; (a)'s ranks train once it has ended, (c)'s node once
+    # (a) and (b) have
+    with tempfile.TemporaryDirectory() as outdir, tempfile.TemporaryDirectory() as fusedDir, \
+            ThreadPoolExecutor(2) as pool:
+        pipeGate, fusedGate = os.path.join(outdir, "go"), os.path.join(fusedDir, "go")
+        spawned = time.time()
+        pipeJob = pool.submit(runGrid, mpslice.pipeNode, MP_RANKS, data, MP_EPOCHS, outdir, spawned, gate=pipeGate,
+                              devices=[0] * MP_RANKS, timeout=MP_TIMEOUT)
+        fusedJob = pool.submit(runGrid, mpslice.fusedNode, 1, fusedImages, fusedLabels, MP_FUSED_STEPS, fusedDir,
+                               gate=fusedGate, timeout=MP_TIMEOUT)
+
+        try:
+            synchronize()
+            oracle, final = mpslice.oracle(data, MP_EPOCHS)
+            oracleSecs = time.time() - spawned
+        finally:
+            open(pipeGate, "w").close()
+
+        try:
+            pipeJob.result()
+        finally:
+            open(fusedGate, "w").close()
+
+        pipeSecs = time.time() - spawned
+        fusedJob.result()
+        fusedSecs = time.time() - spawned - pipeSecs
+        nodes = gridslice.load(outdir, "pipe", MP_RANKS)
+        fused = gridslice.load(fusedDir, "fused", 1)[0]
+
+    finals = [{key[len("final/"):]: value for key, value in node.items() if key.startswith("final/")}
+              for node in nodes]
+    first = {key[len("first/"):]: value for key, value in nodes[0].items() if key.startswith("first/")}
+    sameWeights = all(np.array_equal(node[name], finals[0][name]) for node in finals[1:] for name in finals[0])
+    firstRel, finalRel = _gridRel(first, oracle.first), _gridRel(finals[0], final)
+    lossGaps = np.abs(nodes[0]["losses"] - np.asarray(oracle.losses)) / np.abs(np.asarray(oracle.losses))
+    eagerGap = max(float(node["eagerGap"]) for node in nodes)
+
+    perStep, perForward = mpslice.stepLaunches(), mpslice.forwardLaunches()
+    wantLaunches = perStep * steps + perForward * MP_EPOCHS
+    launches = [int(node["trainLaunches"]) for node in nodes]
+    validationLaunches = [int(node["validationLaunches"]) for node in nodes]
+    stepCounts = sorted({int(n) for node in nodes
+                         for n in np.diff(node["launches"])[np.arange(steps - 1) % (steps // MP_EPOCHS) !=
+                                                             steps // MP_EPOCHS - 1]})
+    steady = max(node["stamps"][-1] - node["stamps"][0] for node in nodes)
+    oracleSteady = oracle.stamps[-1] - oracle.stamps[0]
+
+    print("[%s] testlib/pipelinemoe.py's trunk (%d parameters, f32) on %d ranks of a 'stage' axis sharing card 0 "
+          "over gloo (four processes time-slicing one card, not a scaling figure): %d steps of %d rows in %d "
+          "microbatches (%d epochs of %d rows), then distributedForward of %d validation rows; %.1f s from spawn to "
+          "the ranks' end on %s" % (tag, sum(value.size for value in finals[0].values()), MP_RANKS, steps,
+                                    pipelinemoe.BATCH, pipelinemoe.MICROBATCHES, MP_EPOCHS, len(data[0]),
+                                    len(data[2]), pipeSecs, card))
+    print("[%s] steps 2-%d: ranks %.1f rows/s (the slowest rank's wall time from step 1's end to step %d's, the "
+          "first epoch's validation forward included), the one-process oracle %.1f rows/s on the same card (no "
+          "validation); spawn to a rank's target %.2f s (slowest, the oracle's %.2f s overlapping it); a stage "
+          "handoff of a (%d, %d) f32 microbatch %.3f ms (rank %d, through the host)" %
+          (tag, steps, (steps - 1) * pipelinemoe.BATCH / steady, steps,
+           (steps - 1) * pipelinemoe.BATCH / oracleSteady, max(float(n["spawnSecs"]) for n in nodes), oracleSecs,
+           pipelinemoe.BATCH // pipelinemoe.MICROBATCHES, pipelinemoe.DIM, float(nodes[-1]["handoffMs"]),
+           MP_RANKS - 1))
+    print("[%s] ranks' final weights bit-equal: %s; against the oracle: weights after step 1 %.3e, after step %d "
+          "%.3e (bound %.0e of max(1, max |w|)); losses' largest relative gap %.3e over the first %d steps (bound "
+          "%.0e), %.3e over the %d; distributedForward against the eager pipe on each %d-row microbatch %.3e "
+          "(bound %.0e); validation accuracy %.4f" %
+          (tag, sameWeights, firstRel, steps, finalRel, MP_WEIGHT_BOUND, float(lossGaps[:MP_LOSS_STEPS].max()),
+           MP_LOSS_STEPS, MP_LOSS_BOUND, float(lossGaps.max()), steps, len(data[2]) // pipelinemoe.MICROBATCHES,
+           eagerGap, MP_EAGER_BOUND, float(nodes[0]["history"][-1][1])))
+    print("[%s] K1 launches (gemmF32) on each rank: %s over the training, %d expected (%d a step: %d products a "
+          "stage forward x (%d microbatches + %d recomputed), x %d steps; + %d a validation forward x %d); a step's "
+          "own counts %s; the last validation forward's %s" %
+          (tag, launches, wantLaunches, perStep, mpslice.STAGE_PRODUCTS, pipelinemoe.MICROBATCHES,
+           pipelinemoe.MICROBATCHES - 1, steps, perForward, MP_EPOCHS, stepCounts, validationLaunches))
+
+    if not (sameWeights and max(firstRel, finalRel) <= MP_WEIGHT_BOUND and
+            lossGaps[:MP_LOSS_STEPS].max() <= MP_LOSS_BOUND and eagerGap <= MP_EAGER_BOUND):
+        fail("[%s] the pipeline disagrees: weights bit-equal %s, step 1 %.3e, step %d %.3e, losses %.3e, eager %.3e" %
+             (tag, sameWeights, firstRel, steps, finalRel, float(lossGaps[:MP_LOSS_STEPS].max()), eagerGap))
+    if launches != [wantLaunches] * MP_RANKS or stepCounts != [perStep] or \
+            validationLaunches != [perForward] * MP_RANKS:
+        fail("[%s] expected %d K1 launches on each rank (%d a step, %d a validation forward), got %s (steps %s, "
+             "validation %s)" % (tag, wantLaunches, perStep, perForward, launches, stepCounts, validationLaunches))
+
+    expertGaps = [float(np.abs(node["expert/out"] - node["expert/eager"]).max()) /
+                  max(1.0, float(np.abs(node["expert/eager"]).max())) for node in nodes]
+    sameAux = all(np.array_equal(node["expert/aux"], node["expert/eagerAux"]) for node in nodes)
+    expertLaunches = [int(node["expert/launches"]) for node in nodes]
+    seqGaps = [float(node["seq/gap"]) for node in nodes]
+    print("[%s] SwitchMoE(%d, capacityFactor=2.0).distributedForward of %d rows over an 'expert' axis of %d, one "
+          "expert a rank: against the eager layer %.3e (bound %.0e), auxLoss equal %s, K1 launches %s (one expert "
+          "each), %.2f ms (rank 0, eager layer not timed)" %
+          (tag, pipelinemoe.DIM, len(data[2]), MP_RANKS, max(expertGaps), MP_EXPERT_BOUND, sameAux, expertLaunches,
+           float(nodes[0]["expert/ms"])))
+    print("[%s] seqParallelMLP x (%d, %d), w1 (%d, %d), w2 (%d, %d) f32 over a 'model' axis of %d against the dense "
+          "F.gelu(x @ w1, approximate='tanh') @ w2 on the card (Config.matmulPrecision %r, TF32 %s): largest gap "
+          "over max |dense| %.3e (bound %.0e); %.2f ms sharded (three gloo collectives), %.2f ms dense "
+          "(rank 0)" % (tag, mpslice.SEQ_TOKENS, mpslice.SEQ_WIDTH, mpslice.SEQ_WIDTH, mpslice.SEQ_HIDDEN,
+                        mpslice.SEQ_HIDDEN, mpslice.SEQ_WIDTH, MP_RANKS, Config.matmulPrecision,
+                        "on" if torch.backends.cuda.matmul.allow_tf32 else "off", max(seqGaps), MP_SEQ_BOUND,
+                        float(nodes[0]["seq/ms"]), float(nodes[0]["seq/denseMs"])))
+    if not (max(expertGaps) <= MP_EXPERT_BOUND and sameAux and expertLaunches == [1] * MP_RANKS and
+            max(seqGaps) <= MP_SEQ_BOUND):
+        fail("[%s] expert or sequence parallelism disagrees: expert %.3e, aux equal %s, launches %s, seq %.3e" %
+             (tag, max(expertGaps), sameAux, expertLaunches, max(seqGaps)))
+
+    fusedLaunches = {}
+    for kind, what in (("tp", "tensorParallelSpecs with MomentumSGD"), ("zero", "zeroOptimizerSpecs with Adam")):
+        names = [key[len(kind + "/single/"):] for key in fused if key.startswith(kind + "/single/") and "." in key]
+        same = all(np.array_equal(fused["%s/mesh/%s" % (kind, name)], fused["%s/single/%s" % (kind, name)])
+                   for name in names)
+        captures = (int(fused[kind + "/mesh/captures"]), int(fused[kind + "/single/captures"]))
+        counts = (int(fused[kind + "/mesh/launches"]), int(fused[kind + "/single/launches"]))
+        fusedLaunches[kind] = counts[0]
+
+        print("[%s] LeNet f32 through FusedStep(stateShardings=%s) over a one-rank NCCL (data 1, model 1) mesh "
+              "(runGrid of one node on card 0, spawned beside the four ranks and let onto the card when they "
+              "ended) and over no mesh, %d steps of %d each (in the node: %.2f s and %.2f s): weights bit-equal %s; "
+              "graphs recorded %d and %d; K1 launches %d and %d; the profiled replay's kernels: %s" %
+              (tag, what, MP_FUSED_STEPS, mpslice.FUSED_BATCH, float(fused["secs/%s/mesh" % kind]),
+               float(fused["secs/%s/single" % kind]), same, captures[0], captures[1], counts[0], counts[1],
+               [str(name) for name in fused[kind + "/kernels"]]))
+        if not (names and same and captures == (1, 1) and counts[0] == counts[1] >= 2 * MP_FUSED_STEPS):
+            fail("[%s] the %s step: bit-equal %s, recordings %s, K1 launches %s" % (tag, kind, same, captures, counts))
+
+    print("[%s] the fused node %.1f s after the ranks ended (its mesh set-up %.2f s)" %
+          (tag, fusedSecs, float(fused["secs/setup"])))
+
+    # K1 at the shapes the ranks gave it, held against its plain version
+    # here, once every node has left the card: a stage's trunk product on
+    # a microbatch and its experts' at the microbatch's capacity
+    rows = pipelinemoe.BATCH // pipelinemoe.MICROBATCHES
+    capacity = max(1, int(np.ceil(rows * moeslice.CAPACITY_FACTOR / moeslice.EXPERTS)))
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    gemm = {"max_abs_err": 0.0, "ms": 0.0, "wmma_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    binding = set()
+    for label, m, count in (("mp-trunk", rows, 1), ("mp-expert", capacity, moeslice.EXPERTS)):
+        _addCase(gemm, binding, _gemmCase(torch, matmul, gen, label, "f32", m, pipelinemoe.DIM, pipelinemoe.DIM),
+                 count)
+
+    return {"nodes": launches, "validation": validationLaunches, "expert": expertLaunches, "tp": fusedLaunches["tp"],
+            "zero": fusedLaunches["zero"], "gemm": gemm}
+
+
 def main():
     import torch
 
@@ -6936,6 +7156,10 @@ def main():
     del mnist, imdb
     torch.cuda.empty_cache()
     print("[time] [grid] %.1f s" % (time.perf_counter() - phaseStart))
+    phaseStart = time.perf_counter()
+    modelParallel = phaseModelParallel(torch, card)
+    torch.cuda.empty_cache()
+    print("[time] [model-parallel] %.1f s" % (time.perf_counter() - phaseStart))
 
     source = "puzzlelib_tpu_torch/csrc/%s.cu"
     kernels = [
@@ -6972,7 +7196,8 @@ def main():
              fused_validation_launches=fusedCnn["lenetValidate"], data_launches=data["lenet"],
              data_serial_launches=data["lenetSerial"], data_validation_launches=data["lenetValidate"],
              checkpoint_launches=checkpoint["lenet"], checkpoint_fused_launches=checkpoint["lenetFused"],
-             grid_node_launches=grid["nodes"], grid_mesh_launches=grid["mesh"], **gemmLeNet),
+             grid_node_launches=grid["nodes"], grid_mesh_launches=grid["mesh"],
+             mp_tp_launches=modelParallel["tp"], mp_zero_launches=modelParallel["zero"], **gemmLeNet),
         dict(name="K2 Winograd F(2x2,3x3) forward", route="cuda", source=source % "winograd",
              replaces="puzzlelib_tpu/ops/pallas/winograd.py:79",
              launches=training["winograd"] - training["winogradDataGrad"], serving_launches=serving["winograd"],
@@ -7091,7 +7316,11 @@ def main():
              replaces="puzzlelib_tpu/ops/pallas/matmul.py:18", launches=moe["training"]["matmul"],
              launches_wgmma=moe["training"]["matmulWgmma"], serving_launches=moe["serving", "hopper"]["matmul"],
              fused_launches=moe["fused"]["matmul"], fused_serving_launches=moe["serving", "fused"]["matmul"],
-             **moeGemm),
+             mp_node_launches=modelParallel["nodes"], mp_validation_launches=modelParallel["validation"],
+             mp_expert_launches=modelParallel["expert"], mp_ms=modelParallel["gemm"]["ms"],
+             mp_plain_ms=modelParallel["gemm"]["plain_ms"], mp_library_ms=modelParallel["gemm"]["library_ms"],
+             mp_bound_ms=modelParallel["gemm"]["bound_ms"],
+             **dict(moeGemm, max_abs_err=max(moeGemm["max_abs_err"], modelParallel["gemm"]["max_abs_err"]))),
         dict(name="K4 flash-attention forward", route="cuda", source=source % "flash",
              replaces="puzzlelib_tpu/ops/pallas/flash.py:25", launches=transformer["flash"],
              launches_wgmma=transformer["flashWgmma"], training_launches=transformerTrain["flash"],
@@ -7208,7 +7437,14 @@ def main():
           "loaded, 4 requests of 32; checkpoint_launches and checkpoint_fused_launches on K1 at LeNet's shapes: "
           "[ckpt]'s 8 resumed steps of 128, eager and through FusedTrainer; grid_node_launches on K1 at LeNet's "
           "shapes: each of [grid]'s two nodes' 100 training steps of 64, grid_mesh_launches its one-rank mesh step's "
-          "20 steps of 128 through FusedStep(mesh=...); "
+          "20 steps of 128 through FusedStep(mesh=...); mp_node_launches on K1 at the MoE trunk's products: each "
+          "of [model-parallel]'s four ranks' 24 pipelined training steps of 128 (its stage's products on 32-row "
+          "microbatches, experts at 16 rows) with 2 validation forwards, mp_validation_launches each rank's last "
+          "validation forward's, mp_ms (mp_plain_ms, mp_library_ms, mp_bound_ms) the products of one stage forward "
+          "on a microbatch, (32, 64) x (64, 64) and 4 x (16, 64) x (64, 64), max_abs_err there including them, "
+          "mp_expert_launches each rank's SwitchMoE.distributedForward (one expert); mp_tp_launches and "
+          "mp_zero_launches on K1 at LeNet's shapes: [model-parallel]'s tensor-parallel and ZeRO fused steps, 20 "
+          "steps of 128 each on a one-rank NCCL mesh; "
           "max_abs_err: largest |kernel - plain| at those shapes")
     print("[time] chip_smoke.py: %.1f s" % (time.perf_counter() - started))
     print(json.dumps({"kernels": kernels}))

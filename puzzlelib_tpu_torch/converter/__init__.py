@@ -8,4 +8,4 @@ ONNX exporter (``converter.onnx``: ``ONNXExporter``, with the wire codec
 ``converter.mxnet``: ``readHeader``, ``readData``, ``readKeys``,
 ``buildHdf``, ``convert``), which write the checkpoint layout the zoo's
 loaders read.  None imports ``h5py`` but to open a path.  The C++ serving
-driver is not ported yet."""
+driver is ``converter/engine/src``."""

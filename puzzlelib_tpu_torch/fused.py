@@ -68,14 +68,49 @@ The JAX package's ``_invoke``, which turns its Pallas kernels off under a
 mesh for the partitioner's sake, has no counterpart: each rank runs its hand
 kernels.  An optimizer built with a grid's ``nodeinfo`` is refused: its
 collectives run eagerly over the grid's group (the JAX package's trace of
-them fails too); ``mesh=`` is the fused form of that training.  Not ported
-(model parallelism): the sharding specs (``stateShardings``,
-``tensorParallelSpecs``, ``zeroOptimizerSpecs``).
+them fails too); ``mesh=`` is the fused form of that training.
+
+Model parallelism (``FusedStep(mesh=..., stateShardings=...)``, over a 1-D
+data mesh or a 2-D (data, model) mesh): ``stateShardings`` holds one
+placement per state buffer, in ``collectStateBuffers`` order, as
+``tensorParallelSpecs`` and ``zeroOptimizerSpecs`` give them (the JAX
+package's ``NamedSharding`` list): a tuple of ``torch.distributed.tensor``
+placements, ``Shard(dim)`` or ``Replicate()``, one for each mesh dim.
+
+- Tensor parallelism: a Linear or ConvND whose weight is sharded over an
+  axis computes with this rank's block of its output features; its
+  forward gathers the features over the axis's group, its backward sums the
+  partial input gradient over it and writes the rank's block of the
+  parameter gradients (``fusedctx.ModelBlocks``, which the modules consult;
+  nothing is wrapped or swapped).
+- Sharded optimizer state: a variable whose optimizer slots are sharded
+  (the tensor-parallel variables' slots, and every slot under ZeRO-1) keeps
+  in its slots only this rank's block, 1 / N of them.  The update runs on
+  the matching block of the parameter and of its (data-mean) gradient,
+  then gathers the updated blocks over the axis into the whole parameter.
+  Where a tensor-parallel variable's slots are placed otherwise than the
+  variable (replicated, or on another dim or axis, as the rule "like the
+  variable of its shape" gives a transposed and a plain Linear of one
+  square shape), its gradient blocks are gathered whole before the update,
+  so any placement gives the single-device numbers, as GSPMD does.  The
+  cut slots stay on the caller's optimizer and belong to this step from
+  then on: a second step's specs over them, the optimizer's own ``update``
+  and its ``save`` raise ``ValueError``.
+- The parameters and gradients stay whole between steps, and after every
+  call each variable reads whole and the same on every rank.  The JAX
+  package's GSPMD keeps them sharded in device memory; this is a
+  divergence the port keeps (ROADMAP Queue 3).
+
+The data axis does what it does without specs.  On CUDA every collective is
+NCCL's, recorded in the step's CUDA graph (a group over gloo raises).  The
+specs need the optimizer's local state: under global state every variable
+is a view of one flat buffer, and a spec raises ``ValueError``.
 """
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor.placement_types import Replicate, Shard
 
 from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch import fusedctx
@@ -86,6 +121,7 @@ from puzzlelib_tpu_torch.handlers.trainer import Trainer
 from puzzlelib_tpu_torch.handlers.validator import Validator
 from puzzlelib_tpu_torch.ops.hopper import flash, matmul, winograd
 from puzzlelib_tpu_torch.rng import RandomNumberGenerator
+from puzzlelib_tpu_torch.variable import Variable
 
 
 # the launch counters of the hand kernels that modules reach, as (holder,
@@ -121,30 +157,40 @@ def _evalTensors(module):
         yield from mod.attrs.values()
 
 
-def _stateTensors(module, cost=None, optimizer=None):
-    """Every tensor the train step writes, in a fixed order, with repeats:
-    the variables' data and gradients and the modules' attributes (a batch
-    norm's running stats), the optimizer's state and flat variables, the
-    cost's errors."""
+def _stateProvenance(module, cost=None, optimizer=None):
+    """Every tensor the train step writes, in a fixed order, with repeats,
+    as (tensor, owner, name): the variables' data and gradients (owner the
+    module, name the variable's) and the modules' attributes (a batch
+    norm's running stats; the attribute's name), the optimizer's state
+    (owner the variable it tracks under local state, else None; name the
+    state's key) and flat variables, the cost's errors (owner None)."""
     for mod in _moduleTree(module):
-        for var in mod.vars.values():
-            yield var.data
+        for name, var in mod.vars.items():
+            yield var.data, mod, name
             if var.grad is not None:
-                yield var.grad
+                yield var.grad, mod, name
 
-        yield from mod.attrs.values()
+        for name, attr in mod.attrs.items():
+            yield attr, mod, name
 
     if optimizer is not None:
-        for state in optimizer.states.values():
-            yield from state.values()
+        for key, state in optimizer.states.items():
+            owner = optimizer.module.getVar(key) if isinstance(key, str) else None
+            for entity in state.values():
+                yield entity, owner, key
 
         for globalVar in optimizer.globalVar.values():
-            yield globalVar.data
-            yield globalVar.grad
+            yield globalVar.data, None, None
+            yield globalVar.grad, None, None
 
     if cost is not None:
-        yield cost.devErr
-        yield cost.accumErr
+        yield cost.devErr, None, None
+        yield cost.accumErr, None, None
+
+
+def _stateTensors(module, cost=None, optimizer=None):
+    """Every tensor the train step writes (``_stateProvenance``'s)."""
+    return (tensor for tensor, _, _ in _stateProvenance(module, cost, optimizer))
 
 
 def _rootBuffer(tensor):
@@ -155,15 +201,21 @@ def _rootBuffer(tensor):
         storage, 0, (storage.nbytes() // tensor.element_size(), ))
 
 
-def _roots(tensors):
-    seen, roots = set(), []
-    for tensor in tensors:
-        key = (tensor.device, tensor.untyped_storage().data_ptr())
+def _firstOfEachRoot(entries):
+    """The entries (tensor, ...) whose tensor is the first in its root
+    buffer."""
+    seen, firsts = set(), []
+    for entry in entries:
+        key = (entry[0].device, entry[0].untyped_storage().data_ptr())
         if key not in seen:
             seen.add(key)
-            roots.append(_rootBuffer(tensor))
+            firsts.append(entry)
 
-    return roots
+    return firsts
+
+
+def _roots(tensors):
+    return [_rootBuffer(tensor) for tensor, in _firstOfEachRoot((tensor, ) for tensor in tensors)]
 
 
 def collectStateBuffers(module, cost=None, optimizer=None):
@@ -252,6 +304,78 @@ def functionalize(module):
             module.reset()
 
     return apply, [var.data for _, _, var in slots]
+
+
+def _axisSize(mesh, axis):
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _placements(mesh, axis, dim):
+    """The placement of a buffer sharded on ``dim`` over ``axis`` (replicated
+    where ``dim`` is None): a placement for each mesh dim."""
+    return tuple(Shard(dim) if name == axis and dim is not None else Replicate() for name in mesh.mesh_dim_names)
+
+
+def _featureDims(owner):
+    """{variable: its dim of the output features} of a Linear or a ConvND,
+    the layers that tensor parallelism shards; None for another owner."""
+    from puzzlelib_tpu_torch.modules.convnd import ConvND
+    from puzzlelib_tpu_torch.modules.linear import Linear
+
+    if isinstance(owner, Linear):
+        return {"W": owner._featureDim, "b": 0}
+
+    return {"W": 0, "b": 1} if isinstance(owner, ConvND) else None
+
+
+def tensorParallelSpecs(module, cost, optimizer, mesh, modelAxis="model"):
+    """A placement for each state buffer (``collectStateBuffers`` order) for
+    Megatron-style tensor parallelism, by the JAX package's rules: a Linear's
+    W shards on its output features (dim 1, dim 0 when ``transpose``) and
+    its b on dim 0, a ConvND's W on its output maps (dim 0) and its b on
+    dim 1, each only where the dim divides over ``modelAxis``; a gradient
+    shards as its variable, an optimizer slot (and any other buffer) as the
+    variable of its shape, the last such; everything else is
+    replicated."""
+    from puzzlelib_tpu_torch.modules.module import Module
+
+    axisSize = _axisSize(mesh, modelAxis)
+    shapeSpecs = {}
+
+    def specFor(owner, name, shape):
+        dim = (_featureDims(owner) or {}).get(name)
+        if dim is None or shape[dim] % axisSize != 0:
+            return None
+
+        shapeSpecs[shape] = dim
+        return dim
+
+    dims = []
+    for tensor, owner, name in _firstOfEachRoot(_stateProvenance(module, cost, optimizer)):
+        shape = tuple(tensor.shape)
+        dims.append(specFor(owner, name, shape) if isinstance(owner, Module) else shapeSpecs.get(shape))
+
+    return [_placements(mesh, modelAxis, dim) for dim in dims]
+
+
+def zeroOptimizerSpecs(module, cost, optimizer, mesh, dataAxis="data"):
+    """ZeRO-1: a placement for each state buffer (``collectStateBuffers``
+    order) that shards each optimizer slot over ``dataAxis`` on its first
+    dim that divides evenly and is at least the axis's size; parameters,
+    gradients and the rest stay replicated.  Needs the optimizer's local
+    state, as the JAX package's does."""
+    axisSize = _axisSize(mesh, dataAxis)
+
+    dims = []
+    for tensor, owner, _ in _firstOfEachRoot(_stateProvenance(module, cost, optimizer)):
+        dim = None
+        if isinstance(owner, Variable):               # an optimizer slot
+            dim = next((d for d, size in enumerate(tensor.shape) if size % axisSize == 0 and size >= axisSize),
+                       None)
+
+        dims.append(dim)
+
+    return [_placements(mesh, dataAxis, dim) for dim in dims]
 
 
 def _refuseVerifyData():
@@ -410,17 +534,25 @@ class FusedStep:
     called with, and the gradients are averaged over the axis."""
 
     def __init__(self, module, cost, optimizer, mesh=None, dataAxis="data", stateShardings=None):
-        if stateShardings is not None:
-            raise NotImplementedError("FusedStep's stateShardings (tensor parallelism and ZeRO sharding) are model "
-                                      "parallelism, not ported yet (ROADMAP.md, Queue 1, item 4b)")
+        if stateShardings is not None and optimizer.globalState:
+            raise ValueError("FusedStep's stateShardings take an optimizer in local state "
+                             "(setupOn(..., useGlobalState=False)): under global state every variable is a view "
+                             "of one flat buffer, which is not sharded variable by variable")
 
         if getattr(optimizer, "nodeinfo", None) is not None:
             raise ValueError("FusedStep takes no optimizer built with a grid's nodeinfo: its collectives run "
                              "eagerly over the grid's process group, which a CUDA graph cannot record; "
                              "FusedStep(mesh=...) is the fused form of data-parallel training")
 
+        if stateShardings is not None and mesh is None:
+            raise ValueError("FusedStep's stateShardings place the state over a mesh: pass the mesh too")
+
         self.group = None if mesh is None else mesh.get_group(dataAxis)
         self.module, self.cost, self.optimizer = module, cost, optimizer
+        self._blocks, self._sharded, self._wholeGrads = {}, [], []
+        if stateShardings is not None:
+            self._shardState(mesh, stateShardings)
+
         self.buffers = collectStateBuffers(module, cost, optimizer)
         self._recordings = _Recordings()
         self._scalars = _Scalars()
@@ -434,6 +566,80 @@ class FusedStep:
     def captures(self):
         """The CUDA graphs recorded so far."""
         return self._recordings.captures
+
+    def _shardState(self, mesh, stateShardings):
+        """From the placements: the tensor-parallel layers' ``ModelBlocks``
+        (``_blocks``), [(variable, dim, group)] of the variables whose
+        optimizer slots are sharded (``_sharded``), whose slots are cut to
+        this rank's block here, and of the tensor-parallel variables whose
+        slots are not placed as the variable is (``_wholeGrads``): the
+        backward writes only this rank's block of their gradient, which the
+        update gathers whole first."""
+        from puzzlelib_tpu_torch.modules.module import Module
+
+        entries = _firstOfEachRoot(_stateProvenance(self.module, self.cost, self.optimizer))
+        if len(stateShardings) != len(entries):
+            raise ValueError("stateShardings holds %d placements, the step has %d state buffers "
+                             "(collectStateBuffers)" % (len(stateShardings), len(entries)))
+
+        layers, slots = {}, {}
+        for (tensor, owner, name), placements in zip(entries, stateShardings):
+            sharded = [(axis, p.dim) for axis, p in enumerate(placements) if isinstance(p, Shard)]
+            if len(sharded) > 1:
+                raise ValueError("a buffer of %s is sharded over %d mesh dims: FusedStep shards each over one" %
+                                 (name, len(sharded)))
+
+            placed = sharded[0] if sharded else None
+            if isinstance(owner, Variable):                          # an optimizer slot
+                slots.setdefault(name, (owner, set()))[1].add(placed)
+            elif placed is None:
+                continue
+            elif _featureDims(owner) and name in owner.vars and tensor is owner.vars[name].data:
+                want = _featureDims(owner)[name]
+                if placed[1] != want or getattr(owner, "groups", 1) != 1:
+                    raise ValueError("%s shards its %s on dim %d: FusedStep shards an ungrouped layer's output "
+                                     "features (dim %d)" % (owner, name, placed[1], want))
+
+                layers.setdefault(owner, set()).add((name, placed[0]))
+            elif not (isinstance(owner, Module) and name in owner.vars and tensor is owner.vars[name].grad):
+                raise ValueError("FusedStep shards the weights of Linear and ConvND layers and optimizer slots; "
+                                 "a buffer of %s (%s) is sharded" % (owner, name))
+
+        blockwise = {}                                  # id(variable) -> (variable, axis, dim)
+        for layer, placed in layers.items():
+            if {name for name, _ in placed} != set(layer.vars) or len({axis for _, axis in placed}) != 1:
+                raise ValueError("%s shards all its variables over one mesh dim, or none" % layer)
+
+            axis = next(iter(placed))[1]
+            self._blocks[id(layer)] = fusedctx.ModelBlocks(mesh.get_group(axis))
+            blockwise.update((id(var), (var, axis, _featureDims(layer)[name])) for name, var in layer.vars.items())
+
+        for name, (var, placed) in slots.items():
+            if len(placed) != 1:
+                raise ValueError("the optimizer slots of %s are placed %s: they shard alike" % (name, placed))
+
+            state = self.optimizer.states[name]
+            if any(value.shape != var.data.shape for value in state.values()):
+                raise ValueError("the optimizer slots of %s hold one rank's block already: another FusedStep's "
+                                 "stateShardings cut them; set the optimizer up anew for this step" % name)
+
+            placed = placed.pop()
+            layerVar = blockwise.pop(id(var), None)
+            if layerVar is not None and placed != layerVar[1:]:
+                self._wholeGrads.append((var, layerVar[2], mesh.get_group(layerVar[1])))
+
+            if placed is None:
+                continue
+
+            axis, dim = placed
+            group = mesh.get_group(axis)
+            for slot, value in state.items():
+                state[slot] = collective.blockOf(value, dim, group).clone(memory_format=torch.contiguous_format)
+
+            self._sharded.append((var, dim, group))
+
+        # a tensor-parallel variable with no optimizer slots (SGD's)
+        self._wholeGrads.extend((var, dim, mesh.get_group(axis)) for var, axis, dim in blockwise.values())
 
     def _hyper(self):
         hyper = {}
@@ -481,7 +687,7 @@ class FusedStep:
         optT = self.optimizer.t
 
         try:
-            with fusedctx.activate(hyper, t, group):
+            with fusedctx.activate(hyper, t, group, self._blocks):
                 accumErr = self.cost.accumErr.clone() if group is not None else None
                 grad = self.cost(self.module(data), target, queryError=False)
 
@@ -491,7 +697,7 @@ class FusedStep:
                 if group is not None:
                     self._reduce(group, accumErr)
 
-                self.optimizer.update()
+                self._update()
 
         finally:
             for name, val in snapshot.items():
@@ -499,6 +705,36 @@ class FusedStep:
 
             self.cost.batchsize, self.cost.numOfSamples = costCounters
             self.optimizer.t = optT
+
+    def _update(self):
+        """The optimizer's update; a variable with sharded slots takes it on
+        its block of the parameter and of the gradient, and the updated
+        blocks are gathered into the whole parameter.  A tensor-parallel
+        variable whose slots are placed otherwise has its gradient blocks
+        gathered whole first."""
+        for var, dim, group in self._wholeGrads:
+            var.grad.copy_(collective.allGather(collective.blockOf(var.grad, dim, group).contiguous(), group, dim))
+
+        wholes = []
+        for var, dim, group in self._sharded:
+            wholes.append((var.data, var.grad))
+            var.data = collective.blockOf(var.data, dim, group).contiguous()
+            var.grad = collective.blockOf(var.grad, dim, group).contiguous()
+
+        try:
+            self.optimizer.update()
+        finally:
+            blocks = [var.data for var, _, _ in self._sharded]
+            for (var, _, _), (data, grad) in zip(self._sharded, wholes):
+                var.data, var.grad = data, grad
+
+        for (var, dim, group), block in zip(self._sharded, blocks):
+            var.data.copy_(collective.allGather(block, group, dim))
+
+    def _groups(self):
+        """The process groups the step's collectives run over."""
+        return [self.group] + [blocks.group for blocks in self._blocks.values()] + \
+            [group for _, _, group in self._sharded]
 
     def _run(self, data, target, t, group):
         device = data.device
@@ -509,9 +745,10 @@ class FusedStep:
             self._body(data, target, hyper, tensorT, group)
             return
 
-        if group is not None and dist.get_backend(group) != dist.Backend.NCCL:
-            raise ValueError("a mesh step on CUDA tensors records its collectives in a CUDA graph, which takes "
-                             "NCCL's; the mesh's data group runs %s" % dist.get_backend(group))
+        for meshGroup in self._groups():
+            if meshGroup is not None and dist.get_backend(meshGroup) != dist.Backend.NCCL:
+                raise ValueError("a mesh step on CUDA tensors records its collectives in a CUDA graph, which "
+                                 "takes NCCL's; a group of the mesh runs %s" % dist.get_backend(meshGroup))
 
         key = (_signature(data), _signature(target), device, tuple(hyper), group is not None) + _routeKey()
         addresses = tuple(tensor.data_ptr() for tensor in _stateTensors(self.module, self.cost, self.optimizer))

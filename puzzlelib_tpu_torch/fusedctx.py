@@ -19,25 +19,33 @@ A step over a mesh (``FusedStep(mesh=...)``) also names its data group: the
 process group of the ranks that share the global batch.  A batch norm sums
 its statistics over that group (``ops/norm.py``), as the JAX mesh step's
 ``jnp.mean`` over the sharded batch does; outside a mesh step there is none.
+Under tensor parallelism (``FusedStep(stateShardings=...)``) it names each
+sharded Linear's and ConvND's ``ModelBlocks``: the layer computes with this
+rank's block of its output features and the collectives of its group
+(``modules/linear.py``, ``modules/convnd.py``); every other layer gets
+``WHOLE``, whose blocks are the tensors themselves.
 
 Code consults these helpers; outside a fused step they pass values through.
 """
+
+from puzzlelib_tpu_torch.backend import collective
 
 _ctx = None
 
 
 class _Ctx:
-    __slots__ = ("hyper", "t", "group")
+    __slots__ = ("hyper", "t", "group", "blocks")
 
-    def __init__(self, hyper, t, group):
+    def __init__(self, hyper, t, group, blocks):
         self.hyper = hyper
         self.t = t
         self.group = group
+        self.blocks = blocks
 
 
 class activate:
-    def __init__(self, hyper, t, group=None):
-        self.ctx = _Ctx(hyper, t, group)
+    def __init__(self, hyper, t, group=None, blocks=None):
+        self.ctx = _Ctx(hyper, t, group, blocks or {})
 
     def __enter__(self):
         global _ctx
@@ -60,6 +68,57 @@ def stepOr(val):
 def dataGroup():
     """The data group of the mesh step running, or None."""
     return _ctx.group if _ctx is not None else None
+
+
+class ModelBlocks:
+    """A tensor-parallel layer on this rank: its blocks of the output
+    features over the ranks of ``group`` (the mesh's model axis)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def take(self, tensor, dim):
+        """This rank's block of an operand, dense in the operand's memory
+        format."""
+        return collective.blockOf(tensor, dim, self.group).contiguous(memory_format=collective.memoryFormat(tensor))
+
+    def view(self, tensor, dim):
+        """This rank's block of a gradient buffer, a view to write into."""
+        return collective.blockOf(tensor, dim, self.group)
+
+    def gather(self, tensor, dim):
+        """The whole output from every rank's block along ``dim``."""
+        return collective.allGather(tensor, self.group, dim)
+
+    def sum(self, tensor):
+        """A partial input gradient summed over the group, in place."""
+        dense = tensor.contiguous()
+        collective.sumInPlace(dense, self.group)
+        return tensor if dense is tensor else tensor.copy_(dense)
+
+
+class _Whole:
+    """A layer that is not sharded: every block is the tensor itself."""
+
+    def take(self, tensor, dim):
+        return tensor
+
+    view = take
+
+    def gather(self, tensor, dim):
+        return tensor
+
+    def sum(self, tensor):
+        return tensor
+
+
+WHOLE = _Whole()
+
+
+def modelBlocks(module):
+    """``module``'s ``ModelBlocks`` in the tensor-parallel step running, or
+    ``WHOLE``."""
+    return _ctx.blocks.get(id(module), WHOLE) if _ctx is not None else WHOLE
 
 
 def hyperOr(name, val):

@@ -1,8 +1,15 @@
 """N-d convolution module (counterpart of
 ``puzzlelib_tpu/modules/convnd.py``).  The reference's cuDNN-style algo slots
 are not carried: ``Config.convAlgo`` chooses between the hand kernels and the
-library, under "auto" from the race that ``optimizeForShape`` runs."""
+library, under "auto" from the race that ``optimizeForShape`` runs.
 
+In a tensor-parallel fused step (``fusedctx.modelBlocks``) the conv
+computes with this rank's block of the output maps (W's and b's): the
+forward gathers the maps from the model group, the backward sums the
+partial input gradient over it and writes this rank's block of the
+parameter gradients."""
+
+from puzzlelib_tpu_torch import fusedctx
 from puzzlelib_tpu_torch.backend.dnn import (
     convKernelLayout, convNd, convNdBackwardData, convNdBackwardParams, convNdbenchmark
 )
@@ -48,21 +55,31 @@ class ConvND(Module):
         convNdbenchmark(shape, self.W.shape, self.stride, self.pad, self.dilation, self.groups, transpose=False,
                         dtype=self.calctype)
 
+    def _blocks(self):
+        """(this rank's blocks, its W, its b) in a tensor-parallel step;
+        the whole layer's otherwise."""
+        blocks = fusedctx.modelBlocks(self)
+        return blocks, blocks.take(self.W, 0), blocks.take(self.b, 1) if self.b is not None else None
+
     def updateData(self, data):
+        blocks, W, b = self._blocks()
+
         # kept as inData in the kernels' layout: the backward reads it again
-        self.inData = data = convKernelLayout(data, self.W, stride=self.stride, pad=self.pad,
+        self.inData = data = convKernelLayout(data, W, stride=self.stride, pad=self.pad,
                                               dilation=self.dilation, groups=self.groups)
-        self.data = convNd(data, self.W, self.b, stride=self.stride, pad=self.pad,
-                           dilation=self.dilation, groups=self.groups)
+        self.data = blocks.gather(convNd(data, W, b, stride=self.stride, pad=self.pad, dilation=self.dilation,
+                                         groups=self.groups), 1)
 
     def updateGrad(self, grad):
-        self.grad = convNdBackwardData(grad, self.W, data=self.inData, stride=self.stride, pad=self.pad,
-                                       dilation=self.dilation, groups=self.groups)
+        blocks, W, _ = self._blocks()
+        self.grad = blocks.sum(convNdBackwardData(blocks.take(grad, 1), W, data=self.inData, stride=self.stride,
+                                                  pad=self.pad, dilation=self.dilation, groups=self.groups))
 
     def accGradParams(self, grad, scale=1.0, momentum=0.0):
-        bgrad = self.vars["b"].grad if self.b is not None else None
-        convNdBackwardParams(self.inData, grad, self.W, self.b, stride=self.stride, pad=self.pad,
-                             dilation=self.dilation, groups=self.groups, wgrad=self.vars["W"].grad,
+        blocks, W, b = self._blocks()
+        bgrad = blocks.view(self.vars["b"].grad, 1) if self.b is not None else None
+        convNdBackwardParams(self.inData, blocks.take(grad, 1), W, b, stride=self.stride, pad=self.pad,
+                             dilation=self.dilation, groups=self.groups, wgrad=blocks.view(self.vars["W"].grad, 0),
                              bgrad=bgrad, scale=scale, momentum=momentum)
 
     def dataShapeFrom(self, shape):

@@ -4,8 +4,16 @@ sends to the GEMM kernel K1; the backward's products are transposed, and the
 parameter gradients accumulate through ``beta``, so they go to the library
 product, as in the reference.  ``optimizeForShape`` races K1 against cuBLAS at
 the forward product's shape (``ops.hopper.matmul.tuneDispatch``), which
-``Config.gemmAlgo = "auto"`` then reads."""
+``Config.gemmAlgo = "auto"`` then reads.
 
+In a tensor-parallel fused step (``fusedctx.modelBlocks``) the layer
+computes with this rank's block of the output features (W's columns, its
+rows when transposed, and b's entries): the forward gathers the output
+features from the model group, the backward sums the partial input
+gradient over it and writes this rank's block of the parameter
+gradients."""
+
+from puzzlelib_tpu_torch import fusedctx
 from puzzlelib_tpu_torch.backend import blas as Blas
 from puzzlelib_tpu_torch.backend.device import getDevice
 from puzzlelib_tpu_torch.backend.kernels import matvec as MatVec
@@ -37,25 +45,36 @@ class Linear(Module):
         if useBias:
             self.setVar("b", Variable(self.paramTensor(None, bshape).zero_()))
 
+    @property
+    def _featureDim(self):
+        """W's dim of the output features."""
+        return 0 if self.transpose else 1
+
     def updateData(self, data):
-        self.data = Blas.mulMatrixOnMatrix(data, self.W, transpB=self.transpose)
+        blocks = fusedctx.modelBlocks(self)
+        self.data = Blas.mulMatrixOnMatrix(data, blocks.take(self.W, self._featureDim), transpB=self.transpose)
 
         if self.useBias:
-            MatVec.addVecToMat(self.b, self.data, axis=1, out=self.data)
+            MatVec.addVecToMat(blocks.take(self.b, 0), self.data, axis=1, out=self.data)
+
+        self.data = blocks.gather(self.data, 1)
 
     def updateGrad(self, grad):
-        self.grad = Blas.mulMatrixOnMatrix(grad, self.W, transpB=not self.transpose)
+        blocks = fusedctx.modelBlocks(self)
+        self.grad = blocks.sum(Blas.mulMatrixOnMatrix(blocks.take(grad, 1), blocks.take(self.W, self._featureDim),
+                                                      transpB=not self.transpose))
 
     def accGradParams(self, grad, scale=1.0, momentum=0.0):
+        blocks = fusedctx.modelBlocks(self)
+        grad, Wgrad = blocks.take(grad, 1), blocks.view(self.vars["W"].grad, self._featureDim)
+
         if not self.transpose:
-            Blas.mulMatrixOnMatrix(self.inData, grad, out=self.vars["W"].grad, transpA=True,
-                                   alpha=scale, beta=momentum)
+            Blas.mulMatrixOnMatrix(self.inData, grad, out=Wgrad, transpA=True, alpha=scale, beta=momentum)
         else:
-            Blas.mulMatrixOnMatrix(grad, self.inData, out=self.vars["W"].grad, transpA=True,
-                                   alpha=scale, beta=momentum)
+            Blas.mulMatrixOnMatrix(grad, self.inData, out=Wgrad, transpA=True, alpha=scale, beta=momentum)
 
         if self.useBias:
-            Blas.sumOnMatrix(grad, out=self.vars["b"].grad, alpha=scale, beta=momentum)
+            Blas.sumOnMatrix(grad, out=blocks.view(self.vars["b"].grad, 0), alpha=scale, beta=momentum)
 
     def optimizeForShape(self, shape, memlimit=None):
         """Race the forward product's K1 against cuBLAS at ``shape`` and

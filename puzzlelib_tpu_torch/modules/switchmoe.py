@@ -31,8 +31,13 @@ Nothing in the routing reads a value back to the host, so ``FusedTrainer``
 and ``FusedCalculator`` record the layer in their CUDA graphs.  The layer
 carries a scheme (``insize``, ``capacityFactor``, ``auxWeight``) and its
 experts in order (``getBlueprint``'s "graph"); a checkpoint holds the router
-as the child ``__gate__``.  The mesh path ``distributedForward`` is not
-ported yet.
+as the child ``__gate__``.
+
+``distributedForward`` is the expert-parallel forward over a mesh axis
+(``parallel.moe.routeExperts``, the routing of ``moeForward``): every rank
+routes the whole batch and runs its E / N experts as the modules they are
+(their products on K1 on the card), and the experts' outputs are gathered
+from every rank before the combine.
 """
 
 import numpy as np
@@ -42,7 +47,8 @@ from puzzlelib_tpu_torch import config as Config
 from puzzlelib_tpu_torch.variable import Variable
 from puzzlelib_tpu_torch.modules.module import ModuleError, Module
 from puzzlelib_tpu_torch.containers.container import Container, ContainerError
-from puzzlelib_tpu_torch.parallel.moe import _dispatch
+from puzzlelib_tpu_torch.parallel.moe import _dispatch, localExperts, routeExperts
+from puzzlelib_tpu_torch.parallel._tree import asTensor
 
 
 class MoEGate(Module):
@@ -184,8 +190,27 @@ class SwitchMoE(Container):
     # -- mesh path ---------------------------------------------------------------
 
     def distributedForward(self, x, mesh, expertAxis="expert"):
-        raise NotImplementedError("SwitchMoE.distributedForward shards the experts over a mesh, which the port "
-                                  "does not have yet (ROADMAP Queue 1, item 4)")
+        """Expert-parallel forward over ``mesh``'s ``expertAxis``: each rank
+        runs its E / N experts (each variable's own tensor, so also under
+        an optimizer's global state); returns (output, auxLoss), whole on
+        every rank.  A forward only, as the JAX package's."""
+        x = asTensor(x)
+        self.checkDataShape(tuple(x.shape))
+
+        group = mesh.get_group(expertAxis)
+        first, count = localExperts(self.nExperts, group, expertAxis)
+        experts = self.graph[first:first + count]
+
+        def runLocal(tokens):
+            return torch.stack([expert(tokens[e]) for e, expert in enumerate(experts)])
+
+        try:
+            with torch.no_grad():
+                return routeExperts(runLocal, self.nExperts, self.gateVar.data, x, group,
+                                    self._capacity(x.shape[0]))
+        finally:
+            for expert in experts:
+                expert.reset()
 
     # -- protocol ----------------------------------------------------------------
 

@@ -158,7 +158,21 @@ class Optimizer:
 
     # -- update step --------------------------------------------------------------------
 
+    def _refuseBlocks(self):
+        """A ``FusedStep`` with ``stateShardings`` cuts a sharded variable's
+        slots to this rank's block: only that step, which updates the
+        matching block of the variable, may update or save them."""
+        if self.globalState:
+            return
+
+        for name, state in self.states.items():
+            shape = self.module.getVar(name).data.shape
+            if any(entity.shape != shape for entity in state.values()):
+                raise ValueError("the optimizer slots of %s hold one rank's block (FusedStep's stateShardings cut "
+                                 "them): only that step updates them, and they are not saved whole" % name)
+
     def update(self):
+        self._refuseBlocks()
         self.t += 1
 
         if self.globalState:
@@ -191,6 +205,7 @@ class Optimizer:
     def save(self, hdf, name=None):
         """Write the attributes and every state tensor into ``hdf`` (a path or
         an open handle)."""
+        self._refuseBlocks()
         hdf, owned = hdfcodec.openStore(hdf, "w")
         prefix = name or ""
 

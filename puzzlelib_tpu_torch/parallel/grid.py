@@ -21,7 +21,8 @@ tables are process-wide, so threads could not give each node its device):
   directory (no port to pick, also where several grids run at once), with
   the process-group ``timeout`` given, and sets ``Config.device`` to its
   device: "cpu" where the caller asked for the CPU (``Config.device =
-  "cpu"``), else ``cuda:<devices[i]>`` (``torch.cuda.set_device``);
+  "cpu"``, with one intra-op thread), else ``cuda:<devices[i]>``
+  (``torch.cuda.set_device``);
 - nodes share a device only where ``devices`` names it more than once, or on
   the CPU; a device index the machine lacks raises ``GridError``;
 - the backend is decided up front: NCCL where every node has a card of its
@@ -191,6 +192,11 @@ def _nodeMain(index, size, device, backend, storeDir, timeout, conn):
         Config.device = device
         if device != "cpu":
             torch.cuda.set_device(device)
+        else:
+            # the nodes share the host's cores: one intra-op thread each
+            # keeps them from oversubscribing it (the MoE trunk's pipeline
+            # steps run ten times faster so on 8 cores)
+            torch.set_num_threads(1)
 
         store = dist.FileStore(str(Path(storeDir) / "store"), size)
         dist.init_process_group(backend, store=store, rank=index, world_size=size,

@@ -212,20 +212,25 @@ def _countAllReduces(run):
 
 
 def stateShardings(nodeinfo, outdir):
-    """``FusedStep(mesh=..., stateShardings=...)`` on a real mesh: its
-    message."""
-    np.random.seed(42)
-    net = parallelNet()
-    optimizer = TOpt.MomentumSGD(0.05)
-    optimizer.setupOn(net)
+    """``FusedStep(mesh=..., stateShardings=...)`` refusals on a real mesh:
+    the messages of a spec list under global state and of one of the wrong
+    length."""
+    mesh = _mesh(nodeinfo)
+    messages = {}
 
-    try:
-        fused.FusedStep(net, MSE(), optimizer, mesh=_mesh(nodeinfo), stateShardings=[])
-        message = ""
-    except NotImplementedError as e:
-        message = str(e)
+    for case, useGlobalState in (("globalState", True), ("length", False)):
+        np.random.seed(42)
+        net = parallelNet()
+        optimizer = TOpt.MomentumSGD(0.05)
+        optimizer.setupOn(net, useGlobalState=useGlobalState)
 
-    save(outdir, "shardings", nodeinfo.index, message=message)
+        try:
+            fused.FusedStep(net, MSE(), optimizer, mesh=mesh, stateShardings=[])
+            messages[case] = ""
+        except ValueError as e:
+            messages[case] = str(e)
+
+    save(outdir, "shardings", nodeinfo.index, **messages)
 
 
 def fusedRefusesNodeinfo(nodeinfo, outdir):

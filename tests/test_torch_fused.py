@@ -527,15 +527,16 @@ def testVerifyDataIsRefused(monkeypatch, kind):
 
 
 def testFusedStepOverAMeshIsNotPorted():
-    """What is not ported of the mesh step, its sharding specs (model
-    parallelism), raises; the data-parallel mesh step itself runs
-    (``test_torch_mesh.py``)."""
+    """The mesh step's sharding specs (model parallelism, which runs:
+    ``test_torch_tensorparallel.py``) need the optimizer's local state, as
+    the JAX package's docstring says: under global state a spec list raises
+    ``ValueError`` before the mesh is touched."""
     np.random.seed(0)
     net = tLoadLeNet(None, initscheme=None)
     opt = TMomentumSGD(0.01)
-    opt.setupOn(net)
+    opt.setupOn(net, useGlobalState=True)
 
-    with pytest.raises(NotImplementedError, match="model parallelism, not ported"):
+    with pytest.raises(ValueError, match="stateShardings take an optimizer in local state"):
         fused.FusedStep(net, TCrossEntropy(), opt, mesh=object(), stateShardings=[])
 
 

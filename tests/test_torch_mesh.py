@@ -171,12 +171,16 @@ def testFusedMeshCollectivesPerStep(useGlobalState, want, tmp_path):
 
 
 def testFusedStepStateShardingsRaises(tmp_path):
-    """The sharding specs over a real mesh are model parallelism: they raise
-    ``NotImplementedError`` naming the item that ports them."""
+    """The sharding specs over a real mesh (model parallelism,
+    ``test_torch_tensorparallel.py``) refuse what they cannot place: an
+    optimizer in global state, and a list that does not hold one placement
+    for each state buffer, each with a ``ValueError`` that says so."""
     runGrid(gridnodes.stateShardings, 2, tmp_path, timeout=TIMEOUT)
-    message = str(gridslice.load(tmp_path, "shardings", 1)[0]["message"])
+    got = gridslice.load(tmp_path, "shardings", 2)
 
-    assert "not ported yet" in message and "item 4b" in message
+    for node in got:
+        assert "stateShardings take an optimizer in local state" in str(node["globalState"])
+        assert "stateShardings holds 0 placements, the step has 14 state buffers" in str(node["length"])
 
 
 @pytest.mark.cuda

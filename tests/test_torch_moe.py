@@ -279,19 +279,26 @@ def testJaxSwitchMoEFailsUnderGlobalState():
         jmoe.backward(jgpu.to_gpu((-out.get() / out.size).astype(np.float32)), updGrad=False)
 
 
+@pytest.fixture(scope="module")
+def meshRefusals(tmp_path_factory):
+    """The messages of ``mpnodes.refusals`` on a one-rank grid."""
+    import mpnodes
+
+    return mpnodes.runOnCpu(mpnodes.refusals, 1, "refusals", tmp_path_factory.mktemp("refusals"))
+
+
 @pytest.mark.parametrize("method", ["SwitchMoE.distributedForward", "Pipeline.distributedForward",
                                     "Pipeline.distributedGrad"])
-def testMeshMethodsRefuse(method):
-    """The mesh paths raise, naming the item of the roadmap they wait for."""
-    _, tmoe = _twins()
-    pipe = TC.Pipeline().append(_makeExpert(T, TC, 1))
-    x = torch.zeros(4, 8)
-
-    call = {"SwitchMoE.distributedForward": lambda: tmoe.distributedForward(x, None),
-            "Pipeline.distributedForward": lambda: pipe.distributedForward(x, None),
-            "Pipeline.distributedGrad": lambda: pipe.distributedGrad(None, x, x, None)}[method]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        call()
+def testMeshMethodsRefuse(meshRefusals, method):
+    """The mesh paths (which run: ``test_torch_pipeline.py``,
+    ``test_torch_expert.py``) refuse on a mesh, with the JAX package's
+    messages, what its ``moeForward`` and ``pipelineForward`` refuse: a gate
+    whose width is not the expert count, a batch that does not split into
+    the microbatches, a stage that changes the activation's shape."""
+    want = {"SwitchMoE.distributedForward": "Gate width 2 does not match expert count 1",
+            "Pipeline.distributedForward": "Batch 6 not divisible into 4 microbatches",
+            "Pipeline.distributedGrad": "Pipeline stages must preserve activation shape/dtype"}[method]
+    assert want in str(meshRefusals[method])
 
 
 # -- Pipeline and functionalize ----------------------------------------------------------

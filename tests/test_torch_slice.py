@@ -411,6 +411,13 @@ with tempfile.TemporaryDirectory() as gridDir:
     grid.runGrid(gridslice.meshNode, 1, gridRows, np.zeros(256, np.int32), 2, gridDir, timeout=60)
     assert int(gridslice.load(gridDir, "mesh", 1)[0]["mesh/captures"]) == 0
 assert parallel.runGrid is grid.runGrid and callable(multigpumnist.main) and callable(multigpucifar10.main)
+from puzzlelib_tpu_torch.parallel import moeForward, pipelineForward, pipelineGrad, seqParallelMLP, stackStageParams
+from puzzlelib_tpu_torch.testlib import pipelinemoe
+from puzzlelib_tpu_torch.tools import mpslice
+with tempfile.TemporaryDirectory() as mpDir:
+    grid.runGrid(mpslice.fusedNode, 1, *cnnslice.data("lenet", 2 * mpslice.FUSED_BATCH), 2, mpDir, timeout=60)
+    assert int(gridslice.load(mpDir, "fused", 1)[0]["tp/mesh/captures"]) == 0
+assert callable(pipelinemoe.main) and callable(moeForward) and callable(seqParallelMLP) and callable(pipelineGrad)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "puzzlelib_tpu"))
 print("LEAKED", leaked)
 """
@@ -462,8 +469,11 @@ def testPortRunsWithoutJax():
     ``unittester``, and ``enginespeed`` on a LeNet engine), and the
     data-parallel path (a one-rank ``FusedStep(mesh=...)`` of
     ``tools/gridslice.py`` run by ``runGrid`` on the CPU, the multi-GPU
-    scripts imported) imports no JAX and nothing of the JAX package
-    (``ml_dtypes`` neither)."""
+    scripts imported), and the model-parallel path (LeNet's tensor-parallel
+    and ZeRO fused steps of ``tools/mpslice.py`` on a one-rank mesh through
+    ``runGrid``, the GPipe, expert and sequence-parallel functions and
+    ``testlib/pipelinemoe.py`` imported) imports no JAX and nothing of the
+    JAX package (``ml_dtypes`` neither)."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
 
